@@ -1,0 +1,15 @@
+"""singa_tpu_torch — the PyTorch/CUDA port of ``singa_tpu``.
+
+A second package beside the JAX one, written for an NVIDIA H100.  It
+imports ``torch``, ``numpy`` and the standard library only; the JAX
+package stays the reference its tests hold it against.
+
+Ported so far: GPT decode serving through the chunked, paged
+continuous-batching engine (:mod:`singa_tpu_torch.serving`), with
+hand-written CUDA kernels for flash-attention forward and paged decode
+attention (:mod:`singa_tpu_torch.ops`).
+"""
+
+from .device import resolve_device, seeded_generator
+
+__all__ = ["resolve_device", "seeded_generator"]

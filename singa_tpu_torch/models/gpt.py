@@ -1,0 +1,356 @@
+"""GPT decode path of the port.  Counterpart: ``singa_tpu/models/gpt.py``.
+
+Ported here: the configuration (``GPTConfig``, ``bucket_length``, the
+``NONFINITE_TOKEN`` sentinel), a :class:`GPT` module whose parameters
+mirror the JAX decode pytree (``_build_decode_params``), and the
+functional decode pieces the paged serving engine runs — the chunked
+paged prefill block (attention through the flash-attention kernel with
+the ``(C, L)`` dense mask) and the paged one-token decode block
+(attention through the paged decode kernel).  Training (the layer
+forward, ``train_one_batch``) and ``generate`` belong to later slices.
+
+Unlike JAX's functional updates, the page pools are updated in place:
+each block writes its K/V rows into the pool tensors it was handed and
+returns those same tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from ..layer import apply_rope
+from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import paged_decode_attention
+
+__all__ = ["GPTConfig", "GPT", "bucket_length", "NONFINITE_TOKEN",
+           "MIN_PREFILL_BUCKET", "seeded_decode_params",
+           "decode_slots_iteration_paged"]
+
+# Sentinel token emitted when a row's logits go non-finite; -1 is never a
+# real token id, so the ordinary token fetch doubles as the poison probe.
+NONFINITE_TOKEN = -1
+
+# prompt lengths are padded up to the next power of two at least this
+# large (the JAX package's prefill bucketing)
+MIN_PREFILL_BUCKET = 16
+
+
+def bucket_length(n: int, max_len: int,
+                  min_bucket: int = MIN_PREFILL_BUCKET) -> int:
+    """Pad a prompt length up to its power-of-2 bucket (clamped to
+    ``max_len``)."""
+    if n > max_len:
+        raise ValueError(f"prompt length {n} exceeds max_len {max_len}")
+    b = min_bucket
+    while b < n:
+        b *= 2
+    return min(b, max_len)
+
+
+class GPTConfig:
+    def __init__(self, vocab_size=256, d_model=128, n_layers=4, n_heads=4,
+                 max_len=256, use_rope: bool = False,
+                 rope_base: float = 10000.0):
+        self.vocab_size = vocab_size
+        self.d_model = d_model
+        self.n_layers = n_layers
+        self.n_heads = n_heads
+        self.max_len = max_len
+        # rotary position embeddings instead of the learned pos table
+        self.use_rope = use_rope
+        self.rope_base = float(rope_base)
+
+    @classmethod
+    def tiny(cls, **kw):
+        kw.setdefault("vocab_size", 64)
+        kw.setdefault("d_model", 32)
+        kw.setdefault("n_layers", 2)
+        kw.setdefault("n_heads", 2)
+        kw.setdefault("max_len", 64)
+        return cls(**kw)
+
+    @classmethod
+    def small(cls, **kw):  # GPT-2-small dims
+        kw.setdefault("vocab_size", 50257)
+        kw.setdefault("d_model", 768)
+        kw.setdefault("n_layers", 12)
+        kw.setdefault("n_heads", 12)
+        kw.setdefault("max_len", 1024)
+        return cls(**kw)
+
+
+def _shapes(c: GPTConfig) -> dict:
+    """Leaf shapes of the decode pytree (``{W, b}`` Linears with ``W``
+    as (in, out), ``{g, b}`` LayerNorms)."""
+    D, V, Fd = c.d_model, c.vocab_size, 4 * c.d_model
+    lin = {"q": (D, D), "k": (D, D), "v": (D, D), "o": (D, D),
+           "f1": (D, Fd), "f2": (Fd, D)}
+    block = {n: {"W": s, "b": (s[1],)} for n, s in lin.items()}
+    block["ln1"] = {"g": (D,), "b": (D,)}
+    block["ln2"] = {"g": (D,), "b": (D,)}
+    out = {"tok": (V, D), "lnf": {"g": (D,), "b": (D,)},
+           "head": {"W": (D, V), "b": (V,)},
+           "blocks": [block] * c.n_layers}
+    if not c.use_rope:
+        out["pos"] = (c.max_len, D)
+    return out
+
+
+def seeded_decode_params(config: GPTConfig, seed: int = 0) -> dict:
+    """A random decode pytree of numpy float32 arrays in the JAX
+    package's layout, made from ``seed`` (weights ~ N(0, 0.02), biases
+    0, LayerNorm gains 1) — the input :meth:`GPT.from_jax_decode_params`
+    takes when no trained JAX model is at hand."""
+    rng = np.random.RandomState(seed)
+
+    def leaf(name, shape):
+        if name == "g":
+            return np.ones(shape, np.float32)
+        if name == "b":
+            return np.zeros(shape, np.float32)
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    def build(name, spec):
+        if isinstance(spec, tuple):
+            return leaf(name, spec)
+        if isinstance(spec, list):
+            return [build(name, s) for s in spec]
+        return {k: build(k, v) for k, v in spec.items()}
+
+    return build("", _shapes(config))
+
+
+class GPT(nn.Module):
+    """Decode-only GPT whose parameters mirror the JAX decode pytree:
+    ``tok``, optional ``pos``, ``lnf``, ``head`` and ``blocks[i]`` with
+    ``ln1``, ``ln2``, ``q``, ``k``, ``v``, ``o``, ``f1``, ``f2``."""
+
+    def __init__(self, config: GPTConfig, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.config = c = config
+        dev = resolve_device(device)
+        spec = _shapes(c)
+
+        def p(shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev),
+                                requires_grad=False)
+
+        def group(d):
+            return nn.ParameterDict({k: p(s) for k, s in d.items()})
+
+        self.tok = p(spec["tok"])
+        self.pos = p(spec["pos"]) if "pos" in spec else None
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({n: group(s) for n, s in b.items()})
+            for b in spec["blocks"])
+        self.lnf = group(spec["lnf"])
+        self.head = group(spec["head"])
+
+    @classmethod
+    def from_jax_decode_params(cls, tree, config: GPTConfig, device=None):
+        """Build the port's module from the JAX decode pytree given as
+        numpy arrays (``jax.tree.map(np.asarray,
+        jax_model.decode_params())``).  Reads only the dict of arrays —
+        no JAX import.  Every leaf must be float and shaped as
+        ``config`` says; quantized pytrees (``Ws`` scales) are refused."""
+        model = cls(config, device=device)
+        mine = model.decode_params()
+        want = _shapes(config)
+
+        def copy(dst, src, spec, path):
+            if isinstance(spec, tuple):
+                a = np.asarray(src)
+                if a.shape != spec:
+                    raise ValueError(f"{path}: shape {a.shape}, expected "
+                                     f"{spec}")
+                if not np.issubdtype(a.dtype, np.floating):
+                    raise ValueError(f"{path}: dtype {a.dtype} is not float")
+                dst.copy_(torch.tensor(np.asarray(a, np.float32)))
+                return
+            if isinstance(spec, list):
+                if len(src) != len(spec):
+                    raise ValueError(f"{path}: {len(src)} blocks, expected "
+                                     f"{len(spec)}")
+                for i, (d, s, w) in enumerate(zip(dst, src, spec)):
+                    copy(d, s, w, f"{path}[{i}]")
+                return
+            if set(src) != set(spec):
+                raise ValueError(f"{path}: keys {sorted(src)}, expected "
+                                 f"{sorted(spec)} (quantized decode "
+                                 f"pytrees belong to the quantized-serving "
+                                 f"slice)")
+            for k in spec:
+                copy(dst[k], src[k], spec[k], f"{path}.{k}" if path else k)
+
+        with torch.no_grad():
+            copy(mine, tree, want, "")
+        return model
+
+    def decode_params(self) -> dict:
+        """The parameters as the JAX-layout nested dict of tensors
+        (sharing storage with the module)."""
+        def group(g):
+            return {k: v.detach() for k, v in g.items()}
+
+        out = {"tok": self.tok.detach(), "lnf": group(self.lnf),
+               "head": group(self.head),
+               "blocks": [{n: group(g) for n, g in b.items()}
+                          for b in self.blocks]}
+        if self.pos is not None:
+            out["pos"] = self.pos.detach()
+        return out
+
+
+# ---- pure decode math (mirrors the JAX functions one for one) ----------
+
+def _ln(x, p, eps=1e-5):
+    # fp32 accumulation pin, as in the JAX package
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) / torch.sqrt(var + eps) * p["g"].to(torch.float32) \
+        + p["b"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def _lin(x, p):
+    return x @ p["W"] + p["b"]
+
+
+def _heads(x, H):
+    B, T, D = x.shape
+    return x.reshape(B, T, H, D // H).permute(0, 2, 1, 3)   # (B,H,T,dh)
+
+
+def _logits(params, h):
+    return _lin(_ln(h, params["lnf"]), params["head"])
+
+
+def _embed(params, tok, pos_idx, rope=False):
+    e = params["tok"][tok.long()]
+    if rope:
+        return e  # positions live in the attention rotation
+    return e + params["pos"][pos_idx.long()]
+
+
+def _rope_rows(x, positions, base=10000.0):
+    """Rotary embedding for a one-token step with per-row positions:
+    ``x`` (B, H, 1, dh), ``positions`` (B,)."""
+    half = x.shape[-1] // 2
+    inv = base ** (-torch.arange(half, dtype=torch.float32,
+                                 device=x.device) / half)
+    ang = positions.to(torch.float32)[:, None] * inv[None]    # (B, half)
+    cos = torch.cos(ang)[:, None, None]                       # (B,1,1,half)
+    sin = torch.sin(ang)[:, None, None]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _gather_pages(pages, page_rows):
+    """Contiguous per-slot K or V rows from the page pool: ``pages``
+    (N, H, P, dh) gathered through ``page_rows`` (..., Ps) ->
+    (..., H, Ps*P, dh); column ``c`` holds logical position ``c``."""
+    g = pages[page_rows.long()]                       # (..., Ps, H, P, dh)
+    *lead, Ps, H, P, dh = g.shape
+    n = len(lead)
+    order = tuple(range(n)) + (n + 1, n, n + 2, n + 3)
+    return g.permute(order).reshape(*lead, H, Ps * P, dh)
+
+
+def _block_chunk_prefill_paged(bp, h, k_pages, v_pages, page_row,
+                               positions, H, scale, rope=False,
+                               base=10000.0):
+    """Chunked-prefill block step over the paged cache: the chunk's K/V
+    scatter through the admitting slot's block-table row ``page_row``
+    (Ps,), then attention gathers the row back and runs through the
+    flash-attention kernel under the ``(C, L)`` mask ``col <= position``.
+    Chunk positions past the request's pages land in NULL page 0, which
+    no query attends."""
+    x = _ln(h, bp["ln1"])
+    q, k, v = (_heads(_lin(x, bp[n]), H) for n in ("q", "k", "v"))
+    if rope:
+        q = apply_rope(q, positions=positions, base=base)
+        k = apply_rope(k, positions=positions, base=base)
+    P = k_pages.shape[2]
+    phys = page_row.long()[positions // P]                   # (C,)
+    offs = positions % P
+    k_pages[phys, :, offs] = k[0].permute(1, 0, 2).to(k_pages.dtype)
+    v_pages[phys, :, offs] = v[0].permute(1, 0, 2).to(v_pages.dtype)
+    kr = _gather_pages(k_pages, page_row)[None]              # (1,H,L,dh)
+    vr = _gather_pages(v_pages, page_row)[None]
+    L = kr.shape[2]
+    cols = torch.arange(L, device=positions.device)
+    mask = torch.where(cols[None] <= positions[:, None], 0.0, -1e9)  # (C, L)
+    ctx = flash_attention(q.contiguous(), kr, vr, mask[None, None],
+                          sm_scale=scale)
+    B, _, C, dh = ctx.shape
+    ctx = ctx.permute(0, 2, 1, 3).reshape(B, C, H * dh)
+    h = h + _lin(ctx, bp["o"])
+    f = F.gelu(_lin(_ln(h, bp["ln2"]), bp["f1"]))
+    h = h + _lin(f, bp["f2"])
+    return h, k_pages, v_pages
+
+
+def _block_decode_slots_paged(bp, h, k_pages, v_pages, table, dpos, active,
+                              H, scale, rope=False, base=10000.0):
+    """One-token step over the slot batch with paged K/V.  An active slot
+    appends into ``table[s, pos // P]`` at offset ``pos % P``; an
+    inactive one parks its write at page 0's last offset (its table row
+    may be stale and must never be written through).  Attention runs
+    through the paged decode kernel."""
+    x = _ln(h, bp["ln1"])                                   # (S, 1, D)
+    q = _heads(_lin(x, bp["q"]), H)                         # (S,H,1,dh)
+    k1h = _heads(_lin(x, bp["k"]), H)
+    if rope:
+        q = _rope_rows(q, dpos, base)
+        k1h = _rope_rows(k1h, dpos, base)
+    k1 = k1h[:, :, 0]                                       # (S,H,dh)
+    v1 = _heads(_lin(x, bp["v"]), H)[:, :, 0]
+    P = k_pages.shape[2]
+    S = dpos.shape[0]
+    rows = torch.arange(S, device=dpos.device)
+    phys = torch.where(active, table[rows, (dpos // P).long()], 0).long()
+    offs = torch.where(active, dpos % P, P - 1).long()
+    k_pages[phys, :, offs] = k1.to(k_pages.dtype)
+    v_pages[phys, :, offs] = v1.to(v_pages.dtype)
+    ctx = paged_decode_attention(q[:, :, 0].contiguous(), k_pages, v_pages,
+                                 table, dpos, sm_scale=scale)
+    ctx = ctx.reshape(S, 1, -1)                             # (S,1,H*dh)
+    h = h + _lin(ctx, bp["o"])
+    f = F.gelu(_lin(_ln(h, bp["ln2"]), bp["f1"]))
+    h = h + _lin(f, bp["f2"])
+    return h, k_pages, v_pages
+
+
+def decode_slots_iteration_paged(params, pages, table, tok, pos, active,
+                                 temps, top_ks, gens, limits, stops, *, H,
+                                 scale, rope=False, base=10000.0, max_len):
+    """One decode iteration over every slot: embed, the paged decode
+    blocks, logits, sampling, and the on-device finish predicate (stop
+    token, token budget, non-finite logits).  ``gens`` is a per-slot
+    list of ``torch.Generator`` (None for greedy slots) or None; it
+    takes the place of the JAX per-slot keys.  Returns ``(pages, nxt,
+    new_pos, new_active)``."""
+    from ..serving.sampling import sample_logits_per_row
+
+    dpos = torch.where(active, pos, max_len - 1)
+    h = _embed(params, tok[:, None], dpos[:, None], rope)
+    for bp, (kp, vp) in zip(params["blocks"], pages):
+        h, _, _ = _block_decode_slots_paged(bp, h, kp, vp, table, dpos,
+                                            active, H, scale, rope, base)
+    logits = _logits(params, h)[:, 0]                   # (S, V)
+    ok = torch.isfinite(logits).all(dim=-1)             # poison probe
+    samp = sample_logits_per_row(logits, temps, top_ks, gens)
+    samp = torch.where(ok, samp, NONFINITE_TOKEN)
+    nxt = torch.where(active, samp, tok)
+    new_pos = torch.where(active, pos + 1, pos)
+    stop_hit = (nxt[:, None] == stops).any(dim=-1)
+    new_active = active & ok & ~stop_hit & (new_pos < limits)
+    return pages, nxt, new_pos, new_active

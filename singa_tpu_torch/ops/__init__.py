@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version (counterpart: ``singa_tpu/ops``):
+
+* :mod:`.flash_attention` — flash-attention forward
+  (``csrc/flash_attention_fwd.cu``);
+* :mod:`.paged_attention` — paged decode attention
+  (``csrc/paged_decode.cu``).
+
+Kernels build from ``csrc/`` at first use (:mod:`._build`); nothing is
+compiled or loaded at import time.  Each module keeps its launch count
+in a module-level integer ``launches``.
+"""

@@ -1,0 +1,689 @@
+"""Continuous-batching serving engine: chunked prefill fused into the
+decode step, a paged KV cache with prefix sharing, and device-resident
+scheduler state.
+Counterpart: ``singa_tpu/serving/engine.py`` — the ``paged=True,
+chunked=True`` engine with one admission lane.
+
+Per ``step()``:
+
+* while an admission is in flight (or could start), one UNIFIED step:
+  (a) one ``chunk_tokens`` prompt chunk for the admitting slot, its
+  attention through the flash-attention kernel; (b) one decode token
+  for every active slot, attention through the paged decode kernel;
+  (c) the admission commit, a masked write of the admitted slot's
+  token/pos/active/sampling/limit/stops/table row into the device
+  state;
+* otherwise (steady-state decode), one HORIZON: ``decode_horizon``
+  decode iterations back to back, emitting one ``(K, n_slots)`` int32
+  token block.  The block is copied to pinned host memory behind the
+  horizon's kernels and fetched one horizon later, so host-side
+  emission overlaps the next horizon's device work.
+
+The per-slot scheduler state (token, position, active mask,
+temperature, top-k, token budget, stop row, block table) lives in
+device tensors updated in place; finish detection (stop token, budget,
+non-finite logits) happens on the device and the host replays the same
+predicate from the fetched tokens.  Steady-state decode uploads nothing
+and fetches one block per horizon; an admission step uploads one
+packed int32 array (chunk tokens, table row, stop row).  Both counts
+land in :class:`ServingMetrics` (``host_uploads`` / ``host_syncs``).
+
+Where the JAX package compiles each step once and branches under
+``lax.cond``, PyTorch runs eagerly: the chunk half runs only when an
+admission is in flight and the decode half only when a slot is live,
+both decided from host state that is exact at that point (no device
+sync).  Sampling draws from per-slot ``torch.Generator`` objects in
+place of JAX keys.
+
+Constructor arguments that select other engines or features raise
+``NotImplementedError`` naming the ROADMAP.md slice that will port them.
+"""
+
+from __future__ import annotations
+
+import enum
+import itertools
+import math
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, seeded_generator
+from ..models import gpt as _gpt
+from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache
+from .metrics import ServingMetrics
+from .sampling import SamplingParams, sample_logits
+
+__all__ = ["Request", "RequestStatus", "ServingEngine",
+           "EngineStalledError", "DEFAULT_CHUNK_TOKENS",
+           "DEFAULT_DECODE_HORIZON", "DEFAULT_STALL_LIMIT",
+           "MAX_STOP_TOKENS"]
+
+# Per-step prompt-chunk size of the unified step.
+DEFAULT_CHUNK_TOKENS = 64
+
+# Decode iterations per horizon (1 disables the horizon).
+DEFAULT_DECODE_HORIZON = 8
+
+# Width of the device-resident per-slot stop-token row (padded with -1,
+# which is never a real token id).
+MAX_STOP_TOKENS = 8
+
+# run() raises EngineStalledError after this many consecutive steps
+# with no observable scheduler progress.
+DEFAULT_STALL_LIMIT = 512
+
+_SLICES = {
+    7: "slot serving engine",
+    9: "serving lifecycle, faults and telemetry",
+    10: "quantized serving",
+    11: "speculative and multi-lane decoding",
+    12: "the rest of the framework: tensor parallel and disaggregated "
+        "serving",
+}
+
+
+def _not_ported(what: str, slice_no: int):
+    raise NotImplementedError(
+        f"{what} is not ported yet: it belongs to ROADMAP.md queue 1, "
+        f"slice {slice_no} ({_SLICES[slice_no]})")
+
+
+class RequestStatus(str, enum.Enum):
+    """Lifecycle of a submitted request (the statuses this engine can
+    reach; preemption, deadlines, rejection and cancellation arrive with
+    the lifecycle slice)."""
+    QUEUED = "QUEUED"
+    RUNNING = "RUNNING"
+    COMPLETED = "COMPLETED"
+    FAILED = "FAILED"
+
+
+class EngineStalledError(RuntimeError):
+    """run() saw no scheduler progress for ``stall_limit`` steps."""
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    params: SamplingParams
+    stop_tokens: frozenset
+    on_token: object = None
+    tokens: list = field(default_factory=list)
+    done: bool = False
+    on_done: object = None
+    status: RequestStatus = RequestStatus.QUEUED
+
+
+@dataclass
+class _Prefill:
+    """Host-side state of the in-flight chunked admission."""
+    req: Request
+    slot: int
+    off: int                    # next chunk starts here
+    gen: object                 # torch.Generator (sampled) or None
+    prompt: np.ndarray
+    n_new: int
+
+
+@dataclass
+class _Admission:
+    """One unified step's admission arguments: host scalars plus views
+    into the one packed array uploaded for the step."""
+    slot: int
+    woff: int
+    p_last: int
+    p_len: int
+    temp: float
+    top_k: int
+    limit: int
+    commit: bool
+    gen: object
+    toks: torch.Tensor          # (C,) int32, device
+    pages: torch.Tensor         # (Ps,) int32, device
+    stops: torch.Tensor         # (M,) int32, device
+
+
+def _make_unified_step_paged(cfg, C, max_len):
+    """The unified step (port of the JAX ``_make_unified_step_paged``
+    with one lane): (a) one prompt chunk when ``adm`` is given, (b) one
+    decode iteration for every slot when ``decode``, (c) the masked
+    admission commit when ``adm.commit``.  ``st`` is the engine's
+    device state, updated in place."""
+    rope, base = cfg.use_rope, cfg.rope_base
+    H = cfg.n_heads
+    scale = 1.0 / math.sqrt(cfg.d_model // H)
+
+    def step(params, pages, st, gens, adm, decode):
+        tok1 = None
+        # ---- (a) one prompt chunk for the admitting slot --------------
+        if adm is not None:
+            dev = adm.toks.device
+            positions = adm.woff + torch.arange(C, device=dev)
+            h = _gpt._embed(params, adm.toks[None], positions, rope)
+            for bp, (kp, vp) in zip(params["blocks"], pages):
+                h, _, _ = _gpt._block_chunk_prefill_paged(
+                    bp, h, kp, vp, adm.pages, positions, H, scale, rope,
+                    base)
+            # the final chunk samples the first new token from the TRUE
+            # last prompt position
+            if adm.commit:
+                lg = _gpt._logits(params,
+                                  h[:, adm.p_last:adm.p_last + 1])[:, 0]
+                tok1 = sample_logits(lg, adm.temp, adm.top_k, adm.gen)[0]
+                tok1 = torch.where(torch.isfinite(lg).all(), tok1,
+                                   _gpt.NONFINITE_TOKEN)   # poison probe
+
+        # ---- (b) advance every active decode slot one token -----------
+        # on the PRE-commit mask: the admitted slot goes live next step
+        if decode:
+            _, nxt, new_pos, new_active = _gpt.decode_slots_iteration_paged(
+                params, pages, st["table"], st["tok"], st["pos"],
+                st["active"], st["temp"], st["topk"], gens, st["limit"],
+                st["stops"], H=H, scale=scale, rope=rope, base=base,
+                max_len=max_len)
+            st["tok"].copy_(nxt)
+            st["pos"].copy_(new_pos)
+            st["active"].copy_(new_active)
+
+        # ---- (c) commit the finished admission into slot state --------
+        if adm is not None and adm.commit:
+            S = st["tok"].shape[0]
+            oh = torch.arange(S, device=st["tok"].device) == adm.slot
+            live = (tok1 >= 0) & ~(tok1 == adm.stops).any() \
+                & (adm.p_len < adm.limit)
+            st["tok"].copy_(torch.where(oh, tok1, st["tok"]))
+            st["pos"].copy_(torch.where(oh, adm.p_len, st["pos"]))
+            st["active"].copy_(torch.where(oh, live, st["active"]))
+            st["temp"].copy_(torch.where(oh, adm.temp, st["temp"]))
+            st["topk"].copy_(torch.where(oh, adm.top_k, st["topk"]))
+            st["limit"].copy_(torch.where(oh, adm.limit, st["limit"]))
+            st["stops"].copy_(torch.where(oh[:, None], adm.stops[None],
+                                          st["stops"]))
+            st["table"].copy_(torch.where(oh[:, None], adm.pages[None],
+                                          st["table"]))
+
+    return step
+
+
+def _make_horizon_step_paged(cfg, K, max_len):
+    """The decode horizon (port of ``_make_horizon_step_paged``): K
+    iterations of the same decode body, the block table a loop
+    invariant; returns the ``(K, S)`` int32 token block."""
+    rope, base = cfg.use_rope, cfg.rope_base
+    H = cfg.n_heads
+    scale = 1.0 / math.sqrt(cfg.d_model // H)
+
+    def horizon(params, pages, st, gens):
+        toks = []
+        for _ in range(K):
+            _, nxt, new_pos, new_active = _gpt.decode_slots_iteration_paged(
+                params, pages, st["table"], st["tok"], st["pos"],
+                st["active"], st["temp"], st["topk"], gens, st["limit"],
+                st["stops"], H=H, scale=scale, rope=rope, base=base,
+                max_len=max_len)
+            st["tok"].copy_(nxt)
+            st["pos"].copy_(new_pos)
+            st["active"].copy_(new_active)
+            toks.append(nxt)
+        return torch.stack(toks)                         # (K, S)
+
+    return horizon
+
+
+class ServingEngine:
+    """Multiplex many generation requests through one model::
+
+        eng = ServingEngine(model, n_slots=8)        # model: port GPT
+        rid = eng.submit(prompt, max_new_tokens=32, stop_tokens=(eos,))
+        results = eng.run()                          # or: while eng.step()
+        tokens = results[rid]          # np.int32, stop token included
+
+    ``device`` defaults to the CUDA card and raises without one; pass
+    ``device="cpu"`` to run the plain versions of the kernels on the
+    CPU.  ``paged``, ``chunked`` and ``admit_lanes`` keep the JAX
+    names; only ``paged=True, chunked=True, admit_lanes=1`` is ported.
+    """
+
+    def __init__(self, model, n_slots: int = 8, max_len: int | None = None,
+                 chunked: bool = True,
+                 chunk_tokens: int = DEFAULT_CHUNK_TOKENS,
+                 decode_horizon: int = DEFAULT_DECODE_HORIZON,
+                 paged: bool = True,
+                 page_tokens: int = DEFAULT_PAGE_TOKENS,
+                 kv_pages: int | None = None,
+                 prefix_cache: bool = True,
+                 admit_lanes: int = 1,
+                 prefill_only: bool = False,
+                 speculative: bool = False,
+                 max_queue: int | None = None,
+                 preemption: bool = False,
+                 step_budget_ms: float | None = None,
+                 stall_limit: int = DEFAULT_STALL_LIMIT,
+                 faults=None,
+                 tracer=None,
+                 tp_degree: int = 1,
+                 kv_dtype=None,
+                 weight_dtype=None,
+                 clock=None,
+                 device=None):
+        if not chunked:
+            _not_ported("chunked=False (the monolithic engine)", 7)
+        if not paged:
+            _not_ported("paged=False (the slot-layout KV cache)", 7)
+        if int(admit_lanes) != 1:
+            _not_ported(f"admit_lanes={admit_lanes}", 11)
+        if speculative:
+            _not_ported("speculative=True", 11)
+        if int(tp_degree) != 1:
+            _not_ported(f"tp_degree={tp_degree}", 12)
+        if prefill_only:
+            _not_ported("prefill_only=True", 12)
+        if kv_dtype is not None:
+            _not_ported(f"kv_dtype={kv_dtype!r}", 10)
+        if weight_dtype is not None:
+            _not_ported(f"weight_dtype={weight_dtype!r}", 10)
+        if faults is not None:
+            _not_ported("faults", 9)
+        if tracer is not None:
+            _not_ported("tracer", 9)
+        if preemption:
+            _not_ported("preemption=True", 9)
+        if max_queue is not None:
+            _not_ported("max_queue", 9)
+        if step_budget_ms is not None:
+            _not_ported("step_budget_ms", 9)
+        self.device = dev = resolve_device(device)
+        self.model = model
+        self.cfg = cfg = model.config
+        if max_len is not None and max_len > cfg.max_len:
+            raise ValueError(f"max_len {max_len} exceeds model max_len "
+                             f"{cfg.max_len}")
+        self.max_len = max_len or cfg.max_len
+        if chunk_tokens < 1:
+            raise ValueError(f"chunk_tokens must be >= 1, "
+                             f"got {chunk_tokens}")
+        if decode_horizon < 1:
+            raise ValueError(f"decode_horizon must be >= 1, "
+                             f"got {decode_horizon}")
+        if stall_limit < 1:
+            raise ValueError(f"stall_limit must be >= 1, got {stall_limit}")
+        self.chunk_tokens = min(int(chunk_tokens), self.max_len)
+        self.decode_horizon = int(decode_horizon)
+        self.stall_limit = int(stall_limit)
+        self.params = _to_device(model.decode_params(), dev)
+        self.kv = PagedKVCache(cfg.n_layers, n_slots, cfg.n_heads,
+                               int(page_tokens), cfg.d_model // cfg.n_heads,
+                               self.max_len, n_pages=kv_pages,
+                               dtype=self.params["tok"].dtype, device=dev,
+                               prefix_cache=prefix_cache)
+        self.page_tokens = self.kv.page_tokens
+        self.metrics = (ServingMetrics(clock=clock) if clock is not None
+                        else ServingMetrics())
+        self.queue: deque[Request] = deque()
+        self.requests: dict[int, Request] = {}
+        self._rid = itertools.count()
+        S, C, M = n_slots, self.chunk_tokens, MAX_STOP_TOKENS
+        self._slot_req: list[Request | None] = [None] * S
+        self._gens: list = [None] * S      # per-slot generator (sampled)
+        # host MIRROR of the device active mask, trailing it by at most
+        # one pipelined horizon
+        self._active = np.zeros(S, bool)
+        self._lane: _Prefill | None = None
+        self._step_fn = _make_unified_step_paged(cfg, C, self.max_len)
+        self._horizon_fn = (
+            _make_horizon_step_paged(cfg, self.decode_horizon, self.max_len)
+            if self.decode_horizon > 1 else None)
+        # the device-resident scheduler state: allocated once here (no
+        # host copy: zeros/fill run on the device) and only ever updated
+        # in place by the step and horizon functions
+        self._dstate = {
+            "tok": torch.zeros(S, dtype=torch.int32, device=dev),
+            "pos": torch.zeros(S, dtype=torch.int32, device=dev),
+            "active": torch.zeros(S, dtype=torch.bool, device=dev),
+            "temp": torch.zeros(S, dtype=torch.float32, device=dev),
+            "topk": torch.zeros(S, dtype=torch.int32, device=dev),
+            "limit": torch.zeros(S, dtype=torch.int32, device=dev),
+            "stops": torch.full((S, M), -1, dtype=torch.int32, device=dev),
+            "table": torch.zeros((S, self.kv.pages_per_slot),
+                                 dtype=torch.int32, device=dev),
+        }
+        self._hz_pending: list = []        # dispatched, unemitted blocks
+
+    # ---- submission ------------------------------------------------------
+    def submit(self, prompt_ids, max_new_tokens: int,
+               temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+               stop_tokens=(), on_token=None, priority: int = 0,
+               deadline_ms: float | None = None, on_done=None) -> int:
+        """Queue one generation request (FIFO); returns its rid.
+        Malformed requests raise ``ValueError``."""
+        if priority != 0:
+            _not_ported("priority", 9)
+        if deadline_ms is not None:
+            _not_ported("deadline_ms", 9)
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        if prompt.size > self.max_len:
+            raise ValueError(f"prompt length {prompt.size} exceeds "
+                             f"engine max_len {self.max_len}")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, "
+                             f"got {max_new_tokens}")
+        if prompt.size + max_new_tokens > self.max_len:
+            raise ValueError(f"{prompt.size}+{max_new_tokens} exceeds "
+                             f"max_len {self.max_len}")
+        need = self.kv.pages_needed(prompt.size + max_new_tokens)
+        if need > self.kv.usable_pages:
+            raise ValueError(
+                f"request needs {need} KV pages but the pool holds "
+                f"{self.kv.usable_pages} — it could never be admitted "
+                f"(raise kv_pages or page_tokens)")
+        stops = frozenset(int(t) for t in (stop_tokens or ()))
+        if len(stops) > MAX_STOP_TOKENS:
+            raise ValueError(f"at most {MAX_STOP_TOKENS} stop tokens per "
+                             f"request, got {len(stops)}")
+        req = Request(next(self._rid), prompt, int(max_new_tokens),
+                      SamplingParams(float(temperature), int(top_k or 0),
+                                     int(seed)),
+                      stops, on_token, on_done=on_done)
+        self.requests[req.rid] = req
+        self.metrics.record_submit(req.rid)
+        self.queue.append(req)
+        return req.rid
+
+    # ---- lifecycle -------------------------------------------------------
+    def _terminal(self, req: Request, status: RequestStatus) -> None:
+        req.status = status
+        req.done = status is RequestStatus.COMPLETED
+        self.metrics.record_terminal(status.value)
+        if req.on_done is not None:
+            req.on_done(req.rid, status.value)
+
+    def _emit(self, req: Request, tok: int, t) -> None:
+        req.tokens.append(tok)
+        if len(req.tokens) == 1:
+            self.metrics.record_first_token(req.rid, t)
+        else:
+            self.metrics.record_token(req.rid, t)
+        if req.on_token is not None:
+            req.on_token(req.rid, tok)
+
+    def _record_kv(self) -> None:
+        kv = self.kv
+        self.metrics.record_kv(kv.nbytes(), kv.live_bytes(),
+                               kv.page_utilization())
+
+    def _free_slot(self, slot: int) -> Request:
+        req = self._slot_req[slot]
+        self._slot_req[slot] = None
+        self._gens[slot] = None
+        self._active[slot] = False
+        self.kv.release(slot)
+        return req
+
+    def _maybe_finish(self, slot: int) -> None:
+        """The host half of the finish predicate — the device's
+        ``~stop_hit & (new_pos < limit)`` replayed in request terms."""
+        req = self._slot_req[slot]
+        if (len(req.tokens) >= req.max_new_tokens
+                or req.tokens[-1] in req.stop_tokens):
+            self._free_slot(slot)
+            self.metrics.record_finish(req.rid)
+            self._terminal(req, RequestStatus.COMPLETED)
+
+    def _fail(self, slot: int) -> None:
+        """Non-finite logits: the device already dropped the row from its
+        active mask; release the slot and end the request FAILED."""
+        self._terminal(self._free_slot(slot), RequestStatus.FAILED)
+
+    # ---- admission -------------------------------------------------------
+    def _admission_possible(self) -> bool:
+        """Could an admission start right now?  (The queue HEAD must fit:
+        FIFO order is kept.)"""
+        if not self.queue:
+            return False
+        req = self.queue[0]
+        total = min(req.prompt.size + req.max_new_tokens, self.max_len)
+        return self.kv.can_admit(req.prompt, total)
+
+    def _start_admission(self) -> None:
+        """Grant the queue head a slot and its pages (mapping cached
+        prefix pages: its prefill then starts at the first uncached
+        position)."""
+        if self._lane is not None or not self.queue:
+            return
+        req = self.queue[0]
+        prompt, n_new = req.prompt, req.max_new_tokens
+        adm = self.kv.admit(prompt, min(prompt.size + n_new, self.max_len))
+        if adm is None:
+            return
+        self.queue.popleft()
+        slot, cached = adm
+        self.metrics.record_prefix(cached, prompt.size)
+        gen = (seeded_generator(req.params.seed, self.device)
+               if req.params.temperature > 0 else None)
+        self._lane = _Prefill(req, slot, cached, gen, prompt, n_new)
+        req.status = RequestStatus.RUNNING
+        self.metrics.record_admitted(req.rid)
+
+    def _lane_chunk(self, pf: _Prefill):
+        """Host-side view of the lane's current chunk:
+        ``(woff, valid, last, chunk, p_last, limit, stops_row)``."""
+        C = self.chunk_tokens
+        tp = pf.prompt.size
+        # clamp so the C-wide write fits [0, max_len): the final chunk of
+        # a near-max_len prompt recomputes a few committed positions
+        woff = min(pf.off, self.max_len - C)
+        valid = min(tp - woff, C)
+        last = pf.off + C >= tp
+        chunk = np.zeros(C, np.int32)
+        chunk[:valid] = pf.prompt[woff:woff + valid]
+        limit = min(tp + pf.n_new - 1, self.max_len - 1)
+        stops_row = np.full(MAX_STOP_TOKENS, -1, np.int32)
+        for i, s in enumerate(sorted(pf.req.stop_tokens)):
+            stops_row[i] = s
+        p_last = tp - 1 - woff if last else C - 1
+        return woff, valid, last, chunk, p_last, limit, stops_row
+
+    def _admission_args(self):
+        """Build the unified step's admission arguments and upload the
+        one packed array they need.  Returns ``(adm, meta)`` with
+        ``meta = (pf, woff, valid, last)``."""
+        pf = self._lane
+        woff, valid, last, chunk, p_last, limit, stops_row = \
+            self._lane_chunk(pf)
+        C, Ps = self.chunk_tokens, self.kv.pages_per_slot
+        packed = np.concatenate([chunk, self.kv.table_row(pf.slot),
+                                 stops_row]).astype(np.int32)
+        dev_packed = torch.from_numpy(packed).to(self.device)
+        self.metrics.record_upload(1)
+        sp = pf.req.params
+        adm = _Admission(pf.slot, woff, p_last, pf.prompt.size,
+                         sp.temperature, sp.top_k, limit, last, pf.gen,
+                         dev_packed[:C], dev_packed[C:C + Ps],
+                         dev_packed[C + Ps:])
+        return adm, (pf, woff, valid, last)
+
+    def _decode_gens(self):
+        """Per-slot generators of the live sampled requests (None when
+        every live request is greedy: no noise is drawn)."""
+        gens = [g if self._slot_req[s] is not None else None
+                for s, g in enumerate(self._gens)]
+        return gens if any(g is not None for g in gens) else None
+
+    # ---- steps -----------------------------------------------------------
+    def _step_chunked(self) -> bool:
+        K = self.decode_horizon
+        # steady-state decode: no admission in flight and none could
+        # start -> one horizon.  The mirrors trail the device by at most
+        # one horizon; a stale positive costs one no-op horizon.
+        if (K > 1 and self._lane is None and self._active.any()
+                and not self._admission_possible()):
+            return self._step_horizon()
+        self._drain_horizon()                  # mirrors exact from here
+        self._start_admission()
+        n_dec = int(self._active.sum())
+        adm = meta = None
+        if self._lane is not None:
+            adm, meta = self._admission_args()
+        total_valid = meta[2] if meta is not None else 0
+        self.metrics.record_step(
+            self.kv.active_slots, self.kv.n_slots, len(self.queue),
+            used_tokens=total_valid + n_dec,
+            budget_tokens=self.chunk_tokens + self.kv.n_slots)
+        self._record_kv()
+        if adm is None and n_dec == 0:
+            return False
+        self._step_fn(self.params, self.kv.caches, self._dstate,
+                      self._decode_gens(), adm, n_dec > 0)
+        row = None
+        if n_dec or (meta is not None and meta[3]):
+            row = self._dstate["tok"].cpu().numpy()      # THE step's sync
+            self.metrics.record_sync()
+        t = self.metrics.now()
+        emitted = []
+        for slot in np.flatnonzero(self._active):
+            tok = int(row[slot])
+            if tok < 0:             # non-finite logits
+                self._fail(slot)
+                continue
+            self._emit(self._slot_req[slot], tok, t)
+            emitted.append(slot)
+        for slot in emitted:
+            self._maybe_finish(slot)
+        if meta is not None:
+            pf, _, _, last = meta
+            if last:                    # prompt done: slot goes live
+                slot, req = pf.slot, pf.req
+                self.kv.register_prefix(slot, req.prompt)
+                self._lane = None
+                self._slot_req[slot] = req
+                self._gens[slot] = pf.gen
+                self._active[slot] = True
+                tok = int(row[slot])
+                if tok < 0:
+                    self._fail(slot)
+                else:
+                    self._emit(req, tok, self.metrics.now())
+                    self._maybe_finish(slot)
+            else:
+                pf.off += self.chunk_tokens
+        return True
+
+    def _step_horizon(self) -> bool:
+        """One horizon.  Depth-1 pipeline: this horizon is enqueued
+        first, then the PREVIOUS horizon's block is fetched and
+        emitted."""
+        K = self.decode_horizon
+        n_act = int(self._active.sum())
+        self.metrics.record_step(self.kv.active_slots, self.kv.n_slots,
+                                 len(self.queue), used_tokens=K * n_act,
+                                 budget_tokens=K * self.kv.n_slots)
+        self._record_kv()
+        block = self._horizon_fn(self.params, self.kv.caches, self._dstate,
+                                 self._decode_gens())
+        self._hz_pending.append(_to_host_async(block))
+        if len(self._hz_pending) > 1:
+            self._emit_block(self._hz_pending.pop(0))
+        return True
+
+    def _drain_horizon(self) -> None:
+        """Fetch + emit every pipelined block; afterwards the host
+        mirrors equal the device state."""
+        while self._hz_pending:
+            self._emit_block(self._hz_pending.pop(0))
+
+    def _emit_block(self, pending) -> None:
+        """Replay one fetched ``(K, S)`` block against the host mirrors:
+        emit each iteration's token for the slots the mirror says were
+        live, then apply the device's finish predicate."""
+        host, event = pending
+        if event is not None:
+            event.synchronize()
+        blk = host.numpy()                          # 1 sync per K
+        self.metrics.record_sync()
+        K, S = blk.shape
+        t = self.metrics.now()
+        emitted = 0
+        for k in range(K):
+            ok = []
+            for slot in np.flatnonzero(self._active):
+                tok = int(blk[k, slot])
+                if tok < 0:         # non-finite logits mid-horizon
+                    self._fail(slot)
+                    continue
+                self._emit(self._slot_req[slot], tok, t)
+                ok.append(slot)
+            emitted += len(ok)
+            for slot in ok:
+                self._maybe_finish(slot)
+        self.metrics.record_horizon(emitted, K, S)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One scheduler iteration; False when there was nothing to do."""
+        return self._step_chunked()
+
+    def _progress_sig(self):
+        return (self.metrics.total_tokens, len(self.queue),
+                self.kv.active_slots, self.metrics.completed,
+                sum(self.metrics.status_counts.values()),
+                self._lane.off if self._lane is not None else -1)
+
+    def run(self, max_steps: int | None = None) -> dict:
+        """Drive :meth:`step` until the queue and all slots drain (or
+        ``max_steps``); returns :meth:`results`.  Raises
+        :class:`EngineStalledError` after ``stall_limit`` steps with no
+        observable progress."""
+        steps = stagnant = 0
+        sig = None
+        while self.queue or self.kv.active_slots or self._lane is not None:
+            self.step()
+            steps += 1
+            cur = self._progress_sig()
+            if cur != sig:
+                stagnant, sig = 0, cur
+            else:
+                stagnant += 1
+                if stagnant >= self.stall_limit:
+                    raise EngineStalledError(
+                        f"no scheduler progress in {stagnant} steps "
+                        f"(queue={len(self.queue)}, "
+                        f"active={self.kv.active_slots})")
+            if max_steps is not None and steps >= max_steps:
+                break
+        return self.results()
+
+    def results(self) -> dict:
+        """``{rid: np.int32 tokens}`` for every completed request."""
+        return {r.rid: np.asarray(r.tokens, np.int32)
+                for r in self.requests.values() if r.done}
+
+
+def _to_device(tree, dev):
+    """The decode-param tree with every tensor on ``dev`` (no copy for
+    tensors already there)."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _to_host_async(block):
+    """Queue a copy of a device token block to host memory behind the
+    kernels that produce it; returns ``(host_tensor, event)`` — wait on
+    the event before reading (None on the CPU, where the block is
+    already host memory)."""
+    if block.device.type != "cuda":
+        return block, None
+    host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+    host.copy_(block, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event

@@ -1,0 +1,178 @@
+"""Serving metrics: TTFT, inter-token latency, throughput, occupancy,
+KV and prefix gauges, host<->device crossings.
+Counterpart: ``singa_tpu/serving/metrics.py`` (the fields this engine
+records; the robustness, speculative, lane and tenant accounting arrive
+with their slices).
+
+Pure host-side accounting: the engine calls ``record_*`` where it
+touches the host anyway.  ``snapshot()`` returns a flat JSON-ready dict.
+"""
+
+from __future__ import annotations
+
+import time
+
+__all__ = ["ServingMetrics"]
+
+
+def _pctl(xs, q):
+    """Nearest-rank percentile; empty input yields 0.0."""
+    if not xs:
+        return 0.0
+    s = sorted(xs)
+    i = min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))
+    return s[i]
+
+
+class ServingMetrics:
+    def __init__(self, clock=time.perf_counter):
+        self._clock = clock
+        self.reset()
+
+    def reset(self) -> None:
+        self.submitted = 0
+        self.completed = 0
+        self.total_tokens = 0
+        self._submit_t = {}           # rid -> submit time
+        self._last_tok_t = {}         # rid -> last token time
+        self._ttft = []               # seconds
+        self._itl = []                # seconds, per token gap
+        self._queue_wait = []         # seconds, submit -> admission
+        self._occupancy = []          # active/n_slots per step
+        self._queue_depth = []        # queued requests per step
+        self._budget_occ = []         # (prefill+decode toks)/budget per step
+        self.host_syncs = 0           # device->host fetches (blocking)
+        self.host_uploads = 0         # host->device copies
+        self._hz_emitted = []         # tokens emitted per horizon block
+        self._hz_capacity = []        # K * n_slots per horizon block
+        self._kv_committed = 0        # bytes pinned by the page pool
+        self._kv_live_peak = 0        # peak live bytes over the run
+        self._page_util = []          # live fraction per step
+        self._prefix_hit_tokens = 0
+        self._prefix_query_tokens = 0
+        self.status_counts = {}       # terminal status string -> count
+        self._t0 = None               # first submit
+        self._t_last = None           # last recorded event
+
+    def now(self) -> float:
+        return self._clock()
+
+    # ---- event hooks (engine calls these) -----------------------------
+    def record_submit(self, rid, t=None) -> None:
+        t = self._clock() if t is None else t
+        self.submitted += 1
+        self._submit_t[rid] = t
+        if self._t0 is None:
+            self._t0 = t
+        self._t_last = t
+
+    def record_admitted(self, rid, t=None) -> None:
+        """``rid`` won the admission lane: one queue-wait sample."""
+        t = self._clock() if t is None else t
+        self._queue_wait.append(t - self._submit_t.get(rid, t))
+        self._t_last = t
+
+    def record_first_token(self, rid, t=None) -> None:
+        t = self._clock() if t is None else t
+        self._ttft.append(t - self._submit_t.get(rid, t))
+        self._last_tok_t[rid] = t
+        self.total_tokens += 1
+        self._t_last = t
+
+    def record_token(self, rid, t=None) -> None:
+        t = self._clock() if t is None else t
+        prev = self._last_tok_t.get(rid)
+        if prev is not None:
+            self._itl.append(t - prev)
+        self._last_tok_t[rid] = t
+        self.total_tokens += 1
+        self._t_last = t
+
+    def record_finish(self, rid, t=None) -> None:
+        self.completed += 1
+        self._t_last = self._clock() if t is None else t
+
+    def record_terminal(self, status: str) -> None:
+        self.status_counts[status] = self.status_counts.get(status, 0) + 1
+
+    def record_step(self, active: int, n_slots: int, queued: int,
+                    used_tokens: int | None = None,
+                    budget_tokens: int | None = None) -> None:
+        self._occupancy.append(active / n_slots if n_slots else 0.0)
+        self._queue_depth.append(queued)
+        if used_tokens is not None and budget_tokens:
+            self._budget_occ.append(used_tokens / budget_tokens)
+
+    def record_sync(self, n: int = 1) -> None:
+        """The engine fetched device data to the host (a blocking
+        round trip)."""
+        self.host_syncs += n
+
+    def record_upload(self, n: int = 1) -> None:
+        """The engine copied ``n`` host arrays to the device (admission
+        only; steady-state decode keeps this at 0)."""
+        self.host_uploads += n
+
+    def record_kv(self, committed: int, live: int, util: float) -> None:
+        self._kv_committed = committed
+        self._kv_live_peak = max(self._kv_live_peak, live)
+        self._page_util.append(util)
+
+    def record_prefix(self, cached_tokens: int, prompt_tokens: int) -> None:
+        self._prefix_hit_tokens += cached_tokens
+        self._prefix_query_tokens += prompt_tokens
+
+    def record_horizon(self, emitted: int, K: int, n_slots: int) -> None:
+        self._hz_emitted.append(emitted)
+        self._hz_capacity.append(K * n_slots)
+
+    # ---- aggregate view ------------------------------------------------
+    def snapshot(self) -> dict:
+        ms = 1e3
+        elapsed = (self._t_last - self._t0) \
+            if (self._t0 is not None and self._t_last is not None
+                and self._t_last > self._t0) else 0.0
+        occ, qd = self._occupancy, self._queue_depth
+        ttft, itl, qw = self._ttft, self._itl, self._queue_wait
+
+        def avg(xs):
+            return sum(xs) / len(xs) if xs else 0.0
+
+        return {
+            "submitted": self.submitted,
+            "completed": self.completed,
+            "total_tokens": self.total_tokens,
+            "tokens_per_s": round(self.total_tokens / elapsed, 1)
+            if elapsed else 0.0,
+            "ttft_mean_ms": round(ms * avg(ttft), 3),
+            "ttft_p50_ms": round(ms * _pctl(ttft, 0.5), 3),
+            "ttft_p99_ms": round(ms * _pctl(ttft, 0.99), 3),
+            "queue_wait_p50_ms": round(ms * _pctl(qw, 0.5), 3),
+            "queue_wait_p99_ms": round(ms * _pctl(qw, 0.99), 3),
+            "itl_mean_ms": round(ms * avg(itl), 3),
+            "itl_p50_ms": round(ms * _pctl(itl, 0.5), 3),
+            "itl_p99_ms": round(ms * _pctl(itl, 0.99), 3),
+            "mean_occupancy": round(avg(occ), 4),
+            "mean_token_budget_occupancy": round(avg(self._budget_occ), 4),
+            "mean_queue_depth": round(avg(qd), 2),
+            "steps": len(occ),
+            "host_syncs": self.host_syncs,
+            "host_uploads": self.host_uploads,
+            "host_syncs_per_token":
+            round(self.host_syncs / self.total_tokens, 4)
+            if self.total_tokens else 0.0,
+            "uploads_per_token":
+            round(self.host_uploads / self.total_tokens, 4)
+            if self.total_tokens else 0.0,
+            "mean_horizon_occupancy":
+            round(sum(self._hz_emitted) / sum(self._hz_capacity), 4)
+            if sum(self._hz_capacity) else 0.0,
+            "horizon_blocks": len(self._hz_capacity),
+            "kv_bytes_committed": self._kv_committed,
+            "kv_bytes_live": self._kv_live_peak,      # peak over the run
+            "page_utilization": round(avg(self._page_util), 4),
+            "prefix_cache_hit_rate":
+            round(self._prefix_hit_tokens / self._prefix_query_tokens, 4)
+            if self._prefix_query_tokens else 0.0,
+            "failed_count": self.status_counts.get("FAILED", 0),
+        }

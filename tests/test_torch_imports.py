@@ -1,0 +1,61 @@
+"""The port stands alone: no module of singa_tpu_torch, and not
+chip_smoke.py, imports jax or the JAX package (singa_tpu); the package
+imports with jax made unimportable."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, files in os.walk(os.path.join(REPO, "singa_tpu_torch")):
+        dirs.sort()               # one collection order in every worker
+        out += [os.path.join(root, f) for f in sorted(files)
+                if f.endswith(".py")]
+    return out
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib") or root == "singa_tpu"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_singa_tpu_import(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_package_imports_without_jax():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['singa_tpu'] = None\n"
+            "import singa_tpu_torch, singa_tpu_torch.serving\n"
+            "import singa_tpu_torch.models.gpt\n"
+            "import singa_tpu_torch.ops.flash_attention\n"
+            "import singa_tpu_torch.ops.paged_attention\n"
+            "import singa_tpu_torch.ops._build\n"
+            "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
+            "                     if sys.modules[m] is not None]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
