@@ -9,11 +9,14 @@ Phases (any failure exits non-zero before the result lines print):
    (one ``nvcc`` per source, in parallel);
 3. flash-attention forward: kernel against its plain PyTorch version at
    the serving shape (dense mask, q (1,12,64,64), k/v (1,12,1024,64)),
-   plus causal and key-vector cases; times for kernel, plain version and
+   plus causal and key-vector cases, and ragged T/S cases at every head
+   dim the kernel is built for (per-head masks, a fully masked row);
+   times at the serving shape for kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. paged decode attention: kernel against its plain version at the
    serving shape (8 slots, 12 heads, d 64, 16-token pages, 64 pages a
-   slot, NULL tails, mid-page positions);
+   slot, NULL tails, mid-page positions), plus 8-, 12- and 32-token
+   pages at head dims 64, 32 and 128;
 5. the slice: the paged, chunked ``ServingEngine`` on GPT-2-small
    dimensions (fp32, seeded random weights carried in through
    ``GPT.from_jax_decode_params``) serves 8 staggered requests (one
@@ -21,6 +24,12 @@ Phases (any failure exits non-zero before the result lines print):
    just before and read just after; two greedy requests are replayed
    through the port on the CPU and their tokens compared;
 6. one ``kernels`` JSON line, then the result line.
+
+    python3 chip_smoke.py --profile
+
+runs phases 1-2 and then the phase-5 stream once under ``torch.profiler``
+(CPU and CUDA activity) and prints the device's busy and idle share over
+the run, device time by kernel group and the costliest kernels.
 
 Kernel times are the median of single launches timed with CUDA events,
 each after a 64 MiB write that evicts the 50 MB L2, so K/V come from
@@ -142,11 +151,26 @@ def phase_flash():
     vec = torch.zeros(1, 1, 1, L, device="cuda")
     vec[..., 900:] = -1e9
     cases["vec"] = (q, k, v, vec, False)
+    # every head dim the kernel is built for, at ragged T/S (the
+    # reference's closed-form key padding), with per-head masks and a
+    # fully masked row
+    for dd, (B, Hh, T, S), causal in ((16, (2, 3, 70, 200), False),
+                                      (32, (2, 2, 33, 77), False),
+                                      (128, (1, 2, 150, 150), True)):
+        m = torch.where(torch.rand(B, Hh, T, S, generator=g, device="cuda")
+                        < 0.2, -1e9, 0.0)
+        m[-1, -1, T // 2] = -1e9
+        cases[f"ragged d{dd} per-head"] = (
+            rnd(B, Hh, T, dd), rnd(B, Hh, S, dd), rnd(B, Hh, S, dd), m,
+            causal)
+    vb = torch.zeros(2, 1, 1, 77, device="cuda")
+    vb[1, ..., 60:] = -1e9
+    cases["ragged d32 per-batch vec"] = (
+        rnd(2, 2, 33, 32), rnd(2, 2, 77, 32), rnd(2, 2, 77, 32), vb, False)
     err_serving = None
     for name, (a, b, c, m, causal) in cases.items():
-        got = fa.flash_attention(a, b, c, m, sm_scale=scale, causal=causal)
-        ref = fa.flash_attention_reference(a, b, c, m, sm_scale=scale,
-                                           causal=causal)
+        got = fa.flash_attention(a, b, c, m, causal=causal)
+        ref = fa.flash_attention_reference(a, b, c, m, causal=causal)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         ok = bool(torch.isfinite(got).all()) and err <= FLASH_TOL
@@ -176,32 +200,50 @@ def phase_flash():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
-def phase_paged():
-    S, H, d, P, Ps = N_SLOTS, 12, 64, PAGE, 1024 // PAGE
+def _paged_case(seed, S, H, d, P, Ps, pos_h):
+    """Random pools of ``S * Ps + 1`` pages; each slot's table holds
+    distinct pages up to its position and NULL (page 0) after it."""
     N = S * Ps + 1
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(S, H, d, generator=g, device="cuda")
     kp = torch.randn(N, H, P, d, generator=g, device="cuda")
     vp = torch.randn(N, H, P, d, generator=g, device="cuda")
-    pos_h = np.array([100, 257, 511, 30, 700, 1023, 5, 300], np.int32)
-    rng = np.random.RandomState(1)
+    pos_h = np.asarray(pos_h, np.int32)
+    rng = np.random.RandomState(seed)
     free = list(rng.permutation(np.arange(1, N)))
-    table_h = np.zeros((S, Ps), np.int32)      # NULL tails past each pos
+    table_h = np.zeros((S, Ps), np.int32)
     for s in range(S):
         n = pos_h[s] // P + 1
         table_h[s, :n] = [free.pop() for _ in range(n)]
-    table = torch.from_numpy(table_h).cuda()
-    pos = torch.from_numpy(pos_h).cuda()
-    got = pa.paged_decode_attention(q, kp, vp, table, pos)
-    ref = pa.paged_decode_attention_reference(q, kp, vp, table, pos)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    ok = bool(torch.isfinite(got).all()) and err <= PAGED_TOL
-    _log(f"paged decode: max_abs_err {err:.3e} (tol {PAGED_TOL:g}) "
-         f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"paged decode disagrees with its plain "
-                             f"version: {err}")
+    return (q, kp, vp, torch.from_numpy(table_h).cuda(),
+            torch.from_numpy(pos_h).cuda())
+
+
+def phase_paged():
+    S, H, d, P, Ps = N_SLOTS, 12, 64, PAGE, 1024 // PAGE
+    pos_h = np.array([100, 257, 511, 30, 700, 1023, 5, 300], np.int32)
+    cases = {"serving": _paged_case(1, S, H, d, P, Ps, pos_h)}
+    # other page sizes and head dims, positions on and off page edges
+    for seed, (dd, PP, pp) in enumerate(((64, 8, [7, 8, 0, 250]),
+                                         (32, 12, [11, 12, 131, 0]),
+                                         (128, 32, [31, 32, 500, 1]))):
+        cases[f"d{dd} P{PP}"] = _paged_case(2 + seed, len(pp), 4, dd, PP,
+                                            -(-512 // PP), pp)
+    err_serving = None
+    for name, args in cases.items():
+        got = pa.paged_decode_attention(*args)
+        ref = pa.paged_decode_attention_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= PAGED_TOL
+        _log(f"paged decode {name}: max_abs_err {err:.3e} (tol "
+             f"{PAGED_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"paged decode {name} disagrees with its "
+                                 f"plain version: {err}")
+        if err_serving is None:
+            err_serving = err
+    q, kp, vp, table, pos = cases["serving"]
     ms = _time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table, pos))
     plain_ms = _time_ms(lambda: pa.paged_decode_attention_reference(
         q, kp, vp, table, pos))
@@ -217,7 +259,7 @@ def phase_paged():
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "singa_tpu_torch/ops/csrc/paged_decode.cu",
             "replaces": "singa_tpu/ops/paged_attention.py:45",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err_serving, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
@@ -256,26 +298,10 @@ def _cpu_margin(cpu_model, tokens):
     return float(top[0] - top[1])
 
 
-def phase_slice():
-    cfg = tgpt.GPTConfig.small()
-    tree = tgpt.seeded_decode_params(cfg, seed=0)
-    model = tgpt.GPT.from_jax_decode_params(tree, cfg)      # on the card
-    kw = dict(n_slots=N_SLOTS, page_tokens=PAGE, chunk_tokens=CHUNK,
-              decode_horizon=HORIZON)
-    prompts = _requests(cfg)
-    # warm-up (cuBLAS handles, allocator) on a separate engine
-    warm = ServingEngine(model, **kw)
-    warm.submit(prompts[0][:80], 9)
-    warm.run()
-    torch.cuda.synchronize()
-    del warm
-
-    eng = ServingEngine(model, **kw)
-    fa.launches = 0
-    pa.launches = 0
-    t0 = time.perf_counter()
-    # request 3 samples (temperature 0.8, top-k 40) from its own
-    # generator; the rest are greedy
+def _serve(eng, prompts):
+    """The staggered stream: four requests, two steps, four more, run to
+    the end.  Request 3 samples (temperature 0.8, top-k 40) from its own
+    generator; the rest are greedy.  Returns ``(rids, results)``."""
     sampling = [dict(temperature=0.8, top_k=40, seed=3) if i == 3 else {}
                 for i in range(len(prompts))]
     rids = [eng.submit(p, NEW, **kw_i)
@@ -284,7 +310,33 @@ def phase_slice():
     eng.step()
     rids += [eng.submit(p, NEW, **kw_i)
              for p, kw_i in zip(prompts[4:], sampling[4:])]
-    res = eng.run()
+    return rids, eng.run()
+
+
+def _slice_setup():
+    """GPT-2-small widths with seeded weights on the card, the engine
+    arguments and the prompts; one short warm-up run (cuBLAS handles,
+    allocator) on an engine of its own."""
+    cfg = tgpt.GPTConfig.small()
+    tree = tgpt.seeded_decode_params(cfg, seed=0)
+    model = tgpt.GPT.from_jax_decode_params(tree, cfg)      # on the card
+    kw = dict(n_slots=N_SLOTS, page_tokens=PAGE, chunk_tokens=CHUNK,
+              decode_horizon=HORIZON)
+    prompts = _requests(cfg)
+    warm = ServingEngine(model, **kw)
+    warm.submit(prompts[0][:80], 9)
+    warm.run()
+    torch.cuda.synchronize()
+    return cfg, tree, model, kw, prompts
+
+
+def phase_slice():
+    cfg, tree, model, kw, prompts = _slice_setup()
+    eng = ServingEngine(model, **kw)
+    fa.launches = 0
+    pa.launches = 0
+    t0 = time.perf_counter()
+    rids, res = _serve(eng, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention_fwd": fa.launches,
@@ -337,13 +389,87 @@ def phase_slice():
     return launches, snap
 
 
-def main():
+def _kernel_bucket(name):
+    if "flash_fwd" in name:
+        return "flash_attention_fwd kernel"
+    if "paged_decode" in name:
+        return "paged_decode kernel"
+    low = name.lower()
+    if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "cublas")):
+        return "matmuls (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "copies and fills"
+    return "other kernels (elementwise, reductions, indexing)"
+
+
+def phase_profile():
+    """The slice's stream once more, under ``torch.profiler`` (CPU and
+    CUDA activity): device busy and idle share over the run, device time
+    by kernel group and by kernel, kernels launched per decode
+    iteration.  Times under the profiler include its own overhead on the
+    host."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, _, model, kw, prompts = _slice_setup()
+    eng = ServingEngine(model, **kw)
+    fa.launches = 0
+    pa.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _serve(eng, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_type = torch.autograd.DeviceType.CUDA
+    events = list(prof.events())
+    kern = [e for e in events if e.device_type == dev_type
+            and e.time_range.end > e.time_range.start]
+    if not kern:
+        raise AssertionError("the profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events))
+    groups, names = {}, {}
+    for e in kern:
+        us = e.time_range.end - e.time_range.start
+        for d, key in ((groups, _kernel_bucket(e.name)), (names, e.name)):
+            n, t = d.get(key, (0, 0.0))
+            d[key] = (n + 1, t + us)
+    iters = pa.launches // cfg.n_layers
+    _log(f"profile: host wall {wall:.3f}s; profiled window "
+         f"{window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
+         f"share {1 - busy / window:.4f}; {len(kern)} device activities, "
+         f"{iters} decode iterations, {fa.launches} flash / {pa.launches} "
+         f"paged launches")
+    for key, (n, t) in sorted(groups.items(), key=lambda x: -x[1][1]):
+        _log(f"profile group {key}: {n} activities, {t / 1e3:.2f} ms "
+             f"({t / busy:.3f} of busy)")
+    for key, (n, t) in sorted(names.items(), key=lambda x: -x[1][1])[:12]:
+        _log(f"profile kernel {n:6d} x {t / n:8.2f} us = {t / 1e3:8.2f} ms "
+             f"{key[:110]}")
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
+    if argv == ["--profile"]:
+        phase_profile()
+        _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
+        return 0
+    if argv:
+        print("usage: chip_smoke.py [--profile]", file=sys.stderr)
+        return 2
     rows = [phase_flash(), phase_paged()]
     launches, _ = phase_slice()
     for row in rows:
@@ -360,7 +486,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except Exception:
         traceback.print_exc()
         rc = 1

@@ -14,63 +14,44 @@
 // adds their count in closed form at the end (n_pad * exp(-1e9 - m)), so a
 // fully masked row gives the reference's output too.
 //
-// Design: one thread block per (batch*head, 16-row query tile, key split);
-// sixteen threads per query row, each holding the q row in registers, two of
-// every 32 keys and a sixteenth of the output channels.  K/V tiles of 32 keys
-// are staged through shared memory; the running max, denominator and
-// accumulator stay in registers.  The key axis is cut into splits so that the
-// card has enough blocks (at the serving shape 12 heads x 4 query tiles are
-// only 48 blocks for 132 SMs): each split writes its unnormalised state, and
-// a second kernel merges the splits per row, adds the swept padding and
-// normalises.  With `causal`, key columns past the reference's diagonal
+// Design: one thread block per (batch*head, 64-row query tile); four threads
+// per query row, each holding the q row in registers, a quarter of every 32
+// keys and a quarter of the output channels.  K/V tiles of 32 keys are staged
+// through shared memory; the running max, denominator and accumulator stay
+// in registers.  With `causal`, key tiles past the reference's diagonal
 // 128-block are never read.  Plain float32 FMAs (no tensor cores): at the
 // serving shape (C=64 queries against L=1024 keys, H=12, D=64) that work,
 // 0.2 GFLOP at 67 TFLOP/s, is the card's floor (3.0 us), a little above the
 // 7 MB of inputs and outputs at 3.35 TB/s (2.1 us).  This simple kernel is
-// far from the floor: every FMA reads shared memory.
+// far from the floor: there it runs 12 blocks on 132 SMs, and every FMA
+// reads shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BM = 16;          // query rows per block
+constexpr int BM = 64;          // query rows per block
 constexpr int BN = 32;          // keys per shared-memory tile
-constexpr int TPR = 16;         // threads per query row (a half warp)
+constexpr int TPR = 4;          // threads per query row
 constexpr int NT = BM * TPR;    // threads per block
 constexpr int REF_BLOCK = 128;  // the reference kernel's block size
 constexpr float NEG = -1e9f;
 
 enum { MODE_NONE = 0, MODE_VEC = 1, MODE_DENSE = 2 };
 
-// The key columns the reference sweeps for query tile `tile`: every
-// 128-block, or with `causal` those up to the tile's diagonal block (BM
-// divides REF_BLOCK, so a tile lies in one reference query block).
-// Returns (real columns swept, zero-padded columns swept).
-__device__ __forceinline__ int2 swept_end(int tile, int S, int causal) {
-  const int Sp = ((S + REF_BLOCK - 1) / REF_BLOCK) * REF_BLOCK;
-  int hi = Sp;
-  if (causal) hi = min(Sp, ((tile * BM) / REF_BLOCK + 1) * REF_BLOCK);
-  const int kend = min(S, hi);
-  return make_int2(kend, hi - kend);
-}
-
-// One (query tile, batch*head, key split) block: the online softmax over
-// the split's key columns, written unnormalised to the partial buffers.
 template <int D>
-__global__ void __launch_bounds__(NT) flash_fwd_partial(
+__global__ void __launch_bounds__(NT) flash_fwd(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ mask,
-    float* __restrict__ part_o, float* __restrict__ part_m,
-    float* __restrict__ part_l, int BH, int T, int S, int mode, int mask_bh,
-    int causal, float scale, int split_len) {
+    float* __restrict__ o, float* __restrict__ lse, int T, int S, int mode,
+    int mask_bh, int causal, float scale) {
   __shared__ float ks[BN][D + 1];
   __shared__ float vs[BN][D];
   __shared__ float ps[BM][BN + 1];
 
   const int tile = blockIdx.x;
   const int bh = blockIdx.y;
-  const int split = blockIdx.z;
   const int tid = threadIdx.x;
   const int r = tid / TPR;
   const int sub = tid % TPR;
@@ -94,17 +75,21 @@ __global__ void __launch_bounds__(NT) flash_fwd_partial(
   float m = NEG;
   float l = 0.f;
 
-  const int kend = swept_end(tile, S, causal).x;
-  const int k0 = split * split_len;
-  const int k1 = min(kend, k0 + split_len);
+  // The key columns the reference sweeps for this tile: every 128-block,
+  // or with `causal` those up to the tile's diagonal block (BM divides
+  // REF_BLOCK, so the tile lies in one reference query block).
+  const int Sp = ((S + REF_BLOCK - 1) / REF_BLOCK) * REF_BLOCK;
+  const int hi = causal ? min(Sp, ((tile * BM) / REF_BLOCK + 1) * REF_BLOCK)
+                        : Sp;
+  const int kend = min(S, hi);
 
-  for (int j0 = k0; j0 < k1; j0 += BN) {
+  for (int j0 = 0; j0 < kend; j0 += BN) {
     for (int idx = tid; idx < BN * D; idx += NT) {
       const int jj = idx / D;
       const int c = idx % D;
       const int col = j0 + jj;
       float kx = 0.f, vx = 0.f;
-      if (col < k1) {
+      if (col < kend) {
         kx = kb[(size_t)col * D + c];
         vx = vb[(size_t)col * D + c];
       }
@@ -119,8 +104,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_partial(
     for (int t = 0; t < BN / TPR; ++t) {
       const int jj = sub + TPR * t;
       const int col = j0 + jj;
-      float x = -INFINITY;  // columns past the split carry no weight here
-      if (col < k1) {
+      float x = -INFINITY;  // columns past the sweep carry no weight
+      if (col < kend) {
         float dot = 0.f;
 #pragma unroll
         for (int c = 0; c < D; ++c) dot = fmaf(qr[c], ks[jj][c], dot);
@@ -165,86 +150,40 @@ __global__ void __launch_bounds__(NT) flash_fwd_partial(
     __syncthreads();
   }
 
-  if (row_ok) {
-    const size_t prow = ((size_t)split * BH + bh) * T + row;
-    float* ob = part_o + prow * D;
+  if (!row_ok) return;
+  // the reference's swept zero-padded columns, each scored -1e9
+  const int n_pad = hi - kend;
+  if (n_pad > 0) l += (float)n_pad * expf(NEG - m);
+  l = fmaxf(l, 1e-30f);
+  float* ob = o + ((size_t)bh * T + row) * D;
 #pragma unroll
-    for (int i = 0; i < D / TPR; ++i) ob[sub + TPR * i] = acc[i];
-    if (sub == 0) {
-      part_m[prow] = m;
-      part_l[prow] = l;
-    }
-  }
+  for (int i = 0; i < D / TPR; ++i) ob[sub + TPR * i] = acc[i] / l;
+  if (sub == 0) lse[(size_t)bh * T + row] = m + logf(l);
 }
 
-// One block per (batch*head, query row), one thread per channel: merge
-// the splits' states, add the reference's swept padding, normalise.
-__global__ void flash_fwd_combine(const float* __restrict__ part_o,
-                                  const float* __restrict__ part_m,
-                                  const float* __restrict__ part_l,
-                                  float* __restrict__ o,
-                                  float* __restrict__ lse, int BH, int T,
-                                  int S, int D, int causal, int n_split) {
-  const int row = blockIdx.x % T;
-  const int bh = blockIdx.x / T;
-  const int c = threadIdx.x;
-  const size_t stride = (size_t)BH * T;
-  const size_t base = (size_t)bh * T + row;
-  float mm = NEG;
-  for (int z = 0; z < n_split; ++z) mm = fmaxf(mm, part_m[z * stride + base]);
-  float ll = 0.f, aa = 0.f;
-  for (int z = 0; z < n_split; ++z) {
-    const float f = expf(part_m[z * stride + base] - mm);
-    ll = fmaf(part_l[z * stride + base], f, ll);
-    aa = fmaf(part_o[(z * stride + base) * D + c], f, aa);
-  }
-  const int2 sw = swept_end(row / BM, S, causal);
-  if (sw.y > 0) ll += (float)sw.y * expf(NEG - mm);
-  ll = fmaxf(ll, 1e-30f);
-  o[base * D + c] = aa / ll;
-  if (c == 0) lse[base] = mm + logf(ll);
-}
-
-// Launches both kernels, checking each launch; returns its cudaError_t.
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* mask,
-           float* o, float* lse, float* part_o, float* part_m, float* part_l,
-           int BH, int T, int S, int mode, int mask_bh, int causal,
-           float scale, int n_split, int split_len, cudaStream_t stream) {
-  dim3 grid((T + BM - 1) / BM, BH, n_split);
-  flash_fwd_partial<D><<<grid, NT, 0, stream>>>(
-      q, k, v, mask, part_o, part_m, part_l, BH, T, S, mode, mask_bh, causal,
-      scale, split_len);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_fwd_combine<<<BH * T, D, 0, stream>>>(part_o, part_m, part_l, o, lse,
-                                              BH, T, S, D, causal, n_split);
+           float* o, float* lse, int BH, int T, int S, int mode, int mask_bh,
+           int causal, float scale, cudaStream_t stream) {
+  dim3 grid((T + BM - 1) / BM, BH);
+  flash_fwd<D><<<grid, NT, 0, stream>>>(q, k, v, mask, o, lse, T, S, mode,
+                                        mask_bh, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launches (0 on success).  The caller
-// allocates the split partials: part_o (n_split, BH, T, D), part_m and
-// part_l (n_split, BH, T), float32; split_len is a multiple of 32 with
-// n_split * split_len >= S.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int singa_flash_attention_fwd(
     const float* q, const float* k, const float* v, const float* mask,
-    float* o, float* lse, float* part_o, float* part_m, float* part_l, int BH,
-    int T, int S, int D, int mode, int mask_bh, int causal, float scale,
-    int n_split, int split_len, void* stream) {
-  if (n_split < 1 || split_len % BN != 0 || (long)n_split * split_len < S)
-    return (int)cudaErrorInvalidValue;
+    float* o, float* lse, int BH, int T, int S, int D, int mode, int mask_bh,
+    int causal, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SINGA_FLASH_LAUNCH(DD)                                            \
-  launch<DD>(q, k, v, mask, o, lse, part_o, part_m, part_l, BH, T, S, mode, \
-             mask_bh, causal, scale, n_split, split_len, st)
   switch (D) {
-    case 16: return SINGA_FLASH_LAUNCH(16);
-    case 32: return SINGA_FLASH_LAUNCH(32);
-    case 64: return SINGA_FLASH_LAUNCH(64);
-    case 128: return SINGA_FLASH_LAUNCH(128);
+    case 16: return launch<16>(q, k, v, mask, o, lse, BH, T, S, mode, mask_bh, causal, scale, st);
+    case 32: return launch<32>(q, k, v, mask, o, lse, BH, T, S, mode, mask_bh, causal, scale, st);
+    case 64: return launch<64>(q, k, v, mask, o, lse, BH, T, S, mode, mask_bh, causal, scale, st);
+    case 128: return launch<128>(q, k, v, mask, o, lse, BH, T, S, mode, mask_bh, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef SINGA_FLASH_LAUNCH
 }

@@ -19,10 +19,9 @@
 // The work is ~0.5 FLOP per byte, so the card's floor is the K/V bytes of
 // the slots' live pages; what this kernel has to hide is the latency of a
 // long page chain.  The block's eight warps take every eighth page each,
-// each warp running its own online softmax (lanes split the head dim, a
-// shuffle reduction sums each column's score, and for the usual page sizes
-// the column loops are unrolled so a page's loads are in flight together);
-// the eight partial states are merged through shared memory at the end.
+// each warp running its own online softmax (lanes split the head dim and a
+// shuffle reduction sums each column's score); the eight partial states are
+// merged through shared memory at the end.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,9 +35,6 @@ constexpr int CPL = MAX_D / 32;  // head channels per lane
 constexpr int MAX_P = 256;
 constexpr float NEG = -1e9f;
 
-// PT > 0: pages of exactly PT tokens, column loops unrolled so that a
-// page's loads are all in flight at once; PT == 0: any page size.
-template <int PT>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const float* __restrict__ q, const float* __restrict__ kp,
     const float* __restrict__ vp, const int* __restrict__ table,
@@ -73,25 +69,22 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const int phys = table[(size_t)s * Ps + j];
     const float* kpage = kp + ((size_t)phys * H + h) * P * D;
     const float* vpage = vp + ((size_t)phys * H + h) * P * D;
+    // the frontier page's columns past pos are never read
     const int ncol = min(P, ps - j * P + 1);
-    // a frontier page's dead columns re-read its last live column (always
-    // valid memory, so loads need no guard) and score -inf
-    const int lim = PT > 0 ? PT : ncol;
 
     float tmax = -INFINITY;
-#pragma unroll 16
-    for (int t = 0; t < lim; ++t) {
-      const int tc = min(t, ncol - 1);
+#pragma unroll 4
+    for (int t = 0; t < ncol; ++t) {
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
         const int c = lane + 32 * i;
-        if (c < D) dot = fmaf(qr[i], kpage[(size_t)tc * D + c], dot);
+        if (c < D) dot = fmaf(qr[i], kpage[(size_t)t * D + c], dot);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      const float x = t < ncol ? dot * scale : -INFINITY;
+      const float x = dot * scale;
       if (lane == 0) sc[warp][t] = x;
       tmax = fmaxf(tmax, x);
     }
@@ -101,15 +94,14 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     float psum = 0.f;
 #pragma unroll
     for (int i = 0; i < CPL; ++i) acc[i] *= alpha;
-#pragma unroll 16
-    for (int t = 0; t < lim; ++t) {
-      const int tc = min(t, ncol - 1);
+#pragma unroll 4
+    for (int t = 0; t < ncol; ++t) {
       const float p = expf(sc[warp][t] - m_new);
       psum += p;
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
         const int c = lane + 32 * i;
-        if (c < D) acc[i] = fmaf(p, vpage[(size_t)tc * D + c], acc[i]);
+        if (c < D) acc[i] = fmaf(p, vpage[(size_t)t * D + c], acc[i]);
       }
     }
     l = l * alpha + psum;
@@ -155,11 +147,7 @@ extern "C" int singa_paged_decode(const float* q, const float* k_pages,
   if (D < 1 || D > MAX_D || P < 1 || P > MAX_P) return (int)cudaErrorInvalidValue;
   dim3 grid(S, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (P) {
-    case 8: paged_decode_kernel<8><<<grid, NT, 0, st>>>(q, k_pages, v_pages, table, pos, o, H, P, Ps, D, scale); break;
-    case 16: paged_decode_kernel<16><<<grid, NT, 0, st>>>(q, k_pages, v_pages, table, pos, o, H, P, Ps, D, scale); break;
-    case 32: paged_decode_kernel<32><<<grid, NT, 0, st>>>(q, k_pages, v_pages, table, pos, o, H, P, Ps, D, scale); break;
-    default: paged_decode_kernel<0><<<grid, NT, 0, st>>>(q, k_pages, v_pages, table, pos, o, H, P, Ps, D, scale); break;
-  }
+  paged_decode_kernel<<<grid, NT, 0, st>>>(q, k_pages, v_pages, table, pos,
+                                           o, H, P, Ps, D, scale);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,6 @@ version; CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -39,7 +38,6 @@ _NEG_INF = -1e9
 _REF_BLOCK = 128          # the reference kernel's key/query block
 _MODES = {"none": 0, "vec": 1, "dense": 2}
 _KERNEL_D = (16, 32, 64, 128)
-_BM, _BN = 16, 32         # the kernel's query tile and key tile
 
 # kernel launches made by flash_attention_fwd (plain-version calls and
 # CPU calls do not count)
@@ -109,26 +107,10 @@ def _lib():
     lib = _build.load("flash_attention_fwd")
     fn = lib.singa_flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _splits(BH, T, S, sms):
-    """Key splits for the kernel: enough blocks for about two per SM,
-    each split a whole number of 32-key tiles.  Returns
-    ``(n_split, split_len)``."""
-    blocks = -(-T // _BM) * BH
-    n = max(1, min(-(-S // _BN), -(-2 * sms // blocks)))
-    split_len = -(-(-(-S // n)) // _BN) * _BN
-    return -(-S // split_len), split_len
 
 
 def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal):
@@ -171,20 +153,14 @@ def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal):
         if not t.is_contiguous():
             raise ValueError("flash_attention kernel takes contiguous "
                              "operands")
-    n_split, split_len = _splits(BH, T, S, _sm_count(dev.index))
     o = torch.empty_like(q3)
     lse = torch.empty((BH, T), dtype=torch.float32, device=dev)
-    part_o = torch.empty((n_split, BH, T, d), dtype=torch.float32,
-                         device=dev)
-    part_ml = torch.empty((2, n_split, BH, T), dtype=torch.float32,
-                          device=dev)
     fn = _lib()
     err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
              mask3.data_ptr() if mode != "none" else None,
-             o.data_ptr(), lse.data_ptr(), part_o.data_ptr(),
-             part_ml[0].data_ptr(), part_ml[1].data_ptr(), BH, T, S, d,
-             _MODES[mode], mask_bh, int(bool(causal)), float(scale),
-             n_split, split_len, torch.cuda.current_stream(dev).cuda_stream)
+             o.data_ptr(), lse.data_ptr(), BH, T, S, d, _MODES[mode],
+             mask_bh, int(bool(causal)), float(scale),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(cudaError {err})")

@@ -35,6 +35,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["PagedKVCache", "DEFAULT_PAGE_TOKENS"]
 
 # Tokens per KV page (the JAX package's default).
@@ -80,8 +82,7 @@ class PagedKVCache:
             raise ValueError(f"n_pages must be >= 2 (page 0 is reserved),"
                              f" got {n_pages}")
         self.n_pages = int(n_pages)
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         shape = (self.n_pages, n_heads, self.page_tokens, d_head)
         self.caches = tuple(
             (torch.zeros(shape, dtype=dtype, device=self.device),

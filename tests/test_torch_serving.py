@@ -15,6 +15,7 @@ from singa_tpu.models import gpt
 from singa_tpu.serving import ServingEngine
 from singa_tpu_torch import resolve_device
 from singa_tpu_torch.models import gpt as tgpt
+from singa_tpu_torch.serving import PagedKVCache
 from singa_tpu_torch.serving import ServingEngine as TorchEngine
 
 torch.set_num_threads(1)
@@ -232,4 +233,6 @@ def test_no_silent_cpu(monkeypatch, served):
         TorchEngine(tm)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tgpt.GPT(tgpt.GPTConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache(1, 2, 2, 8, 16, 64)
     assert resolve_device("cpu") == torch.device("cpu")
