@@ -5,35 +5,52 @@
 Phases (any failure exits non-zero before the result lines print):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off;
-2. build every kernel of the serving path from ``singa_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, in parallel);
+2. build every kernel from ``singa_tpu_torch/ops/csrc`` (one ``nvcc``
+   per source, in parallel);
 3. flash-attention forward: kernel against its plain PyTorch version at
    the serving shape (dense mask, q (1,12,64,64), k/v (1,12,1024,64)),
    plus causal and key-vector cases, and ragged T/S cases at every head
    dim the kernel is built for (per-head masks, a fully masked row);
    times at the serving shape for kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
-4. paged decode attention: kernel against its plain version at the
+4. flash-attention backward: the dq and dk/dv kernels against their
+   plain versions at the training shape (B 8, H 12, T = S = 1024, d 64,
+   causal) and on ragged cases at d 16/32/64/128 (per-head dense and
+   vec masks, fully masked rows, causal with a dense mask); times at the
+   training shape for each kernel, its plain version and the backward
+   of ``scaled_dot_product_attention``, and the forward's there too;
+5. paged decode attention: kernel against its plain version at the
    serving shape (8 slots, 12 heads, d 64, 16-token pages, 64 pages a
    slot, NULL tails, mid-page positions), plus 8-, 12- and 32-token
    pages at head dims 64, 32 and 128;
-5. the slice: the paged, chunked ``ServingEngine`` on GPT-2-small
+6. the serving path: the paged, chunked ``ServingEngine`` on GPT-2-small
    dimensions (fp32, seeded random weights carried in through
    ``GPT.from_jax_decode_params``) serves 8 staggered requests (one
-   sampled, the rest greedy); the kernels' launch counters are zeroed
-   just before and read just after; two greedy requests are replayed
-   through the port on the CPU and their tokens compared;
-6. one ``kernels`` JSON line, then the result line.
+   sampled, the rest greedy); two greedy requests are replayed through
+   the port on the CPU and their tokens compared;
+7. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
+   of ``train_one_batch`` with Adam at B 8, T 1024 (loss, step time,
+   tokens/s, peak memory; the loss must fall; exactly 12 launches of
+   each flash kernel a step);
+8. one full-width training step (B 1, T 128) from the trained weights on
+   the card and in the port on the CPU: loss and every gradient compared;
+9. the trained model serves 2 requests through the ``ServingEngine``;
+10. one ``kernels`` JSON line, then the result line.
 
-    python3 chip_smoke.py --profile
+The kernels' launch counters are zeroed just before each path (6 and 7)
+and read just after it; a kernel's ``launches`` is the sum over the two,
+``launches_by_path`` splits it.
 
-runs phases 1-2 and then the phase-5 stream once under ``torch.profiler``
-(CPU and CUDA activity) and prints the device's busy and idle share over
-the run, device time by kernel group and the costliest kernels.
+    python3 chip_smoke.py --profile [serve|train]
+
+runs phases 1-2 and then the serving stream, or two training steps after
+a warm-up step, once under ``torch.profiler`` (CPU and CUDA activity),
+and prints the device's busy and idle share over the run, device time by
+kernel group and the costliest kernels.
 
 Kernel times are the median of single launches timed with CUDA events,
-each after a 64 MiB write that evicts the 50 MB L2, so K/V come from
-device memory as on the serving path.  ``bound_ms`` is the larger of
+each after a 64 MiB write that evicts the 50 MB L2, so operands come
+from device memory as on the main paths.  ``bound_ms`` is the larger of
 bytes moved (each input read once, each output written once) over
 3.35 TB/s and float32 operations over 67 TFLOP/s (H100 SXM data sheet).
 """
@@ -52,11 +69,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from singa_tpu_torch import autograd as tautograd  # noqa: E402
+from singa_tpu_torch import device as tdevice  # noqa: E402
+from singa_tpu_torch import opt as topt  # noqa: E402
 from singa_tpu_torch.models import gpt as tgpt  # noqa: E402
 from singa_tpu_torch.ops import _build  # noqa: E402
 from singa_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from singa_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from singa_tpu_torch.serving import ServingEngine  # noqa: E402
+from singa_tpu_torch.tensor import Tensor as TTensor  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -67,6 +88,8 @@ REPS = 30
 
 # serving configuration of phase 5 (GPT-2-small widths, 12 layers)
 N_SLOTS, PAGE, CHUNK, HORIZON, NEW = 8, 16, 64, 8, 32
+# training configuration (GPT-2-small, fp32, Adam)
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 8, 1024, 5, 3e-4
 
 
 def _log(msg):
@@ -198,6 +221,128 @@ def phase_flash():
             "replaces": "singa_tpu/ops/pallas_kernels.py:102",
             "max_abs_err": err_serving, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _swept_pairs(BH, T, S, causal):
+    """(query, key) pairs the reference's sweep covers on real rows and
+    columns: all, or with ``causal`` those up to each row's diagonal
+    128-block."""
+    if not causal:
+        return BH * T * S
+    rows = np.arange(T)
+    return BH * int(np.minimum(S, (rows // 128 + 1) * 128).sum())
+
+
+def _bwd_inputs(g, B, H, T, S, d, mask, causal):
+    """Operands of the backward kernels: q/k/v, a cotangent at a tenth
+    of unit scale, and ``o``, ``lse`` and ``delta`` from the forward
+    kernel."""
+    q = torch.randn(B, H, T, d, generator=g, device="cuda")
+    k = torch.randn(B, H, S, d, generator=g, device="cuda")
+    v = torch.randn(B, H, S, d, generator=g, device="cuda")
+    do = 0.1 * torch.randn(B, H, T, d, generator=g, device="cuda")
+    q3, k3, v3, m3, scale, mode = fa._prepare(q, k, v, mask, None)
+    do3 = do.reshape(B * H, T, d)
+    o3, lse = fa.flash_attention_fwd(q3, k3, v3, m3, scale, mode, causal)
+    delta = (do3 * o3).sum(dim=-1)
+    return (q3, k3, v3, m3, lse, delta, do3, scale, mode, causal), \
+        (q, k, v, do)
+
+
+def phase_flash_bwd():
+    """The dq and dk/dv kernels against their plain versions at the
+    training shape (B 8, H 12, T = S = 1024, d 64, causal) and on ragged
+    cases; times at the training shape for each kernel, its plain
+    version and the backward of ``scaled_dot_product_attention`` (a
+    yardstick the port never calls); the forward kernel's time at the
+    training shape too.  Returns ``(dq_row, dkv_row, fwd_train)``."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, H, T, d = TRAIN_B, 12, TRAIN_T, 64
+    cases = {"train(causal)": (B, H, T, T, d, None, True)}
+    # ragged T/S at every other head dim: per-head dense and vec masks,
+    # fully masked rows, causal with a dense mask
+    for dd, (b, h, t, s), causal, kind in (
+            (16, (2, 3, 70, 200), False, "dense"),
+            (32, (2, 2, 33, 77), False, "vec"),
+            (128, (1, 2, 150, 150), True, "dense"),
+            (64, (1, 2, 130, 260), True, "dense")):
+        shape = (b, h, t if kind == "dense" else 1, s)
+        m = torch.where(torch.rand(*shape, generator=g, device="cuda") < 0.2,
+                        -1e9, 0.0)
+        if kind == "dense":
+            m[-1, -1, t // 2] = -1e9               # a fully masked row
+            m[0, 0, 0] = -1e9
+        cases[f"ragged d{dd} {kind}{' causal' if causal else ''}"] = (
+            b, h, t, s, dd, m, causal)
+    errs = {}
+    for name, (b, h, t, s, dd, m, causal) in cases.items():
+        args, _ = _bwd_inputs(g, b, h, t, s, dd, m, causal)
+        dq = fa.flash_attention_bwd_dq(*args)
+        dk, dv = fa.flash_attention_bwd_dkv(*args)
+        rq = fa.flash_attention_bwd_dq_reference(*args)
+        rk, rv = fa.flash_attention_bwd_dkv_reference(*args)
+        torch.cuda.synchronize()
+        e_dq = float((dq - rq).abs().max())
+        e_dkv = max(float((dk - rk).abs().max()), float((dv - rv).abs().max()))
+        ok = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)) \
+            and max(e_dq, e_dkv) <= FLASH_TOL
+        _log(f"flash bwd {name}: max_abs_err dq {e_dq:.3e} dk/dv "
+             f"{e_dkv:.3e} (tol {FLASH_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash bwd {name} disagrees with its plain "
+                                 f"version: dq {e_dq}, dk/dv {e_dkv}")
+        errs[name] = (e_dq, e_dkv)
+    # times at the training shape
+    args, (q, k, v, do) = _bwd_inputs(g, B, H, T, T, d, None, True)
+    q3, k3, v3 = args[:3]
+    dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq(*args))
+    dkv_ms = _time_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+    dq_plain = _time_ms(lambda: fa.flash_attention_bwd_dq_reference(*args))
+    dkv_plain = _time_ms(lambda: fa.flash_attention_bwd_dkv_reference(*args))
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                           is_causal=True)
+    sdpa_bwd = _time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                    retain_graph=True))
+    fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(q3, k3, v3, None,
+                                                     args[7], "none", True))
+    fwd_plain = _time_ms(lambda: fa.flash_attention_fwd_reference(
+        q3, k3, v3, None, args[7], "none", True))
+    sdpa_fwd = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    BH = B * H
+    pairs = _swept_pairs(BH, T, T, True)
+    qkv_bytes = 4 * BH * T * d
+    ins = 4 * qkv_bytes + 2 * 4 * BH * T              # q,k,v,dO; lse,delta
+    rows = {}
+    for name, ms, plain, outs, flop_pair in (
+            ("flash_attention_bwd_dq", dq_ms, dq_plain, 1, 6 * d),
+            ("flash_attention_bwd_dkv", dkv_ms, dkv_plain, 2, 8 * d)):
+        nbytes = ins + outs * qkv_bytes
+        flops = pairs * flop_pair
+        bound_ms, bound_by = _bound(nbytes, flops)
+        _log(f"{name} training shape: kernel {ms:.4f} ms, plain {plain:.4f} "
+             f"ms, sdpa backward (dq, dk, dv together) {sdpa_bwd:.4f} ms, "
+             f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+             f"{flops / 1e9:.3f} GFLOP over {pairs} swept pairs)")
+        err = errs["train(causal)"][0 if outs == 1 else 1]
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "singa_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": ("singa_tpu/ops/pallas_kernels.py:146" if outs == 1
+                         else "singa_tpu/ops/pallas_kernels.py:185"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sdpa_bwd}
+    f_bytes = 4 * qkv_bytes + 4 * BH * T              # q,k,v in; o, lse out
+    f_bound, f_by = _bound(f_bytes, pairs * 4 * d)
+    fwd_train = {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": sdpa_fwd,
+                 "bound_ms": f_bound, "bound_by": f_by}
+    _log(f"flash_attention_fwd training shape: kernel {fwd_ms:.4f} ms, plain "
+         f"{fwd_plain:.4f} ms, sdpa {sdpa_fwd:.4f} ms, bound {f_bound:.4f} "
+         f"ms ({f_by})")
+    return rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"], \
+        fwd_train
 
 
 def _paged_case(seed, S, H, d, P, Ps, pos_h):
@@ -333,14 +478,12 @@ def _slice_setup():
 def phase_slice():
     cfg, tree, model, kw, prompts = _slice_setup()
     eng = ServingEngine(model, **kw)
-    fa.launches = 0
-    pa.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     rids, res = _serve(eng, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": fa.launches,
-                "paged_decode_attention": pa.launches}
+    launches = _read_launches()
     snap = eng.metrics.snapshot()
     _log("slice launches " + json.dumps(launches))
     _log(f"slice: {len(res)} requests in {wall:.3f}s; "
@@ -359,8 +502,8 @@ def phase_slice():
         if toks.shape != (NEW,) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"request {r}: bad tokens {toks}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_attention_fwd", "paged_decode_attention"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"serving path")
     if snap["prefix_cache_hit_rate"] <= 0:
@@ -389,7 +532,173 @@ def phase_slice():
     return launches, snap
 
 
+def synthetic_stream(vocab, n, seed=0):
+    """Deterministic next-token structure, the rule of the JAX package's
+    ``examples/transformer/train.py``: x[t+1] = (3*x[t] + 7) % vocab,
+    with a uniformly random token one time in ten."""
+    rng = np.random.RandomState(seed)
+    x = np.zeros(n, np.int32)
+    x[0] = rng.randint(vocab)
+    for i in range(1, n):
+        x[i] = (3 * x[i - 1] + 7) % vocab if rng.rand() > 0.1 \
+            else rng.randint(vocab)
+    return x
+
+
+def _train_setup():
+    """GPT-2-small (``use_flash=True``) with weights from a seeded card
+    generator, Adam(lr 3e-4), compiled on the first batch; the batches of
+    the seeded stream."""
+    cfg = tgpt.GPTConfig.small(use_flash=True)
+    dev = tdevice.create_cuda_gpu(seed=0)
+    data = synthetic_stream(cfg.vocab_size,
+                            TRAIN_STEPS * TRAIN_B * TRAIN_T + 1, seed=0)
+    batches = []
+    for s in range(TRAIN_STEPS):
+        seg = data[s * TRAIN_B * TRAIN_T:(s + 1) * TRAIN_B * TRAIN_T + 1]
+        batches.append((seg[:-1].reshape(TRAIN_B, TRAIN_T),
+                        seg[1:].reshape(TRAIN_B, TRAIN_T)))
+    model = tgpt.GPT(cfg, device=dev)
+    model.set_optimizer(topt.Adam(lr=TRAIN_LR))
+    model.compile([TTensor(data=batches[0][0], device=dev,
+                           requires_grad=False)], is_train=True,
+                  use_graph=True)
+    torch.cuda.synchronize()
+    return cfg, model, batches
+
+
+def _zero_launches():
+    fa.launches = fa.launches_dq = fa.launches_dkv = pa.launches = 0
+
+
+def _read_launches():
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.launches_dq,
+            "flash_attention_bwd_dkv": fa.launches_dkv,
+            "paged_decode_attention": pa.launches}
+
+
+def phase_train():
+    """The training slice: GPT-2-small, fp32, B 8, T 1024, Adam, 5 steps
+    through ``train_one_batch``; launch counters zeroed just before the
+    steps and read just after.  Returns ``(model, launches, stats)``."""
+    _log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+         f"{torch.backends.cudnn.allow_tf32}")
+    cfg, model, batches = _train_setup()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, walls = [], []
+    for s, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        _, loss = model.train_one_batch(x, y)
+        lv = loss.item()                      # synchronises
+        walls.append(time.perf_counter() - t0)
+        losses.append(lv)
+        _log(f"train step {s}: loss {lv:.6f}, {walls[-1] * 1e3:.1f} ms, "
+             f"{TRAIN_B * TRAIN_T / walls[-1]:.0f} tokens/s")
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steady = walls[1:]
+    stats = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+             "steady_step_ms": float(np.mean(steady)) * 1e3,
+             "tokens_per_s": TRAIN_B * TRAIN_T * len(steady) / sum(steady),
+             "peak_memory_bytes": peak}
+    _log("train launches " + json.dumps(launches))
+    _log(f"train: steady step {stats['steady_step_ms']:.1f} ms (steps 1-"
+         f"{TRAIN_STEPS - 1}), {stats['tokens_per_s']:.0f} tokens/s, peak "
+         f"memory {peak / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    want = cfg.n_layers * TRAIN_STEPS
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"training path, expected {want}")
+    return model, launches, stats
+
+
+def _loss_and_grads(model, x, y):
+    """One training step's loss and gradients (no update)."""
+    logits = model.forward(x)
+    B, T, V = logits.shape
+    loss = tautograd.softmax_cross_entropy(
+        tautograd.reshape(logits, (B * T, V)),
+        tautograd.reshape(y, (B * T,)))
+    grads = {p.name: g.data for p, g in tautograd.backward(loss)}
+    return loss.item(), grads
+
+
+def phase_card_vs_cpu(model):
+    """One training step at full width (B 1, T 128) from the same weights
+    on the card (kernels) and in the port on the CPU (plain versions).
+    Tolerances: loss to a relative 1e-5 and every gradient to max |delta|
+    <= 1e-3 max |g| — float32 on both sides (TF32 off), summation order
+    differs (cuBLAS against the CPU's BLAS, the kernels against their
+    plain versions).  The attention key biases have an exact gradient of
+    zero (softmax is shift-invariant per row), so both sides hold float
+    noise there: their bound takes max |g| of the block's key weights."""
+    cfg = model.config
+    data = synthetic_stream(cfg.vocab_size, 129, seed=1)
+    x, y = data[:-1].reshape(1, 128), data[1:].reshape(1, 128)
+    states = {k: t.numpy() for k, t in model.get_states().items()}
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = tgpt.GPT.from_jax_states(states, cfg, device="cpu")
+    cpu.compile([x], is_train=True)
+    loss_c, grads_c = _loss_and_grads(cpu, TTensor(data=x, device="cpu"),
+                                      TTensor(data=y, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    model.train(True)
+    dev = model.device
+    loss_g, grads_g = _loss_and_grads(model, TTensor(data=x, device=dev),
+                                      TTensor(data=y, device=dev))
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    _log(f"card vs cpu: loss card {loss_g:.7f} cpu {loss_c:.7f} (relative "
+         f"{rel:.2e}, tol 1e-5); cpu step {cpu_s:.1f}s")
+    if set(grads_g) != set(grads_c) or not rel <= 1e-5:
+        raise AssertionError("card and CPU training steps disagree")
+    worst = (0.0, "")
+    for name, gc in grads_c.items():
+        ref = grads_c[name[:-1] + "W"] if name.endswith("attn.Wk.b") else gc
+        d = float((grads_g[name].cpu() - gc).abs().max())
+        ratio = d / max(float(ref.abs().max()), 1e-30)
+        worst = max(worst, (ratio, name))
+    _log(f"card vs cpu: worst gradient max|delta|/max|g| {worst[0]:.2e} "
+         f"({worst[1]}; tol 1e-3) over {len(grads_c)} tensors")
+    if worst[0] > 1e-3:
+        raise AssertionError(f"gradient {worst[1]} disagrees: {worst[0]}")
+    return {"loss_rel": rel, "grad_worst_ratio": worst[0]}
+
+
+def phase_serve_trained(model):
+    """The paths join: the trained model's ``decode_params()`` serves 2
+    requests through the ``ServingEngine`` to completion."""
+    model.eval()
+    cfg = model.config
+    eng = ServingEngine(model, n_slots=2, page_tokens=PAGE,
+                        chunk_tokens=CHUNK, decode_horizon=HORIZON)
+    data = synthetic_stream(cfg.vocab_size, 200, seed=2)
+    rids = [eng.submit(data[:40], 16), eng.submit(data[50:170], 16)]
+    res = eng.run()
+    torch.cuda.synchronize()
+    for r in rids:
+        toks = res.get(r)
+        if toks is None or toks.shape != (16,) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"trained model, request {r}: {toks}")
+    _log(f"trained model served {len(rids)} requests: "
+         f"{[res[r][:6].tolist() for r in rids]} ...")
+
+
 def _kernel_bucket(name):
+    if "flash_bwd_dq" in name:
+        return "flash_attention_bwd dq kernel"
+    if "flash_bwd_dkv" in name:
+        return "flash_attention_bwd dk/dv kernel"
     if "flash_fwd" in name:
         return "flash_attention_fwd kernel"
     if "paged_decode" in name:
@@ -402,21 +711,32 @@ def _kernel_bucket(name):
     return "other kernels (elementwise, reductions, indexing)"
 
 
-def phase_profile():
-    """The slice's stream once more, under ``torch.profiler`` (CPU and
-    CUDA activity): device busy and idle share over the run, device time
-    by kernel group and by kernel, kernels launched per decode
-    iteration.  Times under the profiler include its own overhead on the
-    host."""
+def phase_profile(path):
+    """One path once more under ``torch.profiler`` (CPU and CUDA
+    activity): ``serve``, the slice's stream; ``train``, two training
+    steps after one unprofiled warm-up step.  Prints the device busy and
+    idle share over the window, device time by kernel group and by
+    kernel.  Times under the profiler include its own host overhead."""
     from torch.profiler import ProfilerActivity, profile
-    cfg, _, model, kw, prompts = _slice_setup()
-    eng = ServingEngine(model, **kw)
-    fa.launches = 0
-    pa.launches = 0
+    if path == "serve":
+        cfg, _, model, kw, prompts = _slice_setup()
+        eng = ServingEngine(model, **kw)
+
+        def run():
+            _serve(eng, prompts)
+    else:
+        cfg, model, batches = _train_setup()
+        model.train_one_batch(*batches[0])[1].item()
+
+        def run():
+            for x, y in batches[1:3]:
+                model.train_one_batch(x, y)
+    torch.cuda.synchronize()
+    _zero_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _serve(eng, prompts)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_type = torch.autograd.DeviceType.CUDA
@@ -442,12 +762,10 @@ def phase_profile():
         for d, key in ((groups, _kernel_bucket(e.name)), (names, e.name)):
             n, t = d.get(key, (0, 0.0))
             d[key] = (n + 1, t + us)
-    iters = pa.launches // cfg.n_layers
-    _log(f"profile: host wall {wall:.3f}s; profiled window "
+    _log(f"profile {path}: host wall {wall:.3f}s; profiled window "
          f"{window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
-         f"share {1 - busy / window:.4f}; {len(kern)} device activities, "
-         f"{iters} decode iterations, {fa.launches} flash / {pa.launches} "
-         f"paged launches")
+         f"share {1 - busy / window:.4f}; {len(kern)} device activities; "
+         f"launches {json.dumps(_read_launches())}")
     for key, (n, t) in sorted(groups.items(), key=lambda x: -x[1][1]):
         _log(f"profile group {key}: {n} activities, {t / 1e3:.2f} ms "
              f"({t / busy:.3f} of busy)")
@@ -456,28 +774,46 @@ def phase_profile():
              f"{key[:110]}")
 
 
+KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    profile = {(): None, ("--profile",): "serve",
+               ("--profile", "serve"): "serve",
+               ("--profile", "train"): "train"}
+    if tuple(argv) not in profile:
+        print("usage: chip_smoke.py [--profile [serve|train]]",
+              file=sys.stderr)
+        return 2
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    if argv == ["--profile"]:
-        phase_profile()
+    if profile[tuple(argv)] is not None:
+        phase_profile(profile[tuple(argv)])
         _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
         return 0
-    if argv:
-        print("usage: chip_smoke.py [--profile]", file=sys.stderr)
-        return 2
-    rows = [phase_flash(), phase_paged()]
-    launches, _ = phase_slice()
+    fwd = phase_flash()
+    dq, dkv, fwd["train_shape"] = phase_flash_bwd()
+    paged = phase_paged()
+    rows = [fwd, dq, dkv, paged]
+    serve_launches, _ = phase_slice()
+    model, train_launches, _ = phase_train()
+    phase_card_vs_cpu(model)
+    phase_serve_trained(model)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        by_path = {"serve": serve_launches[row["name"]],
+                   "train": train_launches[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
-    _log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    _log(json.dumps({"kernels": [
+        {k: r[k] for k in KEYS + ("launches_by_path",)}
+        | ({"train_shape": r["train_shape"]} if "train_shape" in r else {})
+        for r in rows]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,10 +4,15 @@ A second package beside the JAX one, written for an NVIDIA H100.  It
 imports ``torch``, ``numpy`` and the standard library only; the JAX
 package stays the reference its tests hold it against.
 
-Ported so far: GPT decode serving through the chunked, paged
-continuous-batching engine (:mod:`singa_tpu_torch.serving`), with
-hand-written CUDA kernels for flash-attention forward and paged decode
-attention (:mod:`singa_tpu_torch.ops`).
+Ported so far: GPT training through the framework core
+(:mod:`~singa_tpu_torch.tensor`, :mod:`~singa_tpu_torch.device`,
+:mod:`~singa_tpu_torch.autograd` on ``torch.autograd``,
+:mod:`~singa_tpu_torch.layer`, :mod:`~singa_tpu_torch.model`,
+:mod:`~singa_tpu_torch.opt`, :mod:`singa_tpu_torch.models.gpt`), and GPT
+decode serving through the chunked, paged continuous-batching engine
+(:mod:`singa_tpu_torch.serving`), with hand-written CUDA kernels for
+flash-attention forward and backward and paged decode attention
+(:mod:`singa_tpu_torch.ops`).
 """
 
 from .device import resolve_device, seeded_generator

@@ -1,0 +1,182 @@
+"""Define-by-run autograd of the port, on ``torch.autograd``.
+
+Counterpart: ``singa_tpu/autograd.py`` — the module-level ``training``
+flag, ``backward(y, dy)`` (:208), ``gradients(y)`` and the operators the
+training path runs, by the reference's names and semantics: ``add``,
+``mul``, ``matmul``, ``add_bias``, ``reshape``, ``transpose``,
+``gather``, ``gelu`` (the exact erf form), ``softmax`` (float32 pin),
+``softmax_cross_entropy`` (mean; integer or one-hot targets) and
+``cast``.
+
+The reference derives each op's backward with ``jax.vjp`` and walks its
+own graph of cotangents; here an op is a torch expression on the
+inputs' ``.data`` recorded by ``torch.autograd`` while ``training`` is
+on (and computed without a graph while it is off).  Each output's
+``creator`` is an :class:`Operation` that names the parameter leaves
+(``stores_grad`` tensors) the output depends on, so :func:`backward`
+knows which gradients to ask ``torch.autograd.grad`` for.  The rest of
+the reference's catalogue belongs to a later slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .tensor import Tensor
+
+__all__ = ["training", "Operation", "backward", "gradients", "add", "mul",
+           "matmul", "add_bias", "reshape", "transpose", "gather", "gelu",
+           "softmax", "softmax_cross_entropy", "cast", "op"]
+
+# module-level training flag (parity: ``autograd.training``); ops record
+# a graph only while it is on
+training = False
+
+
+class Operation:
+    """Provenance of an op's outputs: the op's name and the parameter
+    leaves (``stores_grad`` tensors, by id) its inputs reach."""
+
+    __slots__ = ("name", "leaves")
+
+    def __init__(self, name: str, leaves: dict):
+        self.name = name
+        self.leaves = leaves
+
+
+def op(name, fn, *xs):
+    """An operator defined by a torch forward (the counterpart of the
+    reference's ``JaxOp``): run ``fn`` on the ``.data`` of the Tensor
+    arguments (other arguments pass as they are), record it while
+    ``training`` is on, and wrap the result."""
+    raw = [x.data if isinstance(x, Tensor) else x for x in xs]
+    with torch.set_grad_enabled(training):
+        out = fn(*raw)
+    dev = next(x.device for x in xs if isinstance(x, Tensor))
+    creator = None
+    if training and out.requires_grad:
+        leaves = {}
+        for x in xs:
+            if not isinstance(x, Tensor):
+                continue
+            if x.stores_grad:
+                leaves[id(x)] = x
+            elif x.creator is not None:
+                leaves.update(x.creator.leaves)
+        creator = Operation(name, leaves)
+    return Tensor(data=out, device=dev, requires_grad=creator is not None,
+                  creator=creator)
+
+
+# --------------------------------------------------------------------------
+# backward (parity: reference ``backward`` / ``gradients``)
+# --------------------------------------------------------------------------
+
+def backward(y: Tensor, dy=None):
+    """Gradients of ``y`` (with initial cotangent ``dy``, ones by
+    default) for every parameter leaf ``y`` reaches: yields
+    ``(param, grad)`` pairs, as the reference does.  One call of
+    ``torch.autograd.grad``; leaves that get no gradient are skipped."""
+    if not training:
+        raise RuntimeError("call autograd.backward() under training mode")
+    if y.creator is None:
+        raise RuntimeError("y has no creator (not produced by an op)")
+    if dy is None:
+        dy = torch.ones_like(y.data)
+    elif isinstance(dy, Tensor):
+        dy = dy.data
+    leaves = list(y.creator.leaves.values())
+    grads = torch.autograd.grad(y.data, [t.data for t in leaves],
+                                grad_outputs=torch.as_tensor(dy).to(y.data),
+                                allow_unused=True)
+    for t, g in zip(leaves, grads):
+        if g is not None:
+            yield t, Tensor(data=g, device=t.device, requires_grad=False)
+
+
+def gradients(y: Tensor, dy=None) -> dict:
+    """Run backward and return ``{param_tensor: grad_tensor}``."""
+    return dict(backward(y, dy))
+
+
+# --------------------------------------------------------------------------
+# operators
+# --------------------------------------------------------------------------
+
+def add(a, b):
+    return op("Add", torch.add, a, b)
+
+
+def mul(a, b):
+    return op("Mul", torch.mul, a, b)
+
+
+def matmul(a, b):
+    return op("MatMul", torch.matmul, a, b)
+
+
+def add_bias(x, b, axis=-1):
+    """Broadcast-add a bias vector (reference: ``AddBias`` op)."""
+    def fn(v, bias):
+        if axis in (-1, v.dim() - 1) or v.dim() == 1:
+            return v + bias
+        shape = [1] * v.dim()
+        shape[axis if axis >= 0 else v.dim() + axis] = bias.shape[0]
+        return v + bias.reshape(shape)
+    return op("AddBias", fn, x, b)
+
+
+def reshape(x, shape):
+    return op("Reshape", lambda v: v.reshape(tuple(shape)), x)
+
+
+def transpose(x, axes=None):
+    def fn(v):
+        return v.permute(*axes) if axes is not None else \
+            v.permute(*reversed(range(v.dim())))
+    return op("Transpose", fn, x)
+
+
+def gather(x, indices, axis=0):
+    """``take`` along ``axis`` (the embedding lookup): the output has
+    ``indices``' shape in place of that axis; repeated ids scatter-add
+    their gradients."""
+    def fn(v, i):
+        i = torch.as_tensor(i, device=v.device).long()
+        ax = axis if axis >= 0 else v.dim() + axis
+        out = torch.index_select(v, ax, i.reshape(-1))
+        return out.reshape(v.shape[:ax] + i.shape + v.shape[ax + 1:])
+    return op("Gather", fn, x, indices)
+
+
+def gelu(x):
+    # exact (erf) form, as the reference; not the tanh approximation
+    return op("Gelu", lambda v: F.gelu(v, approximate="none"), x)
+
+
+def softmax(x, axis=-1):
+    # float32 accumulation pin (the reference's mixed-precision contract)
+    return op("Softmax", lambda v: torch.softmax(
+        v.to(torch.float32), dim=axis).to(v.dtype), x)
+
+
+def softmax_cross_entropy(logits, target):
+    """Mean softmax cross-entropy over the rows; integer or one-hot
+    targets (parity: reference ``SoftMaxCrossEntropy``).  The target
+    carries no gradient."""
+    t = target.data if isinstance(target, Tensor) else target
+
+    def fn(lg):
+        tt = torch.as_tensor(t, device=lg.device)
+        logp = torch.log_softmax(lg.to(torch.float32), dim=-1)
+        if tt.dim() == lg.dim():
+            nll = -(tt.to(torch.float32) * logp).sum(dim=-1)
+        else:
+            nll = -torch.gather(logp, -1, tt.long()[..., None])[..., 0]
+        return nll.mean()
+    return op("SoftmaxCrossEntropy", fn, logits)
+
+
+def cast(x, dtype):
+    return op("Cast", lambda v: v.to(dtype), x)

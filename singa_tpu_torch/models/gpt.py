@@ -1,13 +1,19 @@
-"""GPT decode path of the port.  Counterpart: ``singa_tpu/models/gpt.py``.
+"""GPT of the port: training through the layer API and the decode path.
+Counterpart: ``singa_tpu/models/gpt.py``.
 
-Ported here: the configuration (``GPTConfig``, ``bucket_length``, the
-``NONFINITE_TOKEN`` sentinel), a :class:`GPT` module whose parameters
-mirror the JAX decode pytree (``_build_decode_params``), and the
-functional decode pieces the paged serving engine runs — the chunked
-paged prefill block (attention through the flash-attention kernel with
-the ``(C, L)`` dense mask) and the paged one-token decode block
-(attention through the paged decode kernel).  Training (the layer
-forward, ``train_one_batch``) and ``generate`` belong to later slices.
+Ported here: the configuration (``GPTConfig`` with ``use_flash`` and
+``precision``, ``bucket_length``, the ``NONFINITE_TOKEN`` sentinel);
+``GPTBlock`` (the pre-LN block with the erf-gelu FFN) and :class:`GPT`,
+the port's :class:`~singa_tpu_torch.model.Model` with ``tok``, ``pos``
+(absent with rope), ``blocks``, ``ln_f`` and ``head``, its ``forward``
+and ``train_one_batch``; ``decode_params()``, the JAX decode pytree
+built from those same parameters (``_build_decode_params``, float
+path), so a model trained in the port serves through the engine; and
+the functional decode pieces the paged serving engine runs — the
+chunked paged prefill block (attention through the flash-attention
+kernel with the ``(C, L)`` dense mask) and the paged one-token decode
+block (attention through the paged decode kernel).  ``generate`` and
+the slot and quantized decode paths belong to later slices.
 
 Unlike JAX's functional updates, the page pools are updated in place:
 each block writes its K/V rows into the pool tensors it was handed and
@@ -19,15 +25,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from ..device import resolve_device
+from .. import autograd, layer
+from ..device import get_device
 from ..layer import apply_rope
+from ..model import Model
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_decode_attention
+from ..tensor import Tensor
 
-__all__ = ["GPTConfig", "GPT", "bucket_length", "NONFINITE_TOKEN",
-           "MIN_PREFILL_BUCKET", "seeded_decode_params",
+__all__ = ["GPTConfig", "GPTBlock", "GPT", "bucket_length",
+           "NONFINITE_TOKEN", "MIN_PREFILL_BUCKET", "seeded_decode_params",
            "decode_slots_iteration_paged"]
 
 # Sentinel token emitted when a row's logits go non-finite; -1 is never a
@@ -53,16 +61,25 @@ def bucket_length(n: int, max_len: int,
 
 class GPTConfig:
     def __init__(self, vocab_size=256, d_model=128, n_layers=4, n_heads=4,
-                 max_len=256, use_rope: bool = False,
-                 rope_base: float = 10000.0):
+                 max_len=256, use_flash: bool | None = False,
+                 use_rope: bool = False, rope_base: float = 10000.0,
+                 precision=None):
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.n_layers = n_layers
         self.n_heads = n_heads
         self.max_len = max_len
+        # True/False force the attention path; None picks by device
+        # (flash on CUDA, naive on the CPU)
+        self.use_flash = use_flash
         # rotary position embeddings instead of the learned pos table
         self.use_rope = use_rope
         self.rope_base = float(rope_base)
+        if precision not in (None, "float32"):
+            raise NotImplementedError(
+                f"precision={precision!r} belongs to the mixed-precision "
+                f"slice of the port (ROADMAP.md queue 1, item 4)")
+        self.precision = precision
 
     @classmethod
     def tiny(cls, **kw):
@@ -124,36 +141,112 @@ def seeded_decode_params(config: GPTConfig, seed: int = 0) -> dict:
     return build("", _shapes(config))
 
 
-class GPT(nn.Module):
-    """Decode-only GPT whose parameters mirror the JAX decode pytree:
-    ``tok``, optional ``pos``, ``lnf``, ``head`` and ``blocks[i]`` with
-    ``ln1``, ``ln2``, ``q``, ``k``, ``v``, ``o``, ``f1``, ``f2``."""
+class GPTBlock(layer.Layer):
+    """Pre-LN decoder block: x + attn(ln1 x); x + ffn(ln2 x), erf-gelu
+    FFN."""
 
-    def __init__(self, config: GPTConfig, device=None,
-                 dtype=torch.float32):
+    def __init__(self, n_heads, ffn_dim, use_flash=False, use_rope=False,
+                 rope_base=10000.0, name=None):
+        super().__init__(name)
+        self.ln1 = layer.LayerNorm(name=f"{self.name}.ln1")
+        self.attn = layer.MultiHeadAttention(n_heads, causal=True,
+                                             use_flash=use_flash,
+                                             rope=use_rope,
+                                             rope_base=rope_base,
+                                             name=f"{self.name}.attn")
+        self.ln2 = layer.LayerNorm(name=f"{self.name}.ln2")
+        self.fc1 = layer.Linear(ffn_dim, name=f"{self.name}.fc1")
+        self.fc2 = None  # sized to d_model on first call
+
+    def initialize(self, x):
+        self.fc2 = layer.Linear(x.shape[-1], name=f"{self.name}.fc2")
+
+    def forward(self, x):
+        x = autograd.add(x, self.attn(self.ln1(x)))
+        h = autograd.gelu(self.fc1(self.ln2(x)))
+        return autograd.add(x, self.fc2(h))
+
+
+class GPT(Model):
+    """GPT language model: ``tok`` (and ``pos`` without rope)
+    embeddings, ``blocks``, ``ln_f`` and the ``head`` Linear.  The
+    embeddings are created on ``device`` (the card by default) at
+    construction; the rest materialise at ``compile`` (or at the first
+    ``decode_params()``).  State names after ``compile`` are the JAX
+    package's (``tok.W``, ``blocks0.attn.Wq.W``, ...)."""
+
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
-        self.config = c = config
-        dev = resolve_device(device)
-        spec = _shapes(c)
+        c = self.config = config
+        self.device = get_device(device)
+        self.tok = layer.Embedding(c.vocab_size, c.d_model,
+                                   device=self.device)
+        # learned pos table only without rope
+        self.pos = None if c.use_rope else \
+            layer.Embedding(c.max_len, c.d_model, device=self.device)
+        self.blocks = [GPTBlock(c.n_heads, 4 * c.d_model,
+                                use_flash=c.use_flash, use_rope=c.use_rope,
+                                rope_base=c.rope_base, name=f"blk{i}")
+                       for i in range(c.n_layers)]
+        self.ln_f = layer.LayerNorm()
+        self.head = layer.Linear(c.vocab_size)
 
-        def p(shape):
-            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev),
-                                requires_grad=False)
+    # ---- training path (layer API) ------------------------------------
+    def forward(self, ids):
+        T = ids.shape[1]
+        if self.config.use_rope:
+            h = self.tok(ids)   # positions live in the attention rotation
+        else:
+            pos_ids = Tensor(data=torch.arange(
+                T, dtype=torch.int32, device=ids.device.torch_device),
+                requires_grad=False)
+            h = autograd.add(self.tok(ids), self.pos(pos_ids))
+        for blk in self.blocks:
+            h = blk(h)
+        return self.head(self.ln_f(h))
 
-        def group(d):
-            return nn.ParameterDict({k: p(s) for k, s in d.items()})
+    def train_one_batch(self, ids, targets):
+        logits = self.forward(ids)
+        B, T, V = logits.shape
+        loss = autograd.softmax_cross_entropy(
+            autograd.reshape(logits, (B * T, V)),
+            autograd.reshape(targets, (B * T,)))
+        self.optimizer(loss)
+        return logits, loss
 
-        self.tok = p(spec["tok"])
-        self.pos = p(spec["pos"]) if "pos" in spec else None
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({n: group(s) for n, s in b.items()})
-            for b in spec["blocks"])
-        self.lnf = group(spec["lnf"])
-        self.head = group(spec["head"])
+    def _materialize(self):
+        """Create the lazy params (a one-token placeholder pass on the
+        model's device) without touching the train/eval mode."""
+        if not hasattr(self.ln_f, "scale"):
+            ids = Tensor(data=torch.zeros((1, 1), dtype=torch.int32,
+                                          device=self.device.torch_device),
+                         requires_grad=False)
+            self._placeholder_pass([ids])
+
+    # ---- weights across from the JAX package --------------------------
+    @classmethod
+    def from_jax_states(cls, states, config: GPTConfig, device=None):
+        """Build the port's model from ``{name: np.ndarray}`` as the JAX
+        ``m.get_states()`` gives it after ``compile``
+        (``jax.tree.map(np.asarray, m.get_states())``).  Reads nothing
+        else; the names and shapes must be exactly the port's."""
+        model = cls(config, device=device)
+        model._materialize()
+        mine = model.get_states()
+        missing, extra = set(mine) - set(states), set(states) - set(mine)
+        if missing or extra:
+            raise ValueError(f"state names differ: missing {sorted(missing)}"
+                             f", unexpected {sorted(extra)}")
+        for name, t in mine.items():
+            shape = tuple(np.shape(states[name]))
+            if shape != t.shape:
+                raise ValueError(f"{name}: shape {shape}, expected {t.shape}")
+        model.set_states(states)
+        return model
 
     @classmethod
     def from_jax_decode_params(cls, tree, config: GPTConfig, device=None):
-        """Build the port's module from the JAX decode pytree given as
+        """Build the port's model from the JAX decode pytree given as
         numpy arrays (``jax.tree.map(np.asarray,
         jax_model.decode_params())``).  Reads only the dict of arrays —
         no JAX import.  Every leaf must be float and shaped as
@@ -191,18 +284,31 @@ class GPT(nn.Module):
             copy(mine, tree, want, "")
         return model
 
+    # ---- inference path ------------------------------------------------
     def decode_params(self) -> dict:
-        """The parameters as the JAX-layout nested dict of tensors
-        (sharing storage with the module)."""
-        def group(g):
-            return {k: v.detach() for k, v in g.items()}
+        """The parameters as the JAX decode pytree (float path of
+        ``_build_decode_params``): a nested dict of tensors that share
+        storage with the layers' parameters (``{W, b}`` Linears with
+        ``W`` as (in, out), ``{g, b}`` LayerNorms)."""
+        self._materialize()
 
-        out = {"tok": self.tok.detach(), "lnf": group(self.lnf),
-               "head": group(self.head),
-               "blocks": [{n: group(g) for n, g in b.items()}
-                          for b in self.blocks]}
+        def lin(lay):
+            return {"W": lay.W.data.detach(), "b": lay.b.data.detach()}
+
+        def ln(lay):
+            return {"g": lay.scale.data.detach(), "b": lay.bias.data.detach()}
+
+        blocks = []
+        for blk in self.blocks:
+            a = blk.attn
+            blocks.append({
+                "ln1": ln(blk.ln1), "ln2": ln(blk.ln2),
+                "q": lin(a.Wq), "k": lin(a.Wk), "v": lin(a.Wv),
+                "o": lin(a.Wo), "f1": lin(blk.fc1), "f2": lin(blk.fc2)})
+        out = {"tok": self.tok.W.data.detach(), "lnf": ln(self.ln_f),
+               "head": lin(self.head), "blocks": blocks}
         if self.pos is not None:
-            out["pos"] = self.pos.detach()
+            out["pos"] = self.pos.W.data.detach()
         return out
 
 

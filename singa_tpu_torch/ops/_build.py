@@ -32,6 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
 # kernel library name -> source file under csrc/
 SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "paged_decode": "paged_decode.cu",
 }
 

@@ -50,6 +50,9 @@ def test_package_imports_without_jax():
             "sys.modules['singa_tpu'] = None\n"
             "import singa_tpu_torch, singa_tpu_torch.serving\n"
             "import singa_tpu_torch.models.gpt\n"
+            "import singa_tpu_torch.tensor, singa_tpu_torch.autograd\n"
+            "import singa_tpu_torch.layer, singa_tpu_torch.model\n"
+            "import singa_tpu_torch.opt, singa_tpu_torch.device\n"
             "import singa_tpu_torch.ops.flash_attention\n"
             "import singa_tpu_torch.ops.paged_attention\n"
             "import singa_tpu_torch.ops._build\n"

@@ -14,6 +14,9 @@ from singa_tpu import opt, tensor
 from singa_tpu.models import gpt
 from singa_tpu.serving import ServingEngine
 from singa_tpu_torch import resolve_device
+from singa_tpu_torch.layer import Linear as TLinear
+from singa_tpu_torch.model import Model as TModel
+from singa_tpu_torch.tensor import Tensor as TTensor
 from singa_tpu_torch.models import gpt as tgpt
 from singa_tpu_torch.serving import PagedKVCache
 from singa_tpu_torch.serving import ServingEngine as TorchEngine
@@ -224,6 +227,15 @@ def test_out_of_slice_submit_arguments_raise(served, kw):
         eng.submit(_stream(cfg.vocab_size, 4), 4, **kw)
 
 
+class _Plain(TModel):
+    def __init__(self):
+        super().__init__()
+        self.fc = TLinear(2)
+
+    def forward(self, x):
+        return self.fc(x)
+
+
 def test_no_silent_cpu(monkeypatch, served):
     _, tm, _ = served
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -235,4 +247,10 @@ def test_no_silent_cpu(monkeypatch, served):
         tgpt.GPT(tgpt.GPTConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedKVCache(1, 2, 2, 8, 16, 64)
+    # the training path's entry points: a Tensor, a model's compile with
+    # host inputs and no device named
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TTensor(data=np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _Plain().compile([np.zeros((1, 4), np.float32)])
     assert resolve_device("cpu") == torch.device("cpu")
