@@ -223,14 +223,14 @@ def phase_flash():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
-def _swept_pairs(BH, T, S, causal):
-    """(query, key) pairs the reference's sweep covers on real rows and
-    columns: all, or with ``causal`` those up to each row's diagonal
-    128-block."""
+def _needed_pairs(BH, T, S, causal):
+    """(query, key) pairs the function needs when no row is fully
+    masked: all, or with ``causal`` row r's first min(S, r + 1) columns.
+    The rest of the reference's diagonal 128-block is a tiling choice:
+    those pairs give exactly zero unless a row is fully masked."""
     if not causal:
         return BH * T * S
-    rows = np.arange(T)
-    return BH * int(np.minimum(S, (rows // 128 + 1) * 128).sum())
+    return BH * int(np.minimum(S, np.arange(T) + 1).sum())
 
 
 def _bwd_inputs(g, B, H, T, S, d, mask, causal):
@@ -311,7 +311,7 @@ def phase_flash_bwd():
     sdpa_fwd = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True))
     BH = B * H
-    pairs = _swept_pairs(BH, T, T, True)
+    pairs = _needed_pairs(BH, T, T, True)
     qkv_bytes = 4 * BH * T * d
     ins = 4 * qkv_bytes + 2 * 4 * BH * T              # q,k,v,dO; lse,delta
     rows = {}
@@ -324,7 +324,7 @@ def phase_flash_bwd():
         _log(f"{name} training shape: kernel {ms:.4f} ms, plain {plain:.4f} "
              f"ms, sdpa backward (dq, dk, dv together) {sdpa_bwd:.4f} ms, "
              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
-             f"{flops / 1e9:.3f} GFLOP over {pairs} swept pairs)")
+             f"{flops / 1e9:.3f} GFLOP over {pairs} causal pairs)")
         err = errs["train(causal)"][0 if outs == 1 else 1]
         rows[name] = {
             "name": name, "route": "cuda",

@@ -14,6 +14,8 @@ Graph mode: the reference traces the whole step into one XLA program
 under ``use_graph=True``.  PyTorch runs eagerly and needs no ``jit``, so
 ``use_graph=True`` is accepted and runs the same eager step; capturing
 the step in a CUDA graph is a later PR (``ROADMAP.md`` queue 1, item 4).
+``sequential`` is accepted and ignored, as in the reference, which stores
+it and reads it nowhere.
 A ``precision`` other than None / ``"float32"``, a ``communicator``, a
 ``mesh``, ``debug`` and ``lint`` raise ``NotImplementedError`` naming
 their slice.
@@ -41,8 +43,6 @@ class Model(Layer):
     def __init__(self, name=None):
         super().__init__(name)
         self.training = True
-        self.graph_mode = False
-        self.sequential = False
         self.optimizer = None
         self.device = None
         self._user_tob = None
@@ -103,7 +103,8 @@ class Model(Layer):
         (reference: ``Model.compile``).  The state follows the first
         input's device; numpy or torch inputs go to the model's device
         (the card when it has none).  ``use_graph=True`` runs the same
-        eager step (see the module docstring).  Returns the placeholder
+        eager step and ``sequential`` is ignored (see the module
+        docstring).  Returns the placeholder
         pass's output."""
         if precision not in (None, "float32"):
             _not_ported(f"precision={precision!r}", "item 4 (precision.py)")
@@ -121,8 +122,6 @@ class Model(Layer):
         xs = [self._as_input(x) for x in inputs]
         for t in self.get_states().values():   # eagerly created params
             t.to_device(self.device)
-        self.graph_mode = use_graph
-        self.sequential = sequential
         self.train(is_train)
         out = self._placeholder_pass(xs)
         # intercept the subclass's train_one_batch with the wrapper

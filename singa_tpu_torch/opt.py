@@ -212,18 +212,21 @@ class Adam(Optimizer):
         self.weight_decay = weight_decay
 
     def _apply(self, param, g):
+        if self.weight_decay:
+            g = g + self.weight_decay * param.data
+        self._adam_update(param, g)
+
+    def _adam_update(self, param, g):
+        """The moments and the bias-corrected step, on ``g`` as given."""
         lr = float(self.lr(self.step_counter))
         t = _f32(self.step_counter) + _f32(1.0)
         bc1 = float(_f32(1.0) - np.power(_f32(self.beta_1), t))
         bc2 = float(_f32(1.0) - np.power(_f32(self.beta_2), t))
-        p = param.data
-        if self.weight_decay:
-            g = g + self.weight_decay * p
         st = self._state_for(param, ("m", "v"))
         m, v = st["m"].data, st["v"].data
         m.mul_(self.beta_1).add_((1 - self.beta_1) * g)
         v.mul_(self.beta_2).add_((1 - self.beta_2) * (g * g))
-        p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + self.epsilon))
+        param.data.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + self.epsilon))
 
 
 class AdamW(Adam):
@@ -232,12 +235,7 @@ class AdamW(Adam):
     moments."""
 
     def _apply(self, param, g):
-        wd = self.weight_decay
-        self.weight_decay = 0.0
-        try:
-            if wd:
-                lr = _f32(self.lr(self.step_counter))
-                param.data.mul_(float(_f32(1.0) - lr * _f32(wd)))
-            super()._apply(param, g)
-        finally:
-            self.weight_decay = wd
+        if self.weight_decay:
+            lr = _f32(self.lr(self.step_counter))
+            param.data.mul_(float(_f32(1.0) - lr * _f32(self.weight_decay)))
+        self._adam_update(param, g)

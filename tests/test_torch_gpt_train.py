@@ -7,13 +7,17 @@ forward and backward) and False, and with rope.
 Weights cross by name: the JAX states after compile go into
 ``GPT.from_jax_states``; both then take 3 Adam steps on the same numpy
 batches.  Tolerances: losses to a relative 1e-5 (float32, summation order
-only); parameters atol 1e-5, except the attention key biases, whose exact
-gradient is zero (a per-row shift of the scores leaves softmax unchanged),
-so Adam's normalised step turns float noise of either sign into up to lr
-per step: for those atol is 2 * lr * steps.  The trained port model's
-``decode_params()`` matches the JAX ``decode_params()`` leaf for leaf at the
-same tolerances, and the port's ServingEngine gives the same greedy tokens
-on the port-trained model as on the JAX-trained weights."""
+only); parameters atol 1e-5.  The attention key biases carry no signal:
+their exact gradient is zero (a per-row shift of the scores leaves softmax
+unchanged), so each side's gradient there is float noise, which Adam's
+normalised step turns into a move of either sign.  They are not compared
+across the two sides; instead each side must have moved them no further
+from the starting weights than Adam can move any entry in that many steps
+(``_adam_max_move``, about lr a step), plus an ulp a step.  The trained
+port model's ``decode_params()`` matches the JAX ``decode_params()`` leaf
+for leaf at the same tolerances, and the port's ServingEngine gives the
+same greedy tokens on the port-trained model as on the JAX-trained
+weights."""
 
 import jax
 import numpy as np
@@ -55,8 +59,38 @@ def _batches(vocab):
     return out
 
 
-def _atol(name):
-    return 2 * LR * STEPS if name.endswith("Wk.b") else ATOL
+def _adam_max_move(steps, b1=0.9, b2=0.999):
+    """The most Adam (bias-corrected, constant lr) moves one entry in
+    ``steps`` steps: step t moves it by lr * sum_i w_i g_i / sqrt(sum_i
+    u_i g_i^2) (w, u the bias-corrected moment weights), at most
+    lr * sqrt(sum_i w_i^2 / u_i) by Cauchy-Schwarz."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        age = t - np.arange(1, t + 1)
+        w = (1 - b1) * b1 ** age / (1 - b1 ** t)
+        u = (1 - b2) * b2 ** age / (1 - b2 ** t)
+        total += np.sqrt((w * w / u).sum())
+    return LR * total
+
+
+def _no_signal(name):
+    """Attention key biases (state ``*.Wk.b``, decode leaf ``*].k.b``)."""
+    return name.endswith("Wk.b") or name.endswith("].k.b")
+
+
+def _assert_leaf(name, got, want, start, steps):
+    """``got`` against ``want`` at ATOL; a no-signal leaf instead checks
+    that each side moved at most Adam's bound from ``start``."""
+    if not _no_signal(name):
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL,
+                                   err_msg=name)
+        return
+    bound = _adam_max_move(steps)
+    bound += steps * float(np.spacing(np.float32(np.abs(start).max()
+                                                 + bound)))
+    for side, a in (("port", got), ("jax", want)):
+        moved = float(np.abs(np.asarray(a) - start).max())
+        assert moved <= bound, f"{name} ({side}) moved {moved} > {bound}"
 
 
 @pytest.fixture(scope="module", params=list(CONFIGS))
@@ -123,9 +157,9 @@ def test_losses_match_jax(trained):
 
 def test_params_and_adam_state_match_jax(trained):
     tm, js = trained["tm"], trained["j_states"]
+    start = trained["start"]
     for name, t in tm.get_states().items():
-        np.testing.assert_allclose(t.numpy(), js[name], rtol=0,
-                                   atol=_atol(name), err_msg=name)
+        _assert_leaf(name, t.numpy(), js[name], start[name], STEPS)
     to = tm.optimizer.get_states()
     jo = trained["j_opt"]
     assert set(to) == set(jo)
@@ -138,14 +172,17 @@ def test_params_and_adam_state_match_jax(trained):
 
 
 def test_decode_params_match_jax(trained):
-    got = dict(_leaves(jax.tree.map(lambda t: t.numpy(),
-                                    trained["tm"].decode_params())))
+    def numpy_leaves(model):
+        return dict(_leaves(jax.tree.map(lambda t: t.numpy(),
+                                         model.decode_params())))
+
+    got = numpy_leaves(trained["tm"])
+    start = numpy_leaves(tgpt.GPT.from_jax_states(
+        trained["start"], trained["cfg"], device="cpu"))
     want = dict(_leaves(trained["j_decode"]))
-    assert got.keys() == want.keys()
+    assert got.keys() == want.keys() == start.keys()
     for name, a in want.items():
-        atol = 2 * LR * STEPS if name.endswith("].k.b") else ATOL
-        np.testing.assert_allclose(got[name], a, rtol=0, atol=atol,
-                                   err_msg=name)
+        _assert_leaf(name, got[name], a, start[name], STEPS)
 
 
 def test_port_trained_model_serves_like_the_jax_weights(trained):
@@ -179,6 +216,6 @@ def test_optimizer_continues_from_jax_state(trained):
     tm.eval()
     np.testing.assert_allclose(loss, trained["j_loss4"], rtol=1e-5, atol=0)
     for name, t in tm.get_states().items():
-        np.testing.assert_allclose(t.numpy(), trained["j_states4"][name],
-                                   rtol=0, atol=_atol(name), err_msg=name)
+        _assert_leaf(name, t.numpy(), trained["j_states4"][name],
+                     trained["start"][name], STEPS + 1)
     assert tm.optimizer.get_states()["opt_step"] == STEPS + 1
