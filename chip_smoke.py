@@ -19,27 +19,39 @@ Phases (any failure exits non-zero before the result lines print):
    vec masks, fully masked rows, causal with a dense mask); times at the
    training shape for each kernel, its plain version and the backward
    of ``scaled_dot_product_attention``, and the forward's there too;
-5. paged decode attention: kernel against its plain version at the
-   serving shape (8 slots, 12 heads, d 64, 16-token pages, 64 pages a
-   slot, NULL tails, mid-page positions), plus 8-, 12- and 32-token
-   pages at head dims 64, 32 and 128;
+5. paged decode attention, every variant (float32 pages; bfloat16
+   pages, the storage override; int8 pages with bf16 and with fp32
+   scales) against its plain version at the serving shape (8 slots, 12
+   heads, d 64, 16-token pages, 64 pages a slot, NULL tails, mid-page
+   positions), plus 8-, 12- and 32-token pages at head dims 64, 32 and
+   128; times and byte bounds of the float32 and int8 variants at the
+   serving shape;
 6. the serving path: the paged, chunked ``ServingEngine`` on GPT-2-small
    dimensions (fp32, seeded random weights carried in through
    ``GPT.from_jax_decode_params``) serves 8 staggered requests (one
    sampled, the rest greedy); two greedy requests are replayed through
    the port on the CPU and their tokens compared;
-7. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
+7. the quantized serving path: the same weights and stream served with
+   ``kv_dtype="int8", weight_dtype="int8"`` (the model on the host, the
+   engine on the card); the int8 kernel must launch and neither float
+   kernel; a fresh engine must replay every request's tokens; the pool
+   must hold exactly (d_head + 2) / (2 d_head) of a bf16-storage pool's
+   bytes; the teacher-forced drift over a 256-token prompt (int8 against
+   float params and pages) must hold the reference's committed
+   tolerances; two greedy requests are replayed on the CPU; tokens/s,
+   TTFT, KV and weight bytes and peak memory print beside phase 6's;
+8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
    of ``train_one_batch`` with Adam at B 8, T 1024 (loss, step time,
    tokens/s, peak memory; the loss must fall; exactly 12 launches of
    each flash kernel a step);
-8. one full-width training step (B 1, T 128) from the trained weights on
+9. one full-width training step (B 1, T 128) from the trained weights on
    the card and in the port on the CPU: loss and every gradient compared;
-9. the trained model serves 2 requests through the ``ServingEngine``;
-10. one ``kernels`` JSON line, then the result line.
+10. the trained model serves 2 requests through the ``ServingEngine``;
+11. one ``kernels`` JSON line, then the result line.
 
-The kernels' launch counters are zeroed just before each path (6 and 7)
-and read just after it; a kernel's ``launches`` is the sum over the two,
-``launches_by_path`` splits it.
+The kernels' launch counters are zeroed just before each path (6, 7 and
+8) and read just after it; a kernel's ``launches`` is the sum over the
+three, ``launches_by_path`` splits it.
 
     python3 chip_smoke.py --profile [serve|train]
 
@@ -57,6 +69,7 @@ bytes moved (each input read once, each output written once) over
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -77,6 +90,7 @@ from singa_tpu_torch.ops import _build  # noqa: E402
 from singa_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from singa_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from singa_tpu_torch.serving import ServingEngine  # noqa: E402
+from singa_tpu_torch.serving.engine import _to_device  # noqa: E402
 from singa_tpu_torch.tensor import Tensor as TTensor  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
@@ -85,6 +99,10 @@ FLASH_TOL = 1e-4
 PAGED_TOL = 1e-4
 MARGIN_TOL = 1e-3
 REPS = 30
+# the reference's committed drift tolerances for int8 serving
+# (tests/test_quantized_serving.py), over a DRIFT_T-token prompt
+LOGIT_MAE_TOL, LOGIT_MAX_TOL, LOG_PPL_TOL = 0.05, 0.25, 0.02
+DRIFT_T = 256
 
 # serving configuration of phase 5 (GPT-2-small widths, 12 layers)
 N_SLOTS, PAGE, CHUNK, HORIZON, NEW = 8, 16, 64, 8, 32
@@ -345,14 +363,28 @@ def phase_flash_bwd():
         fwd_train
 
 
-def _paged_case(seed, S, H, d, P, Ps, pos_h):
+def _paged_case(seed, S, H, d, P, Ps, pos_h, variant="f32"):
     """Random pools of ``S * Ps + 1`` pages; each slot's table holds
-    distinct pages up to its position and NULL (page 0) after it."""
+    distinct pages up to its position and NULL (page 0) after it.
+    ``variant``: ``f32`` or ``bf16`` pages, or int8 pages with
+    ``int8_bf16`` / ``int8_f32`` scales in [0.002, 0.03).  Returns the
+    positional operands and the scale keywords."""
     N = S * Ps + 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(S, H, d, generator=g, device="cuda")
-    kp = torch.randn(N, H, P, d, generator=g, device="cuda")
-    vp = torch.randn(N, H, P, d, generator=g, device="cuda")
+    scales = {}
+    if variant.startswith("int8"):
+        kp, vp = (torch.randint(-127, 128, (N, H, P, d), generator=g,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        sd = torch.bfloat16 if variant == "int8_bf16" else torch.float32
+        scales = {k: (0.002 + 0.028 * torch.rand(N, H, P, generator=g,
+                                                 device="cuda")).to(sd)
+                  for k in ("k_scales", "v_scales")}
+    else:
+        kp, vp = (torch.randn(N, H, P, d, generator=g, device="cuda").to(
+            torch.bfloat16 if variant == "bf16" else torch.float32)
+            for _ in range(2))
     pos_h = np.asarray(pos_h, np.int32)
     rng = np.random.RandomState(seed)
     free = list(rng.permutation(np.arange(1, N)))
@@ -361,51 +393,85 @@ def _paged_case(seed, S, H, d, P, Ps, pos_h):
         n = pos_h[s] // P + 1
         table_h[s, :n] = [free.pop() for _ in range(n)]
     return (q, kp, vp, torch.from_numpy(table_h).cuda(),
-            torch.from_numpy(pos_h).cuda())
+            torch.from_numpy(pos_h).cuda()), scales
+
+
+# the paged decode variants: float32 pages (the float path), bfloat16
+# pages (the storage override), int8 pages with bf16 / fp32 scales
+PAGED_VARIANTS = ("f32", "bf16", "int8_bf16", "int8_f32")
+
+
+def _paged_bound(args, scales, P, pos_h):
+    """Bytes the function must move at a case's live pages (q, table,
+    pos in; out; each live page's K and V rows, and their scales, once)
+    and float32 operations (two products of 2 flop a multiply-add), and
+    the bound they give."""
+    q, kp, _, table, _ = args
+    S, H, d = q.shape
+    live_pages = int((pos_h // P + 1).sum())
+    live_cols = int((pos_h + 1).sum())
+    nbytes = 4 * (2 * q.numel() + table.numel() + S) \
+        + 2 * live_pages * H * P * d * kp.element_size()
+    if scales:
+        nbytes += 2 * live_pages * H * P * scales["k_scales"].element_size()
+    flops = 4 * H * d * live_cols
+    return nbytes, flops, live_pages, _bound(nbytes, flops)
 
 
 def phase_paged():
+    """Every variant against its plain version at the serving shape and
+    on ragged cases; times and bounds of the float32 and the int8
+    (bf16-scale) variants at the serving shape.  Returns the float row
+    and the int8 row of the kernels line."""
     S, H, d, P, Ps = N_SLOTS, 12, 64, PAGE, 1024 // PAGE
     pos_h = np.array([100, 257, 511, 30, 700, 1023, 5, 300], np.int32)
-    cases = {"serving": _paged_case(1, S, H, d, P, Ps, pos_h)}
+    shapes = {"serving": (1, S, H, d, P, Ps, pos_h)}
     # other page sizes and head dims, positions on and off page edges
     for seed, (dd, PP, pp) in enumerate(((64, 8, [7, 8, 0, 250]),
                                          (32, 12, [11, 12, 131, 0]),
                                          (128, 32, [31, 32, 500, 1]))):
-        cases[f"d{dd} P{PP}"] = _paged_case(2 + seed, len(pp), 4, dd, PP,
-                                            -(-512 // PP), pp)
-    err_serving = None
-    for name, args in cases.items():
-        got = pa.paged_decode_attention(*args)
-        ref = pa.paged_decode_attention_reference(*args)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= PAGED_TOL
-        _log(f"paged decode {name}: max_abs_err {err:.3e} (tol "
-             f"{PAGED_TOL:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"paged decode {name} disagrees with its "
-                                 f"plain version: {err}")
-        if err_serving is None:
-            err_serving = err
-    q, kp, vp, table, pos = cases["serving"]
-    ms = _time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table, pos))
-    plain_ms = _time_ms(lambda: pa.paged_decode_attention_reference(
-        q, kp, vp, table, pos))
-    live_pages = int((pos_h // P + 1).sum())
-    live_cols = int((pos_h + 1).sum())
-    nbytes = 4 * (2 * q.numel() + S * Ps + S) \
-        + 2 * live_pages * H * P * d * 4        # live K and V pages
-    flops = 4 * H * d * live_cols
-    bound_ms, bound_by = _bound(nbytes, flops)
-    _log(f"paged decode serving shape: kernel {ms:.4f} ms, plain "
-         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-         f"{nbytes / 1e6:.2f} MB over {live_pages} live pages)")
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "singa_tpu_torch/ops/csrc/paged_decode.cu",
-            "replaces": "singa_tpu/ops/paged_attention.py:45",
-            "max_abs_err": err_serving, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        shapes[f"d{dd} P{PP}"] = (2 + seed, len(pp), 4, dd, PP,
+                                  -(-512 // PP), pp)
+    err_serving, cases = {}, {}
+    for variant in PAGED_VARIANTS:
+        for name, shape in shapes.items():
+            args, scales = _paged_case(*shape, variant=variant)
+            got = pa.paged_decode_attention(*args, **scales)
+            ref = pa.paged_decode_attention_reference(*args, **scales)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= PAGED_TOL
+            _log(f"paged decode {variant} {name}: max_abs_err {err:.3e} "
+                 f"(tol {PAGED_TOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"paged decode {variant} {name} "
+                                     f"disagrees with its plain version: "
+                                     f"{err}")
+            err_serving.setdefault(variant, err)
+            cases.setdefault(variant, (args, scales))
+    rows = []
+    for variant, name, replaces in (
+            ("f32", "paged_decode_attention",
+             "singa_tpu/ops/paged_attention.py:45"),
+            ("int8_bf16", "paged_decode_attention_q8",
+             "singa_tpu/ops/paged_attention.py:53")):
+        args, scales = cases[variant]
+        ms = _time_ms(lambda: pa.paged_decode_attention(*args, **scales))
+        plain_ms = _time_ms(lambda: pa.paged_decode_attention_reference(
+            *args, **scales))
+        nbytes, _, live_pages, (bound_ms, bound_by) = _paged_bound(
+            args, scales, P, pos_h)
+        _log(f"paged decode {variant} serving shape: kernel {ms:.4f} ms, "
+             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+             f"({bound_by}: {nbytes / 1e6:.3f} MB over {live_pages} live "
+             f"pages)")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "singa_tpu_torch/ops/csrc/paged_decode.cu",
+                     "replaces": replaces,
+                     "max_abs_err": err_serving[variant], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows
 
 
 def _requests(cfg):
@@ -419,26 +485,42 @@ def _requests(cfg):
     return prompts
 
 
-def _cpu_margin(cpu_model, tokens):
-    """Top-2 logit margin at the end of ``tokens``, from the port's
-    plain path on the CPU (one chunk over fresh pages)."""
-    cfg = cpu_model.config
-    params = cpu_model.decode_params()
-    H, D = cfg.n_heads, cfg.d_model
+def _prefill_logits(params, cfg, tokens, quant, device):
+    """Logits at every position of ``tokens`` from the port's paged
+    prefill blocks (one chunk over fresh pages on ``device``), with
+    float or int8 ``params`` and pages (int8 rows, bf16 scales)."""
+    H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
     T = len(tokens)
     n_pages = -(-T // PAGE)
-    pages = [(torch.zeros(n_pages + 1, H, PAGE, D // H),
-              torch.zeros(n_pages + 1, H, PAGE, D // H))
+    shape = (n_pages + 1, H, PAGE, dh)
+
+    def zeros(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=device)
+
+    pages = [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+              zeros(shape[:3], torch.bfloat16),
+              zeros(shape[:3], torch.bfloat16)) if quant
+             else (zeros(shape, torch.float32), zeros(shape, torch.float32))
              for _ in range(cfg.n_layers)]
-    row = torch.arange(1, n_pages + 1, dtype=torch.int32)
-    positions = torch.arange(T)
-    ids = torch.from_numpy(np.asarray(tokens, np.int32))[None]
+    row = torch.arange(1, n_pages + 1, dtype=torch.int32, device=device)
+    positions = torch.arange(T, device=device)
+    ids = torch.from_numpy(np.asarray(tokens, np.int32)).to(device)[None]
     with torch.no_grad():
         h = tgpt._embed(params, ids, positions, cfg.use_rope)
-        for bp, (kp, vp) in zip(params["blocks"], pages):
-            h, _, _ = tgpt._block_chunk_prefill_paged(
-                bp, h, kp, vp, row, positions, H, 1.0 / np.sqrt(D // H))
-        lg = tgpt._logits(params, h[:, -1:])[0, 0]
+        for bp, kv in zip(params["blocks"], pages):
+            kp, vp, ks, vs = tgpt._layer_kv(kv)
+            h = tgpt._block_chunk_prefill_paged(
+                bp, h, kp, vp, row, positions, H, 1.0 / np.sqrt(dh),
+                cfg.use_rope, cfg.rope_base, k_scale=ks, v_scale=vs)[0]
+        return tgpt._logits(params, h)[0]
+
+
+def _cpu_margin(cpu_model, tokens, weight_dtype=None):
+    """Top-2 logit margin at the end of ``tokens``, from the port's
+    plain path on the CPU (float, or int8 weights and pages)."""
+    params = cpu_model.decode_params(weight_dtype)
+    lg = _prefill_logits(params, cpu_model.config, tokens,
+                         weight_dtype is not None, "cpu")[-1]
     top = torch.topk(lg, 2).values
     return float(top[0] - top[1])
 
@@ -468,16 +550,33 @@ def _slice_setup():
     kw = dict(n_slots=N_SLOTS, page_tokens=PAGE, chunk_tokens=CHUNK,
               decode_horizon=HORIZON)
     prompts = _requests(cfg)
-    warm = ServingEngine(model, **kw)
-    warm.submit(prompts[0][:80], 9)
-    warm.run()
-    torch.cuda.synchronize()
+    _warm(model, kw, prompts)
     return cfg, tree, model, kw, prompts
 
 
-def phase_slice():
-    cfg, tree, model, kw, prompts = _slice_setup()
-    eng = ServingEngine(model, **kw)
+def _warm(model, kw, prompts, device=None):
+    warm = ServingEngine(model, device=device, **kw)
+    warm.submit(prompts[0][:80], 9)
+    warm.run()
+    torch.cuda.synchronize()
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _drive(eng, prompts, cfg, label):
+    """The serving path once: counts zeroed and peak memory reset just
+    before the staggered stream, both read just after.  Checks that
+    every request completed with valid tokens.  Returns ``(rids, res,
+    launches, stats)``."""
+    gc.collect()                    # earlier paths' engines and models
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
     rids, res = _serve(eng, prompts)
@@ -485,51 +584,165 @@ def phase_slice():
     wall = time.perf_counter() - t0
     launches = _read_launches()
     snap = eng.metrics.snapshot()
-    _log("slice launches " + json.dumps(launches))
-    _log(f"slice: {len(res)} requests in {wall:.3f}s; "
+    stats = {"wall_s": wall, "tokens_per_s": snap["tokens_per_s"],
+             "ttft_p50_ms": snap["ttft_p50_ms"],
+             "kv_bytes_committed": snap["kv_bytes_committed"],
+             "weight_bytes": _tree_bytes(eng.params),
+             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    _log(f"{label} launches " + json.dumps(launches))
+    _log(f"{label}: {len(res)} requests in {wall:.3f}s; "
          f"ttft_p50_ms {snap['ttft_p50_ms']} itl_p50_ms {snap['itl_p50_ms']}"
          f" itl_p99_ms {snap['itl_p99_ms']} tokens_per_s "
          f"{snap['tokens_per_s']} prefix_cache_hit_rate "
          f"{snap['prefix_cache_hit_rate']} host_syncs_per_token "
          f"{snap['host_syncs_per_token']} uploads_per_token "
-         f"{snap['uploads_per_token']}")
-    _log("slice metrics " + json.dumps(snap))
+         f"{snap['uploads_per_token']} kv_bytes_committed "
+         f"{stats['kv_bytes_committed']} weight_bytes "
+         f"{stats['weight_bytes']} peak_memory_bytes "
+         f"{stats['peak_memory_bytes']}")
+    _log(f"{label} metrics " + json.dumps(snap))
     if len(res) != len(prompts):
-        raise AssertionError(f"{len(res)} of {len(prompts)} requests "
-                             f"completed")
+        raise AssertionError(f"{label}: {len(res)} of {len(prompts)} "
+                             f"requests completed")
     for r in rids:
         toks = res[r]
         if toks.shape != (NEW,) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {r}: bad tokens {toks}")
+            raise AssertionError(f"{label} request {r}: bad tokens {toks}")
+    return rids, res, launches, stats
+
+
+def _cpu_oracle(cpu_model, kw, prompts, res, rids, weight_dtype=None):
+    """The prefix-sharing pair of greedy requests through the port on
+    the CPU: identical tokens, or a first difference where the CPU's
+    top-2 logit margin is below ``MARGIN_TOL``."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    qkw = {} if weight_dtype is None else dict(kv_dtype="int8",
+                                               weight_dtype=weight_dtype)
+    ceng = ServingEngine(cpu_model, device="cpu",
+                         **dict(kw, n_slots=2, **qkw))
+    pair = [1, 6]
+    crids = [ceng.submit(prompts[i], NEW) for i in pair]
+    cres = ceng.run()
+    tag = "int8 " if weight_dtype else ""
+    for i, cr in zip(pair, crids):
+        a, b = res[rids[i]], cres[cr]
+        if np.array_equal(a, b):
+            _log(f"{tag}oracle request {i}: {NEW} greedy tokens identical "
+                 f"to the CPU run")
+            continue
+        j = int(np.flatnonzero(a != b)[0])
+        margin = _cpu_margin(cpu_model, np.concatenate([prompts[i], a[:j]]),
+                             weight_dtype)
+        _log(f"{tag}oracle request {i}: first difference at token {j}, "
+             f"CPU top-2 logit margin {margin:.3e}")
+        if margin >= MARGIN_TOL:
+            raise AssertionError(f"{tag}request {i} differs from the CPU "
+                                 f"run at token {j} with margin {margin}")
+
+
+def phase_slice():
+    cfg, tree, model, kw, prompts = _slice_setup()
+    eng = ServingEngine(model, **kw)
+    rids, res, launches, stats = _drive(eng, prompts, cfg, "slice")
     for name in ("flash_attention_fwd", "paged_decode_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"serving path")
-    if snap["prefix_cache_hit_rate"] <= 0:
+    if eng.metrics.snapshot()["prefix_cache_hit_rate"] <= 0:
         raise AssertionError("the shared 64-token prefix was not reused")
-
-    # oracle: the prefix-sharing pair through the port on the CPU
-    torch.set_num_threads(os.cpu_count() or 1)
+    del eng, model
     cpu_model = tgpt.GPT.from_jax_decode_params(tree, cfg, device="cpu")
-    ceng = ServingEngine(cpu_model, device="cpu", **dict(kw, n_slots=2))
-    pair = [1, 6]
-    crids = [ceng.submit(prompts[i], NEW) for i in pair]
-    cres = ceng.run()
-    for i, cr in zip(pair, crids):
-        a, b = res[rids[i]], cres[cr]
-        if np.array_equal(a, b):
-            _log(f"oracle request {i}: {NEW} greedy tokens identical to "
-                 f"the CPU run")
-            continue
-        j = int(np.flatnonzero(a != b)[0])
-        margin = _cpu_margin(cpu_model, np.concatenate([prompts[i], a[:j]]))
-        _log(f"oracle request {i}: first difference at token {j}, CPU "
-             f"top-2 logit margin {margin:.3e}")
-        if margin >= MARGIN_TOL:
-            raise AssertionError(f"request {i} differs from the CPU run at "
-                                 f"token {j} with margin {margin}")
-    return launches, snap
+    _cpu_oracle(cpu_model, kw, prompts, res, rids)
+    return launches, stats, (cfg, kw, prompts, cpu_model)
+
+
+def _teacher_forced_drift(cpu_model, qparams, cfg):
+    """One 256-token prompt through the prefill blocks on the card,
+    float params and pages against int8 ones: logit MAE, max |delta|
+    and the log-perplexity drift (the prompt's own next tokens)."""
+    tokens = np.random.RandomState(11).randint(
+        0, cfg.vocab_size, DRIFT_T).astype(np.int32)
+    fparams = _to_device(cpu_model.decode_params(), torch.device("cuda"))
+    lf = _prefill_logits(fparams, cfg, tokens, False, "cuda").double()
+    lq = _prefill_logits(qparams, cfg, tokens, True, "cuda").double()
+    del fparams
+    diff = (lq - lf).abs()
+    nxt = torch.from_numpy(tokens[1:].astype(np.int64)).cuda()
+
+    def log_ppl(lg):
+        lp = torch.log_softmax(lg[:-1], dim=-1)
+        return float(-lp.gather(1, nxt[:, None]).mean())
+
+    return {"logit_mae": float(diff.mean()), "logit_max": float(diff.max()),
+            "log_ppl_drift": abs(log_ppl(lq) - log_ppl(lf))}
+
+
+def phase_slice_int8(setup, float_stats):
+    """Quantized serving: the same model (seeded weights on the host,
+    carried in through ``GPT.from_jax_decode_params``) served from the
+    card with int8 KV pages and int8 decode weights, the same staggered
+    stream.  Checks: 8/8 complete; the int8 paged decode kernel launched
+    and neither float kernel; a fresh engine replays identical tokens
+    (greedy and sampled); the pool's bytes are exactly (d_head + 2) /
+    (2 d_head) of a bf16-storage engine's; the teacher-forced drift is
+    within the reference's committed tolerances; the greedy pair agrees
+    with the port on the CPU under the top-2 margin rule."""
+    cfg, kw, prompts, cpu_model = setup
+    qkw = dict(kw, kv_dtype="int8", weight_dtype="int8")
+    _warm(cpu_model, qkw, prompts, device="cuda")      # quantizes, memoised
+    eng = ServingEngine(cpu_model, device="cuda", **qkw)
+    rids, res, launches, stats = _drive(eng, prompts, cfg, "int8 slice")
+    if launches["paged_decode_attention_q8"] <= 0:
+        raise AssertionError("the int8 paged decode kernel was never "
+                             "launched on the quantized serving path")
+    for name in ("flash_attention_fwd", "paged_decode_attention"):
+        if launches[name] != 0:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"on the quantized path")
+    fresh = ServingEngine(cpu_model, device="cuda", **qkw)
+    frids, fres = _serve(fresh, prompts)
+    same = [bool(np.array_equal(res[a], fres[b]))
+            for a, b in zip(rids, frids)]
+    _log(f"int8 determinism: a fresh engine replays {sum(same)} of "
+         f"{len(same)} requests identically (request 3 sampled)")
+    if not all(same):
+        raise AssertionError(f"a fresh int8 engine gave other tokens: "
+                             f"{same}")
+    del fresh
+    dh = cfg.d_model // cfg.n_heads
+    b16 = ServingEngine(cpu_model, device="cuda",
+                        **dict(kw, kv_dtype="bfloat16"))
+    ratio = eng.kv.nbytes() / b16.kv.nbytes()
+    del b16
+    want = (dh + 2) / (2 * dh)
+    f32_ratio = stats["kv_bytes_committed"] / float_stats[
+        "kv_bytes_committed"]
+    _log(f"int8 pool bytes: {eng.kv.nbytes()} = {ratio} of the bf16 pool "
+         f"(want exactly {want}), {f32_ratio} of the float32 slice's "
+         f"{float_stats['kv_bytes_committed']}")
+    if ratio != want or f32_ratio != (dh + 2) / (4 * dh):
+        raise AssertionError(f"int8 pool byte ratio {ratio}, {f32_ratio}")
+    drift = _teacher_forced_drift(cpu_model, eng.params, cfg)
+    _log(f"int8 drift over a {DRIFT_T}-token prompt: logit MAE "
+         f"{drift['logit_mae']:.3e} (tol {LOGIT_MAE_TOL}), max "
+         f"{drift['logit_max']:.3e} (tol {LOGIT_MAX_TOL}), log-perplexity "
+         f"drift {drift['log_ppl_drift']:.3e} (tol {LOG_PPL_TOL})")
+    if not (drift["logit_mae"] <= LOGIT_MAE_TOL
+            and drift["logit_max"] <= LOGIT_MAX_TOL
+            and drift["log_ppl_drift"] <= LOG_PPL_TOL):
+        raise AssertionError(f"int8 drift over tolerance: {drift}")
+    _log("serving, float32 vs int8 (this call): tokens/s "
+         f"{float_stats['tokens_per_s']} vs {stats['tokens_per_s']}; TTFT "
+         f"p50 {float_stats['ttft_p50_ms']} vs {stats['ttft_p50_ms']} ms; "
+         f"kv_bytes_committed {float_stats['kv_bytes_committed']} vs "
+         f"{stats['kv_bytes_committed']}; decode weight bytes "
+         f"{float_stats['weight_bytes']} vs {stats['weight_bytes']}; peak "
+         f"memory {float_stats['peak_memory_bytes']} vs "
+         f"{stats['peak_memory_bytes']} bytes")
+    del eng
+    _cpu_oracle(cpu_model, kw, prompts, res, rids, weight_dtype="int8")
+    return launches, stats | drift
 
 
 def synthetic_stream(vocab, n, seed=0):
@@ -568,14 +781,16 @@ def _train_setup():
 
 
 def _zero_launches():
-    fa.launches = fa.launches_dq = fa.launches_dkv = pa.launches = 0
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    pa.launches = pa.launches_q8 = 0
 
 
 def _read_launches():
     return {"flash_attention_fwd": fa.launches,
             "flash_attention_bwd_dq": fa.launches_dq,
             "flash_attention_bwd_dkv": fa.launches_dkv,
-            "paged_decode_attention": pa.launches}
+            "paged_decode_attention": pa.launches,
+            "paged_decode_attention_q8": pa.launches_q8}
 
 
 def phase_train():
@@ -798,14 +1013,17 @@ def main(argv):
         return 0
     fwd = phase_flash()
     dq, dkv, fwd["train_shape"] = phase_flash_bwd()
-    paged = phase_paged()
-    rows = [fwd, dq, dkv, paged]
-    serve_launches, _ = phase_slice()
+    paged, paged_q8 = phase_paged()
+    rows = [fwd, dq, dkv, paged, paged_q8]
+    serve_launches, serve_stats, setup = phase_slice()
+    int8_launches, _ = phase_slice_int8(setup, serve_stats)
+    del setup
     model, train_launches, _ = phase_train()
     phase_card_vs_cpu(model)
     phase_serve_trained(model)
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
+                   "serve_int8": int8_launches[row["name"]],
                    "train": train_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path

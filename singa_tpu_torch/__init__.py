@@ -10,9 +10,10 @@ Ported so far: GPT training through the framework core
 :mod:`~singa_tpu_torch.layer`, :mod:`~singa_tpu_torch.model`,
 :mod:`~singa_tpu_torch.opt`, :mod:`singa_tpu_torch.models.gpt`), and GPT
 decode serving through the chunked, paged continuous-batching engine
-(:mod:`singa_tpu_torch.serving`), with hand-written CUDA kernels for
-flash-attention forward and backward and paged decode attention
-(:mod:`singa_tpu_torch.ops`).
+(:mod:`singa_tpu_torch.serving`), float or quantized (int8 KV pages and
+per-channel int8 weights, :mod:`~singa_tpu_torch.precision`), with
+hand-written CUDA kernels for flash-attention forward and backward and
+paged decode attention (:mod:`singa_tpu_torch.ops`).
 """
 
 from .device import resolve_device, seeded_generator

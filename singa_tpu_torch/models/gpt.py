@@ -7,17 +7,20 @@ Ported here: the configuration (``GPTConfig`` with ``use_flash`` and
 the port's :class:`~singa_tpu_torch.model.Model` with ``tok``, ``pos``
 (absent with rope), ``blocks``, ``ln_f`` and ``head``, its ``forward``
 and ``train_one_batch``; ``decode_params()``, the JAX decode pytree
-built from those same parameters (``_build_decode_params``, float
-path), so a model trained in the port serves through the engine; and
-the functional decode pieces the paged serving engine runs — the
-chunked paged prefill block (attention through the flash-attention
-kernel with the ``(C, L)`` dense mask) and the paged one-token decode
-block (attention through the paged decode kernel).  ``generate`` and
-the slot and quantized decode paths belong to later slices.
+built from those same parameters (``_build_decode_params``), float or
+with every Linear quantized per output channel, so a model trained in
+the port serves through the engine; the int8 quantization helpers
+(``_quantize_rows``, ``_quantize_channels``); and the functional decode
+pieces the paged serving engine runs — the chunked paged prefill block
+(float pools: attention through the flash-attention kernel with the
+``(C, L)`` dense mask; quantized pools: the reference's einsum with the
+scales folded in) and the paged one-token decode block (attention
+through the paged decode kernel, float or int8).  ``generate`` and the
+slot decode paths belong to later slices.
 
-Unlike JAX's functional updates, the page pools are updated in place:
-each block writes its K/V rows into the pool tensors it was handed and
-returns those same tensors.
+Unlike JAX's functional updates, the page pools (and their scale pools)
+are updated in place: each block writes its K/V rows into the pool
+tensors it was handed and returns those same tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..layer import apply_rope
 from ..model import Model
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_decode_attention
+from ..precision import dtype_name, resolve_dtype
 from ..tensor import Tensor
 
 __all__ = ["GPTConfig", "GPTBlock", "GPT", "bucket_length",
@@ -190,6 +194,8 @@ class GPT(Model):
                        for i in range(c.n_layers)]
         self.ln_f = layer.LayerNorm()
         self.head = layer.Linear(c.vocab_size)
+        # quantized decode trees, by (weight_dtype, scale_dtype) name
+        self._decode_quant: dict = {}
 
     # ---- training path (layer API) ------------------------------------
     def forward(self, ids):
@@ -275,8 +281,10 @@ class GPT(Model):
             if set(src) != set(spec):
                 raise ValueError(f"{path}: keys {sorted(src)}, expected "
                                  f"{sorted(spec)} (quantized decode "
-                                 f"pytrees belong to the quantized-serving "
-                                 f"slice)")
+                                 f"pytrees are not taken: pass the float "
+                                 f"weights and let the engine quantize "
+                                 f"them, ServingEngine(weight_dtype="
+                                 f"'int8'))")
             for k in spec:
                 copy(dst[k], src[k], spec[k], f"{path}.{k}" if path else k)
 
@@ -285,15 +293,36 @@ class GPT(Model):
         return model
 
     # ---- inference path ------------------------------------------------
-    def decode_params(self) -> dict:
-        """The parameters as the JAX decode pytree (float path of
-        ``_build_decode_params``): a nested dict of tensors that share
-        storage with the layers' parameters (``{W, b}`` Linears with
-        ``W`` as (in, out), ``{g, b}`` LayerNorms)."""
-        self._materialize()
+    def decode_params(self, weight_dtype=None,
+                      scale_dtype=torch.bfloat16) -> dict:
+        """The parameters as the JAX decode pytree
+        (``_build_decode_params``): a nested dict of ``{W, b}`` Linears
+        with ``W`` as (in, out) and ``{g, b}`` LayerNorms.  The float tree
+        shares storage with the layers' parameters.
 
+        ``weight_dtype`` (int8): quantized serving — every Linear
+        (q/k/v/o/f1/f2/head) stores a per-output-channel quantized ``W``
+        plus a ``Ws`` scale row in ``scale_dtype``
+        (:func:`_quantize_channels`); LayerNorms and embeddings stay
+        float and shared.  The quantized tree is memoised per
+        ``(weight_dtype, scale_dtype)``: quantization runs once, not per
+        engine or step."""
+        self._materialize()
+        if weight_dtype is None:
+            return self._build_decode_params(None, None)
+        wd, sd = resolve_dtype(weight_dtype), resolve_dtype(scale_dtype)
+        key = (dtype_name(wd), dtype_name(sd))
+        if key not in self._decode_quant:
+            self._decode_quant[key] = self._build_decode_params(wd, sd)
+        return self._decode_quant[key]
+
+    def _build_decode_params(self, weight_dtype, scale_dtype):
         def lin(lay):
-            return {"W": lay.W.data.detach(), "b": lay.b.data.detach()}
+            W, b = lay.W.data.detach(), lay.b.data.detach()
+            if weight_dtype is None:
+                return {"W": W, "b": b}
+            Wq, Ws = _quantize_channels(W, scale_dtype, weight_dtype)
+            return {"W": Wq, "Ws": Ws, "b": b}
 
         def ln(lay):
             return {"g": lay.scale.data.detach(), "b": lay.bias.data.detach()}
@@ -325,7 +354,65 @@ def _ln(x, p, eps=1e-5):
 
 
 def _lin(x, p):
+    # quantized decode weights carry a per-output-channel scale "Ws": the
+    # dequant folds into the matmul OUTPUT, as in the reference (the int8
+    # W is converted to x's dtype on its way into a plain torch.matmul)
+    if "Ws" in p:
+        return (x @ p["W"].to(x.dtype)) * p["Ws"].to(x.dtype) + p["b"]
     return x @ p["W"] + p["b"]
+
+
+# ---- int8 quantization helpers ------------------------------------------
+
+# symmetric-range ceiling per quantized storage format (the reference's
+# table; the port validates int8 only — precision.validate_quant_dtype)
+_QMAX = {"int8": 127.0, "float8_e4m3fn": 448.0, "float8_e5m2": 57344.0}
+
+
+def _quantize_rows(x, scale_dtype=torch.bfloat16, q_dtype=torch.int8):
+    """Symmetric per-vector quantization over the LAST axis (the d_head
+    axis of a K/V row): returns ``(q, scale)`` with
+    ``x ~= q * scale[..., None]``.  The scale is rounded to
+    ``scale_dtype`` BEFORE dividing, so the stored pair dequantises with
+    the exact scale that produced it; rounding is half to even, as
+    ``jnp.round``."""
+    name = dtype_name(q_dtype)
+    qmax = _QMAX[name]
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    sc = (torch.clamp_min(amax, 1e-8) / qmax).to(scale_dtype)
+    q = xf / sc.to(torch.float32)[..., None]
+    if name == "int8":
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+    return q.to(q_dtype), sc
+
+
+def _quantize_channels(W, scale_dtype=torch.bfloat16, q_dtype=torch.int8):
+    """Per-OUTPUT-channel weight quantization: ``W`` (D_in, D_out) ->
+    ``(W_q, Ws (D_out,))`` with ``W ~= W_q * Ws[None, :]``."""
+    name = dtype_name(q_dtype)
+    qmax = _QMAX[name]
+    Wf = W.to(torch.float32)
+    amax = Wf.abs().amax(dim=0)
+    Ws = (torch.clamp_min(amax, 1e-8) / qmax).to(scale_dtype)
+    Wq = Wf / Ws.to(torch.float32)[None, :]
+    if name == "int8":
+        Wq = torch.clamp(torch.round(Wq), -qmax, qmax)
+    return Wq.to(q_dtype), Ws
+
+
+def _layer_kv(kv):
+    """Split one cache layer into ``(k, v, k_scale, v_scale)``: scales
+    are None for the 2-leaf float layout, tensors for the quantized
+    4-leaf layout."""
+    if len(kv) == 4:
+        return tuple(kv)
+    k, v = kv
+    return k, v, None, None
+
+
+def _pack_kv(k, v, k_scale, v_scale):
+    return (k, v) if k_scale is None else (k, v, k_scale, v_scale)
 
 
 def _heads(x, H):
@@ -370,15 +457,31 @@ def _gather_pages(pages, page_rows):
     return g.permute(order).reshape(*lead, H, Ps * P, dh)
 
 
+def _gather_page_scales(scales, page_rows):
+    """:func:`_gather_pages` for the (N, H, P) scale pool ->
+    (..., H, Ps*P), the same column <-> logical-position mapping."""
+    return _gather_pages(scales[..., None], page_rows)[..., 0]
+
+
 def _block_chunk_prefill_paged(bp, h, k_pages, v_pages, page_row,
                                positions, H, scale, rope=False,
-                               base=10000.0):
+                               base=10000.0, k_scale=None, v_scale=None):
     """Chunked-prefill block step over the paged cache: the chunk's K/V
     scatter through the admitting slot's block-table row ``page_row``
-    (Ps,), then attention gathers the row back and runs through the
-    flash-attention kernel under the ``(C, L)`` mask ``col <= position``.
-    Chunk positions past the request's pages land in NULL page 0, which
-    no query attends."""
+    (Ps,), then attention gathers the row back under the ``(C, L)`` mask
+    ``col <= position``.  Chunk positions past the request's pages land
+    in NULL page 0, which no query attends.
+
+    Float pools: attention runs through the flash-attention kernel; the
+    gathered rows are cast to q's dtype first (exact for the bfloat16
+    storage override — what the reference's einsum promotion computes).
+    ``k_scale``/``v_scale`` (N, H, P): the quantized 4-leaf pool.  The
+    rows are quantized on write (:func:`_quantize_rows`) and attention is
+    the reference's own route, an einsum with the K scales folded into
+    the scores and the V scales into the softmax weights: no kernel runs
+    here, on the TPU either, so the flash kernel is not launched on the
+    quantized path.  Returns ``(h, k_pages, v_pages)``, plus the two
+    scale pools when quantized."""
     x = _ln(h, bp["ln1"])
     q, k, v = (_heads(_lin(x, bp[n]), H) for n in ("q", "k", "v"))
     if rope:
@@ -387,30 +490,49 @@ def _block_chunk_prefill_paged(bp, h, k_pages, v_pages, page_row,
     P = k_pages.shape[2]
     phys = page_row.long()[positions // P]                   # (C,)
     offs = positions % P
+    if k_scale is not None:
+        k, ks = _quantize_rows(k, k_scale.dtype, k_pages.dtype)  # (1,H,C)
+        v, vs = _quantize_rows(v, v_scale.dtype, v_pages.dtype)
+        k_scale[phys, :, offs] = ks[0].transpose(0, 1)
+        v_scale[phys, :, offs] = vs[0].transpose(0, 1)
     k_pages[phys, :, offs] = k[0].permute(1, 0, 2).to(k_pages.dtype)
     v_pages[phys, :, offs] = v[0].permute(1, 0, 2).to(v_pages.dtype)
-    kr = _gather_pages(k_pages, page_row)[None]              # (1,H,L,dh)
-    vr = _gather_pages(v_pages, page_row)[None]
+    kr = _gather_pages(k_pages, page_row)[None].to(q.dtype)  # (1,H,L,dh)
+    vr = _gather_pages(v_pages, page_row)[None].to(q.dtype)
     L = kr.shape[2]
     cols = torch.arange(L, device=positions.device)
     mask = torch.where(cols[None] <= positions[:, None], 0.0, -1e9)  # (C, L)
-    ctx = flash_attention(q.contiguous(), kr, vr, mask[None, None],
-                          sm_scale=scale)
+    if k_scale is not None:
+        ksr = _gather_page_scales(k_scale, page_row)[None]   # (1,H,L)
+        vsr = _gather_page_scales(v_scale, page_row)[None]
+        s = torch.einsum("bhtd,bhsd->bhts", q, kr) * scale
+        s = s * ksr.to(s.dtype)[:, :, None, :]
+        s = s + mask[None, None].to(s.dtype)
+        w = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhts,bhsd->bhtd",
+                           w * vsr.to(w.dtype)[:, :, None, :], vr)
+    else:
+        ctx = flash_attention(q.contiguous(), kr, vr, mask[None, None],
+                              sm_scale=scale)
     B, _, C, dh = ctx.shape
     ctx = ctx.permute(0, 2, 1, 3).reshape(B, C, H * dh)
     h = h + _lin(ctx, bp["o"])
     f = F.gelu(_lin(_ln(h, bp["ln2"]), bp["f1"]))
     h = h + _lin(f, bp["f2"])
-    return h, k_pages, v_pages
+    return (h,) + _pack_kv(k_pages, v_pages, k_scale, v_scale)
 
 
 def _block_decode_slots_paged(bp, h, k_pages, v_pages, table, dpos, active,
-                              H, scale, rope=False, base=10000.0):
+                              H, scale, rope=False, base=10000.0,
+                              k_scale=None, v_scale=None):
     """One-token step over the slot batch with paged K/V.  An active slot
     appends into ``table[s, pos // P]`` at offset ``pos % P``; an
     inactive one parks its write at page 0's last offset (its table row
     may be stale and must never be written through).  Attention runs
-    through the paged decode kernel."""
+    through the paged decode kernel.  ``k_scale``/``v_scale`` (N, H, P):
+    the quantized 4-leaf pool — the rows are quantized on write and the
+    kernel's int8 variant folds the scales in.  Returns ``(h, k_pages,
+    v_pages)``, plus the two scale pools when quantized."""
     x = _ln(h, bp["ln1"])                                   # (S, 1, D)
     q = _heads(_lin(x, bp["q"]), H)                         # (S,H,1,dh)
     k1h = _heads(_lin(x, bp["k"]), H)
@@ -424,15 +546,21 @@ def _block_decode_slots_paged(bp, h, k_pages, v_pages, table, dpos, active,
     rows = torch.arange(S, device=dpos.device)
     phys = torch.where(active, table[rows, (dpos // P).long()], 0).long()
     offs = torch.where(active, dpos % P, P - 1).long()
+    if k_scale is not None:
+        k1, k1s = _quantize_rows(k1, k_scale.dtype, k_pages.dtype)  # (S,H)
+        v1, v1s = _quantize_rows(v1, v_scale.dtype, v_pages.dtype)
+        k_scale[phys, :, offs] = k1s
+        v_scale[phys, :, offs] = v1s
     k_pages[phys, :, offs] = k1.to(k_pages.dtype)
     v_pages[phys, :, offs] = v1.to(v_pages.dtype)
     ctx = paged_decode_attention(q[:, :, 0].contiguous(), k_pages, v_pages,
-                                 table, dpos, sm_scale=scale)
+                                 table, dpos, sm_scale=scale,
+                                 k_scales=k_scale, v_scales=v_scale)
     ctx = ctx.reshape(S, 1, -1)                             # (S,1,H*dh)
     h = h + _lin(ctx, bp["o"])
     f = F.gelu(_lin(_ln(h, bp["ln2"]), bp["f1"]))
     h = h + _lin(f, bp["f2"])
-    return h, k_pages, v_pages
+    return (h,) + _pack_kv(k_pages, v_pages, k_scale, v_scale)
 
 
 def decode_slots_iteration_paged(params, pages, table, tok, pos, active,
@@ -442,15 +570,18 @@ def decode_slots_iteration_paged(params, pages, table, tok, pos, active,
     blocks, logits, sampling, and the on-device finish predicate (stop
     token, token budget, non-finite logits).  ``gens`` is a per-slot
     list of ``torch.Generator`` (None for greedy slots) or None; it
-    takes the place of the JAX per-slot keys.  Returns ``(pages, nxt,
-    new_pos, new_active)``."""
+    takes the place of the JAX per-slot keys.  ``pages`` holds one
+    2-leaf ``(k, v)`` or quantized 4-leaf ``(k, v, k_scale, v_scale)``
+    tuple per layer.  Returns ``(pages, nxt, new_pos, new_active)``."""
     from ..serving.sampling import sample_logits_per_row
 
     dpos = torch.where(active, pos, max_len - 1)
     h = _embed(params, tok[:, None], dpos[:, None], rope)
-    for bp, (kp, vp) in zip(params["blocks"], pages):
-        h, _, _ = _block_decode_slots_paged(bp, h, kp, vp, table, dpos,
-                                            active, H, scale, rope, base)
+    for bp, layer_kv in zip(params["blocks"], pages):
+        kp, vp, ksp, vsp = _layer_kv(layer_kv)
+        h = _block_decode_slots_paged(bp, h, kp, vp, table, dpos, active, H,
+                                      scale, rope, base, k_scale=ksp,
+                                      v_scale=vsp)[0]
     logits = _logits(params, h)[:, 0]                   # (S, V)
     ok = torch.isfinite(logits).all(dim=-1)             # poison probe
     samp = sample_logits_per_row(logits, temps, top_ks, gens)

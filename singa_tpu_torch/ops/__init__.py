@@ -4,11 +4,12 @@ version (counterpart: ``singa_tpu/ops``):
 * :mod:`.flash_attention` — flash-attention forward
   (``csrc/flash_attention_fwd.cu``) and its backward, the dq and dk/dv
   passes (``csrc/flash_attention_bwd.cu``);
-* :mod:`.paged_attention` — paged decode attention
-  (``csrc/paged_decode.cu``).
+* :mod:`.paged_attention` — paged decode attention over float32,
+  bfloat16 or int8 page pools (``csrc/paged_decode.cu``).
 
 Kernels build from ``csrc/`` at first use (:mod:`._build`); nothing is
 compiled or loaded at import time.  Each module keeps its launch counts
 in module-level integers (``launches``; flash's backward kernels
-``launches_dq`` and ``launches_dkv``).
+``launches_dq`` and ``launches_dkv``; paged decode's int8 variant
+``launches_q8``).
 """

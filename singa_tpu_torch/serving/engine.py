@@ -35,6 +35,16 @@ both decided from host state that is exact at that point (no device
 sync).  Sampling draws from per-slot ``torch.Generator`` objects in
 place of JAX keys.
 
+Quantized serving (``kv_dtype="int8"``, ``weight_dtype="int8"``) stores
+K/V as int8 rows with one scale per (page, head, offset) and every
+decode Linear as int8 with one scale per output channel; the dequant
+folds into the attention (the paged decode kernel's int8 variant; the
+reference's einsum for the prefill chunk) and into each matmul's
+output.  ``kv_dtype="bfloat16"``/``"float32"`` is a plain storage
+override.  The quality contract is the reference's: drift under its
+committed tolerances against the float engine, and same-seed
+determinism — not a bit-match.
+
 Constructor arguments that select other engines or features raise
 ``NotImplementedError`` naming the ROADMAP.md slice that will port them.
 """
@@ -50,6 +60,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import precision as _precision
 from ..device import resolve_device, seeded_generator
 from ..models import gpt as _gpt
 from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache
@@ -78,7 +89,6 @@ DEFAULT_STALL_LIMIT = 512
 _SLICES = {
     7: "slot serving engine",
     9: "serving lifecycle, faults and telemetry",
-    10: "quantized serving",
     11: "speculative and multi-lane decoding",
     12: "the rest of the framework: tensor parallel and disaggregated "
         "serving",
@@ -165,10 +175,11 @@ def _make_unified_step_paged(cfg, C, max_len):
             dev = adm.toks.device
             positions = adm.woff + torch.arange(C, device=dev)
             h = _gpt._embed(params, adm.toks[None], positions, rope)
-            for bp, (kp, vp) in zip(params["blocks"], pages):
-                h, _, _ = _gpt._block_chunk_prefill_paged(
+            for bp, layer_kv in zip(params["blocks"], pages):
+                kp, vp, ksp, vsp = _gpt._layer_kv(layer_kv)
+                h = _gpt._block_chunk_prefill_paged(
                     bp, h, kp, vp, adm.pages, positions, H, scale, rope,
-                    base)
+                    base, k_scale=ksp, v_scale=vsp)[0]
             # the final chunk samples the first new token from the TRUE
             # last prompt position
             if adm.commit:
@@ -247,6 +258,10 @@ class ServingEngine:
     ``device="cpu"`` to run the plain versions of the kernels on the
     CPU.  ``paged``, ``chunked`` and ``admit_lanes`` keep the JAX
     names; only ``paged=True, chunked=True, admit_lanes=1`` is ported.
+    ``kv_dtype`` (``"int8"`` quantizes; ``"bfloat16"``/``"float32"``
+    override the pool's storage dtype), ``weight_dtype`` (``"int8"``)
+    and ``scale_dtype`` (bfloat16 or float32) are the reference's
+    quantized-serving arguments (see the module docstring).
     """
 
     def __init__(self, model, n_slots: int = 8, max_len: int | None = None,
@@ -269,8 +284,30 @@ class ServingEngine:
                  tp_degree: int = 1,
                  kv_dtype=None,
                  weight_dtype=None,
+                 scale_dtype=torch.bfloat16,
                  clock=None,
                  device=None):
+        self.device = dev = resolve_device(device)
+        # ---- quantized serving ----------------------------------------
+        # kv_dtype: a plain float STORAGE override ("bfloat16"/"float32",
+        # the drift oracle) or a quantization dtype ("int8"); fp8 raises
+        kv_store = kvq = None
+        if kv_dtype is not None:
+            dt = _precision.resolve_dtype(kv_dtype)
+            if dt in (torch.bfloat16, torch.float32):
+                kv_store = dt
+            else:
+                kvq = dt
+        self.policy = _precision.Policy(
+            kv_dtype=kvq, weight_dtype=weight_dtype,
+            scale_dtype=scale_dtype, backend=dev.type)
+        self.kv_dtype = self.policy.kv_dtype
+        self.weight_dtype = self.policy.weight_dtype
+        self.scale_dtype = self.policy.scale_dtype
+        self.quantized = self.policy.quantized
+        if self.quantized and not chunked:
+            raise ValueError("quantized serving requires the chunked "
+                             "engine (the monolithic baseline stays float)")
         if not chunked:
             _not_ported("chunked=False (the monolithic engine)", 7)
         if not paged:
@@ -283,10 +320,6 @@ class ServingEngine:
             _not_ported(f"tp_degree={tp_degree}", 12)
         if prefill_only:
             _not_ported("prefill_only=True", 12)
-        if kv_dtype is not None:
-            _not_ported(f"kv_dtype={kv_dtype!r}", 10)
-        if weight_dtype is not None:
-            _not_ported(f"weight_dtype={weight_dtype!r}", 10)
         if faults is not None:
             _not_ported("faults", 9)
         if tracer is not None:
@@ -297,7 +330,6 @@ class ServingEngine:
             _not_ported("max_queue", 9)
         if step_budget_ms is not None:
             _not_ported("step_budget_ms", 9)
-        self.device = dev = resolve_device(device)
         self.model = model
         self.cfg = cfg = model.config
         if max_len is not None and max_len > cfg.max_len:
@@ -315,12 +347,15 @@ class ServingEngine:
         self.chunk_tokens = min(int(chunk_tokens), self.max_len)
         self.decode_horizon = int(decode_horizon)
         self.stall_limit = int(stall_limit)
-        self.params = _to_device(model.decode_params(), dev)
+        self.params = _to_device(
+            model.decode_params(self.weight_dtype, self.scale_dtype), dev)
         self.kv = PagedKVCache(cfg.n_layers, n_slots, cfg.n_heads,
                                int(page_tokens), cfg.d_model // cfg.n_heads,
                                self.max_len, n_pages=kv_pages,
-                               dtype=self.params["tok"].dtype, device=dev,
-                               prefix_cache=prefix_cache)
+                               dtype=kv_store or self.params["tok"].dtype,
+                               device=dev, prefix_cache=prefix_cache,
+                               kv_dtype=self.kv_dtype,
+                               scale_dtype=self.scale_dtype)
         self.page_tokens = self.kv.page_tokens
         self.metrics = (ServingMetrics(clock=clock) if clock is not None
                         else ServingMetrics())

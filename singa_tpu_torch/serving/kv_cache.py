@@ -7,6 +7,12 @@ slice).
 Device side: per layer a ``(k_pages, v_pages)`` pair of shape
 ``(n_pages, n_heads, page_tokens, d_head)``, updated IN PLACE by the
 decode blocks (where the JAX package donates and returns new buffers).
+A quantized pool (``kv_dtype="int8"``) holds 4-leaf layers
+``(k_pages, v_pages, k_scale, v_scale)``, the scales shaped
+``(n_pages, n_heads, page_tokens)`` in ``scale_dtype``: a page's rows
+and their scales share its physical page id, so prefix-shared pages
+share their scales and a fresh (copy-on-write) page gets both written
+by its own prefill.
 Host side, the allocator and prefix index, kept as the port's own copy
 of the JAX package's numpy/hashlib code:
 
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..precision import resolve_dtype
 
 __all__ = ["PagedKVCache", "DEFAULT_PAGE_TOKENS"]
 
@@ -61,7 +68,8 @@ class PagedKVCache:
     def __init__(self, n_layers: int, n_slots: int, n_heads: int,
                  page_tokens: int, d_head: int, max_len: int,
                  n_pages: int | None = None, dtype=torch.float32,
-                 device=None, prefix_cache: bool = True):
+                 device=None, prefix_cache: bool = True, kv_dtype=None,
+                 scale_dtype=torch.bfloat16):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if page_tokens < 1:
@@ -74,6 +82,10 @@ class PagedKVCache:
         self.d_head = d_head
         self.max_len = max_len
         self.dtype = dtype
+        # quantized page pool: int8 rows plus per-(page, head, offset)
+        # scales; None keeps the float pool of ``dtype``
+        self.kv_dtype = None if kv_dtype is None else resolve_dtype(kv_dtype)
+        self.scale_dtype = resolve_dtype(scale_dtype)
         self.pages_per_slot = -(-max_len // self.page_tokens)
         if n_pages is None:
             # capacity-equivalent to the slot layout (+1 parking page)
@@ -84,10 +96,20 @@ class PagedKVCache:
         self.n_pages = int(n_pages)
         self.device = resolve_device(device)
         shape = (self.n_pages, n_heads, self.page_tokens, d_head)
-        self.caches = tuple(
-            (torch.zeros(shape, dtype=dtype, device=self.device),
-             torch.zeros(shape, dtype=dtype, device=self.device))
-            for _ in range(n_layers))
+        sshape = shape[:3]
+
+        def zeros(shp, dt):
+            return torch.zeros(shp, dtype=dt, device=self.device)
+
+        if self.kv_dtype is None:
+            self.caches = tuple((zeros(shape, dtype), zeros(shape, dtype))
+                                for _ in range(n_layers))
+        else:
+            self.caches = tuple(
+                (zeros(shape, self.kv_dtype), zeros(shape, self.kv_dtype),
+                 zeros(sshape, self.scale_dtype),
+                 zeros(sshape, self.scale_dtype))
+                for _ in range(n_layers))
         self._free_slots = list(range(n_slots))        # kept sorted
         self._free_pages = list(range(1, self.n_pages))  # kept sorted
         self._ref = [0] * self.n_pages                 # per-page refcount
@@ -118,10 +140,19 @@ class PagedKVCache:
     def used_pages(self) -> int:
         return self.usable_pages - len(self._free_pages)
 
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype is not None
+
     def _page_bytes(self) -> int:
+        """Bytes one physical page holds across every layer's K and V
+        (and their scales)."""
         per = self.n_heads * self.page_tokens * self.d_head
-        itemsize = torch.empty((), dtype=self.dtype).element_size()
-        return 2 * self.n_layers * per * itemsize
+        if self.kv_dtype is None:
+            return 2 * self.n_layers * per * self.dtype.itemsize
+        scales = self.n_heads * self.page_tokens
+        return 2 * self.n_layers * (per * self.kv_dtype.itemsize
+                                    + scales * self.scale_dtype.itemsize)
 
     def nbytes(self) -> int:
         """Total device bytes pinned by the page pool."""

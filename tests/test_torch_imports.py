@@ -53,6 +53,7 @@ def test_package_imports_without_jax():
             "import singa_tpu_torch.tensor, singa_tpu_torch.autograd\n"
             "import singa_tpu_torch.layer, singa_tpu_torch.model\n"
             "import singa_tpu_torch.opt, singa_tpu_torch.device\n"
+            "import singa_tpu_torch.precision\n"
             "import singa_tpu_torch.ops.flash_attention\n"
             "import singa_tpu_torch.ops.paged_attention\n"
             "import singa_tpu_torch.ops._build\n"

@@ -3,7 +3,9 @@
 take) against the JAX Pallas kernel
 (singa_tpu.ops.paged_attention.paged_decode_attention, interpret=True),
 on the block table of tests/test_paged_serving.py (NULL and stale
-entries, mid-page positions).  Tolerance: atol 1e-5 in float32."""
+entries, mid-page positions).  Tolerance: atol 1e-5 in float32.  The
+int8 and bfloat16-page variants are held against the reference in
+tests/test_torch_quantized_serving.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -73,9 +75,15 @@ def test_columns_past_pos_carry_no_weight():
     np.testing.assert_array_equal(again.numpy(), out.numpy())
 
 
-def test_int8_variant_belongs_to_the_quantized_slice():
+@pytest.mark.parametrize("which", ["k_scales", "v_scales"])
+def test_scales_come_in_pairs(which):
+    """As in the reference: both scale pools or neither."""
     q, kp, vp, table, pos = [torch.from_numpy(a) for a in _table_case()]
-    with pytest.raises(NotImplementedError, match="quantized-serving"):
-        paged_decode_attention(q, kp, vp, table, pos,
-                               k_scales=torch.ones(10, 2, 8),
-                               v_scales=torch.ones(10, 2, 8))
+    kq = kp.round().clamp(-127, 127).to(torch.int8)
+    vq = vp.round().clamp(-127, 127).to(torch.int8)
+    with pytest.raises(ValueError, match="both k_scales and v_scales"):
+        paged_decode_attention(q, kq, vq, table, pos,
+                               **{which: torch.ones(10, 2, 8)})
+    with pytest.raises(ValueError, match="both k_scales and v_scales"):
+        jax_paged(*(jnp.asarray(t.numpy()) for t in (q, kq, vq, table, pos)),
+                  interpret=True, **{which: jnp.ones((10, 2, 8))})

@@ -4,7 +4,8 @@ ServingEngine(paged=True, admit_lanes=1) on the same trained tiny GPT:
 greedy tokens per request identical on a staggered stream, plus the
 port's own contracts (prefix sharing, slot reuse, zero-upload steady
 state, one fetch per horizon, seeded sampling, out-of-slice arguments,
-no silent CPU)."""
+no silent CPU).  Quantized serving is held in
+tests/test_torch_quantized_serving.py."""
 
 import numpy as np
 import pytest
@@ -209,8 +210,7 @@ def _tree_of(tm):
 
 @pytest.mark.parametrize("kw", [
     dict(chunked=False), dict(paged=False), dict(admit_lanes=2),
-    dict(speculative=True), dict(tp_degree=2), dict(kv_dtype="int8"),
-    dict(weight_dtype="int8"), dict(prefill_only=True),
+    dict(speculative=True), dict(tp_degree=2), dict(prefill_only=True),
     dict(faults=object()), dict(tracer=object()), dict(preemption=True),
     dict(max_queue=4), dict(step_budget_ms=5.0)])
 def test_out_of_slice_arguments_raise(served, kw):
