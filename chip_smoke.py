@@ -53,12 +53,18 @@ The kernels' launch counters are zeroed just before each path (6, 7 and
 8) and read just after it; a kernel's ``launches`` is the sum over the
 three, ``launches_by_path`` splits it.
 
-    python3 chip_smoke.py --profile [serve|train]
+    python3 chip_smoke.py --profile [serve|serve_int8|train]
 
-runs phases 1-2 and then the serving stream, or two training steps after
-a warm-up step, once under ``torch.profiler`` (CPU and CUDA activity),
-and prints the device's busy and idle share over the run, device time by
-kernel group and the costliest kernels.
+runs phases 1-2 and then the serving stream (float or int8), or two
+training steps after a warm-up step, once under ``torch.profiler`` (CPU
+and CUDA activity), and prints the device's busy and idle share over the
+run, device time by kernel group and the costliest kernels.
+
+    python3 chip_smoke.py --compare-serve
+
+runs phases 1-2 and then the float and the int8 serving slices
+alternately, four runs of each on fresh engines, and prints each run's
+tokens/s, TTFT p50, ITL p99 and wall time and their spread.
 
 Kernel times are the median of single launches timed with CUDA events,
 each after a 64 MiB write that evicts the 50 MB L2, so operands come
@@ -402,20 +408,21 @@ PAGED_VARIANTS = ("f32", "bf16", "int8_bf16", "int8_f32")
 
 
 def _paged_bound(args, scales, P, pos_h):
-    """Bytes the function must move at a case's live pages (q, table,
-    pos in; out; each live page's K and V rows, and their scales, once)
-    and float32 operations (two products of 2 flop a multiply-add), and
-    the bound they give."""
-    q, kp, _, table, _ = args
+    """Bytes the function must move (q and pos in, out; the table entries
+    of the live pages; the K and V rows at columns <= pos, and their
+    scales, once) and float32 operations (two products of 2 flop a
+    multiply-add), and the bound they give."""
+    q, kp, _, _, _ = args
     S, H, d = q.shape
     live_pages = int((pos_h // P + 1).sum())
     live_cols = int((pos_h + 1).sum())
-    nbytes = 4 * (2 * q.numel() + table.numel() + S) \
-        + 2 * live_pages * H * P * d * kp.element_size()
+    row_bytes = d * kp.element_size()
     if scales:
-        nbytes += 2 * live_pages * H * P * scales["k_scales"].element_size()
+        row_bytes += scales["k_scales"].element_size()
+    nbytes = 4 * (2 * q.numel() + S + live_pages) \
+        + 2 * live_cols * H * row_bytes
     flops = 4 * H * d * live_cols
-    return nbytes, flops, live_pages, _bound(nbytes, flops)
+    return nbytes, flops, live_cols, _bound(nbytes, flops)
 
 
 def phase_paged():
@@ -459,12 +466,12 @@ def phase_paged():
         ms = _time_ms(lambda: pa.paged_decode_attention(*args, **scales))
         plain_ms = _time_ms(lambda: pa.paged_decode_attention_reference(
             *args, **scales))
-        nbytes, _, live_pages, (bound_ms, bound_by) = _paged_bound(
+        nbytes, _, live_cols, (bound_ms, bound_by) = _paged_bound(
             args, scales, P, pos_h)
         _log(f"paged decode {variant} serving shape: kernel {ms:.4f} ms, "
              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-             f"({bound_by}: {nbytes / 1e6:.3f} MB over {live_pages} live "
-             f"pages)")
+             f"({bound_by}: {nbytes / 1e6:.4f} MB over {live_cols} live "
+             f"rows)")
         rows.append({"name": name, "route": "cuda",
                      "source": "singa_tpu_torch/ops/csrc/paged_decode.cu",
                      "replaces": replaces,
@@ -926,16 +933,69 @@ def _kernel_bucket(name):
     return "other kernels (elementwise, reductions, indexing)"
 
 
+def _int8_engine_setup(cfg, tree, kw, prompts):
+    """The quantized slice's set-up from the float one's: the seeded
+    model on the host, the int8 engine arguments, one warm-up run that
+    quantizes (memoised)."""
+    cpu_model = tgpt.GPT.from_jax_decode_params(tree, cfg, device="cpu")
+    qkw = dict(kw, kv_dtype="int8", weight_dtype="int8")
+    _warm(cpu_model, qkw, prompts, device="cuda")
+    return cpu_model, qkw
+
+
+def phase_compare_serve(pairs=4):
+    """The float and the int8 serving slices, alternated in one process
+    (float, int8, int8, float, ...: ``pairs`` runs of each), each run on
+    a fresh engine over the staggered stream.  Prints every run's
+    tokens/s, TTFT p50, ITL p99 and wall time, then the smallest, median
+    and largest of each and the ratio of the medians."""
+    cfg, tree, model, kw, prompts = _slice_setup()
+    cpu_model, qkw = _int8_engine_setup(cfg, tree, kw, prompts)
+    runs = {"float": [], "int8": []}
+    order = [("float", "int8")[(i + i // 2) % 2] for i in range(2 * pairs)]
+    for i, kind in enumerate(order):
+        eng = ServingEngine(model, **kw) if kind == "float" else \
+            ServingEngine(cpu_model, device="cuda", **qkw)
+        _, _, launches, stats = _drive(eng, prompts, cfg,
+                                       f"compare {i} {kind}")
+        want = "paged_decode_attention" + ("_q8" if kind == "int8" else "")
+        if launches[want] <= 0:
+            raise AssertionError(f"compare {i} {kind}: {want} not launched")
+        snap = eng.metrics.snapshot()
+        runs[kind].append({"tokens_per_s": snap["tokens_per_s"],
+                           "ttft_p50_ms": snap["ttft_p50_ms"],
+                           "itl_p99_ms": snap["itl_p99_ms"],
+                           "wall_s": stats["wall_s"]})
+        del eng
+    med = {}
+    for kind, rs in runs.items():
+        for key in ("tokens_per_s", "ttft_p50_ms", "itl_p99_ms", "wall_s"):
+            v = sorted(r[key] for r in rs)
+            med[kind, key] = float(np.median(v))
+            _log(f"compare {kind} {key}: min {v[0]} median "
+                 f"{med[kind, key]} max {v[-1]} over {len(v)} runs {v}")
+    _log("compare int8 / float, ratio of medians: " + json.dumps(
+        {key: med["int8", key] / med["float", key]
+         for key in ("tokens_per_s", "ttft_p50_ms", "itl_p99_ms",
+                     "wall_s")}))
+
+
 def phase_profile(path):
     """One path once more under ``torch.profiler`` (CPU and CUDA
-    activity): ``serve``, the slice's stream; ``train``, two training
-    steps after one unprofiled warm-up step.  Prints the device busy and
-    idle share over the window, device time by kernel group and by
-    kernel.  Times under the profiler include its own host overhead."""
+    activity): ``serve``, the slice's stream; ``serve_int8``, the same
+    stream on the quantized engine; ``train``, two training steps after
+    one unprofiled warm-up step.  Prints the device busy and idle share
+    over the window, device time by kernel group and by kernel.  Times
+    under the profiler include its own host overhead."""
     from torch.profiler import ProfilerActivity, profile
-    if path == "serve":
-        cfg, _, model, kw, prompts = _slice_setup()
-        eng = ServingEngine(model, **kw)
+    if path in ("serve", "serve_int8"):
+        cfg, tree, model, kw, prompts = _slice_setup()
+        if path == "serve":
+            eng = ServingEngine(model, **kw)
+        else:
+            del model
+            cpu_model, qkw = _int8_engine_setup(cfg, tree, kw, prompts)
+            eng = ServingEngine(cpu_model, device="cuda", **qkw)
 
         def run():
             _serve(eng, prompts)
@@ -997,18 +1057,19 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    profile = {(): None, ("--profile",): "serve",
-               ("--profile", "serve"): "serve",
-               ("--profile", "train"): "train"}
-    if tuple(argv) not in profile:
-        print("usage: chip_smoke.py [--profile [serve|train]]",
-              file=sys.stderr)
+    modes = {(): None, ("--profile",): lambda: phase_profile("serve"),
+             ("--compare-serve",): phase_compare_serve}
+    for path in ("serve", "serve_int8", "train"):
+        modes["--profile", path] = lambda p=path: phase_profile(p)
+    if tuple(argv) not in modes:
+        print("usage: chip_smoke.py [--profile [serve|serve_int8|train] | "
+              "--compare-serve]", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    if profile[tuple(argv)] is not None:
-        phase_profile(profile[tuple(argv)])
+    if modes[tuple(argv)] is not None:
+        modes[tuple(argv)]()
         _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
         return 0
     fwd = phase_flash()

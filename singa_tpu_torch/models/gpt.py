@@ -194,7 +194,8 @@ class GPT(Model):
                        for i in range(c.n_layers)]
         self.ln_f = layer.LayerNorm()
         self.head = layer.Linear(c.vocab_size)
-        # quantized decode trees, by (weight_dtype, scale_dtype) name
+        # quantized decode trees, by (weight_dtype, scale_dtype) name:
+        # (Linear weights, their version counters, tree)
         self._decode_quant: dict = {}
 
     # ---- training path (layer API) ------------------------------------
@@ -305,16 +306,28 @@ class GPT(Model):
         plus a ``Ws`` scale row in ``scale_dtype``
         (:func:`_quantize_channels`); LayerNorms and embeddings stay
         float and shared.  The quantized tree is memoised per
-        ``(weight_dtype, scale_dtype)``: quantization runs once, not per
-        engine or step."""
+        ``(weight_dtype, scale_dtype)`` and rebuilt once a Linear weight
+        has been replaced or updated in place (training, ``set_states``):
+        its tensors and their version counters key the memo."""
         self._materialize()
         if weight_dtype is None:
             return self._build_decode_params(None, None)
         wd, sd = resolve_dtype(weight_dtype), resolve_dtype(scale_dtype)
         key = (dtype_name(wd), dtype_name(sd))
-        if key not in self._decode_quant:
-            self._decode_quant[key] = self._build_decode_params(wd, sd)
-        return self._decode_quant[key]
+        ws = [lay.W.data for lay in self._linears()]
+        versions = [w._version for w in ws]
+        hit = self._decode_quant.get(key)
+        if hit is None or hit[1] != versions \
+                or any(a is not b for a, b in zip(hit[0], ws)):
+            hit = self._decode_quant[key] = (
+                ws, versions, self._build_decode_params(wd, sd))
+        return hit[2]
+
+    def _linears(self):
+        for blk in self.blocks:
+            a = blk.attn
+            yield from (a.Wq, a.Wk, a.Wv, a.Wo, blk.fc1, blk.fc2)
+        yield self.head
 
     def _build_decode_params(self, weight_dtype, scale_dtype):
         def lin(lay):

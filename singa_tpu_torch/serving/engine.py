@@ -298,14 +298,10 @@ class ServingEngine:
                 kv_store = dt
             else:
                 kvq = dt
-        self.policy = _precision.Policy(
+        self.policy = pol = _precision.Policy(
             kv_dtype=kvq, weight_dtype=weight_dtype,
             scale_dtype=scale_dtype, backend=dev.type)
-        self.kv_dtype = self.policy.kv_dtype
-        self.weight_dtype = self.policy.weight_dtype
-        self.scale_dtype = self.policy.scale_dtype
-        self.quantized = self.policy.quantized
-        if self.quantized and not chunked:
+        if pol.quantized and not chunked:
             raise ValueError("quantized serving requires the chunked "
                              "engine (the monolithic baseline stays float)")
         if not chunked:
@@ -348,14 +344,14 @@ class ServingEngine:
         self.decode_horizon = int(decode_horizon)
         self.stall_limit = int(stall_limit)
         self.params = _to_device(
-            model.decode_params(self.weight_dtype, self.scale_dtype), dev)
+            model.decode_params(pol.weight_dtype, pol.scale_dtype), dev)
         self.kv = PagedKVCache(cfg.n_layers, n_slots, cfg.n_heads,
                                int(page_tokens), cfg.d_model // cfg.n_heads,
                                self.max_len, n_pages=kv_pages,
                                dtype=kv_store or self.params["tok"].dtype,
                                device=dev, prefix_cache=prefix_cache,
-                               kv_dtype=self.kv_dtype,
-                               scale_dtype=self.scale_dtype)
+                               kv_dtype=pol.kv_dtype,
+                               scale_dtype=pol.scale_dtype)
         self.page_tokens = self.kv.page_tokens
         self.metrics = (ServingMetrics(clock=clock) if clock is not None
                         else ServingMetrics())

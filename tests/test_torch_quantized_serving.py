@@ -30,6 +30,7 @@ from singa_tpu.models import gpt as jgpt
 from singa_tpu.ops.paged_attention import \
     paged_decode_attention as jax_paged
 from singa_tpu.serving import ServingEngine as JaxEngine
+from singa_tpu_torch import opt as topt
 from singa_tpu_torch import precision as tprecision
 from singa_tpu_torch.layer import apply_rope
 from singa_tpu_torch.models import gpt as tgpt
@@ -148,6 +149,38 @@ def test_decode_params_int8_matches_jax_and_is_memoized(rig):
     assert tm.decode_params("int8", torch.float32) is not tree
     # embeddings and LayerNorms stay float and shared with the model
     assert tree["tok"].data_ptr() == tm.tok.W.data.data_ptr()
+
+
+def test_int8_engine_serves_weights_after_training_and_set_states():
+    """The memoised int8 tree follows the model's weights: an int8 engine
+    built after a training step, or after ``set_states``, holds a fresh
+    ``_quantize_channels`` of the new Linear weights."""
+    cfg = tgpt.GPTConfig(50, 64, 2, 4, 64)
+    tm = tgpt.GPT(cfg, device="cpu")
+    tm.set_optimizer(topt.Adam(lr=1e-2))
+    x = np.random.RandomState(2).randint(0, 50, (2, 16)).astype(np.int32)
+    tm.compile([x], is_train=True)
+
+    def check(eng):
+        for lay, p in ((tm.head, eng.params["head"]),
+                       (tm.blocks[1].attn.Wq, eng.params["blocks"][1]["q"]),
+                       (tm.blocks[0].fc2, eng.params["blocks"][0]["f2"])):
+            wq, ws = tgpt._quantize_channels(lay.W.data)
+            assert torch.equal(p["W"], wq) and torch.equal(p["Ws"], ws)
+
+    first = TorchEngine(tm, device="cpu", **QKW).params
+    check(TorchEngine(tm, device="cpu", **QKW))
+    # weights unchanged: the memo stands
+    assert tm.decode_params("int8")["head"]["W"] is first["head"]["W"]
+    tm.train_one_batch(x, np.roll(x, -1, axis=1))
+    trained = TorchEngine(tm, device="cpu", **QKW)
+    check(trained)
+    assert not torch.equal(trained.params["head"]["W"], first["head"]["W"])
+    tm.set_states({k: 0.5 * t.numpy() for k, t in tm.get_states().items()})
+    restored = TorchEngine(tm, device="cpu", **QKW)
+    check(restored)
+    assert not torch.equal(restored.params["head"]["Ws"],
+                           trained.params["head"]["Ws"])
 
 
 # ---- the plain paged decode, int8 and bf16 pages ----------------------
