@@ -26,6 +26,17 @@ Phases (any failure exits non-zero before the result lines print):
    positions), plus 8-, 12- and 32-token pages at head dims 64, 32 and
    128; times and byte bounds of the float32 and int8 variants at the
    serving shape;
+5a. the fused LSTM cell: kernel against its plain version, forward and
+   backward through its autograd Function, at the char-LSTM's training
+   shape (B 64, H 256), its sampling shape (B 1, H 256) and ragged
+   shapes (B 3/65, H 5/130/1000); times at the training shape for the
+   kernel, its plain version and cuDNN's ``torch.nn.LSTM`` forward over
+   T 100 divided by T (a yardstick the port never calls);
+5b. the elementwise catalogue, path ``ew``: every op and dtype pair
+   through its own entry points at the char-LSTM's gate size (T * B *
+   4H = 6,553,600 values), then each against its plain version, plus a
+   ragged length and NaN / +-inf / +-0 inputs; times of relu, exp, gelu,
+   add, copy to bf16 and clamp against the one torch call each;
 6. the serving path: the paged, chunked ``ServingEngine`` on GPT-2-small
    dimensions (fp32, seeded random weights carried in through
    ``GPT.from_jax_decode_params``) serves 8 staggered requests (one
@@ -47,18 +58,32 @@ Phases (any failure exits non-zero before the result lines print):
 9. one full-width training step (B 1, T 128) from the trained weights on
    the card and in the port on the CPU: loss and every gradient compared;
 10. the trained model serves 2 requests through the ``ServingEngine``;
-11. one ``kernels`` JSON line, then the result line.
+11. path ``rnn_train``: the char-LSTM of ``bench_rnn.py`` (V 86, H 256,
+   T 100, B 64, ``LSTM(use_fused_cell=True)``, SGD 0.1 with momentum
+   0.9) takes 10 graph-mode steps on a seeded batch, then the same model
+   through the plain cell from the same weights (step time, tokens/s,
+   loss, peak memory of each; the loss must fall; exactly 100 launches
+   of the cell a fused step, none on the plain path; losses agree);
+12. one full-width fused char-LSTM step on the card and in the port on
+   the CPU: loss and every gradient compared;
+13. path ``rnn_sample``: the port's char-RNN example with the fused cell
+   trains 2 epochs of truncated BPTT (B 16, T 64, Adam 3e-3) on its
+   synthetic corpus and samples 120 characters (one launch each); the
+   epoch loss must fall and the characters must equal the port's on the
+   CPU from the same weights and generator;
+14. one ``kernels`` JSON line, then the result line.
 
-The kernels' launch counters are zeroed just before each path (6, 7 and
-8) and read just after it; a kernel's ``launches`` is the sum over the
-three, ``launches_by_path`` splits it.
+The kernels' launch counters are zeroed just before each path (5b, 6,
+7, 8, 11 and 13) and read just after it; a kernel's ``launches`` is the
+sum over them, ``launches_by_path`` splits it.
 
-    python3 chip_smoke.py --profile [serve|serve_int8|train]
+    python3 chip_smoke.py --profile [serve|serve_int8|train|rnn_train]
 
 runs phases 1-2 and then the serving stream (float or int8), or two
-training steps after a warm-up step, once under ``torch.profiler`` (CPU
-and CUDA activity), and prints the device's busy and idle share over the
-run, device time by kernel group and the costliest kernels.
+training steps (GPT or the fused char-LSTM) after a warm-up step, once
+under ``torch.profiler`` (CPU and CUDA activity), and prints the
+device's busy and idle share over the run, device time by kernel group
+and the costliest kernels.
 
     python3 chip_smoke.py --compare-serve
 
@@ -90,10 +115,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from singa_tpu_torch import autograd as tautograd  # noqa: E402
 from singa_tpu_torch import device as tdevice  # noqa: E402
+from singa_tpu_torch import layer as tlayer  # noqa: E402
+from singa_tpu_torch import model as tmodel  # noqa: E402
 from singa_tpu_torch import opt as topt  # noqa: E402
+from singa_tpu_torch.examples import char_rnn  # noqa: E402
 from singa_tpu_torch.models import gpt as tgpt  # noqa: E402
 from singa_tpu_torch.ops import _build  # noqa: E402
+from singa_tpu_torch.ops import elementwise as ew  # noqa: E402
 from singa_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from singa_tpu_torch.ops import lstm_cell as lc  # noqa: E402
 from singa_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from singa_tpu_torch.serving import ServingEngine  # noqa: E402
 from singa_tpu_torch.serving.engine import _to_device  # noqa: E402
@@ -481,6 +511,269 @@ def phase_paged():
     return rows
 
 
+# the char-LSTM of bench_rnn.py at the reference char-RNN shape
+# (bench_rnn.py:92): vocab, hidden, sequence, batch
+RNN_V, RNN_H, RNN_T, RNN_B = 86, 256, 100, 64
+LSTM_TOL = 1e-5
+
+
+def _lstm_operands(g, B, H):
+    """One cell step's operands on the card: h in (-1, 1), c and xw
+    normal, W_hh and b uniform in +-1/sqrt(H) (the layer's init)."""
+    u = 1.0 / np.sqrt(H)
+
+    def unif(*shape, lim=1.0):
+        return (torch.rand(*shape, generator=g, device="cuda") * 2 - 1) * lim
+
+    return (torch.randn(B, 4 * H, generator=g, device="cuda"),
+            unif(B, H), torch.randn(B, H, generator=g, device="cuda"),
+            unif(H, 4 * H, lim=u), unif(4 * H, lim=u))
+
+
+def _lstm_case(ops):
+    """Forward and backward of the cell through its autograd Function
+    (the kernel forward) against the plain version under torch's
+    autograd, on the same operands and cotangents: ``(forward max abs
+    err, worst gradient max|delta| / max|g|)``."""
+    leaves = [t.detach().requires_grad_() for t in ops]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dh = torch.randn(ops[1].shape, generator=g, device="cuda")
+    dc = torch.randn(ops[1].shape, generator=g, device="cuda")
+    outs, grads = [], []
+    for fn in (lc.lstm_cell_fused, lc.lstm_cell_reference):
+        h2, c2 = fn(*leaves)
+        grads.append(torch.autograd.grad((h2, c2), leaves, (dh, dc)))
+        outs.append((h2.detach(), c2.detach()))
+    torch.cuda.synchronize()
+    fwd = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(*grads))
+    finite = all(bool(torch.isfinite(t).all()) for t in outs[0] + grads[0])
+    return fwd, rel, finite
+
+
+def phase_lstm():
+    """The LSTM cell kernel against its plain version, forward and
+    backward, at the training shape (B 64, H 256), the sampling shape
+    (B 1, H 256) and ragged shapes; times at the training shape for the
+    kernel, its plain version and, as a yardstick the port never calls,
+    cuDNN's ``torch.nn.LSTM`` forward over the same T 100 sequence and
+    weights, divided by T.  Returns the row for the kernels line."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = {"train": (RNN_B, RNN_H), "sample": (1, RNN_H)}
+    for B in (3, 65):
+        for H in (5, 130, 1000):
+            cases[f"B{B} H{H}"] = (B, H)
+    errs = {}
+    for name, (B, H) in cases.items():
+        fwd, rel, finite = _lstm_case(_lstm_operands(g, B, H))
+        ok = finite and fwd <= LSTM_TOL and rel <= LSTM_TOL
+        _log(f"lstm cell {name} (B {B}, H {H}, {lc.grid_blocks(B, H)} "
+             f"blocks): forward max_abs_err {fwd:.3e}, gradients max|delta|"
+             f"/max|g| {rel:.3e} (tol {LSTM_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"lstm cell {name} disagrees with its plain "
+                                 f"version: forward {fwd}, gradients {rel}")
+        errs[name] = fwd
+    B, H, T, V = RNN_B, RNN_H, RNN_T, RNN_V
+    xw, h, c, W_hh, b = _lstm_operands(g, B, H)
+    ms = _time_ms(lambda: lc.lstm_cell_forward(xw, h, c, W_hh, b))
+    plain_ms = _time_ms(lambda: lc.lstm_cell_reference(xw, h, c, W_hh, b))
+    # cuDNN's LSTM (gates i, f, g, o as here): weight_ih = W_ih^T,
+    # weight_hh = W_hh^T, bias_ih = b, bias_hh = 0, over one-hot input
+    W_ih = (torch.rand(V, 4 * H, generator=g, device="cuda") * 2 - 1) \
+        / np.sqrt(H)
+    ids = torch.randint(0, V, (T, B), generator=g, device="cuda")
+    x = torch.nn.functional.one_hot(ids, V).float()
+    cudnn = torch.nn.LSTM(V, H).cuda()
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(W_ih.T)
+        cudnn.weight_hh_l0.copy_(W_hh.T)
+        cudnn.bias_ih_l0.copy_(b)
+        cudnn.bias_hh_l0.zero_()
+        hc0 = (h[None].contiguous(), c[None].contiguous())
+        y_lib, _ = cudnn(x, hc0)
+        xws = x @ W_ih
+        hh, cc = h, c
+        for t in range(T):
+            hh, cc = lc.lstm_cell_forward(xws[t], hh, cc, W_hh, b)
+        lib_err = float((y_lib[-1] - hh).abs().max())
+        lib_ms = _time_ms(lambda: cudnn(x, hc0)) / T
+    _log(f"lstm cell: cuDNN LSTM over T {T} agrees with {T} kernel steps to "
+         f"{lib_err:.3e} (last h)")
+    if not lib_err <= 1e-4:
+        raise AssertionError(f"cuDNN yardstick disagrees: {lib_err}")
+    nbytes = 4 * (B * 4 * H + 2 * B * H + H * 4 * H + 4 * H + 2 * B * H)
+    flops = 2 * B * H * 4 * H + 2 * B * 4 * H + 4 * B * H
+    bound_ms, bound_by = _bound(nbytes, flops)
+    _log(f"lstm cell training shape (B {B}, H {H}, {lc.grid_blocks(B, H)} "
+         f"blocks of 256 threads): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+         f"ms, cuDNN LSTM forward / T {lib_ms:.4f} ms, bound {bound_ms:.6f} "
+         f"ms ({bound_by}: {nbytes} B, {flops / 1e6:.2f} MFLOP)")
+    return {"name": "lstm_cell", "route": "cuda",
+            "source": "singa_tpu_torch/ops/csrc/lstm_cell.cu",
+            "replaces": "singa_tpu/ops/pallas_kernels.py:581",
+            "max_abs_err": errs["train"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "blocks": lc.grid_blocks(B, H)}
+
+
+EW_N = RNN_T * RNN_B * 4 * RNN_H      # the char-LSTM's gate tensor size
+EW_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# tolerance relative to max(1, |ref|) by output type: float32 as stated;
+# bfloat16 and float16 one unit in the last place (both sides compute in
+# float32 and round once, so they may fall on either side of a tie)
+EW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+          torch.float16: 2.0 ** -10}
+EW_SPECIAL = (float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1.0,
+              -1.0, 0.5, -0.5, 3.7, -2.25, 1e-3)
+
+
+def _ew_cases():
+    """Every catalogue call the phase makes: ``(label, fn, plain, args,
+    out_dtype)`` over every op and dtype pair at the gate size
+    (``a`` uniform in (-3, 3), ``b`` of either sign with |b| in
+    (0.5, 3)), a ragged length, and the NaN / +-inf / +-0 values (binary
+    ops over every pair of them)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    a32 = torch.rand(EW_N, generator=g, device="cuda") * 6 - 3
+    b32 = (torch.rand(EW_N, generator=g, device="cuda") * 2.5 + 0.5) \
+        * torch.where(torch.rand(EW_N, generator=g, device="cuda") < 0.5,
+                      -1.0, 1.0)
+    sp = torch.tensor(EW_SPECIAL, device="cuda")
+    spa = sp.repeat_interleave(len(EW_SPECIAL))
+    spb = sp.repeat(len(EW_SPECIAL))
+    ragged = 1_000_003
+    for din in EW_DTYPES:
+        a, b = a32.to(din), b32.to(din)
+        for dout in EW_DTYPES:
+            for name in list(ew.EW_UNARY) + ["copy"]:
+                yield (f"{name} {din}->{dout}", ew.ew_unary,
+                       ew.ew_unary_reference, (name, a), dout)
+            for name in ew.EW_BINARY:
+                yield (f"{name} {din}->{dout}", ew.ew_binary,
+                       ew.ew_binary_reference, (name, a, b), dout)
+        yield (f"clamp {din}", ew.clamp, ew.clamp_reference,
+               (a, -0.75, 1.5), None)
+    for name in list(ew.EW_UNARY) + ["copy"]:
+        yield (f"{name} ragged {ragged}", ew.ew_unary, ew.ew_unary_reference,
+               (name, a32[:ragged]), None)
+        yield (f"{name} special", ew.ew_unary, ew.ew_unary_reference,
+               (name, sp), None)
+    yield ("copy special ->bf16", ew.ew_unary, ew.ew_unary_reference,
+           ("copy", sp), torch.bfloat16)
+    yield ("copy special ->f16", ew.ew_unary, ew.ew_unary_reference,
+           ("copy", sp), torch.float16)
+    for name in ew.EW_BINARY:
+        yield (f"{name} ragged {ragged}", ew.ew_binary,
+               ew.ew_binary_reference,
+               (name, a32[:ragged], b32[:ragged]), None)
+        yield (f"{name} special", ew.ew_binary, ew.ew_binary_reference,
+               (name, spa, spb), None)
+    yield ("clamp special", ew.clamp, ew.clamp_reference, (sp, -0.75, 1.5),
+           None)
+
+
+def _ew_call(fn, args, out_dtype):
+    return fn(*args) if fn in (ew.clamp, ew.clamp_reference) \
+        else fn(*args, out_dtype=out_dtype)
+
+
+def _ew_err(got, ref):
+    """``(max |delta|, max |delta| / max(1, |ref|))`` over the entries
+    that differ; NaN against NaN and equal values (infinities too) count
+    as agreeing, a NaN or infinity on one side only as infinite error."""
+    g, r = got.float(), ref.float()
+    same = (g == r) | (torch.isnan(g) & torch.isnan(r))
+    if bool(same.all()):
+        return 0.0, 0.0
+    d = (g - r).abs()
+    d = torch.where(same, torch.zeros_like(d), d)
+    d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+    return float(d.max()), float((d / r.abs().clamp(min=1.0)).max())
+
+
+def phase_ew():
+    """The elementwise catalogue.  Path ``ew``: its own entry points
+    (``ew_unary``, ``ew_binary``, ``clamp``) over every op and dtype pair
+    at the char-LSTM's gate size, counters zeroed just before and read
+    just after.  Then each call again against its plain version (those
+    launches are not counted); times of relu, exp, gelu, add, copy to
+    bf16 and clamp at the gate size in float32 against the one torch
+    call each (bytes: each input read once and the output written once;
+    operations: float32 ones a value, gelu's tanh counted as one).
+    Returns ``(row, launches)``."""
+    _zero_launches()
+    for _, fn, _, args, dout in _ew_cases():
+        _ew_call(fn, args, dout)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    _log("ew launches " + json.dumps(launches))
+    worst32, worst, n = 0.0, 0.0, 0
+    for label, fn, plain, args, dout in _ew_cases():
+        got = _ew_call(fn, args, dout)
+        ref = _ew_call(plain, args, dout)
+        abs_err, rel_err = _ew_err(got, ref)
+        tol = EW_TOL[got.dtype]
+        if got.dtype != ref.dtype or got.shape != ref.shape \
+                or not rel_err <= tol:
+            raise AssertionError(f"elementwise {label}: {got.dtype} "
+                                 f"{tuple(got.shape)} against {ref.dtype} "
+                                 f"{tuple(ref.shape)}, max abs err "
+                                 f"{abs_err}, relative {rel_err} (tol "
+                                 f"{tol})")
+        if got.dtype == torch.float32 and "special" not in label:
+            worst32 = max(worst32, abs_err)
+        worst = max(worst, rel_err)
+        n += 1
+    _log(f"elementwise: {n} cases agree with their plain versions; worst "
+         f"max abs err {worst32:.3e} over the float32-out cases, worst "
+         f"relative {worst:.3e} over all (tol 1e-5 float32, one ulp bf16 / "
+         f"f16)")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand(EW_N, generator=g, device="cuda") * 6 - 3
+    y = torch.rand(EW_N, generator=g, device="cuda") * 6 - 3
+    F = torch.nn.functional
+    timed = {
+        "relu": (lambda: ew.ew_unary("relu", x),
+                 lambda: ew.ew_unary_reference("relu", x),
+                 lambda: torch.relu(x), 8, 1),
+        "exp": (lambda: ew.ew_unary("exp", x),
+                lambda: ew.ew_unary_reference("exp", x),
+                lambda: torch.exp(x), 8, 1),
+        "gelu": (lambda: ew.ew_unary("gelu", x),
+                 lambda: ew.ew_unary_reference("gelu", x),
+                 lambda: F.gelu(x, approximate="tanh"), 8, 9),
+        "add": (lambda: ew.ew_binary("add", x, y),
+                lambda: ew.ew_binary_reference("add", x, y),
+                lambda: torch.add(x, y), 12, 1),
+        "copy->bf16": (lambda: ew.ew_unary("copy", x, torch.bfloat16),
+                       lambda: ew.ew_unary_reference("copy", x,
+                                                     torch.bfloat16),
+                       lambda: x.to(torch.bfloat16), 6, 0),
+        "clamp": (lambda: ew.clamp(x, -0.75, 1.5),
+                  lambda: ew.clamp_reference(x, -0.75, 1.5),
+                  lambda: torch.clamp(x, -0.75, 1.5), 8, 2),
+    }
+    by_op = {}
+    for name, (kern, plain, lib, bytes_per, ops_per) in timed.items():
+        ms, plain_ms, lib_ms = (_time_ms(f) for f in (kern, plain, lib))
+        bound_ms, bound_by = _bound(bytes_per * EW_N, ops_per * EW_N)
+        by_op[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+        _log(f"elementwise {name} ({EW_N} elements): kernel {ms:.4f} ms, "
+             f"plain {plain_ms:.4f} ms, torch {lib_ms:.4f} ms, bound "
+             f"{bound_ms:.4f} ms ({bound_by}: {bytes_per * EW_N} B)")
+    relu = by_op["relu"]
+    return {"name": "elementwise", "route": "cuda",
+            "source": "singa_tpu_torch/ops/csrc/elementwise.cu",
+            "replaces": "singa_tpu/ops/pallas_kernels.py:486",
+            "max_abs_err": worst32, "ms": relu["ms"],
+            "plain_ms": relu["plain_ms"], "bound_ms": relu["bound_ms"],
+            "bound_by": relu["bound_by"], "library_ms": relu["library_ms"],
+            "by_op": by_op}, launches
+
+
 def _requests(cfg):
     """8 prompts of 100-300 tokens; requests 1 and 6 share a 64-token
     prefix."""
@@ -790,6 +1083,7 @@ def _train_setup():
 def _zero_launches():
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
     pa.launches = pa.launches_q8 = 0
+    lc.launches = ew.launches = 0
 
 
 def _read_launches():
@@ -797,7 +1091,8 @@ def _read_launches():
             "flash_attention_bwd_dq": fa.launches_dq,
             "flash_attention_bwd_dkv": fa.launches_dkv,
             "paged_decode_attention": pa.launches,
-            "paged_decode_attention_q8": pa.launches_q8}
+            "paged_decode_attention_q8": pa.launches_q8,
+            "lstm_cell": lc.launches, "elementwise": ew.launches}
 
 
 def phase_train():
@@ -916,7 +1211,271 @@ def phase_serve_trained(model):
          f"{[res[r][:6].tolist() for r in rids]} ...")
 
 
+# the rnn_train configuration: bench_rnn.py's fused cell, SGD with
+# momentum, 10 steps on one seeded batch
+RNN_STEPS, RNN_LR, RNN_MOMENTUM = 10, 0.1, 0.9
+# the rnn_sample configuration: the example's defaults
+SAMPLE_B, SAMPLE_T, SAMPLE_EPOCHS, SAMPLE_LR, SAMPLE_LEN = 16, 64, 2, 3e-3, 120
+
+
+class CharLSTM(tmodel.Model):
+    """``bench_rnn.py``'s char-LSTM on the port: one-hot input,
+    ``LSTM(H)``, ``Linear(V)``, mean cross-entropy over T * B."""
+
+    def __init__(self, V, H, fused):
+        super().__init__()
+        self.V, self.H = V, H
+        self.lstm = tlayer.LSTM(H, use_fused_cell=fused)
+        self.fc = tlayer.Linear(V)
+
+    def forward(self, x):
+        y, _, _ = self.lstm(tautograd.onehot(x, self.V))
+        T, B = y.shape[0], y.shape[1]
+        return self.fc(tautograd.reshape(y, (T * B, self.H)))
+
+    def train_one_batch(self, x, t):
+        logits = self.forward(x)
+        loss = tautograd.softmax_cross_entropy(logits, t)
+        self.optimizer(loss)
+        return logits, loss
+
+
+def _rnn_batch():
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, RNN_V, (RNN_T, RNN_B)).astype(np.int32)
+    t = rng.randint(0, RNN_V, RNN_T * RNN_B).astype(np.int32)
+    return x, t
+
+
+def _rnn_model(fused, device, states=None):
+    """The char-LSTM compiled with ``use_graph=True`` on ``device``
+    (weights from the device's generator seeded 0, or ``states``)."""
+    dev = tdevice.get_device(device)
+    dev.set_rand_seed(0)
+    m = CharLSTM(RNN_V, RNN_H, fused)
+    m.set_optimizer(topt.SGD(lr=RNN_LR, momentum=RNN_MOMENTUM))
+    x, _ = _rnn_batch()
+    m.compile([TTensor(data=x, device=dev, requires_grad=False)],
+              is_train=True, use_graph=True)
+    if states is not None:
+        m.set_states(states)
+    return m
+
+
+def _rnn_run(model, label):
+    """``RNN_STEPS`` steps on the seeded batch; launch counters zeroed
+    just before and read just after."""
+    x, t = _rnn_batch()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, walls = [], []
+    for _ in range(RNN_STEPS):
+        t0 = time.perf_counter()
+        _, loss = model.train_one_batch(x, t)
+        losses.append(loss.item())                # synchronises
+        walls.append(time.perf_counter() - t0)
+    launches = _read_launches()
+    steady = walls[1:]
+    stats = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+             "steady_step_ms": float(np.mean(steady)) * 1e3,
+             "tokens_per_s": RNN_T * RNN_B * len(steady) / sum(steady),
+             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    _log(f"{label}: losses {[round(v, 6) for v in losses]}")
+    _log(f"{label}: steady step {stats['steady_step_ms']:.2f} ms (steps 1-"
+         f"{RNN_STEPS - 1}; step 0 {stats['step_ms'][0]:.1f} ms), "
+         f"{stats['tokens_per_s']:.0f} tokens/s, peak memory "
+         f"{stats['peak_memory_bytes']} bytes; launches "
+         + json.dumps(launches))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    return launches, stats
+
+
+def phase_rnn_train():
+    """The char-LSTM of ``bench_rnn.py`` at the reference char-RNN shape
+    (V 86, H 256, T 100, B 64), fp32 with TF32 off, SGD(0.1, momentum
+    0.9), 10 graph-mode steps through the fused cell, then the same from
+    the same weights through the plain cell (the scan-path yardstick).
+    Checks: the loss falls on both; exactly T launches of the cell a
+    fused step and none on the scan path; the two agree to a relative
+    1e-4 at every step (fp32 on both; the plain cell's product and the
+    kernel's sum in other orders).  Returns ``(fused model, launches,
+    stats)``."""
+    fused = _rnn_model(True, "cuda")
+    start = {k: t.data.clone() for k, t in fused.get_states().items()}
+    f_launch, f_stats = _rnn_run(fused, "rnn_train fused")
+    scan = _rnn_model(False, "cuda", states=start)
+    s_launch, s_stats = _rnn_run(scan, "rnn_train scan")
+    del scan, start
+    want = RNN_T * RNN_STEPS
+    if f_launch["lstm_cell"] != want or s_launch["lstm_cell"] != 0:
+        raise AssertionError(f"lstm_cell launches: fused {f_launch} "
+                             f"(want {want}), scan {s_launch} (want 0)")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(f_stats["losses"],
+                                                  s_stats["losses"]))
+    _log(f"rnn_train fused vs scan: worst relative loss difference "
+         f"{rel:.2e} over {RNN_STEPS} steps (tol 1e-4); steady step "
+         f"{f_stats['steady_step_ms']:.2f} against {s_stats['steady_step_ms']:.2f}"
+         f" ms, tokens/s {f_stats['tokens_per_s']:.0f} against "
+         f"{s_stats['tokens_per_s']:.0f}, peak memory "
+         f"{f_stats['peak_memory_bytes']} against "
+         f"{s_stats['peak_memory_bytes']} bytes")
+    if not rel <= 1e-4:
+        raise AssertionError(f"fused and scan losses differ by {rel}")
+    return fused, f_launch, {"fused": f_stats, "scan": s_stats,
+                             "loss_rel": rel}
+
+
+def _rnn_loss_and_grads(model, x, t):
+    model.train(True)
+    loss = tautograd.softmax_cross_entropy(model.forward(x), t)
+    grads = {p.name: g.data for p, g in tautograd.backward(loss)}
+    return loss.item(), grads
+
+
+def phase_rnn_card_vs_cpu(model):
+    """One full-width fused step (V 86, H 256, T 100, B 64) from the
+    trained weights on the card (the cell kernel) and in the port on the
+    CPU (the plain cell), without the update.  Tolerances as phase 9's:
+    loss to a relative 1e-5, every gradient to max |delta| <= 1e-3 max
+    |g|."""
+    x, t = _rnn_batch()
+    states = {k: v.numpy() for k, v in model.get_states().items()}
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = _rnn_model(True, "cpu", states=states)
+    t0 = time.perf_counter()
+    loss_c, grads_c = _rnn_loss_and_grads(cpu, TTensor(data=x, device="cpu"),
+                                          TTensor(data=t, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    dev = model.device
+    loss_g, grads_g = _rnn_loss_and_grads(model, TTensor(data=x, device=dev),
+                                          TTensor(data=t, device=dev))
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst = max((float((grads_g[n].cpu() - g).abs().max())
+                 / max(float(g.abs().max()), 1e-30), n)
+                for n, g in grads_c.items())
+    _log(f"rnn card vs cpu: loss card {loss_g:.7f} cpu {loss_c:.7f} "
+         f"(relative {rel:.2e}, tol 1e-5); worst gradient max|delta|/max|g| "
+         f"{worst[0]:.2e} ({worst[1]}; tol 1e-3) over {len(grads_c)} "
+         f"tensors; cpu step {cpu_s:.1f}s")
+    if set(grads_g) != set(grads_c) or not rel <= 1e-5 \
+            or not worst[0] <= 1e-3:
+        raise AssertionError("card and CPU char-LSTM steps disagree")
+    return {"loss_rel": rel, "grad_worst_ratio": worst[0]}
+
+
+def _sample_margin(cpu_model, data, text, j, temperature=0.8):
+    """How close step ``j``'s draw came to switching characters: the
+    distance of its uniform number from the nearest edge of the CPU's
+    cumulative distribution (``rng.choice`` takes one uniform a draw).
+    Logits that moved by e change that distribution by less than e / T
+    at every edge, so a difference needs this margin below that."""
+    dev = tdevice.get_device("cpu")
+    cpu_model.eval()
+    hx = cx = None
+    for ch in text[:j + 1]:
+        x = TTensor(data=np.array([[data.c2i[ch]]], np.int32), device=dev)
+        logits, hx, cx = cpu_model.forward(x, hx, cx)
+    p = logits.numpy().astype(np.float64)[0] / temperature
+    p = np.exp(p - p.max())
+    p /= p.sum()
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    u = np.random.RandomState(0).random_sample(j + 1)[j]
+    return float(np.abs(cdf - u).min())
+
+
+def phase_rnn_sample():
+    """The port's char-RNN example (``CharRNN(vocab, hidden=256)`` with
+    the LSTM's fused flag set) on its synthetic corpus: 2 epochs of
+    truncated BPTT at B 16, T 64 with Adam(3e-3), carrying ``hx, cx``;
+    then ``sample()`` draws 120 characters, one T 1, B 1 step each.
+    Launch counters are zeroed before each part and read after it.
+    Checks: the epoch loss falls; exactly T launches a training step and
+    one a sampled character; the card's characters equal those the port
+    samples on the CPU from the same weights and generator, or first
+    differ at a draw within ``MARGIN_TOL`` of a distribution edge.
+    Returns ``(launches, stats)``."""
+    dev = tdevice.get_device("cuda")
+    dev.set_rand_seed(0)
+    data = char_rnn.Data(char_rnn.synthetic_corpus())
+    m = char_rnn.CharRNN(data.vocab, hidden=RNN_H)
+    m.lstm.use_fused_cell = True
+    m.set_optimizer(topt.Adam(lr=SAMPLE_LR))
+    zeros = np.zeros((1, SAMPLE_B, RNN_H), np.float32)
+    m.compile([TTensor(data=np.zeros((SAMPLE_T, SAMPLE_B), np.int32),
+                       device=dev)], is_train=True, use_graph=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    _zero_launches()
+    epoch_loss, steps = [], 0
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_EPOCHS):
+        hx = TTensor(data=zeros, device=dev)
+        cx = TTensor(data=zeros, device=dev)
+        tot, nb = 0.0, 0
+        for bx, by in data.batches(SAMPLE_B, SAMPLE_T):
+            loss, hx, cx = m.train_one_batch(bx, by, hx, cx)
+            if hx.creator is not None or hx.data.requires_grad:
+                raise AssertionError("the carried state kept its graph")
+            tot += loss.item()
+            nb += 1
+        epoch_loss.append(tot / nb)
+        steps += nb
+    train_s = time.perf_counter() - t0
+    train_launches = _read_launches()
+    _zero_launches()
+    t0 = time.perf_counter()
+    text = char_rnn.sample(m, data, dev, length=SAMPLE_LEN)
+    sample_s = time.perf_counter() - t0
+    sample_launches = _read_launches()
+    launches = {k: train_launches[k] + sample_launches[k]
+                for k in train_launches}
+    _log(f"rnn_sample: epoch losses {epoch_loss}, {steps} steps in "
+         f"{train_s:.2f}s ({steps * SAMPLE_B * SAMPLE_T / train_s:.0f} "
+         f"chars/s); {SAMPLE_LEN} characters sampled in {sample_s:.3f}s; "
+         f"lstm_cell launches: training {train_launches['lstm_cell']}, "
+         f"sampling {sample_launches['lstm_cell']}")
+    _log(f"rnn_sample text: {text!r}")
+    if not epoch_loss[-1] < epoch_loss[0]:
+        raise AssertionError(f"rnn_sample: the loss did not fall: "
+                             f"{epoch_loss}")
+    if train_launches["lstm_cell"] != steps * SAMPLE_T \
+            or sample_launches["lstm_cell"] != SAMPLE_LEN:
+        raise AssertionError(f"rnn_sample launches: training "
+                             f"{train_launches}, sampling {sample_launches}")
+    states = {k: v.numpy() for k, v in m.get_states().items()}
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_dev = tdevice.get_device("cpu")
+    cpu = char_rnn.CharRNN(data.vocab, hidden=RNN_H)
+    cpu.lstm.use_fused_cell = True
+    cpu.compile([TTensor(data=np.zeros((SAMPLE_T, SAMPLE_B), np.int32),
+                         device=cpu_dev)], is_train=False)
+    cpu.set_states(states)
+    cpu_text = char_rnn.sample(cpu, data, cpu_dev, length=SAMPLE_LEN)
+    if cpu_text == text:
+        _log(f"rnn_sample oracle: {SAMPLE_LEN} characters identical to the "
+             f"CPU run")
+        margin = None
+    else:
+        j = next(i for i, (a, b) in enumerate(zip(text, cpu_text)) if a != b)
+        margin = _sample_margin(cpu, data, cpu_text, j - 1)
+        _log(f"rnn_sample oracle: first difference at character {j}, draw "
+             f"margin {margin:.3e} on the CPU")
+        if margin >= MARGIN_TOL:
+            raise AssertionError(f"the card's sample differs from the CPU's "
+                                 f"at character {j} with margin {margin}")
+    return launches, {"epoch_loss": epoch_loss, "train_s": train_s,
+                      "sample_s": sample_s, "margin": margin}
+
+
 def _kernel_bucket(name):
+    if "lstm_cell" in name:
+        return "lstm_cell kernel"
+    if "unary_kernel" in name or "binary_kernel" in name:
+        return "elementwise kernel"
     if "flash_bwd_dq" in name:
         return "flash_attention_bwd dq kernel"
     if "flash_bwd_dkv" in name:
@@ -984,7 +1543,8 @@ def phase_profile(path):
     """One path once more under ``torch.profiler`` (CPU and CUDA
     activity): ``serve``, the slice's stream; ``serve_int8``, the same
     stream on the quantized engine; ``train``, two training steps after
-    one unprofiled warm-up step.  Prints the device busy and idle share
+    one unprofiled warm-up step; ``rnn_train``, two steps of the fused
+    char-LSTM after one warm-up step.  Prints the device busy and idle share
     over the window, device time by kernel group and by kernel.  Times
     under the profiler include its own host overhead."""
     from torch.profiler import ProfilerActivity, profile
@@ -999,13 +1559,21 @@ def phase_profile(path):
 
         def run():
             _serve(eng, prompts)
-    else:
+    elif path == "train":
         cfg, model, batches = _train_setup()
         model.train_one_batch(*batches[0])[1].item()
 
         def run():
             for x, y in batches[1:3]:
                 model.train_one_batch(x, y)
+    else:
+        model = _rnn_model(True, "cuda")
+        batch = _rnn_batch()
+        model.train_one_batch(*batch)[1].item()
+
+        def run():
+            for _ in range(2):
+                model.train_one_batch(*batch)
     torch.cuda.synchronize()
     _zero_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1059,11 +1627,11 @@ def main(argv):
         return 2
     modes = {(): None, ("--profile",): lambda: phase_profile("serve"),
              ("--compare-serve",): phase_compare_serve}
-    for path in ("serve", "serve_int8", "train"):
+    for path in ("serve", "serve_int8", "train", "rnn_train"):
         modes["--profile", path] = lambda p=path: phase_profile(p)
     if tuple(argv) not in modes:
-        print("usage: chip_smoke.py [--profile [serve|serve_int8|train] | "
-              "--compare-serve]", file=sys.stderr)
+        print("usage: chip_smoke.py [--profile [serve|serve_int8|train|"
+              "rnn_train] | --compare-serve]", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     card = phase_card()
@@ -1075,23 +1643,38 @@ def main(argv):
     fwd = phase_flash()
     dq, dkv, fwd["train_shape"] = phase_flash_bwd()
     paged, paged_q8 = phase_paged()
-    rows = [fwd, dq, dkv, paged, paged_q8]
+    t_k = time.perf_counter()
+    lstm = phase_lstm()
+    elementwise, ew_launches = phase_ew()
+    _log(f"lstm and elementwise kernel phases (5a-5b): "
+         f"{time.perf_counter() - t_k:.1f}s")
+    rows = [fwd, dq, dkv, elementwise, lstm, paged, paged_q8]
     serve_launches, serve_stats, setup = phase_slice()
     int8_launches, _ = phase_slice_int8(setup, serve_stats)
     del setup
     model, train_launches, _ = phase_train()
     phase_card_vs_cpu(model)
     phase_serve_trained(model)
+    del model
+    t_rnn = time.perf_counter()
+    rnn_model, rnn_train_launches, _ = phase_rnn_train()
+    phase_rnn_card_vs_cpu(rnn_model)
+    del rnn_model
+    rnn_sample_launches, _ = phase_rnn_sample()
+    _log(f"rnn phases (11-13): {time.perf_counter() - t_rnn:.1f}s")
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
                    "serve_int8": int8_launches[row["name"]],
-                   "train": train_launches[row["name"]]}
+                   "train": train_launches[row["name"]],
+                   "rnn_train": rnn_train_launches[row["name"]],
+                   "rnn_sample": rnn_sample_launches[row["name"]],
+                   "ew": ew_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
     _log(json.dumps({"kernels": [
         {k: r[k] for k in KEYS + ("launches_by_path",)}
-        | ({"train_shape": r["train_shape"]} if "train_shape" in r else {})
+        | {k: r[k] for k in ("train_shape", "blocks", "by_op") if k in r}
         for r in rows]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,12 @@ Ported so far: GPT training through the framework core
 :mod:`~singa_tpu_torch.opt`, :mod:`singa_tpu_torch.models.gpt`), and GPT
 decode serving through the chunked, paged continuous-batching engine
 (:mod:`singa_tpu_torch.serving`), float or quantized (int8 KV pages and
-per-channel int8 weights, :mod:`~singa_tpu_torch.precision`), with
-hand-written CUDA kernels for flash-attention forward and backward and
-paged decode attention (:mod:`singa_tpu_torch.ops`).
+per-channel int8 weights, :mod:`~singa_tpu_torch.precision`), and the
+char-LSTM trained and sampled through the RNN layers
+(:mod:`singa_tpu_torch.examples.char_rnn`), with hand-written CUDA
+kernels for flash-attention forward and backward, paged decode
+attention, the fused LSTM cell and the elementwise catalogue
+(:mod:`singa_tpu_torch.ops`).
 """
 
 from .device import resolve_device, seeded_generator

@@ -5,8 +5,9 @@ flag, ``backward(y, dy)`` (:208), ``gradients(y)`` and the operators the
 training path runs, by the reference's names and semantics: ``add``,
 ``mul``, ``matmul``, ``add_bias``, ``reshape``, ``transpose``,
 ``gather``, ``gelu`` (the exact erf form), ``softmax`` (float32 pin),
-``softmax_cross_entropy`` (mean; integer or one-hot targets) and
-``cast``.
+``softmax_cross_entropy`` (mean; integer or one-hot targets), ``cast``,
+``reduce_mean`` and ``onehot`` (no gradient, as the reference's
+``_nograd`` ops).
 
 The reference derives each op's backward with ``jax.vjp`` and walks its
 own graph of cotangents; here an op is a torch expression on the
@@ -27,7 +28,8 @@ from .tensor import Tensor
 
 __all__ = ["training", "Operation", "backward", "gradients", "add", "mul",
            "matmul", "add_bias", "reshape", "transpose", "gather", "gelu",
-           "softmax", "softmax_cross_entropy", "cast", "op"]
+           "softmax", "softmax_cross_entropy", "cast", "reduce_mean",
+           "onehot", "op"]
 
 # module-level training flag (parity: ``autograd.training``); ops record
 # a graph only while it is on
@@ -49,13 +51,17 @@ def op(name, fn, *xs):
     """An operator defined by a torch forward (the counterpart of the
     reference's ``JaxOp``): run ``fn`` on the ``.data`` of the Tensor
     arguments (other arguments pass as they are), record it while
-    ``training`` is on, and wrap the result."""
+    ``training`` is on, and wrap the result.  A forward that returns a
+    tuple gives a tuple of Tensors, one recorded op with several outputs
+    (the RNN's ``(y, hy, cy)``); each output that carries a gradient
+    shares the op's creator."""
     raw = [x.data if isinstance(x, Tensor) else x for x in xs]
     with torch.set_grad_enabled(training):
         out = fn(*raw)
     dev = next(x.device for x in xs if isinstance(x, Tensor))
+    outs = out if isinstance(out, tuple) else (out,)
     creator = None
-    if training and out.requires_grad:
+    if training and any(o.requires_grad for o in outs):
         leaves = {}
         for x in xs:
             if not isinstance(x, Tensor):
@@ -65,8 +71,22 @@ def op(name, fn, *xs):
             elif x.creator is not None:
                 leaves.update(x.creator.leaves)
         creator = Operation(name, leaves)
-    return Tensor(data=out, device=dev, requires_grad=creator is not None,
-                  creator=creator)
+    wrapped = tuple(
+        Tensor(data=o, device=dev, requires_grad=o.requires_grad and
+               creator is not None,
+               creator=creator if o.requires_grad else None)
+        for o in outs)
+    return wrapped if isinstance(out, tuple) else wrapped[0]
+
+
+def _nograd(fn, *xs):
+    """A function of the Tensor arguments' data that records no gradient
+    (reference ``_nograd``: comparisons, ``argmax``, ``onehot``)."""
+    raw = [x.data if isinstance(x, Tensor) else x for x in xs]
+    with torch.no_grad():
+        out = fn(*raw)
+    dev = next((x.device for x in xs if isinstance(x, Tensor)), None)
+    return Tensor(data=out, device=dev, requires_grad=False)
 
 
 # --------------------------------------------------------------------------
@@ -180,3 +200,26 @@ def softmax_cross_entropy(logits, target):
 
 def cast(x, dtype):
     return op("Cast", lambda v: v.to(dtype), x)
+
+
+def reduce_mean(x, axes=None, keepdims=False):
+    """Mean over ``axes`` (all when None)."""
+    def fn(v):
+        if axes is None:
+            return v.mean(dim=tuple(range(v.dim())), keepdim=keepdims)
+        ax = axes if isinstance(axes, (list, tuple)) else (axes,)
+        return v.mean(dim=tuple(ax), keepdim=keepdims)
+    return op("ReduceMean", fn, x)
+
+
+def onehot(x, depth, dtype=torch.float32):
+    """One-hot of integer ids along a new last axis of size ``depth``
+    (``jax.nn.one_hot``: an id outside ``[0, depth)`` gives a row of
+    zeros).  Records no gradient.  Computed by comparison with
+    ``arange(depth)``, so int32 ids need no widening to int64 as
+    ``F.one_hot`` would."""
+    def fn(v):
+        v = torch.as_tensor(v)
+        cls = torch.arange(depth, dtype=v.dtype, device=v.device)
+        return (v[..., None] == cls).to(dtype)
+    return _nograd(fn, x)

@@ -4,13 +4,14 @@
 input's device; ``get_params`` / ``get_states`` / ``set_states`` under
 dotted attribute-path names, as the reference), ``Linear`` (:123, ``W``
 is ``(in, out)``, ``y = x @ W + b``), ``Embedding`` (:312),
-``LayerNorm`` (:330, ``scale`` / ``bias``, float32 statistics), ``Gelu``
-and ``MultiHeadAttention`` (:441: the naive decomposition of
-layer.py:559-583 or the differentiable flash-attention kernels), plus
-:func:`apply_rope`.  Initial weights come from the device's seeded
-``torch.Generator``.  Conv, batch-norm, pooling and RNN layers, sequence
-parallelism and attention dropout in training belong to later slices
-(``ROADMAP.md`` queue 1, items 3 and 12).
+``LayerNorm`` (:330, ``scale`` / ``bias``, float32 statistics), ``Gelu``,
+``MultiHeadAttention`` (:441: the naive decomposition of
+layer.py:559-583 or the differentiable flash-attention kernels), ``RNN``,
+``LSTM``, ``GRU`` and ``CudnnRNN`` (:359-419, optionally through the
+fused LSTM cell kernel), plus :func:`apply_rope`.  Initial weights come
+from the device's seeded ``torch.Generator``.  Conv, batch-norm and
+pooling layers, sequence parallelism and attention dropout in training
+belong to later slices (``ROADMAP.md`` queue 1, items 3 and 12).
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ import torch
 from . import autograd
 from .device import get_device
 from .ops.flash_attention import flash_attention
+from .ops.rnn import RNNHandle, rnn_forward
 from .tensor import Tensor
 
 __all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "Gelu",
-           "MultiHeadAttention", "apply_rope"]
+           "MultiHeadAttention", "RNN", "LSTM", "GRU", "CudnnRNN",
+           "apply_rope"]
 
 
 class Layer:
@@ -196,6 +199,78 @@ class LayerNorm(Layer):
             return out.to(v.dtype)
         return autograd.op("LayerNormalization", fn, x, self.scale,
                             self.bias)
+
+
+class RNN(Layer):
+    """Multi-layer (bi)directional RNN over :mod:`~singa_tpu_torch.ops.rnn`
+    (reference: ``layer.RNN`` / ``CudnnRNN``; state layout as cuDNN's).
+
+    Lazy init: per (layer, direction) ``W_ih``, ``W_hh`` and ``b`` drawn
+    from U(-1/sqrt(H), 1/sqrt(H)) with the device's generator, held in the
+    attributes ``_w0``, ``_w1``, ... so the states are named
+    ``<layer>._w0`` and so on, as the reference's.  ``use_fused_cell``
+    (LSTM only, read when the layer initialises): each step is one launch
+    of the fused cell kernel.  ``forward(x, hx=None, cx=None)`` starts
+    from zero states by default and returns ``(y, hy, cy)`` for an LSTM,
+    ``(y, hy)`` otherwise."""
+
+    mode = "tanh"
+
+    def __init__(self, hidden_size: int, num_layers: int = 1,
+                 bidirectional: bool = False, batch_first: bool = False,
+                 use_fused_cell: bool = False, name=None):
+        super().__init__(name)
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.bidirectional = bidirectional
+        self.batch_first = batch_first
+        self.use_fused_cell = use_fused_cell
+
+    def initialize(self, x, *args):
+        self.handle = RNNHandle(x.shape[-1], self.hidden_size,
+                                self.num_layers, self.mode,
+                                self.bidirectional, self.batch_first,
+                                use_fused_cell=self.use_fused_cell)
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        dev = get_device(self._init_device).torch_device
+        self.weights = []
+        for li, shapes in enumerate(self.handle.weight_shapes()):
+            for suffix, shape in zip(("W_ih", "W_hh", "b"), shapes):
+                w = torch.empty(shape, device=dev)
+                w.uniform_(-bound, bound, generator=self._generator())
+                self.weights.append(self._param(w, f"l{li}{self.sep}{suffix}"))
+        for i, t in enumerate(self.weights):
+            setattr(self, f"_w{i}", t)
+
+    def _zeros_state(self, x):
+        B = x.shape[0] if self.batch_first else x.shape[1]
+        L = self.num_layers * self.handle.num_directions
+        return Tensor(data=torch.zeros((L, B, self.hidden_size),
+                                       dtype=x.dtype,
+                                       device=x.device.torch_device),
+                      device=x.device, requires_grad=False)
+
+    def forward(self, x, hx=None, cx=None):
+        if hx is None:
+            hx = self._zeros_state(x)
+        if cx is None:
+            cx = self._zeros_state(x)
+        y, hy, cy = rnn_forward(self.handle, x, hx, cx, self.weights)
+        if self.mode == "lstm":
+            return y, hy, cy
+        return y, hy
+
+
+class LSTM(RNN):
+    mode = "lstm"
+
+
+class GRU(RNN):
+    mode = "gru"
+
+
+# reference-named alias
+CudnnRNN = LSTM
 
 
 def apply_rope(x, positions=None, base: float = 10000.0):

@@ -12,8 +12,15 @@ numpy or torch batches arrive as :class:`Tensor` on that device.
 
 Graph mode: the reference traces the whole step into one XLA program
 under ``use_graph=True``.  PyTorch runs eagerly and needs no ``jit``, so
-``use_graph=True`` is accepted and runs the same eager step; capturing
-the step in a CUDA graph is a later PR (``ROADMAP.md`` queue 1, item 4).
+``use_graph=True`` runs the same eager step, with the compiled step's
+boundary kept: every Tensor input enters as a fresh ``Tensor`` that
+requires no gradient (reference model.py:570-572) and every Tensor output
+leaves without a creator (:389), detached from this step's graph.  So an
+output fed back as the next step's input (an RNN's carried state, the
+char-RNN's truncated BPTT) cuts the gradient there, as a traced step's
+argument does.  Capturing the step in a CUDA graph is later work
+(``ROADMAP.md`` queue 1, item 4).  ``use_graph=False`` passes inputs and
+outputs through as they are.
 ``sequential`` is accepted and ignored, as in the reference, which stores
 it and reads it nowhere.
 A ``precision`` other than None / ``"float32"``, a ``communicator``, a
@@ -45,6 +52,7 @@ class Model(Layer):
         self.training = True
         self.optimizer = None
         self.device = None
+        self.graph_mode = False
         self._user_tob = None
 
     # ------------------------------------------------------------------
@@ -103,9 +111,9 @@ class Model(Layer):
         (reference: ``Model.compile``).  The state follows the first
         input's device; numpy or torch inputs go to the model's device
         (the card when it has none).  ``use_graph=True`` runs the same
-        eager step and ``sequential`` is ignored (see the module
-        docstring).  Returns the placeholder
-        pass's output."""
+        eager step, cut from the graph at its inputs and outputs, and
+        ``sequential`` is ignored (see the module docstring).  Returns the
+        placeholder pass's output."""
         if precision not in (None, "float32"):
             _not_ported(f"precision={precision!r}", "item 4 (precision.py)")
         if communicator is not None:
@@ -119,6 +127,7 @@ class Model(Layer):
         first = inputs[0]
         self.device = (first.device if isinstance(first, Tensor)
                        else get_device(self.device))
+        self.graph_mode = use_graph
         xs = [self._as_input(x) for x in inputs]
         for t in self.get_states().values():   # eagerly created params
             t.to_device(self.device)
@@ -135,4 +144,19 @@ class Model(Layer):
         return out
 
     def _dispatch_tob(self, *xs):
-        return self._user_tob(*[self._as_input(x) for x in xs])
+        xs = [self._as_input(x) for x in xs]
+        if not self.graph_mode:
+            return self._user_tob(*xs)
+        return _cut(self._user_tob(*[_cut(x) for x in xs]))
+
+
+def _cut(x):
+    """The compiled step's boundary: a Tensor becomes a fresh Tensor on
+    the same data, detached, with no creator; tuples and lists are cut
+    item by item; anything else passes as it is."""
+    if isinstance(x, Tensor):
+        return Tensor(data=x.data.detach(), device=x.device,
+                      requires_grad=False)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cut(v) for v in x)
+    return x

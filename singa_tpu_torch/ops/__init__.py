@@ -5,7 +5,14 @@ version (counterpart: ``singa_tpu/ops``):
   (``csrc/flash_attention_fwd.cu``) and its backward, the dq and dk/dv
   passes (``csrc/flash_attention_bwd.cu``);
 * :mod:`.paged_attention` — paged decode attention over float32,
-  bfloat16 or int8 page pools (``csrc/paged_decode.cu``).
+  bfloat16 or int8 page pools (``csrc/paged_decode.cu``);
+* :mod:`.lstm_cell` — one fused LSTM step (``csrc/lstm_cell.cu``), with
+  the reference's recompute backward in torch ops;
+* :mod:`.elementwise` — the elementwise catalogue
+  (``csrc/elementwise.cu``);
+
+and :mod:`.rnn`, the RNN ops (LSTM, GRU, tanh, relu; the fused cell when
+asked for).
 
 Kernels build from ``csrc/`` at first use (:mod:`._build`); nothing is
 compiled or loaded at import time.  Each module keeps its launch counts

@@ -34,6 +34,8 @@ SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "paged_decode": "paged_decode.cu",
+    "lstm_cell": "lstm_cell.cu",
+    "elementwise": "elementwise.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

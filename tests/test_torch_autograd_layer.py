@@ -245,3 +245,48 @@ def test_model_compile_names_and_places_the_state():
                 dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m.compile([_tt(np.zeros((2, 5), np.float32))], **bad)
+
+
+class _Carry(Model):
+    """A step with a carried state, the RNN pattern:
+    ``s' = tanh(x W + s)``, loss = mean(s'^2)."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc = tlayer.Linear(4, bias=False)
+
+    def forward(self, x):
+        return self.fc(x)
+
+    def train_one_batch(self, x, s):
+        s_new = tag.op("Tanh", torch.tanh, tag.add(self.fc(x), s))
+        loss = tag.reduce_mean(tag.mul(s_new, s_new))
+        self.optimizer(loss)
+        return loss, s_new
+
+
+@pytest.mark.parametrize("use_graph", [True, False])
+def test_graph_mode_cuts_the_step_at_inputs_and_outputs(use_graph):
+    """``use_graph=True``: the carried output leaves the step without a
+    creator and feeds the next step, whose gradient stops there (the
+    losses equal a run fed numpy copies of the state).  Eager mode keeps
+    the output's graph as it is."""
+    from singa_tpu_torch import opt as topt
+    rng = np.random.RandomState(9)
+    xs = [rng.randn(2, 3).astype(np.float32) for _ in range(3)]
+    w0 = rng.randn(3, 4).astype(np.float32)
+    runs = []
+    for carry_tensor in (True, False):
+        m = _Carry()
+        m.set_optimizer(topt.SGD(lr=0.1))
+        m.compile([_tt(xs[0])], is_train=True, use_graph=use_graph)
+        m.set_states({"fc.W": w0})
+        s = _tt(np.zeros((2, 4), np.float32))
+        losses = []
+        for x in xs[:1 if not use_graph else 3]:
+            loss, s_new = m.train_one_batch(x, s)
+            losses.append(loss.item())
+            assert (s_new.creator is None) == use_graph
+            s = s_new if carry_tensor else s_new.numpy().copy()
+        runs.append(losses)
+    assert runs[0] == runs[1]

@@ -155,6 +155,24 @@ def test_losses_match_jax(trained):
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=0)
 
 
+def test_graph_step_outputs_leave_the_graph(trained):
+    """Under ``use_graph=True`` a step's outputs come back as a traced
+    step's do: no creator and no torch graph (the losses above are those
+    of such steps).  The carried-state case is
+    ``test_torch_autograd_layer.py::test_graph_mode_cuts_the_step_at_inputs_and_outputs``
+    and ``test_torch_char_rnn.py``."""
+    cfg = trained["cfg"]
+    x, y = _batches(cfg.vocab_size)[0]
+    tm = tgpt.GPT.from_jax_states(trained["start"], cfg, device="cpu")
+    tm.set_optimizer(topt.Adam(lr=LR))
+    tm.compile([x], is_train=True, use_graph=True)
+    logits, loss = tm.train_one_batch(x, y)
+    tm.eval()
+    assert logits.creator is None and loss.creator is None
+    assert not logits.data.requires_grad and not loss.requires_grad
+    assert loss.item() == trained["t_loss"][0]
+
+
 def test_params_and_adam_state_match_jax(trained):
     tm, js = trained["tm"], trained["j_states"]
     start = trained["start"]

@@ -57,6 +57,10 @@ def test_package_imports_without_jax():
             "import singa_tpu_torch.ops.flash_attention\n"
             "import singa_tpu_torch.ops.paged_attention\n"
             "import singa_tpu_torch.ops._build\n"
+            "import singa_tpu_torch.ops.lstm_cell\n"
+            "import singa_tpu_torch.ops.elementwise\n"
+            "import singa_tpu_torch.ops.rnn\n"
+            "import singa_tpu_torch.examples.char_rnn\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     env = dict(os.environ, PYTHONPATH=REPO)
