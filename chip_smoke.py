@@ -26,12 +26,16 @@ Phases (any failure exits non-zero before the result lines print):
    positions), plus 8-, 12- and 32-token pages at head dims 64, 32 and
    128; times and byte bounds of the float32 and int8 variants at the
    serving shape;
-5a. the fused LSTM cell: kernel against its plain version, forward and
-   backward through its autograd Function, at the char-LSTM's training
-   shape (B 64, H 256), its sampling shape (B 1, H 256) and ragged
-   shapes (B 3/65, H 5/130/1000); times at the training shape for the
-   kernel, its plain version and cuDNN's ``torch.nn.LSTM`` forward over
-   T 100 divided by T (a yardstick the port never calls);
+5a. the fused LSTM cell: its forward and backward kernels against their
+   plain versions, and its autograd Function against the plain cell
+   under torch's autograd, in float32, bfloat16 and float16, at the
+   char-LSTM's training shape (B 64, H 256), its sampling shape (B 1,
+   H 256) and ragged shapes (B 3/65, H 5/130/1000); times at the training
+   shape for each kernel, its plain version, the whole Function backward
+   and cuDNN's ``torch.nn.LSTM`` forward and backward over T 100 divided
+   by T (yardsticks the port never calls); the Function backward's
+   device launches counted under the profiler; the kernels' registers,
+   spills and shared memory;
 5b. the elementwise catalogue, path ``ew``: every op and dtype pair
    through its own entry points at the char-LSTM's gate size (T * B *
    4H = 6,553,600 values), then each against its plain version, plus a
@@ -63,12 +67,14 @@ Phases (any failure exits non-zero before the result lines print):
    0.9) takes 10 graph-mode steps on a seeded batch, then the same model
    through the plain cell from the same weights (step time, tokens/s,
    loss, peak memory of each; the loss must fall; exactly 100 launches
-   of the cell a fused step, none on the plain path; losses agree);
+   of each cell kernel, forward and backward, a fused step, none on the
+   plain path; losses agree);
 12. one full-width fused char-LSTM step on the card and in the port on
    the CPU: loss and every gradient compared;
 13. path ``rnn_sample``: the port's char-RNN example with the fused cell
    trains 2 epochs of truncated BPTT (B 16, T 64, Adam 3e-3) on its
-   synthetic corpus and samples 120 characters (one launch each); the
+   synthetic corpus and samples 120 characters (one forward launch
+   each, no backward one); the
    epoch loss must fall and the characters must equal the port's on the
    CPU from the same weights and generator;
 14. one ``kernels`` JSON line, then the result line.
@@ -77,10 +83,12 @@ The kernels' launch counters are zeroed just before each path (5b, 6,
 7, 8, 11 and 13) and read just after it; a kernel's ``launches`` is the
 sum over them, ``launches_by_path`` splits it.
 
-    python3 chip_smoke.py --profile [serve|serve_int8|train|rnn_train]
+    python3 chip_smoke.py --profile [serve|serve_int8|train|rnn_train|
+                                     rnn_train_plain]
 
 runs phases 1-2 and then the serving stream (float or int8), or two
-training steps (GPT or the fused char-LSTM) after a warm-up step, once
+training steps (GPT, the fused char-LSTM or the char-LSTM through the
+plain cell) after a warm-up step, once
 under ``torch.profiler`` (CPU and CUDA activity), and prints the
 device's busy and idle share over the run, device time by kernel group
 and the costliest kernels.
@@ -93,7 +101,9 @@ tokens/s, TTFT p50, ITL p99 and wall time and their spread.
 
 Kernel times are the median of single launches timed with CUDA events,
 each after a 64 MiB write that evicts the 50 MB L2, so operands come
-from device memory as on the main paths.  ``bound_ms`` is the larger of
+from device memory as on the main paths, and behind a ~1 ms device spin,
+so the events bracket the call's device work and not the time the host
+takes to issue it.  ``bound_ms`` is the larger of
 bytes moved (each input read once, each output written once) over
 3.35 TB/s and float32 operations over 67 TFLOP/s (H100 SXM data sheet).
 """
@@ -157,11 +167,16 @@ def _bound(nbytes, flops):
 
 
 _FLUSH = None
+# device cycles of the spin queued after the flush (about 1 ms): the host
+# enqueues the timed call behind it, so the events bracket device work
+# and not the host's Python
+BACKLOG_CYCLES = 2_000_000
 
 
 def _time_ms(fn, reps=REPS):
     """Median single-launch time of ``fn`` in ms, L2 evicted before
-    each launch."""
+    each launch, the call enqueued behind a spin so that its host time
+    is not counted."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -170,6 +185,7 @@ def _time_ms(fn, reps=REPS):
     times = []
     for _ in range(reps):
         _FLUSH.zero_()
+        torch.cuda._sleep(BACKLOG_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -514,71 +530,157 @@ def phase_paged():
 # the char-LSTM of bench_rnn.py at the reference char-RNN shape
 # (bench_rnn.py:92): vocab, hidden, sequence, batch
 RNN_V, RNN_H, RNN_T, RNN_B = 86, 256, 100, 64
-LSTM_TOL = 1e-5
+LSTM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# tolerance by output type: float32 max abs error 1e-5 (summation order
+# only); bfloat16 and float16 one unit in the last place relative to
+# max(1, |ref|) (both sides compute in float32 and round once, so a value
+# near a tie may land on either side)
+LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}
 
 
-def _lstm_operands(g, B, H):
+def _lstm_operands(g, B, H, dtype=torch.float32):
     """One cell step's operands on the card: h in (-1, 1), c and xw
-    normal, W_hh and b uniform in +-1/sqrt(H) (the layer's init)."""
+    normal, W_hh and b uniform in +-1/sqrt(H) (the layer's init), drawn
+    in float32 and rounded to ``dtype``."""
     u = 1.0 / np.sqrt(H)
 
     def unif(*shape, lim=1.0):
         return (torch.rand(*shape, generator=g, device="cuda") * 2 - 1) * lim
 
-    return (torch.randn(B, 4 * H, generator=g, device="cuda"),
-            unif(B, H), torch.randn(B, H, generator=g, device="cuda"),
-            unif(H, 4 * H, lim=u), unif(4 * H, lim=u))
+    ops = (torch.randn(B, 4 * H, generator=g, device="cuda"),
+           unif(B, H), torch.randn(B, H, generator=g, device="cuda"),
+           unif(H, 4 * H, lim=u), unif(4 * H, lim=u))
+    return tuple(t.to(dtype) for t in ops)
 
 
-def _lstm_case(ops):
-    """Forward and backward of the cell through its autograd Function
-    (the kernel forward) against the plain version under torch's
-    autograd, on the same operands and cotangents: ``(forward max abs
-    err, worst gradient max|delta| / max|g|)``."""
+def _lstm_err(got, ref):
+    """Float32 outputs: max abs error; bfloat16 / float16: max |delta| /
+    max(1, |ref|)."""
+    d = (got.float() - ref.float()).abs()
+    if got.dtype == torch.float32:
+        return float(d.max())
+    return float((d / ref.float().abs().clamp(min=1.0)).max())
+
+
+def _lstm_case(ops, g):
+    """Both kernels against their plain versions on the same operands
+    and cotangents, then the autograd Function (forward and backward
+    kernels, the products) against the plain version under torch's
+    autograd: ``(forward err, backward kernel err, gradient err,
+    finite)``.  Errors by ``_lstm_err`` for the kernels (the backward
+    kernel writes float32) and for low-precision gradients; float32
+    gradients as max|delta| / max|g| over each tensor."""
+    B, H = ops[1].shape
+    dt = ops[1].dtype
+    dh = torch.randn(B, H, generator=g, device="cuda").to(dt)
+    dc = torch.randn(B, H, generator=g, device="cuda").to(dt)
+    kern = lc.lstm_cell_forward(*ops) + lc.lstm_cell_backward(*ops, dh, dc)
+    plain = lc.lstm_cell_reference(*ops) \
+        + lc.lstm_cell_backward_reference(*ops, dh, dc)
+    if any(a.dtype != b.dtype or a.shape != b.shape
+           for a, b in zip(kern, plain)):
+        raise AssertionError(f"lstm cell: kernel outputs {kern} against "
+                             f"{plain}")
+    fwd = max(_lstm_err(a, b) for a, b in zip(kern[:2], plain[:2]))
+    bwd = max(_lstm_err(a, b) for a, b in zip(kern[2:], plain[2:]))
     leaves = [t.detach().requires_grad_() for t in ops]
-    g = torch.Generator(device="cuda").manual_seed(5)
-    dh = torch.randn(ops[1].shape, generator=g, device="cuda")
-    dc = torch.randn(ops[1].shape, generator=g, device="cuda")
-    outs, grads = [], []
-    for fn in (lc.lstm_cell_fused, lc.lstm_cell_reference):
-        h2, c2 = fn(*leaves)
-        grads.append(torch.autograd.grad((h2, c2), leaves, (dh, dc)))
-        outs.append((h2.detach(), c2.detach()))
+    grads = [torch.autograd.grad(fn(*leaves), leaves, (dh, dc))
+             for fn in (lc.lstm_cell_fused, lc.lstm_cell_reference)]
     torch.cuda.synchronize()
-    fwd = max(float((a - b).abs().max()) for a, b in zip(*outs))
-    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-              for a, b in zip(*grads))
-    finite = all(bool(torch.isfinite(t).all()) for t in outs[0] + grads[0])
-    return fwd, rel, finite
+    if dt == torch.float32:
+        grad = max(float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(*grads))
+    else:
+        grad = max(_lstm_err(a, b) for a, b in zip(*grads))
+    finite = all(bool(torch.isfinite(t).all()) for t in kern + grads[0])
+    return fwd, bwd, grad, finite
+
+
+def _count_device_launches(fn):
+    """Device activities (kernels, copies, fills) that one call of
+    ``fn`` issues, under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kern), kern
 
 
 def phase_lstm():
-    """The LSTM cell kernel against its plain version, forward and
-    backward, at the training shape (B 64, H 256), the sampling shape
-    (B 1, H 256) and ragged shapes; times at the training shape for the
-    kernel, its plain version and, as a yardstick the port never calls,
-    cuDNN's ``torch.nn.LSTM`` forward over the same T 100 sequence and
-    weights, divided by T.  Returns the row for the kernels line."""
+    """The LSTM cell's forward and backward kernels against their plain
+    versions, and the autograd Function against the plain cell under
+    torch's autograd, in float32, bfloat16 and float16, at the training
+    shape (B 64, H 256), the sampling shape (B 1, H 256) and ragged shapes
+    (B 3/65 x H 5/130/1000).  Times at the training shape: each kernel,
+    its plain version, the whole Function backward (the kernel and the
+    products), and, as yardsticks the port never calls, cuDNN's
+    ``torch.nn.LSTM`` forward over the same T 100 sequence and weights
+    divided by T, and its backward ((forward + backward) - forward) over
+    T.  The Function backward's device launches are counted under the
+    profiler.  Returns the rows for the kernels line."""
+    report = [line.strip() for line in
+              _build.ptxas_report("lstm_cell").splitlines()
+              if "entry function" in line or "Used" in line
+              or "spill" in line]
+    _log("ptxas lstm_cell:\n  " + "\n  ".join(report))
+    _log("lstm cell dynamic shared memory a block: " + ", ".join(
+        f"{str(dt)[6:]} {lc.smem_bytes(dt)} B" for dt in LSTM_DTYPES))
     g = torch.Generator(device="cuda").manual_seed(4)
     cases = {"train": (RNN_B, RNN_H), "sample": (1, RNN_H)}
     for B in (3, 65):
         for H in (5, 130, 1000):
             cases[f"B{B} H{H}"] = (B, H)
     errs = {}
-    for name, (B, H) in cases.items():
-        fwd, rel, finite = _lstm_case(_lstm_operands(g, B, H))
-        ok = finite and fwd <= LSTM_TOL and rel <= LSTM_TOL
-        _log(f"lstm cell {name} (B {B}, H {H}, {lc.grid_blocks(B, H)} "
-             f"blocks): forward max_abs_err {fwd:.3e}, gradients max|delta|"
-             f"/max|g| {rel:.3e} (tol {LSTM_TOL:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"lstm cell {name} disagrees with its plain "
-                                 f"version: forward {fwd}, gradients {rel}")
-        errs[name] = fwd
+    for dt in LSTM_DTYPES:
+        tol = LSTM_TOL[dt]
+        for name, (B, H) in cases.items():
+            fwd, bwd, grad, finite = _lstm_case(_lstm_operands(g, B, H, dt),
+                                                g)
+            ok = finite and fwd <= tol and bwd <= LSTM_TOL[torch.float32] \
+                and grad <= tol
+            _log(f"lstm cell {str(dt)[6:]} {name} (B {B}, H {H}, "
+                 f"{lc.grid_blocks(B, H)} blocks): forward err {fwd:.3e} "
+                 f"(tol {tol:g}), backward kernel err {bwd:.3e} (tol "
+                 f"{LSTM_TOL[torch.float32]:g}), gradients err {grad:.3e} "
+                 f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"lstm cell {dt} {name} disagrees with its plain "
+                    f"version: forward {fwd}, backward {bwd}, gradients "
+                    f"{grad}, finite {finite}")
+            errs[dt, name] = (fwd, bwd)
     B, H, T, V = RNN_B, RNN_H, RNN_T, RNN_V
-    xw, h, c, W_hh, b = _lstm_operands(g, B, H)
-    ms = _time_ms(lambda: lc.lstm_cell_forward(xw, h, c, W_hh, b))
-    plain_ms = _time_ms(lambda: lc.lstm_cell_reference(xw, h, c, W_hh, b))
+    xw, h, c, W_hh, b = ops = _lstm_operands(g, B, H)
+    dh = torch.randn(B, H, generator=g, device="cuda")
+    dc = torch.randn(B, H, generator=g, device="cuda")
+    ms = _time_ms(lambda: lc.lstm_cell_forward(*ops))
+    plain_ms = _time_ms(lambda: lc.lstm_cell_reference(*ops))
+    bwd_ms = _time_ms(lambda: lc.lstm_cell_backward(*ops, dh, dc))
+    bwd_plain_ms = _time_ms(
+        lambda: lc.lstm_cell_backward_reference(*ops, dh, dc))
+    fn_bwd_ms = _time_ms(lambda: lc.cell_backward(ops, dh, dc))
+    low = {}
+    for dt in LSTM_DTYPES[1:]:
+        lops = tuple(t.to(dt) for t in ops)
+        ldh, ldc = dh.to(dt), dc.to(dt)
+        low[str(dt)[6:]] = {
+            "ms": _time_ms(lambda: lc.lstm_cell_forward(*lops)),
+            "bwd_ms": _time_ms(lambda: lc.lstm_cell_backward(*lops, ldh,
+                                                             ldc))}
+    n_launch, names = _count_device_launches(
+        lambda: lc.cell_backward(ops, dh, dc))
+    _log(f"lstm cell: one float32 Function backward issues {n_launch} "
+         f"device launches: {[n[:60] for n in names]}")
+    if n_launch > 4:
+        raise AssertionError(f"the float32 cell backward issues {n_launch} "
+                             f"device launches (at most 4): {names}")
     # cuDNN's LSTM (gates i, f, g, o as here): weight_ih = W_ih^T,
     # weight_hh = W_hh^T, bias_ih = b, bias_hh = 0, over one-hot input
     W_ih = (torch.rand(V, 4 * H, generator=g, device="cuda") * 2 - 1) \
@@ -598,24 +700,69 @@ def phase_lstm():
         for t in range(T):
             hh, cc = lc.lstm_cell_forward(xws[t], hh, cc, W_hh, b)
         lib_err = float((y_lib[-1] - hh).abs().max())
-        lib_ms = _time_ms(lambda: cudnn(x, hc0)) / T
+    gy = torch.randn(y_lib.shape, generator=g, device="cuda")
+
+    def cudnn_fwd():
+        return cudnn(x, hc0)
+
+    def cudnn_fwd_bwd():
+        cudnn.zero_grad(set_to_none=True)
+        y, _ = cudnn(x, hc0)
+        torch.autograd.backward(y, gy)
+
+    # the resolution of a timing: a one-element add timed the same way
+    one = torch.zeros(1, device="cuda")
+    floor_ms = _time_ms(lambda: one.add_(1))
+    lib_fwd_ms = _time_ms(cudnn_fwd)
+    lib_ms = lib_fwd_ms / T
+    lib_bwd_ms = (_time_ms(cudnn_fwd_bwd) - lib_fwd_ms) / T
     _log(f"lstm cell: cuDNN LSTM over T {T} agrees with {T} kernel steps to "
          f"{lib_err:.3e} (last h)")
     if not lib_err <= 1e-4:
         raise AssertionError(f"cuDNN yardstick disagrees: {lib_err}")
+    # bytes: each input read once, each output written once (float32;
+    # backward: xw, h, c, dh, dc, W_hh, b in; dgates, dc_prev, h1 out);
+    # operations: the recurrent product, the gate adds and the pointwise
+    # work (forward 4 a (row, unit); backward 30, the recompute included)
     nbytes = 4 * (B * 4 * H + 2 * B * H + H * 4 * H + 4 * H + 2 * B * H)
     flops = 2 * B * H * 4 * H + 2 * B * 4 * H + 4 * B * H
     bound_ms, bound_by = _bound(nbytes, flops)
-    _log(f"lstm cell training shape (B {B}, H {H}, {lc.grid_blocks(B, H)} "
-         f"blocks of 256 threads): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-         f"ms, cuDNN LSTM forward / T {lib_ms:.4f} ms, bound {bound_ms:.6f} "
-         f"ms ({bound_by}: {nbytes} B, {flops / 1e6:.2f} MFLOP)")
-    return {"name": "lstm_cell", "route": "cuda",
-            "source": "singa_tpu_torch/ops/csrc/lstm_cell.cu",
-            "replaces": "singa_tpu/ops/pallas_kernels.py:581",
-            "max_abs_err": errs["train"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "blocks": lc.grid_blocks(B, H)}
+    bwd_bytes = 4 * (B * 4 * H + 4 * B * H + H * 4 * H + 4 * H
+                     + B * 4 * H + B * H + B * (H + 1))
+    bwd_flops = 2 * B * H * 4 * H + 2 * B * 4 * H + 30 * B * H
+    bwd_bound_ms, bwd_bound_by = _bound(bwd_bytes, bwd_flops)
+    blocks = lc.grid_blocks(B, H)
+    _log(f"lstm cell training shape (B {B}, H {H}, grid {lc.grid(B, H)}: "
+         f"{blocks} blocks of 256 threads), float32: forward kernel "
+         f"{ms:.4f} ms, plain "
+         f"{plain_ms:.4f} ms, cuDNN LSTM forward / T {lib_ms:.4f} ms, bound "
+         f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flops / 1e6:.2f} "
+         f"MFLOP)")
+    _log(f"lstm cell backward: kernel {bwd_ms:.4f} ms, plain "
+         f"{bwd_plain_ms:.4f} ms, whole Function backward {fn_bwd_ms:.4f} "
+         f"ms, cuDNN LSTM backward / T {lib_bwd_ms:.4f} ms, bound "
+         f"{bwd_bound_ms:.6f} ms ({bwd_bound_by}: {bwd_bytes} B, "
+         f"{bwd_flops / 1e6:.2f} MFLOP)")
+    _log("lstm cell low precision at the training shape: "
+         + json.dumps(low))
+    _log(f"timing floor (a one-element add timed the same way): "
+         f"{floor_ms:.4f} ms")
+    src = "singa_tpu_torch/ops/csrc/lstm_cell.cu"
+    fwd_row = {"name": "lstm_cell", "route": "cuda", "source": src,
+               "replaces": "singa_tpu/ops/pallas_kernels.py:581",
+               "max_abs_err": errs[torch.float32, "train"][0], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms, "blocks": blocks,
+               "low_precision": low, "flush_floor_ms": floor_ms}
+    bwd_row = {"name": "lstm_cell_bwd", "route": "cuda", "source": src,
+               "replaces": "singa_tpu/ops/pallas_kernels.py:655",
+               "max_abs_err": errs[torch.float32, "train"][1],
+               "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+               "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+               "library_ms": lib_bwd_ms, "blocks": blocks,
+               "function_backward_ms": fn_bwd_ms,
+               "function_backward_launches": n_launch}
+    return fwd_row, bwd_row
 
 
 EW_N = RNN_T * RNN_B * 4 * RNN_H      # the char-LSTM's gate tensor size
@@ -1083,7 +1230,7 @@ def _train_setup():
 def _zero_launches():
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
     pa.launches = pa.launches_q8 = 0
-    lc.launches = ew.launches = 0
+    lc.launches = lc.launches_bwd = ew.launches = 0
 
 
 def _read_launches():
@@ -1092,7 +1239,8 @@ def _read_launches():
             "flash_attention_bwd_dkv": fa.launches_dkv,
             "paged_decode_attention": pa.launches,
             "paged_decode_attention_q8": pa.launches_q8,
-            "lstm_cell": lc.launches, "elementwise": ew.launches}
+            "lstm_cell": lc.launches, "lstm_cell_bwd": lc.launches_bwd,
+            "elementwise": ew.launches}
 
 
 def phase_train():
@@ -1298,8 +1446,9 @@ def phase_rnn_train():
     (V 86, H 256, T 100, B 64), fp32 with TF32 off, SGD(0.1, momentum
     0.9), 10 graph-mode steps through the fused cell, then the same from
     the same weights through the plain cell (the scan-path yardstick).
-    Checks: the loss falls on both; exactly T launches of the cell a
-    fused step and none on the scan path; the two agree to a relative
+    Checks: the loss falls on both; exactly T launches of the cell's
+    forward and T of its backward kernel a fused step, none on the scan
+    path; the two agree to a relative
     1e-4 at every step (fp32 on both; the plain cell's product and the
     kernel's sum in other orders).  Returns ``(fused model, launches,
     stats)``."""
@@ -1310,9 +1459,11 @@ def phase_rnn_train():
     s_launch, s_stats = _rnn_run(scan, "rnn_train scan")
     del scan, start
     want = RNN_T * RNN_STEPS
-    if f_launch["lstm_cell"] != want or s_launch["lstm_cell"] != 0:
+    if f_launch["lstm_cell"] != want or f_launch["lstm_cell_bwd"] != want \
+            or s_launch["lstm_cell"] != 0 or s_launch["lstm_cell_bwd"] != 0:
         raise AssertionError(f"lstm_cell launches: fused {f_launch} "
-                             f"(want {want}), scan {s_launch} (want 0)")
+                             f"(want {want} of each), scan {s_launch} "
+                             f"(want 0)")
     rel = max(abs(a - b) / abs(b) for a, b in zip(f_stats["losses"],
                                                   s_stats["losses"]))
     _log(f"rnn_train fused vs scan: worst relative loss difference "
@@ -1393,8 +1544,9 @@ def phase_rnn_sample():
     truncated BPTT at B 16, T 64 with Adam(3e-3), carrying ``hx, cx``;
     then ``sample()`` draws 120 characters, one T 1, B 1 step each.
     Launch counters are zeroed before each part and read after it.
-    Checks: the epoch loss falls; exactly T launches a training step and
-    one a sampled character; the card's characters equal those the port
+    Checks: the epoch loss falls; exactly T forward and T backward
+    launches a training step, one forward launch a sampled character and
+    no backward one; the card's characters equal those the port
     samples on the CPU from the same weights and generator, or first
     differ at a draw within ``MARGIN_TOL`` of a distribution edge.
     Returns ``(launches, stats)``."""
@@ -1436,14 +1588,18 @@ def phase_rnn_sample():
     _log(f"rnn_sample: epoch losses {epoch_loss}, {steps} steps in "
          f"{train_s:.2f}s ({steps * SAMPLE_B * SAMPLE_T / train_s:.0f} "
          f"chars/s); {SAMPLE_LEN} characters sampled in {sample_s:.3f}s; "
-         f"lstm_cell launches: training {train_launches['lstm_cell']}, "
-         f"sampling {sample_launches['lstm_cell']}")
+         f"lstm_cell launches (forward, backward): training "
+         f"{train_launches['lstm_cell']}, {train_launches['lstm_cell_bwd']}"
+         f"; sampling {sample_launches['lstm_cell']}, "
+         f"{sample_launches['lstm_cell_bwd']}")
     _log(f"rnn_sample text: {text!r}")
     if not epoch_loss[-1] < epoch_loss[0]:
         raise AssertionError(f"rnn_sample: the loss did not fall: "
                              f"{epoch_loss}")
     if train_launches["lstm_cell"] != steps * SAMPLE_T \
-            or sample_launches["lstm_cell"] != SAMPLE_LEN:
+            or train_launches["lstm_cell_bwd"] != steps * SAMPLE_T \
+            or sample_launches["lstm_cell"] != SAMPLE_LEN \
+            or sample_launches["lstm_cell_bwd"] != 0:
         raise AssertionError(f"rnn_sample launches: training "
                              f"{train_launches}, sampling {sample_launches}")
     states = {k: v.numpy() for k, v in m.get_states().items()}
@@ -1473,7 +1629,8 @@ def phase_rnn_sample():
 
 def _kernel_bucket(name):
     if "lstm_cell" in name:
-        return "lstm_cell kernel"
+        bwd = ", true>" in name or "Lb1E" in name
+        return f"lstm_cell {'backward' if bwd else 'forward'} kernel"
     if "unary_kernel" in name or "binary_kernel" in name:
         return "elementwise kernel"
     if "flash_bwd_dq" in name:
@@ -1544,7 +1701,8 @@ def phase_profile(path):
     activity): ``serve``, the slice's stream; ``serve_int8``, the same
     stream on the quantized engine; ``train``, two training steps after
     one unprofiled warm-up step; ``rnn_train``, two steps of the fused
-    char-LSTM after one warm-up step.  Prints the device busy and idle share
+    char-LSTM after one warm-up step; ``rnn_train_plain``, the same
+    through the plain cell.  Prints the device busy and idle share
     over the window, device time by kernel group and by kernel.  Times
     under the profiler include its own host overhead."""
     from torch.profiler import ProfilerActivity, profile
@@ -1567,7 +1725,7 @@ def phase_profile(path):
             for x, y in batches[1:3]:
                 model.train_one_batch(x, y)
     else:
-        model = _rnn_model(True, "cuda")
+        model = _rnn_model(path == "rnn_train", "cuda")
         batch = _rnn_batch()
         model.train_one_batch(*batch)[1].item()
 
@@ -1627,11 +1785,13 @@ def main(argv):
         return 2
     modes = {(): None, ("--profile",): lambda: phase_profile("serve"),
              ("--compare-serve",): phase_compare_serve}
-    for path in ("serve", "serve_int8", "train", "rnn_train"):
+    for path in ("serve", "serve_int8", "train", "rnn_train",
+                 "rnn_train_plain"):
         modes["--profile", path] = lambda p=path: phase_profile(p)
     if tuple(argv) not in modes:
         print("usage: chip_smoke.py [--profile [serve|serve_int8|train|"
-              "rnn_train] | --compare-serve]", file=sys.stderr)
+              "rnn_train|rnn_train_plain] | --compare-serve]",
+              file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     card = phase_card()
@@ -1644,11 +1804,11 @@ def main(argv):
     dq, dkv, fwd["train_shape"] = phase_flash_bwd()
     paged, paged_q8 = phase_paged()
     t_k = time.perf_counter()
-    lstm = phase_lstm()
+    lstm, lstm_bwd = phase_lstm()
     elementwise, ew_launches = phase_ew()
     _log(f"lstm and elementwise kernel phases (5a-5b): "
          f"{time.perf_counter() - t_k:.1f}s")
-    rows = [fwd, dq, dkv, elementwise, lstm, paged, paged_q8]
+    rows = [fwd, dq, dkv, elementwise, lstm, lstm_bwd, paged, paged_q8]
     serve_launches, serve_stats, setup = phase_slice()
     int8_launches, _ = phase_slice_int8(setup, serve_stats)
     del setup
@@ -1674,7 +1834,10 @@ def main(argv):
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
     _log(json.dumps({"kernels": [
         {k: r[k] for k in KEYS + ("launches_by_path",)}
-        | {k: r[k] for k in ("train_shape", "blocks", "by_op") if k in r}
+        | {k: r[k] for k in ("train_shape", "blocks", "by_op",
+                             "low_precision", "flush_floor_ms",
+                             "function_backward_ms",
+                             "function_backward_launches") if k in r}
         for r in rows]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

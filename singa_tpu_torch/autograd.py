@@ -161,13 +161,38 @@ def transpose(x, axes=None):
 def gather(x, indices, axis=0):
     """``take`` along ``axis`` (the embedding lookup): the output has
     ``indices``' shape in place of that axis; repeated ids scatter-add
-    their gradients."""
+    their gradients.
+
+    Ids follow ``jnp.take``'s default (fill) mode, as the reference's
+    ``gather`` does: an id in ``[-n, 0)`` counts from the end (``-1`` is
+    the last row); an id outside ``[-n, n)`` gives a row of NaN (of the
+    dtype's minimum for signed integers, its maximum for unsigned ones,
+    True for booleans), and no gradient flows from that row to any row
+    of ``x``.  All of it on the tensor's device, with no host sync: the
+    negatives are wrapped, the ids clamped for ``index_select`` and the
+    invalid rows replaced by ``torch.where`` against the validity mask,
+    so no id ever reaches a bound check."""
     def fn(v, i):
         i = torch.as_tensor(i, device=v.device).long()
         ax = axis if axis >= 0 else v.dim() + axis
-        out = torch.index_select(v, ax, i.reshape(-1))
-        return out.reshape(v.shape[:ax] + i.shape + v.shape[ax + 1:])
+        n = v.shape[ax]
+        valid = (i >= -n) & (i < n)
+        safe = torch.where(i < 0, i + n, i).clamp(0, max(n - 1, 0))
+        out = torch.index_select(v, ax, safe.reshape(-1))
+        out = out.reshape(v.shape[:ax] + i.shape + v.shape[ax + 1:])
+        mask = valid.reshape((1,) * ax + i.shape + (1,) * (v.dim() - ax - 1))
+        return torch.where(mask, out, _fill_value(v.dtype))
     return op("Gather", fn, x, indices)
+
+
+def _fill_value(dtype):
+    """``jnp.take``'s fill for an id out of range."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
 
 
 def gelu(x):
@@ -203,11 +228,15 @@ def cast(x, dtype):
 
 
 def reduce_mean(x, axes=None, keepdims=False):
-    """Mean over ``axes`` (all when None)."""
+    """Mean over ``axes`` (all when None; none when empty, so ``axes=[]``
+    returns ``x`` unchanged, as ``jnp.mean(axis=())`` does, where torch
+    would read ``dim=()`` as every axis)."""
     def fn(v):
         if axes is None:
             return v.mean(dim=tuple(range(v.dim())), keepdim=keepdims)
         ax = axes if isinstance(axes, (list, tuple)) else (axes,)
+        if len(ax) == 0:
+            return v
         return v.mean(dim=tuple(ax), keepdim=keepdims)
     return op("ReduceMean", fn, x)
 

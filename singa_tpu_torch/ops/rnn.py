@@ -105,8 +105,10 @@ def _fused_lstm_layer(x, h0, c0, W_ih, W_hh, b):
     h, c = h0.contiguous(), c0.contiguous()
     W_hh, b = W_hh.contiguous(), b.contiguous()
     ys = []
-    for t in range(xw.shape[0]):
-        h, c = lstm_cell_fused(xw[t], h, c, W_hh, b)
+    # unbind, not xw[t]: its backward stacks the T step gradients once,
+    # where T selects would each scatter into a zeroed (T, B, 4H) buffer
+    for xt in xw.unbind(0):
+        h, c = lstm_cell_fused(xt, h, c, W_hh, b)
         ys.append(h)
     return torch.stack(ys), h, c
 

@@ -8,6 +8,7 @@ float32 (summation order only).  The flash path of MultiHeadAttention
 runs the Pallas kernels in interpret mode on the JAX side and the port's
 plain forward and backward on this one."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -290,3 +291,55 @@ def test_graph_mode_cuts_the_step_at_inputs_and_outputs(use_graph):
             s = s_new if carry_tensor else s_new.numpy().copy()
         runs.append(losses)
     assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("axes", [[], ()])
+def test_reduce_mean_over_no_axes_is_the_identity(training, axes):
+    """``jnp.mean(axis=())`` reduces nothing; torch reads ``dim=()`` as
+    every axis, so the port must not pass it through."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, 3).astype(np.float32)
+    dy = rng.randn(2, 3).astype(np.float32)
+    j_out, t_out, jg, tg = _run(lambda v: jag.reduce_mean(v, axes=axes),
+                                lambda v: tag.reduce_mean(v, axes=axes),
+                                (x,), dy)
+    assert t_out.shape == j_out.shape == (2, 3)
+    np.testing.assert_array_equal(t_out, np.asarray(jnp.mean(x, axis=())))
+    _check(j_out, t_out, jg, tg)
+
+
+# ids against a table of n = 5 rows: in range, wrapped (-1, -n) and out
+# of range (n, -n-1), the last two giving NaN rows with no gradient
+GATHER_IDS = {"mixed": [[1, -1, 5], [-5, 4, -6]], "invalid": [[5, -6, 9]],
+              "wrapped": [[-1, -2, -5, 0]]}
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("case", list(GATHER_IDS))
+def test_gather_wraps_negative_ids_and_fills_out_of_range(training, case,
+                                                          axis):
+    rng = np.random.RandomState(12)
+    ids = np.array(GATHER_IDS[case], np.int32)
+    x = rng.randn(5, 5).astype(np.float32)
+    shape = list(x.shape)
+    shape[axis:axis + 1] = ids.shape
+    dy = rng.randn(*shape).astype(np.float32)
+    j_out, t_out, jg, tg = _run(lambda v: jag.gather(v, ids, axis=axis),
+                                lambda v: tag.gather(v, ids, axis=axis),
+                                (x,), dy)
+    np.testing.assert_array_equal(
+        t_out, np.asarray(jnp.take(jnp.asarray(x), ids, axis=axis)))
+    bad = (ids < -5) | (ids >= 5)
+    k = ids.ndim
+
+    def by_id(a):            # the ids' axes first
+        return np.moveaxis(a, list(range(axis, axis + k)), list(range(k)))
+    assert np.isnan(by_id(t_out)[bad]).all()
+    assert not np.isnan(by_id(t_out)[~bad]).any()
+    _check(j_out, t_out, jg, tg)
+    # the invalid rows' cotangents reach no row of x
+    want = np.zeros_like(x)
+    np.add.at(np.moveaxis(want, axis, 0), ids[~bad] % 5, by_id(dy)[~bad])
+    np.testing.assert_allclose(tg["in0"], want, atol=1e-6, rtol=0)
+    if case == "invalid":
+        assert not tg["in0"].any()
