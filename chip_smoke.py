@@ -6,19 +6,27 @@ Phases (any failure exits non-zero before the result lines print):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build every kernel from ``singa_tpu_torch/ops/csrc`` (one ``nvcc``
-   per source, in parallel);
-3. flash-attention forward: kernel against its plain PyTorch version at
-   the serving shape (dense mask, q (1,12,64,64), k/v (1,12,1024,64)),
-   plus causal and key-vector cases, and ragged T/S cases at every head
-   dim the kernel is built for (per-head masks, a fully masked row);
-   times at the serving shape for kernel, plain version and
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   per source, in parallel); each kernel's registers and spills, and
+   the spills of the flash kernels' D 64 instantiations;
+3. flash-attention forward, o and lse against the plain PyTorch version
+   on both routes: the key split (a partial launch and a combine) and
+   the unsplit launch.  The serving shape (dense mask, q (1,12,64,64),
+   k/v (1,12,1024,64)) and causal B 1, H 2, T 1024 take the split route
+   by the card's plan and are forced unsplit too; causal, key-vector and
+   ragged T/S cases at every head dim the kernel is built for (per-head
+   masks, a fully masked row) run forced each way.  The combine kernel
+   alone against its plain version on the serving shape's partials.
+   Times at the serving shape for the split route (and its two
+   launches), the unsplit route, the plain version and
+   ``scaled_dot_product_attention`` pinned to its memory-efficient
+   backend, the one float32 takes (a yardstick the port never calls);
 4. flash-attention backward: the dq and dk/dv kernels against their
    plain versions at the training shape (B 8, H 12, T = S = 1024, d 64,
    causal) and on ragged cases at d 16/32/64/128 (per-head dense and
    vec masks, fully masked rows, causal with a dense mask); times at the
    training shape for each kernel, its plain version and the backward
-   of ``scaled_dot_product_attention``, and the forward's there too;
+   of the pinned ``scaled_dot_product_attention``, and the forward's
+   there too;
 5. paged decode attention, every variant (float32 pages; bfloat16
    pages, the storage override; int8 pages with bf16 and with fp32
    scales) against its plain version at the serving shape (8 slots, 12
@@ -45,7 +53,8 @@ Phases (any failure exits non-zero before the result lines print):
    dimensions (fp32, seeded random weights carried in through
    ``GPT.from_jax_decode_params``) serves 8 staggered requests (one
    sampled, the rest greedy); two greedy requests are replayed through
-   the port on the CPU and their tokens compared;
+   the port on the CPU and their tokens compared; the prefill chunks'
+   flash calls must take the split route (combine launches);
 7. the quantized serving path: the same weights and stream served with
    ``kv_dtype="int8", weight_dtype="int8"`` (the model on the host, the
    engine on the card); the int8 kernel must launch and neither float
@@ -58,7 +67,7 @@ Phases (any failure exits non-zero before the result lines print):
 8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
    of ``train_one_batch`` with Adam at B 8, T 1024 (loss, step time,
    tokens/s, peak memory; the loss must fall; exactly 12 launches of
-   each flash kernel a step);
+   each flash kernel a step, none of the combine);
 9. one full-width training step (B 1, T 128) from the trained weights on
    the card and in the port on the CPU: loss and every gradient compared;
 10. the trained model serves 2 requests through the ``ServingEngine``;
@@ -105,7 +114,10 @@ from device memory as on the main paths, and behind a ~1 ms device spin,
 so the events bracket the call's device work and not the time the host
 takes to issue it.  ``bound_ms`` is the larger of
 bytes moved (each input read once, each output written once) over
-3.35 TB/s and float32 operations over 67 TFLOP/s (H100 SXM data sheet).
+3.35 TB/s and float32 operations over 495 / 3 = 165 TFLOP/s, the
+3xTF32 tensor-core rate (three TF32 products at 495 TFLOP/s a float32
+product; H100 SXM data sheet).  The flash rows also print the bound at
+the SIMT float32 rate of 67 TFLOP/s, the bound of PR 6 and before.
 """
 
 from __future__ import annotations
@@ -113,6 +125,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,7 +153,13 @@ from singa_tpu_torch.serving.engine import _to_device  # noqa: E402
 from singa_tpu_torch.tensor import Tensor as TTensor  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
+# float32 products: on the tensor cores as 3xTF32 (three TF32 products at
+# 495 TFLOP/s each), the bound of every row; the SIMT float32 rate, PR 6's
+# bound, is printed beside it
+FP32_TC_FLOP_PER_S = 495e12 / 3
 FP32_FLOP_PER_S = 67e12
+# n_sm that makes the forward's plan split wherever a head has 2+ key tiles
+SPLIT_SM = 1 << 20
 FLASH_TOL = 1e-4
 PAGED_TOL = 1e-4
 MARGIN_TOL = 1e-3
@@ -160,9 +179,9 @@ def _log(msg):
     print(msg, flush=True)
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, flop_rate=FP32_TC_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -204,9 +223,42 @@ def phase_card():
     _log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _log(f"bounds: bytes at {HBM_BYTES_PER_S / 1e12:g} TB/s; float32 "
+         f"operations at the 3xTF32 tensor-core rate "
+         f"{FP32_TC_FLOP_PER_S / 1e12:g} TFLOP/s (PR 6 and before: the SIMT "
+         f"float32 rate {FP32_FLOP_PER_S / 1e12:g} TFLOP/s)")
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)}")
     return card
+
+
+def _ptxas_kernels(report):
+    """``[(kernel, registers, spill store bytes, spill load bytes)]`` from
+    a ``ptxas -v`` log, the kernel's name cut from its mangled form."""
+    out, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            # _ZN<len><anonymous namespace><len><name>I<template args>E...
+            a = re.match(r"_ZN(\d+)", name)
+            if a:
+                rest = name[a.end() + int(a.group(1)):]
+                b = re.match(r"(\d+)", rest)
+                if b:
+                    n = int(b.group(1))
+                    name = rest[b.end():b.end() + n] + re.sub(
+                        r"Ev.*", "", rest[b.end() + n:])[:40]
+            spills = (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1))) + spills)
+            name = None
+    return out
 
 
 def phase_build():
@@ -215,14 +267,49 @@ def phase_build():
     _log(f"build: {time.perf_counter() - t0:.2f}s wall, per library "
          + json.dumps({k: round(v, 2) for k, v in built.items()}))
     for name in _build.SOURCES:
-        report = " | ".join(line.strip() for line in
-                            _build.ptxas_report(name).splitlines()
-                            if "registers" in line or "spill" in line)
-        _log(f"ptxas {name}: {report}")
+        kernels = _ptxas_kernels(_build.ptxas_report(name))
+        _log(f"ptxas {name}: " + " | ".join(
+            f"{k} {r} regs, spill {st}/{ld} B" for k, r, st, ld in kernels))
+        if name.startswith("flash"):
+            d64 = [(k, st + ld) for k, _, st, ld in kernels if "ILi64E" in k]
+            _log(f"ptxas {name} D 64 instantiations: "
+                 + ", ".join(f"{k} {b} B spilled" for k, b in d64))
+
+
+def _sdpa(*args, **kw):
+    """``scaled_dot_product_attention`` pinned to its memory-efficient
+    backend, the one float32 runs through (a yardstick the port never
+    calls)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return torch.nn.functional.scaled_dot_product_attention(*args, **kw)
+
+
+SDPA_NAME = "scaled_dot_product_attention (EFFICIENT_ATTENTION backend)"
+
+
+def _fwd_case(q, k, v, mask, causal, n_sm):
+    """Forward kernel (route chosen by ``n_sm``) against its plain
+    version: ``(max abs error over o and lse, route)``."""
+    q3, k3, v3, m3, scale, mode = fa._prepare(q, k, v, mask, None)
+    q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
+    before = fa.launches_combine
+    o, lse = fa.flash_attention_fwd(q3, k3, v3, m3, scale, mode, causal,
+                                    n_sm=n_sm)
+    route = "split" if fa.launches_combine > before else "unsplit"
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, m3, scale, mode,
+                                                causal)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())):
+        return float("inf"), route
+    return max(float((o - ro).abs().max()),
+               float((lse - rlse).abs().max())), route
 
 
 def phase_flash():
-    """Kernel vs plain version; returns the row for the kernels line
+    """The forward kernel against its plain version on both routes, the
+    combine kernel against its plain version, and times at the serving
+    shape.  Returns the ``(forward, combine)`` rows for the kernels line
     (numbers at the serving shape)."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -238,59 +325,108 @@ def phase_flash():
     cols = torch.arange(L, device="cuda")
     mask = torch.where(cols[None] <= positions[:, None], 0.0, -1e9)
     mask = mask[None, None].contiguous()
-    cases = {"dense(serving)": (q, k, v, mask, False)}
+    # (q, k, v, mask, causal, routes): None takes the card's plan, 1 forces
+    # the unsplit route, SPLIT_SM the split one where there are 2+ key tiles
+    cases = {"dense(serving)": (q, k, v, mask, False, (None, 1))}
+    cases["causal B1 H2 T1024"] = (rnd(1, 2, 1024, d), rnd(1, 2, 1024, d),
+                                   rnd(1, 2, 1024, d), None, True, (None, 1))
     qc, kc, vc = rnd(1, H, 512, d), rnd(1, H, 512, d), rnd(1, H, 512, d)
-    cases["causal"] = (qc, kc, vc, None, True)
+    cases["causal"] = (qc, kc, vc, None, True, (1, SPLIT_SM))
     vec = torch.zeros(1, 1, 1, L, device="cuda")
     vec[..., 900:] = -1e9
-    cases["vec"] = (q, k, v, vec, False)
+    cases["vec"] = (q, k, v, vec, False, (1, SPLIT_SM))
     # every head dim the kernel is built for, at ragged T/S (the
     # reference's closed-form key padding), with per-head masks and a
-    # fully masked row
+    # fully masked row, on both routes
     for dd, (B, Hh, T, S), causal in ((16, (2, 3, 70, 200), False),
                                       (32, (2, 2, 33, 77), False),
+                                      (64, (1, 2, 130, 260), True),
                                       (128, (1, 2, 150, 150), True)):
         m = torch.where(torch.rand(B, Hh, T, S, generator=g, device="cuda")
                         < 0.2, -1e9, 0.0)
         m[-1, -1, T // 2] = -1e9
         cases[f"ragged d{dd} per-head"] = (
             rnd(B, Hh, T, dd), rnd(B, Hh, S, dd), rnd(B, Hh, S, dd), m,
-            causal)
+            causal, (1, SPLIT_SM))
     vb = torch.zeros(2, 1, 1, 77, device="cuda")
     vb[1, ..., 60:] = -1e9
     cases["ragged d32 per-batch vec"] = (
-        rnd(2, 2, 33, 32), rnd(2, 2, 77, 32), rnd(2, 2, 77, 32), vb, False)
+        rnd(2, 2, 33, 32), rnd(2, 2, 77, 32), rnd(2, 2, 77, 32), vb, False,
+        (1, SPLIT_SM))
     err_serving = None
-    for name, (a, b, c, m, causal) in cases.items():
-        got = fa.flash_attention(a, b, c, m, causal=causal)
-        ref = fa.flash_attention_reference(a, b, c, m, causal=causal)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= FLASH_TOL
-        _log(f"flash {name}: max_abs_err {err:.3e} (tol {FLASH_TOL:g}) "
-             f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash {name} disagrees with its plain "
-                                 f"version: {err}")
-        if err_serving is None:
-            err_serving = err
+    for name, (a, b, c, m, causal, routes) in cases.items():
+        for n_sm in routes:
+            err, route = _fwd_case(a, b, c, m, causal, n_sm)
+            ok = err <= FLASH_TOL
+            _log(f"flash {name} [{route}]: max_abs_err {err:.3e} (o and lse, "
+                 f"tol {FLASH_TOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash {name} ({route}) disagrees with "
+                                     f"its plain version: {err}")
+            if name == "dense(serving)" and n_sm is None:
+                if route != "split":
+                    raise AssertionError("the serving shape did not split")
+                err_serving = err
+    # the combine kernel alone, on the serving shape's partials
+    q3, k3, v3, m3, _, mode = fa._prepare(q, k, v, mask, scale)
+    plan = fa._fwd_split_plan(H, C, L, False, fa._sm_count(0))
+    parts = fa.flash_attention_fwd_partial(q3, k3, v3, m3, scale, mode,
+                                           False, plan)
+    co, clse = fa.flash_attention_fwd_combine(*parts, C, L, False, plan.per)
+    ro, rlse = fa.flash_attention_fwd_combine_reference(*parts, C, L, False,
+                                                        plan.per)
+    torch.cuda.synchronize()
+    err_combine = max(float((co - ro).abs().max()),
+                      float((clse - rlse).abs().max()))
+    _log(f"flash combine (serving shape, {plan.n_split} ranges of "
+         f"{plan.per} key tile(s)): max_abs_err {err_combine:.3e} (tol "
+         f"{FLASH_TOL:g})")
+    if not err_combine <= FLASH_TOL:
+        raise AssertionError(f"flash combine disagrees with its plain "
+                             f"version: {err_combine}")
     ms = _time_ms(lambda: fa.flash_attention(q, k, v, mask, sm_scale=scale))
+    unsplit_ms = _time_ms(lambda: fa.flash_attention_fwd(
+        q3, k3, v3, m3, scale, mode, False, n_sm=1))
+    partial_ms = _time_ms(lambda: fa.flash_attention_fwd_partial(
+        q3, k3, v3, m3, scale, mode, False, plan))
+    combine_ms = _time_ms(lambda: fa.flash_attention_fwd_combine(
+        *parts, C, L, False, plan.per))
+    combine_plain = _time_ms(lambda: fa.flash_attention_fwd_combine_reference(
+        *parts, C, L, False, plan.per))
     plain_ms = _time_ms(lambda: fa.flash_attention_reference(
         q, k, v, mask, sm_scale=scale))
-    lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=scale))
+    lib_ms = _time_ms(lambda: _sdpa(q, k, v, attn_mask=mask, scale=scale))
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + mask.numel()
                   + q.numel() + H * C)          # q,k,v,mask in; o,lse out
     flops = 4 * H * C * L * d                   # two products, 2 flop/FMA
     bound_ms, bound_by = _bound(nbytes, flops)
-    _log(f"flash serving shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-         f" sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "singa_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-            "replaces": "singa_tpu/ops/pallas_kernels.py:102",
-            "max_abs_err": err_serving, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    _log(f"flash serving shape (split route, {plan.n_split} ranges, "
+         f"{plan.n_split * H} blocks): kernel {ms:.4f} ms (partial "
+         f"{partial_ms:.4f} + combine {combine_ms:.4f}), unsplit route "
+         f"{unsplit_ms:.4f} ms ({H} blocks), plain {plain_ms:.4f} ms, "
+         f"{SDPA_NAME} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; SIMT bound "
+         f"{_bound(nbytes, flops, FP32_FLOP_PER_S)[0]:.4f} ms)")
+    c_bytes = 4 * sum(t.numel() for t in parts) + 4 * (q.numel() + H * C)
+    c_bound, c_by = _bound(c_bytes, 3 * parts[0].numel())
+    _log(f"flash combine serving shape: kernel {combine_ms:.4f} ms, plain "
+         f"{combine_plain:.4f} ms, bound {c_bound:.6f} ms ({c_by}: "
+         f"{c_bytes / 1e6:.2f} MB)")
+    fwd = {"name": "flash_attention_fwd", "route": "cuda",
+           "source": "singa_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+           "replaces": "singa_tpu/ops/pallas_kernels.py:102",
+           "max_abs_err": err_serving, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+           "serving_split": {"n_split": plan.n_split, "per": plan.per,
+                             "partial_ms": partial_ms,
+                             "unsplit_route_ms": unsplit_ms}}
+    combine = {"name": "flash_attention_fwd_combine", "route": "cuda",
+               "source": "singa_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+               "replaces": "singa_tpu/ops/pallas_kernels.py:254",
+               "max_abs_err": err_combine, "ms": combine_ms,
+               "plain_ms": combine_plain, "bound_ms": c_bound,
+               "bound_by": c_by, "library_ms": None}
+    return fwd, combine
 
 
 def _needed_pairs(BH, T, S, causal):
@@ -329,13 +465,14 @@ def phase_flash_bwd():
     g = torch.Generator(device="cuda").manual_seed(1)
     B, H, T, d = TRAIN_B, 12, TRAIN_T, 64
     cases = {"train(causal)": (B, H, T, T, d, None, True)}
-    # ragged T/S at every other head dim: per-head dense and vec masks,
-    # fully masked rows, causal with a dense mask
+    # ragged T/S at every head dim: per-head dense and vec masks, fully
+    # masked rows, causal with a dense mask
     for dd, (b, h, t, s), causal, kind in (
             (16, (2, 3, 70, 200), False, "dense"),
             (32, (2, 2, 33, 77), False, "vec"),
             (128, (1, 2, 150, 150), True, "dense"),
-            (64, (1, 2, 130, 260), True, "dense")):
+            (64, (1, 2, 130, 260), True, "dense"),
+            (64, (2, 2, 100, 70), False, "vec")):
         shape = (b, h, t if kind == "dense" else 1, s)
         m = torch.where(torch.rand(*shape, generator=g, device="cuda") < 0.2,
                         -1e9, 0.0)
@@ -370,16 +507,14 @@ def phase_flash_bwd():
     dq_plain = _time_ms(lambda: fa.flash_attention_bwd_dq_reference(*args))
     dkv_plain = _time_ms(lambda: fa.flash_attention_bwd_dkv_reference(*args))
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
-                                                           is_causal=True)
+    out = _sdpa(qs, ks, vs, is_causal=True)
     sdpa_bwd = _time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
                                                     retain_graph=True))
     fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(q3, k3, v3, None,
                                                      args[7], "none", True))
     fwd_plain = _time_ms(lambda: fa.flash_attention_fwd_reference(
         q3, k3, v3, None, args[7], "none", True))
-    sdpa_fwd = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
+    sdpa_fwd = _time_ms(lambda: _sdpa(q, k, v, is_causal=True))
     BH = B * H
     pairs = _needed_pairs(BH, T, T, True)
     qkv_bytes = 4 * BH * T * d
@@ -392,9 +527,10 @@ def phase_flash_bwd():
         flops = pairs * flop_pair
         bound_ms, bound_by = _bound(nbytes, flops)
         _log(f"{name} training shape: kernel {ms:.4f} ms, plain {plain:.4f} "
-             f"ms, sdpa backward (dq, dk, dv together) {sdpa_bwd:.4f} ms, "
-             f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
-             f"{flops / 1e9:.3f} GFLOP over {pairs} causal pairs)")
+             f"ms, {SDPA_NAME} backward (dq, dk, dv together) {sdpa_bwd:.4f} "
+             f"ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} "
+             f"MB, {flops / 1e9:.3f} GFLOP over {pairs} causal pairs; SIMT "
+             f"bound {_bound(nbytes, flops, FP32_FLOP_PER_S)[0]:.4f} ms)")
         err = errs["train(causal)"][0 if outs == 1 else 1]
         rows[name] = {
             "name": name, "route": "cuda",
@@ -408,9 +544,11 @@ def phase_flash_bwd():
     f_bound, f_by = _bound(f_bytes, pairs * 4 * d)
     fwd_train = {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": sdpa_fwd,
                  "bound_ms": f_bound, "bound_by": f_by}
-    _log(f"flash_attention_fwd training shape: kernel {fwd_ms:.4f} ms, plain "
-         f"{fwd_plain:.4f} ms, sdpa {sdpa_fwd:.4f} ms, bound {f_bound:.4f} "
-         f"ms ({f_by})")
+    _log(f"flash_attention_fwd training shape (unsplit route, "
+         f"{BH * T // 64} blocks): kernel {fwd_ms:.4f} ms, plain "
+         f"{fwd_plain:.4f} ms, {SDPA_NAME} {sdpa_fwd:.4f} ms, bound "
+         f"{f_bound:.4f} ms ({f_by}; SIMT bound "
+         f"{_bound(f_bytes, pairs * 4 * d, FP32_FLOP_PER_S)[0]:.4f} ms)")
     return rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"], \
         fwd_train
 
@@ -1092,7 +1230,8 @@ def phase_slice():
     cfg, tree, model, kw, prompts = _slice_setup()
     eng = ServingEngine(model, **kw)
     rids, res, launches, stats = _drive(eng, prompts, cfg, "slice")
-    for name in ("flash_attention_fwd", "paged_decode_attention"):
+    for name in ("flash_attention_fwd", "flash_attention_fwd_combine",
+                 "paged_decode_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"serving path")
@@ -1228,13 +1367,14 @@ def _train_setup():
 
 
 def _zero_launches():
-    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    fa.launches = fa.launches_combine = fa.launches_dq = fa.launches_dkv = 0
     pa.launches = pa.launches_q8 = 0
     lc.launches = lc.launches_bwd = ew.launches = 0
 
 
 def _read_launches():
     return {"flash_attention_fwd": fa.launches,
+            "flash_attention_fwd_combine": fa.launches_combine,
             "flash_attention_bwd_dq": fa.launches_dq,
             "flash_attention_bwd_dkv": fa.launches_dkv,
             "paged_decode_attention": pa.launches,
@@ -1283,6 +1423,8 @@ def phase_train():
         if launches[name] != want:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
                                  f"training path, expected {want}")
+    if launches["flash_attention_fwd_combine"] != 0:
+        raise AssertionError("the training shape took the split route")
     return model, launches, stats
 
 
@@ -1633,6 +1775,8 @@ def _kernel_bucket(name):
         return f"lstm_cell {'backward' if bwd else 'forward'} kernel"
     if "unary_kernel" in name or "binary_kernel" in name:
         return "elementwise kernel"
+    if "flash_fwd_combine" in name:
+        return "flash_attention_fwd combine kernel"
     if "flash_bwd_dq" in name:
         return "flash_attention_bwd dq kernel"
     if "flash_bwd_dkv" in name:
@@ -1800,7 +1944,7 @@ def main(argv):
         modes[tuple(argv)]()
         _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
         return 0
-    fwd = phase_flash()
+    fwd, combine = phase_flash()
     dq, dkv, fwd["train_shape"] = phase_flash_bwd()
     paged, paged_q8 = phase_paged()
     t_k = time.perf_counter()
@@ -1808,7 +1952,8 @@ def main(argv):
     elementwise, ew_launches = phase_ew()
     _log(f"lstm and elementwise kernel phases (5a-5b): "
          f"{time.perf_counter() - t_k:.1f}s")
-    rows = [fwd, dq, dkv, elementwise, lstm, lstm_bwd, paged, paged_q8]
+    rows = [fwd, combine, dq, dkv, elementwise, lstm, lstm_bwd, paged,
+            paged_q8]
     serve_launches, serve_stats, setup = phase_slice()
     int8_launches, _ = phase_slice_int8(setup, serve_stats)
     del setup
@@ -1834,7 +1979,8 @@ def main(argv):
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
     _log(json.dumps({"kernels": [
         {k: r[k] for k in KEYS + ("launches_by_path",)}
-        | {k: r[k] for k in ("train_shape", "blocks", "by_op",
+        | {k: r[k] for k in ("train_shape", "serving_split", "blocks",
+                             "by_op",
                              "low_precision", "flush_floor_ms",
                              "function_backward_ms",
                              "function_backward_launches") if k in r}

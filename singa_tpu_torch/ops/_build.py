@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled on first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries
 go to ``build/singa_tpu_torch/`` at the repository root, named by a hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Several sources build in parallel:
+of the source, every ``csrc/`` header it includes (``#include "..."``,
+followed transitively) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.  Several sources build in parallel:
 one ``nvcc`` per source, all started together.
 
 Nothing here runs at import time; a failed build raises.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -62,11 +64,34 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _inputs(name: str) -> list[str]:
+    """The source of library ``name`` and every file under ``CSRC`` that
+    it includes with ``#include "..."``, directly or transitively, in
+    the order first reached (paths relative to ``CSRC``)."""
+    seen, todo = [], [SOURCES[name]]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen or not os.path.isfile(os.path.join(CSRC, rel)):
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            text = f.read()
+        base = os.path.dirname(rel)
+        todo += [os.path.normpath(os.path.join(base, inc.decode()))
+                 for inc in _INCLUDE.findall(text)]
+    return seen
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{tag[:16]}.so")
+    h = hashlib.sha256()
+    for rel in _inputs(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def ptxas_report(name: str) -> str:

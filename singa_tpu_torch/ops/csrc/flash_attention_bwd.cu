@@ -1,13 +1,14 @@
-// Flash-attention backward for Hopper (sm_90a), float32: the dq pass and the
-// dk/dv pass.
+// Flash-attention backward for Hopper (sm_90a), float32, on 3xTF32
+// tensor-core tiles (flash_mma.cuh): the dq pass and the dk/dv pass.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel`
 // (singa_tpu/ops/pallas_kernels.py, launched by `_flash_bwd_call`).  Same
 // contract as the forward (csrc/flash_attention_fwd.cu): q/dO/dq (BH, T, D),
-// k/v/dk/dv (BH, S, D), the additive mask at its natural rank ("vec":
-// (MB, 1, S), "dense": (MB, T, S), MB in {1, BH}), causal masking from
-// indices with masked scores set to -1e9, `lse` (BH, T) from the forward and
-// `delta = rowsum(dO * O)` (BH, T) computed before the launch.
+// k/v/dk/dv (BH, S, D), D in {16, 32, 64, 128}, the additive mask at its
+// natural rank ("vec": (MB, 1, S), "dense": (MB, T, S), MB in {1, BH}),
+// causal masking from indices with masked scores set to -1e9, `lse` (BH, T)
+// from the forward and `delta = rowsum(dO * O)` (BH, T) computed before the
+// launch.
 //
 // Both passes recompute p = exp(s - lse) over exactly the (row, column) pairs
 // the reference sweeps and form ds = p * (dp - delta) for every swept pair,
@@ -20,229 +21,375 @@
 // nothing to dq and their dk/dv are cut off; these kernels do not read them.
 // Padded query rows carry a zero cotangent and add nothing to dk/dv.
 //
-// Design: every block owns its output rows, so there are no atomics and the
-// result is deterministic.  Four threads share a row; each holds a quarter of
-// the row's channels (channel sub + 4 i) in registers, and the two dot
-// products of a (row, column) pair are summed over the four with shuffles.
-// The streamed operand goes through shared memory in tiles of 32 rows.
-//   dq:    one block per (batch*head, 64-row query tile); q, dO, dq, lse and
-//          delta of its rows in registers; K/V tiles streamed over the swept
-//          columns; dq += ds * k, times scale at the end.
-//   dk/dv: one block per (batch*head, 64-key tile); k, v, dk, dv of its keys
-//          in registers; Q/dO/lse/delta tiles streamed from the first query
-//          128-block that sees the tile; dv += p * dO, dk += ds * q, dk times
-//          scale at the end.
-// Plain float32 FMAs, no tensor cores.  At the training shape (BH = 96,
-// T = S = 1024, D = 64, causal) the reference's sweep is 56.6 M pairs; dq
-// does 6 D flops a pair (21.7 GFLOP, 0.32 ms at 67 TFLOP/s), dk/dv 8 D
-// (29.0 GFLOP, 0.43 ms), against ~0.06 ms of bytes at 3.35 TB/s: the work
-// bounds both.  Every FMA reads one shared-memory word, so the shared-memory
-// pipe, at a quarter of the FMA rate, holds these simple kernels well above
-// that bound.
+// What bounds them.  At the training shape (BH 96, T = S = 1024, D 64,
+// causal) the 50.4 M pairs the function needs cost dq 6 D flops a pair
+// (19.4 GFLOP, 0.117 ms at the 3xTF32 rate of 495 / 3 TFLOP/s) and dk/dv
+// 8 D (25.8 GFLOP, 0.156 ms), against ~0.06 ms of bytes: the work bounds
+// both.
+//
+// Design.  Every block owns its output rows: no atomics, a deterministic
+// result.  Four warps, 16 rows a warp.  All four products of a tile are
+// m16n8k8 3xTF32 `mma.sync`, and the second product of each pair takes the
+// first's accumulator as its A operand (flash_mma.cuh), so nothing is
+// shuffled or written back to shared memory.  Each streamed tile lands raw
+// by cp.async and is then split once for the whole block into the
+// pre-split layouts its products read (flash_mma.cuh), so a B fragment is
+// one 16-byte read and no warp repeats another's split: against splitting
+// in every warp this took dq from 0.66 to 0.49 ms and dk/dv from 0.97 to
+// 0.75 ms at the training shape on an H100 (700 W).  The next raw tile loads while the block
+// computes on the split one.
+//   dq:    a block owns 64 query rows (Q, dO resident in shared memory,
+//          split as read; lse, delta in registers); K/V tiles of 32 keys
+//          stream over the swept columns.  Per tile S = Q K^T and
+//          dP = dO V^T, p = exp(s - lse), dS = p (dP - delta), dQ += dS K,
+//          K split in both orientations from the one raw tile; dq is scaled
+//          at the end.
+//   dk/dv: a block owns 64 keys (K as split fragments in registers, V in
+//          shared memory; both in shared memory at D 128); Q/dO tiles of 16
+//          queries stream from the first query 128-block that sees the
+//          keys.  It computes the transposed scores S^T = K Q^T and
+//          dP^T = V dO^T, so that P^T and dS^T land in the accumulator as
+//          the A operands of dV += P^T dO and dK += dS^T Q; lse and delta
+//          are indexed by the accumulator's column (the query).  16-query
+//          tiles, and the two last products one after the other, keep it
+//          within 255 registers without spills at D 64.  dk is scaled at
+//          the end.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // query rows (dq) or keys (dk/dv) per block
-constexpr int BT = 32;          // rows of the streamed operand per tile
-constexpr int TPR = 4;          // threads per row
-constexpr int NT = BM * TPR;    // threads per block
-constexpr int REF_BLOCK = 128;  // the reference kernels' block size
-constexpr float NEG = -1e9f;
-
-enum { MODE_NONE = 0, MODE_VEC = 1, MODE_DENSE = 2 };
-
-__device__ __forceinline__ float quad_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < TPR; off <<= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+using namespace flash;
 
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq(
+struct DqCfg {
+  static constexpr int BNB = 32;  // keys a streamed tile
+  static constexpr int LD = D + 4;
+  static constexpr int RAW = BNB * LD;
+  static constexpr int NKP = BNB * PreSplit<D>::NK4;         // float4s
+  static constexpr int PERMP = BNB / 2 * PreSplit<D>::PERM4;  // float4s
+  // pre-split K (nk, perm) and V (nk); resident Q, dO; raw K, V
+  static constexpr int SMEM =
+      ((2 * NKP + PERMP) * 4 + 2 * BM * LD + 2 * RAW) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_mma(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ mask,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int T, int S,
     int mode, int mask_bh, int causal, float scale) {
-  constexpr int DP = D / TPR;
-  __shared__ float ks[BT][D];
-  __shared__ float vs[BT][D];
+  using C = DqCfg<D>;
+  constexpr int LD = C::LD;
+  constexpr int KT = D / 8;
+  constexpr int NS = C::BNB / 8;
+  constexpr int NO = D / 8;
+  extern __shared__ float4 smem4[];
+  float4* knk = smem4;
+  float4* vnk = knk + C::NKP;
+  float4* kperm = vnk + C::NKP;
+  float* qs = reinterpret_cast<float*>(kperm + C::PERMP);
+  float* dos = qs + BM * LD;
+  float* kraw = dos + BM * LD;
+  float* vraw = kraw + C::RAW;
 
-  const int tile = blockIdx.x;
-  const int bh = blockIdx.y;
+  // heavy causal tiles first: blocks are dispatched in x-fastest order
+  const int bh = blockIdx.x;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int sub = tid % TPR;
-  const int row = tile * BM + r;
-  const bool row_ok = row < T;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int r0 = tile * BM;
+  const int rA = r0 + warp * 16 + g;
+  const int rB = rA + 8;
 
+  const int kend = min(S, sweep_hi(r0, S, causal));
+
+  const size_t qoff = (size_t)bh * T * D;
   const float* kb = k + (size_t)bh * S * D;
   const float* vb = v + (size_t)bh * S * D;
-  const float* mb = mask;
-  if (mode == MODE_DENSE && mask_bh) mb += (size_t)bh * T * S;
-  if (mode == MODE_VEC && mask_bh) mb += (size_t)bh * S;
+  const float* mb = mask_base(mask, mode, mask_bh, bh, T, S);
 
-  const size_t roff = ((size_t)bh * T + row) * D;
-  float qr[DP], dor[DP], acc[DP];
+  load_rows<BM, D>(qs, q + qoff, r0, T, tid);
+  load_rows<BM, D>(dos, dout + qoff, r0, T, tid);
+  load_rows<C::BNB, D>(kraw, kb, 0, kend, tid);
+  load_rows<C::BNB, D>(vraw, vb, 0, kend, tid);
+  cp_async_commit();
+
+  const float LA = rA < T ? lse[(size_t)bh * T + rA] : 0.f;
+  const float LB = rB < T ? lse[(size_t)bh * T + rB] : 0.f;
+  const float dlA = rA < T ? delta[(size_t)bh * T + rA] : 0.f;
+  const float dlB = rB < T ? delta[(size_t)bh * T + rB] : 0.f;
+
+  float dqacc[NO][4];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    const int c = sub + TPR * i;
-    qr[i] = row_ok ? q[roff + c] : 0.f;
-    dor[i] = row_ok ? dout[roff + c] : 0.f;
-    acc[i] = 0.f;
-  }
-  const float L = row_ok ? lse[(size_t)bh * T + row] : 0.f;
-  const float dl = row_ok ? delta[(size_t)bh * T + row] : 0.f;
+  for (int j = 0; j < NO; ++j)
+    dqacc[j][0] = dqacc[j][1] = dqacc[j][2] = dqacc[j][3] = 0.f;
 
-  // the reference's swept columns for this tile (BM divides REF_BLOCK, so
-  // the tile lies in one reference query block); padded ones are skipped
-  const int Sp = ((S + REF_BLOCK - 1) / REF_BLOCK) * REF_BLOCK;
-  const int hi = causal ? min(Sp, ((tile * BM) / REF_BLOCK + 1) * REF_BLOCK)
-                        : Sp;
-  const int kend = min(S, hi);
-
-  for (int j0 = 0; j0 < kend; j0 += BT) {
-    for (int idx = tid; idx < BT * D; idx += NT) {
-      const int jj = idx / D;
-      const int c = idx % D;
-      const int col = j0 + jj;
-      const bool ok = col < kend;
-      ks[jj][c] = ok ? kb[(size_t)col * D + c] : 0.f;
-      vs[jj][c] = ok ? vb[(size_t)col * D + c] : 0.f;
-    }
+  for (int j0 = 0; j0 < kend; j0 += C::BNB) {
+    cp_async_wait<0>();
     __syncthreads();
-    const int n = min(BT, kend - j0);
-    for (int jj = 0; jj < n; ++jj) {
-      const int col = j0 + jj;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        s = fmaf(qr[i], ks[jj][sub + TPR * i], s);
-        dp = fmaf(dor[i], vs[jj][sub + TPR * i], dp);
-      }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
-      float x = s * scale;
-      if (mode == MODE_DENSE) {
-        if (row_ok) x += mb[(size_t)row * S + col];
-      } else if (mode == MODE_VEC) {
-        x += mb[col];
-      }
-      if (causal && col > row) x = NEG;
-      const float ds = expf(x - L) * (dp - dl);
-#pragma unroll
-      for (int i = 0; i < DP; ++i)
-        acc[i] = fmaf(ds, ks[jj][sub + TPR * i], acc[i]);
-    }
+    presplit_nk<C::BNB, D>(knk, kraw, tid);
+    presplit_nk<C::BNB, D>(vnk, vraw, tid);
+    presplit_perm<C::BNB, D>(kperm, kraw, tid);
     __syncthreads();
+    if (j0 + C::BNB < kend) {
+      load_rows<C::BNB, D>(kraw, kb, j0 + C::BNB, kend, tid);
+      load_rows<C::BNB, D>(vraw, vb, j0 + C::BNB, kend, tid);
+      cp_async_commit();
+    }
+
+    float sacc[NS][4], pacc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = pacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      const FragA aq = frag_a(qs, LD, warp * 16, kk * 8, g, t);
+      const FragA ad = frag_a(dos, LD, warp * 16, kk * 8, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mma3(sacc[n], aq, frag_b_nk_pre<D>(knk, n * 8, kk, g, t));
+        mma3(pacc[n], ad, frag_b_nk_pre<D>(vnk, n * 8, kk, g, t));
+      }
+    }
+
+    const bool diag = causal && j0 + C::BNB - 1 > r0;
+    const bool edge = j0 + C::BNB > kend;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? rA : rB;
+        const int col = j0 + n * 8 + 2 * t + (e & 1);
+        float x = sacc[n][e] * scale;
+        if (mode == MODE_DENSE) {
+          if (row < T && col < kend) x += mb[(size_t)row * S + col];
+        } else if (mode == MODE_VEC) {
+          if (col < kend) x += mb[col];
+        }
+        if (diag && col > row) x = NEG;
+        float p = fexp(x - (e < 2 ? LA : LB));
+        if (edge && col >= kend) p = 0.f;  // past the sweep
+        sacc[n][e] = p * (pacc[n][e] - (e < 2 ? dlA : dlB));  // dS
+      }
+    }
+
+    // dQ += dS K: K in the permuted row order of the accumulator-fed A
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const FragA a = acc_as_a(sacc[n]);
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        mma3(dqacc[j], a, frag_b_perm_pre<D>(kperm, n * 8, j * 8, g, t));
+    }
   }
 
-  if (!row_ok) return;
+  const int c0 = 2 * t;
 #pragma unroll
-  for (int i = 0; i < DP; ++i) dq[roff + sub + TPR * i] = acc[i] * scale;
+  for (int j = 0; j < NO; ++j) {
+    if (rA < T)
+      *reinterpret_cast<float2*>(dq + qoff + (size_t)rA * D + j * 8 + c0) =
+          make_float2(dqacc[j][0] * scale, dqacc[j][1] * scale);
+    if (rB < T)
+      *reinterpret_cast<float2*>(dq + qoff + (size_t)rB * D + j * 8 + c0) =
+          make_float2(dqacc[j][2] * scale, dqacc[j][3] * scale);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv(
+struct DkvCfg {
+  static constexpr bool KREG = D <= 64;  // K fragments in registers
+  static constexpr int BNB = 16;  // queries a streamed tile
+  static constexpr int LD = D + 4;
+  static constexpr int RAW = BNB * LD;
+  static constexpr int NKP = BNB * PreSplit<D>::NK4;         // float4s
+  static constexpr int PERMP = BNB / 2 * PreSplit<D>::PERM4;  // float4s
+  // pre-split Q and dO (nk, perm); raw Q, dO; resident V (and K at D 128)
+  static constexpr int SMEM = ((2 * NKP + 2 * PERMP) * 4 + 2 * RAW +
+                               (KREG ? 1 : 2) * BM * LD) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_mma(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ mask,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, int T, int S, int mode, int mask_bh, int causal,
     float scale) {
-  constexpr int DP = D / TPR;
-  __shared__ float qs[BT][D];
-  __shared__ float dos[BT][D];
-  __shared__ float ls[BT];
-  __shared__ float dls[BT];
+  using C = DkvCfg<D>;
+  constexpr int LD = C::LD;
+  constexpr int KT = D / 8;
+  constexpr int NS = C::BNB / 8;
+  constexpr int NO = D / 8;
+  extern __shared__ float4 smem4[];
+  float4* qnk = smem4;
+  float4* dnk = qnk + C::NKP;
+  float4* qperm = dnk + C::NKP;
+  float4* dperm = qperm + C::PERMP;
+  float* qraw = reinterpret_cast<float*>(dperm + C::PERMP);
+  float* draw = qraw + C::RAW;
+  float* vss = draw + C::RAW;
+  float* kss = vss + BM * LD;  // D 128 only
 
-  const int tile = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int tile = blockIdx.y;  // tile 0 sweeps the most queries: first
   const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int sub = tid % TPR;
-  const int col = tile * BM + r;
-  const bool col_ok = col < S;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int c0 = tile * BM;
+  const int kA = c0 + warp * 16 + g;  // this lane's two accumulator rows
+  const int kB = kA + 8;
 
+  const int lo = sweep_lo(c0, causal);
+
+  const size_t koff = (size_t)bh * S * D;
   const float* qb = q + (size_t)bh * T * D;
   const float* dob = dout + (size_t)bh * T * D;
   const float* lb = lse + (size_t)bh * T;
   const float* db = delta + (size_t)bh * T;
-  const float* mb = mask;
-  if (mode == MODE_DENSE && mask_bh) mb += (size_t)bh * T * S;
-  if (mode == MODE_VEC && mask_bh) mb += (size_t)bh * S;
+  const float* mb = mask_base(mask, mode, mask_bh, bh, T, S);
 
-  const size_t coff = ((size_t)bh * S + col) * D;
-  float kr[DP], vr[DP], dka[DP], dva[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    const int c = sub + TPR * i;
-    kr[i] = col_ok ? k[coff + c] : 0.f;
-    vr[i] = col_ok ? v[coff + c] : 0.f;
-    dka[i] = 0.f;
-    dva[i] = 0.f;
+  load_rows<BM, D>(vss, v + koff, c0, S, tid);
+  if constexpr (!C::KREG) load_rows<BM, D>(kss, k + koff, c0, S, tid);
+  if (lo < T) {
+    load_rows<C::BNB, D>(qraw, qb, lo, T, tid);
+    load_rows<C::BNB, D>(draw, dob, lo, T, tid);
   }
-  float mvec = 0.f;
-  if (mode == MODE_VEC && col_ok) mvec = mb[col];
+  cp_async_commit();
 
-  // causal: query blocks above the tile's diagonal 128-block see none of it
-  const int lo = causal ? ((tile * BM) / REF_BLOCK) * REF_BLOCK : 0;
-
-  for (int i0 = lo; i0 < T; i0 += BT) {
-    for (int idx = tid; idx < BT * D; idx += NT) {
-      const int ii = idx / D;
-      const int c = idx % D;
-      const int row = i0 + ii;
-      const bool ok = row < T;
-      qs[ii][c] = ok ? qb[(size_t)row * D + c] : 0.f;
-      dos[ii][c] = ok ? dob[(size_t)row * D + c] : 0.f;
-    }
-    if (tid < BT) {
-      const int row = i0 + tid;
-      ls[tid] = row < T ? lb[row] : 0.f;
-      dls[tid] = row < T ? db[row] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(BT, T - i0);
-    for (int ii = 0; ii < n; ++ii) {
-      const int row = i0 + ii;
-      float s = 0.f, dp = 0.f;
+  FragA kf[C::KREG ? KT : 1];
+  if constexpr (C::KREG) {
+    const float* kr = k + koff;
 #pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        s = fmaf(kr[i], qs[ii][sub + TPR * i], s);
-        dp = fmaf(vr[i], dos[ii][sub + TPR * i], dp);
-      }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
-      float x = s * scale;
-      if (mode == MODE_DENSE) {
-        if (col_ok) x += mb[(size_t)row * S + col];
-      } else if (mode == MODE_VEC) {
-        x += mvec;
-      }
-      if (causal && col > row) x = NEG;
-      const float p = col_ok ? expf(x - ls[ii]) : 0.f;
-      const float ds = p * (dp - dls[ii]);
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        const int c = sub + TPR * i;
-        dva[i] = fmaf(p, dos[ii][c], dva[i]);
-        dka[i] = fmaf(ds, qs[ii][c], dka[i]);
-      }
+    for (int kk = 0; kk < KT; ++kk) {
+      const int c = kk * 8 + t;
+      kf[kk] = split_a(kA < S ? kr[(size_t)kA * D + c] : 0.f,
+                       kB < S ? kr[(size_t)kB * D + c] : 0.f,
+                       kA < S ? kr[(size_t)kA * D + c + 4] : 0.f,
+                       kB < S ? kr[(size_t)kB * D + c + 4] : 0.f);
     }
-    __syncthreads();
   }
 
-  if (!col_ok) return;
+  float mvA = 0.f, mvB = 0.f;
+  if (mode == MODE_VEC) {
+    if (kA < S) mvA = mb[kA];
+    if (kB < S) mvB = mb[kB];
+  }
+
+  float dkacc[NO][4], dvacc[NO][4];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    const int c = sub + TPR * i;
-    dk[coff + c] = dka[i] * scale;
-    dv[coff + c] = dva[i];
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkacc[j][e] = dvacc[j][e] = 0.f;
+
+  for (int i0 = lo; i0 < T; i0 += C::BNB) {
+    cp_async_wait<0>();
+    __syncthreads();
+    presplit_nk<C::BNB, D>(qnk, qraw, tid);
+    presplit_nk<C::BNB, D>(dnk, draw, tid);
+    presplit_perm<C::BNB, D>(qperm, qraw, tid);
+    presplit_perm<C::BNB, D>(dperm, draw, tid);
+    __syncthreads();
+    if (i0 + C::BNB < T) {
+      load_rows<C::BNB, D>(qraw, qb, i0 + C::BNB, T, tid);
+      load_rows<C::BNB, D>(draw, dob, i0 + C::BNB, T, tid);
+      cp_async_commit();
+    }
+
+    // lse and delta of this lane's accumulator columns (queries)
+    float Lq[NS][2], Dq[NS][2];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int qi = i0 + n * 8 + 2 * t + b;
+        Lq[n][b] = qi < T ? lb[qi] : 0.f;
+        Dq[n][b] = qi < T ? db[qi] : 0.f;
+      }
+    }
+
+    float sacc[NS][4], pacc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = pacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      FragA ak;
+      if constexpr (C::KREG)
+        ak = kf[kk];
+      else
+        ak = frag_a(kss, LD, warp * 16, kk * 8, g, t);
+      const FragA av = frag_a(vss, LD, warp * 16, kk * 8, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mma3(sacc[n], ak, frag_b_nk_pre<D>(qnk, n * 8, kk, g, t));
+        mma3(pacc[n], av, frag_b_nk_pre<D>(dnk, n * 8, kk, g, t));
+      }
+    }
+
+    const bool diag = causal && c0 + BM - 1 > i0;
+    const bool edge = i0 + C::BNB > T || c0 + BM > S;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = e < 2 ? kA : kB;
+        const int qi = i0 + n * 8 + 2 * t + (e & 1);
+        float x = sacc[n][e] * scale;
+        if (mode == MODE_DENSE) {
+          if (qi < T && key < S) x += mb[(size_t)qi * S + key];
+        } else if (mode == MODE_VEC) {
+          x += e < 2 ? mvA : mvB;
+        }
+        if (diag && key > qi) x = NEG;
+        float p = fexp(x - Lq[n][e & 1]);
+        if (edge && (qi >= T || key >= S)) p = 0.f;
+        sacc[n][e] = p;                                // P^T
+        pacc[n][e] = p * (pacc[n][e] - Dq[n][e & 1]);  // dS^T
+      }
+    }
+
+    // dV += P^T dO, then dK += dS^T Q (dO and Q in the permuted row
+    // order); one product at a time keeps the registers under 255
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const FragA ap = acc_as_a(sacc[n]);
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        mma3(dvacc[j], ap, frag_b_perm_pre<D>(dperm, n * 8, j * 8, g, t));
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const FragA as = acc_as_a(pacc[n]);
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        mma3(dkacc[j], as, frag_b_perm_pre<D>(qperm, n * 8, j * 8, g, t));
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  const int cc = 2 * t;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    if (kA < S) {
+      const size_t i = koff + (size_t)kA * D + j * 8 + cc;
+      *reinterpret_cast<float2*>(dk + i) =
+          make_float2(dkacc[j][0] * scale, dkacc[j][1] * scale);
+      *reinterpret_cast<float2*>(dv + i) = make_float2(dvacc[j][0], dvacc[j][1]);
+    }
+    if (kB < S) {
+      const size_t i = koff + (size_t)kB * D + j * 8 + cc;
+      *reinterpret_cast<float2*>(dk + i) =
+          make_float2(dkacc[j][2] * scale, dkacc[j][3] * scale);
+      *reinterpret_cast<float2*>(dv + i) = make_float2(dvacc[j][2], dvacc[j][3]);
+    }
   }
 }
 
@@ -251,10 +398,14 @@ int launch_dq(const float* q, const float* k, const float* v,
               const float* mask, const float* dout, const float* lse,
               const float* delta, float* dq, int BH, int T, int S, int mode,
               int mask_bh, int causal, float scale, cudaStream_t stream) {
-  dim3 grid((T + BM - 1) / BM, BH);
-  flash_bwd_dq<D><<<grid, NT, 0, stream>>>(q, k, v, mask, dout, lse, delta,
-                                           dq, T, S, mode, mask_bh, causal,
-                                           scale);
+  using C = DqCfg<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (T + BM - 1) / BM);
+  flash_bwd_dq_mma<D><<<grid, NT, C::SMEM, stream>>>(
+      q, k, v, mask, dout, lse, delta, dq, T, S, mode, mask_bh, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -264,10 +415,15 @@ int launch_dkv(const float* q, const float* k, const float* v,
                const float* delta, float* dk, float* dv, int BH, int T, int S,
                int mode, int mask_bh, int causal, float scale,
                cudaStream_t stream) {
-  dim3 grid((S + BM - 1) / BM, BH);
-  flash_bwd_dkv<D><<<grid, NT, 0, stream>>>(q, k, v, mask, dout, lse, delta,
-                                            dk, dv, T, S, mode, mask_bh,
-                                            causal, scale);
+  using C = DkvCfg<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (S + BM - 1) / BM);
+  flash_bwd_dkv_mma<D><<<grid, NT, C::SMEM, stream>>>(
+      q, k, v, mask, dout, lse, delta, dk, dv, T, S, mode, mask_bh, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,189 +1,358 @@
-// Flash-attention forward for Hopper (sm_90a), float32.
+// Flash-attention forward for Hopper (sm_90a), float32, on 3xTF32 tensor-core
+// tiles (flash_mma.cuh).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (singa_tpu/ops/pallas_kernels.py,
 // launched by `_flash_fwd_call`).  Same contract: q (BH, T, D), k/v (BH, S, D),
-// an optional additive mask carried at its natural rank ("vec": (MB, 1, S),
-// "dense": (MB, T, S), MB in {1, BH}), causal masking computed from indices,
-// masked scores set to -1e9 (never -inf), the online-softmax recurrence
-// started at m = -1e9, l clamped to 1e-30, and a per-row logsumexp written
-// beside the output for the backward pass.
-//
+// D in {16, 32, 64, 128}, any T and S; an optional additive mask carried at
+// its natural rank ("vec": (MB, 1, S), "dense": (MB, T, S), MB in {1, BH});
+// causal masking computed from indices; masked scores set to -1e9 (never
+// -inf); the online-softmax recurrence started at m = -1e9; l clamped to
+// 1e-30; a per-row logsumexp written beside the output for the backward pass.
 // The reference pads the key axis to its 128-column block with zero K/V and
 // a -1e9 score.  Those columns weigh nothing unless a whole row is masked,
 // where they join the uniform average; this kernel does not read them and
-// adds their count in closed form at the end (n_pad * exp(-1e9 - m)), so a
-// fully masked row gives the reference's output too.
+// adds their count in closed form at the end (n_pad * exp(-1e9 - m)).
 //
-// Design: one thread block per (batch*head, 64-row query tile); four threads
-// per query row, each holding the q row in registers, a quarter of every 32
-// keys and a quarter of the output channels.  K/V tiles of 32 keys are staged
-// through shared memory; the running max, denominator and accumulator stay
-// in registers.  With `causal`, key tiles past the reference's diagonal
-// 128-block are never read.  Plain float32 FMAs (no tensor cores): at the
-// serving shape (C=64 queries against L=1024 keys, H=12, D=64) that work,
-// 0.2 GFLOP at 67 TFLOP/s, is the card's floor (3.0 us), a little above the
-// 7 MB of inputs and outputs at 3.35 TB/s (2.1 us).  This simple kernel is
-// far from the floor: there it runs 12 blocks on 132 SMs, and every FMA
-// reads shared memory.
+// What bounds it.  At the training shape (BH 96, T = S = 1024, D 64, causal)
+// the work, 12.9 GFLOP over the 50.4 M pairs the function needs, bounds it:
+// 0.078 ms at the 3xTF32 rate (495 / 3 TFLOP/s), against 0.1 ms of bytes.
+// At the serving shape (64 queries against 1,024 keys, 12 heads) the 7 MB of
+// inputs and outputs bound it (2.1 us), and the problem is filling the card.
+//
+// Design.  A block of 4 warps owns 64 query rows, 16 a warp.  Each warp
+// holds its rows' Q as split 3xTF32 A fragments in registers (D <= 64; at
+// D 128 Q stays in shared memory and is split as it is read).  K/V tiles of
+// 32 keys go through a two-stage cp.async ring into rows padded to D+4 (32
+// rather than 64 keys: 188 registers at D 64 against 223, and 5 % faster on
+// an H100 at 700 W).
+// Each warp splits the K/V values it reads itself: pre-splitting the tile
+// once per block (as the backward does) measured no faster on the H100.  Per
+// tile: S = Q K^T (m16n8k8, three products a float32 product), then scale,
+// mask and the causal rule on the accumulator fragments, the online softmax
+// (row max over the quad by two shuffles; each lane keeps its partial row
+// sum, summed over the quad once at the end), then O += P V with P fed from
+// the accumulator as the A operand (flash_mma.cuh).  With `causal`, key
+// tiles past the diagonal 128-block are never loaded, tiles wholly below
+// the diagonal skip the per-element causal test, and the longest query
+// tiles are dispatched first, which shortens the tail of the grid (0.44 to
+// 0.37 ms at the training shape on the H100).
+//
+// Key split.  Where BH x query tiles under-fills the card (the serving
+// shape: 12 blocks on 132 SMs), the wrapper cuts each tile's swept keys
+// into contiguous ranges of `per` 64-key units (grid z = range).  Each range
+// writes its unnormalised O, its running max m and its denominator l to
+// scratch; `flash_fwd_combine` merges a row's ranges (M = max m,
+// l = sum l_i e^(m_i - M), o = sum o_i e^(m_i - M) / l), adds the padding
+// term, clamps l and writes o and lse.  No atomics: the result is
+// deterministic.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // query rows per block
-constexpr int BN = 32;          // keys per shared-memory tile
-constexpr int TPR = 4;          // threads per query row
-constexpr int NT = BM * TPR;    // threads per block
-constexpr int REF_BLOCK = 128;  // the reference kernel's block size
-constexpr float NEG = -1e9f;
-
-enum { MODE_NONE = 0, MODE_VEC = 1, MODE_DENSE = 2 };
+using namespace flash;
 
 template <int D>
-__global__ void __launch_bounds__(NT) flash_fwd(
+struct FwdCfg {
+  static constexpr bool QREG = D <= 64;  // Q fragments in registers
+  static constexpr int BNF = 32;         // keys a streamed tile
+  static constexpr int LD = D + 4;
+  static constexpr int TILE = BNF * LD;  // floats of one K or V tile
+  static constexpr int SMEM = (4 * TILE + (QREG ? 0 : BM * LD)) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ mask,
-    float* __restrict__ o, float* __restrict__ lse, int T, int S, int mode,
-    int mask_bh, int causal, float scale) {
-  __shared__ float ks[BN][D + 1];
-  __shared__ float vs[BN][D];
-  __shared__ float ps[BM][BN + 1];
+    float* __restrict__ o, float* __restrict__ lse,
+    float* __restrict__ o_part, float* __restrict__ m_part,
+    float* __restrict__ l_part, int BH, int T, int S, int mode, int mask_bh,
+    int causal, float scale, int per) {
+  using C = FwdCfg<D>;
+  constexpr int LD = C::LD;
+  constexpr int KT = D / 8;   // k-steps of Q K^T
+  constexpr int BNF = C::BNF;
+  constexpr int NS = BNF / 8;  // n-tiles of a score tile
+  constexpr int NO = D / 8;   // n-tiles of the output
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // [stage][K, V], then Q
+  float* qs = smem + 4 * C::TILE;
 
-  const int tile = blockIdx.x;
-  const int bh = blockIdx.y;
+  // heavy causal tiles first: blocks are dispatched in x-fastest order
+  const int bh = blockIdx.x;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int range = blockIdx.z;
   const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int sub = tid % TPR;
-  const int row = tile * BM + r;
-  const bool row_ok = row < T;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int r0 = tile * BM;
+  const int rA = r0 + warp * 16 + g;  // this lane's two accumulator rows
+  const int rB = rA + 8;
+
+  const int hi = sweep_hi(r0, S, causal);
+  const int kend = min(S, hi);
+  // range r covers the key columns [r, r + 1) * per * PLAN_BN of the sweep
+  const int k_begin = range * per * PLAN_BN;
+  const int k_stop = min(kend, k_begin + per * PLAN_BN);
+  if (k_begin >= k_stop) return;  // an empty range: the combine skips it
 
   const float* qb = q + (size_t)bh * T * D;
   const float* kb = k + (size_t)bh * S * D;
   const float* vb = v + (size_t)bh * S * D;
-  const float* mb = mask;
-  if (mode == MODE_DENSE && mask_bh) mb += (size_t)bh * T * S;
-  if (mode == MODE_VEC && mask_bh) mb += (size_t)bh * S;
+  const float* mb = mask_base(mask, mode, mask_bh, bh, T, S);
 
-  float qr[D];
+  load_rows<BNF, D>(smem, kb, k_begin, kend, tid);
+  load_rows<BNF, D>(smem + C::TILE, vb, k_begin, kend, tid);
+  if constexpr (!C::QREG) load_rows<BM, D>(qs, qb, r0, T, tid);
+  cp_async_commit();
+
+  FragA qf[C::QREG ? KT : 1];
+  if constexpr (C::QREG) {
 #pragma unroll
-  for (int c = 0; c < D; ++c) qr[c] = row_ok ? qb[(size_t)row * D + c] : 0.f;
-
-  float acc[D / TPR];
-#pragma unroll
-  for (int i = 0; i < D / TPR; ++i) acc[i] = 0.f;
-  float m = NEG;
-  float l = 0.f;
-
-  // The key columns the reference sweeps for this tile: every 128-block,
-  // or with `causal` those up to the tile's diagonal block (BM divides
-  // REF_BLOCK, so the tile lies in one reference query block).
-  const int Sp = ((S + REF_BLOCK - 1) / REF_BLOCK) * REF_BLOCK;
-  const int hi = causal ? min(Sp, ((tile * BM) / REF_BLOCK + 1) * REF_BLOCK)
-                        : Sp;
-  const int kend = min(S, hi);
-
-  for (int j0 = 0; j0 < kend; j0 += BN) {
-    for (int idx = tid; idx < BN * D; idx += NT) {
-      const int jj = idx / D;
-      const int c = idx % D;
-      const int col = j0 + jj;
-      float kx = 0.f, vx = 0.f;
-      if (col < kend) {
-        kx = kb[(size_t)col * D + c];
-        vx = vb[(size_t)col * D + c];
-      }
-      ks[jj][c] = kx;
-      vs[jj][c] = vx;
+    for (int kk = 0; kk < KT; ++kk) {
+      const int c = kk * 8 + t;
+      const float a0 = rA < T ? qb[(size_t)rA * D + c] : 0.f;
+      const float a1 = rB < T ? qb[(size_t)rB * D + c] : 0.f;
+      const float a2 = rA < T ? qb[(size_t)rA * D + c + 4] : 0.f;
+      const float a3 = rB < T ? qb[(size_t)rB * D + c + 4] : 0.f;
+      qf[kk] = split_a(a0, a1, a2, a3);
     }
-    __syncthreads();
-
-    float s[BN / TPR];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < BN / TPR; ++t) {
-      const int jj = sub + TPR * t;
-      const int col = j0 + jj;
-      float x = -INFINITY;  // columns past the sweep carry no weight
-      if (col < kend) {
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < D; ++c) dot = fmaf(qr[c], ks[jj][c], dot);
-        x = dot * scale;
-        if (mode == MODE_DENSE) {
-          if (row_ok) x += mb[(size_t)row * S + col];
-        } else if (mode == MODE_VEC) {
-          x += mb[col];
-        }
-        if (causal && col > row) x = NEG;
-      }
-      s[t] = x;
-      tmax = fmaxf(tmax, x);
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int t = 0; t < BN / TPR; ++t) {
-      const float p = expf(s[t] - m_new);
-      ps[r][sub + TPR * t] = p;
-      psum += p;
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < D / TPR; ++i) {
-      const int c = sub + TPR * i;
-      float a = acc[i] * alpha;
-#pragma unroll
-      for (int jj = 0; jj < BN; ++jj) a = fmaf(ps[r][jj], vs[jj][c], a);
-      acc[i] = a;
-    }
-    __syncthreads();
   }
 
-  if (!row_ok) return;
-  // the reference's swept zero-padded columns, each scored -1e9
-  const int n_pad = hi - kend;
-  if (n_pad > 0) l += (float)n_pad * expf(NEG - m);
-  l = fmaxf(l, 1e-30f);
-  float* ob = o + ((size_t)bh * T + row) * D;
+  float oacc[NO][4];
 #pragma unroll
-  for (int i = 0; i < D / TPR; ++i) ob[sub + TPR * i] = acc[i] / l;
-  if (sub == 0) lse[(size_t)bh * T + row] = m + logf(l);
+  for (int j = 0; j < NO; ++j)
+    oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+  float mA = NEG, mB = NEG;  // running max of rows rA, rB
+  float lA = 0.f, lB = 0.f;  // this lane's share of their denominators
+
+  for (int j0 = k_begin, st = 0; j0 < k_stop; j0 += BNF, st ^= 1) {
+    if (j0 + BNF < k_stop) {
+      float* nxt = smem + (st ^ 1) * 2 * C::TILE;
+      load_rows<BNF, D>(nxt, kb, j0 + BNF, kend, tid);
+      load_rows<BNF, D>(nxt + C::TILE, vb, j0 + BNF, kend, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Ks = smem + st * 2 * C::TILE;
+    const float* Vs = Ks + C::TILE;
+
+    float sacc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+      sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      FragA a;
+      if constexpr (C::QREG)
+        a = qf[kk];
+      else
+        a = frag_a(qs, LD, warp * 16, kk * 8, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        mma3(sacc[n], a, frag_b_nk(Ks, LD, n * 8, kk * 8, g, t));
+    }
+
+    // scale, mask, the causal rule and the sweep's edge
+    const bool diag = causal && j0 + BNF - 1 > r0;
+    const bool edge = j0 + BNF > kend;
+    float mxA = -INFINITY, mxB = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? rA : rB;
+        const int col = j0 + n * 8 + 2 * t + (e & 1);
+        float x = sacc[n][e] * scale;
+        if (mode == MODE_DENSE) {
+          if (row < T && col < kend) x += mb[(size_t)row * S + col];
+        } else if (mode == MODE_VEC) {
+          if (col < kend) x += mb[col];
+        }
+        if (diag && col > row) x = NEG;
+        if (edge && col >= kend) x = -INFINITY;  // past the sweep: no weight
+        sacc[n][e] = x;
+        if (e < 2)
+          mxA = fmaxf(mxA, x);
+        else
+          mxB = fmaxf(mxB, x);
+      }
+    }
+    const float mnA = fmaxf(mA, quad_max(mxA));
+    const float mnB = fmaxf(mB, quad_max(mxB));
+    const float alA = fexp(mA - mnA);
+    const float alB = fexp(mB - mnB);
+    mA = mnA;
+    mB = mnB;
+    float sA = 0.f, sB = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      sacc[n][0] = fexp(sacc[n][0] - mA);
+      sacc[n][1] = fexp(sacc[n][1] - mA);
+      sacc[n][2] = fexp(sacc[n][2] - mB);
+      sacc[n][3] = fexp(sacc[n][3] - mB);
+      sA += sacc[n][0] + sacc[n][1];
+      sB += sacc[n][2] + sacc[n][3];
+    }
+    lA = lA * alA + sA;
+    lB = lB * alB + sB;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      oacc[j][0] *= alA;
+      oacc[j][1] *= alA;
+      oacc[j][2] *= alB;
+      oacc[j][3] *= alB;
+    }
+
+    // O += P V, P fed from the accumulator as the A operand
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const FragA a = acc_as_a(sacc[n]);
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        mma3(oacc[j], a, frag_b_kn_perm(Vs, LD, n * 8, j * 8, g, t));
+    }
+    __syncthreads();  // the stage is refilled two tiles on
+  }
+
+  lA = quad_sum(lA);
+  lB = quad_sum(lB);
+  const int c0 = 2 * t;
+  if (o_part == nullptr) {
+    // the reference's swept zero-padded columns, each scored -1e9
+    const int n_pad = hi - kend;
+    if (n_pad > 0) {
+      lA += (float)n_pad * fexp(NEG - mA);
+      lB += (float)n_pad * fexp(NEG - mB);
+    }
+    lA = fmaxf(lA, 1e-30f);
+    lB = fmaxf(lB, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      if (rA < T)
+        *reinterpret_cast<float2*>(o + ((size_t)bh * T + rA) * D + j * 8 +
+                                   c0) =
+            make_float2(oacc[j][0] / lA, oacc[j][1] / lA);
+      if (rB < T)
+        *reinterpret_cast<float2*>(o + ((size_t)bh * T + rB) * D + j * 8 +
+                                   c0) =
+            make_float2(oacc[j][2] / lB, oacc[j][3] / lB);
+    }
+    if (t == 0) {
+      if (rA < T) lse[(size_t)bh * T + rA] = mA + logf(lA);
+      if (rB < T) lse[(size_t)bh * T + rB] = mB + logf(lB);
+    }
+  } else {
+    const size_t base = ((size_t)range * BH + bh) * T;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      if (rA < T)
+        *reinterpret_cast<float2*>(o_part + (base + rA) * D + j * 8 + c0) =
+            make_float2(oacc[j][0], oacc[j][1]);
+      if (rB < T)
+        *reinterpret_cast<float2*>(o_part + (base + rB) * D + j * 8 + c0) =
+            make_float2(oacc[j][2], oacc[j][3]);
+    }
+    if (t == 0) {
+      if (rA < T) {
+        m_part[base + rA] = mA;
+        l_part[base + rA] = lA;
+      }
+      if (rB < T) {
+        m_part[base + rB] = mB;
+        l_part[base + rB] = lB;
+      }
+    }
+  }
+}
+
+// One thread per output element: merges the row's non-empty ranges.
+__global__ void __launch_bounds__(256) flash_fwd_combine(
+    const float* __restrict__ o_part, const float* __restrict__ m_part,
+    const float* __restrict__ l_part, float* __restrict__ o,
+    float* __restrict__ lse, int BH, int T, int S, int D, int causal,
+    int per) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)BH * T * D) return;
+  const int c = (int)(idx % D);
+  const size_t rowg = idx / D;  // bh * T + row
+  const int row = (int)(rowg % T);
+  const int hi = sweep_hi((row / BM) * BM, S, causal);
+  const int kend = min(S, hi);
+  const int nr = ((kend + PLAN_BN - 1) / PLAN_BN + per - 1) / per;
+  const size_t stride = (size_t)BH * T;
+  float M = NEG;
+  for (int r = 0; r < nr; ++r) M = fmaxf(M, m_part[r * stride + rowg]);
+  float l = 0.f, acc = 0.f;
+  for (int r = 0; r < nr; ++r) {
+    const size_t i = r * stride + rowg;
+    const float w = fexp(m_part[i] - M);
+    l += l_part[i] * w;
+    acc += o_part[i * D + c] * w;
+  }
+  const int n_pad = hi - kend;
+  if (n_pad > 0) l += (float)n_pad * fexp(NEG - M);
+  l = fmaxf(l, 1e-30f);
+  o[idx] = acc / l;
+  if (c == 0) lse[rowg] = M + logf(l);
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* mask,
-           float* o, float* lse, int BH, int T, int S, int mode, int mask_bh,
-           int causal, float scale, cudaStream_t stream) {
-  dim3 grid((T + BM - 1) / BM, BH);
-  flash_fwd<D><<<grid, NT, 0, stream>>>(q, k, v, mask, o, lse, T, S, mode,
-                                        mask_bh, causal, scale);
+           float* o, float* lse, float* o_part, float* m_part, float* l_part,
+           int BH, int T, int S, int mode, int mask_bh, int causal,
+           float scale, int n_split, int per, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (T + BM - 1) / BM, n_split);
+  flash_fwd_mma<D><<<grid, NT, C::SMEM, stream>>>(
+      q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh,
+      causal, scale, per);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).
+// Each returns the cudaError_t of its launch (0 on success).
+//
+// n_split == 1: o and lse are written; o_part, m_part and l_part are unused
+// (pass per >= the number of swept key tiles).  n_split > 1: range r of a
+// query tile covers its swept key tiles [r * per, (r + 1) * per) and writes
+// o_part (n_split, BH, T, D), m_part and l_part (n_split, BH, T); o and lse
+// are unused until singa_flash_attention_fwd_combine.
 extern "C" int singa_flash_attention_fwd(
     const float* q, const float* k, const float* v, const float* mask,
-    float* o, float* lse, int BH, int T, int S, int D, int mode, int mask_bh,
-    int causal, float scale, void* stream) {
+    float* o, float* lse, float* o_part, float* m_part, float* l_part, int BH,
+    int T, int S, int D, int mode, int mask_bh, int causal, int n_split,
+    int per, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_split < 1 || per < 1 || (n_split > 1 && o_part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n_split == 1) o_part = m_part = l_part = nullptr;
   switch (D) {
-    case 16: return launch<16>(q, k, v, mask, o, lse, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 32: return launch<32>(q, k, v, mask, o, lse, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 64: return launch<64>(q, k, v, mask, o, lse, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 128: return launch<128>(q, k, v, mask, o, lse, BH, T, S, mode, mask_bh, causal, scale, st);
+    case 16: return launch<16>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
+    case 32: return launch<32>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
+    case 64: return launch<64>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
+    case 128: return launch<128>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int singa_flash_attention_fwd_combine(
+    const float* o_part, const float* m_part, const float* l_part, float* o,
+    float* lse, int BH, int T, int S, int D, int causal, int per,
+    void* stream) {
+  if (per < 1) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)BH * T * D;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  flash_fwd_combine<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      o_part, m_part, l_part, o, lse, BH, T, S, D, causal, per);
+  return (int)cudaGetLastError();
 }

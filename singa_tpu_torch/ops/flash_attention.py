@@ -6,7 +6,12 @@ Counterpart: ``singa_tpu/ops/pallas_kernels.py`` — ``flash_attention``
 TPU kernel), ``_flash_bwd_call`` / ``_dq_kernel`` / ``_dkv_kernel`` (the
 backward ones) and ``flash_attention_op`` / ``_flash_nomask`` /
 ``_flash_masked`` (the gradient).  Kernel sources:
-``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``, on
+the tile layer ``csrc/flash_mma.cuh``: float32 products on the tensor
+cores as 3xTF32 ``mma.sync`` tiles (each operand split into a TF32 big
+and small part, three products summed), which keeps float32-level
+accuracy; :func:`matmul_3xtf32` emulates that product here and
+:func:`matmul_1xtf32` the single TF32 product it avoids.
 
 Contract, as in the reference: ``(B, H, T, d)`` inputs; an additive
 float mask broadcastable to ``(B, H, T, S)`` carried at its natural
@@ -32,6 +37,13 @@ not the autodiff of the forward.  :func:`flash_attention` is
 differentiable through a ``torch.autograd.Function`` whose backward is
 those kernels; the mask gets no gradient.
 
+Key split: where the forward's blocks (batch*head x 64-row query tiles)
+would under-fill the card, :func:`_fwd_split_plan` cuts each tile's
+swept key tiles into ranges; one launch computes every range's
+unnormalised output, running max and denominator
+(:func:`flash_attention_fwd_partial`) and a second merges them
+(:func:`flash_attention_fwd_combine`).  Deterministic, no atomics.
+
 Routing: the tensor's device decides.  CPU tensors take the plain
 version; CUDA tensors launch the kernel or raise.
 """
@@ -39,7 +51,9 @@ version; CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +61,11 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_fwd", "flash_attention_fwd_reference",
+           "flash_attention_fwd_partial",
+           "flash_attention_fwd_partial_reference",
+           "flash_attention_fwd_combine",
+           "flash_attention_fwd_combine_reference",
+           "tf32_round", "matmul_3xtf32", "matmul_1xtf32",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
@@ -56,13 +75,40 @@ _NEG_INF = -1e9
 _REF_BLOCK = 128          # the reference kernel's key/query block
 _MODES = {"none": 0, "vec": 1, "dense": 2}
 _KERNEL_D = (16, 32, 64, 128)
+_BM = 64                  # query rows a kernel block owns (flash_mma.cuh)
+_BN = 64                  # keys in a streamed tile
 
-# kernel launches made by flash_attention_fwd (launches) and by
-# flash_attention_bwd (launches_dq, launches_dkv); plain-version calls and
-# CPU calls do not count
+# kernel launches: the forward kernel (launches, one a flash_attention_fwd
+# call on either route), the split route's combine (launches_combine), the
+# backward's dq and dk/dv kernels; plain-version and CPU calls do not count
 launches = 0
+launches_combine = 0
 launches_dq = 0
 launches_dkv = 0
+
+
+def tf32_round(x):
+    """``cvt.rna.tf32.f32`` on float32 ``x``: the nearest value with a
+    10-bit mantissa, ties away from zero (the low 13 bits cleared)."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(a, b):
+    """``a @ b`` as the kernels compute it: each operand split into
+    ``big = tf32(x)`` and ``small = tf32(x - big)``, and
+    ``small @ big + big @ small + big @ big`` summed in float32."""
+    ab = tf32_round(a)
+    bb = tf32_round(b)
+    a_small = tf32_round(a.float() - ab)
+    b_small = tf32_round(b.float() - bb)
+    return (torch.matmul(a_small, bb) + torch.matmul(ab, b_small)
+            + torch.matmul(ab, bb))
+
+
+def matmul_1xtf32(a, b):
+    """``a @ b`` as one TF32 product: both operands rounded to TF32."""
+    return torch.matmul(tf32_round(a), tf32_round(b))
 
 
 def _prepare(q, k, v, mask, sm_scale):
@@ -94,44 +140,168 @@ def _prepare(q, k, v, mask, sm_scale):
     return q3, k3, v3, m.contiguous(), scale, mode
 
 
-def flash_attention_fwd_reference(q3, k3, v3, mask3, scale, mode, causal):
+def _scores(q3, k3, mask3, scale, mode, causal, matmul):
+    """``s = scale q k^T + mask`` on ``(BH, T, S)``, with ``causal``
+    columns past the row at -1e9."""
+    T, S = q3.shape[1], k3.shape[1]
+    s = matmul(q3.float(), k3.float().transpose(1, 2)) * scale
+    if mode != "none":
+        s = s + mask3
+    if causal:
+        rows = torch.arange(T, device=q3.device)[:, None]
+        cols = torch.arange(S, device=q3.device)[None]
+        s = torch.where(cols > rows, torch.full_like(s, _NEG_INF), s)
+    return s
+
+
+def _sweep(T, S, causal, device):
+    """Per query row, ``(hi, kend)`` as ``(T, 1)`` int64 tensors: the end
+    of the reference's swept key columns (its zero padding included)
+    and of the real ones."""
+    Sp = -(-S // _REF_BLOCK) * _REF_BLOCK
+    rows = torch.arange(T, device=device)[:, None]
+    if causal:
+        hi = torch.clamp((rows // _REF_BLOCK + 1) * _REF_BLOCK, max=Sp)
+    else:
+        hi = torch.full_like(rows, Sp)
+    return hi, torch.clamp(hi, max=S)
+
+
+def flash_attention_fwd_reference(q3, k3, v3, mask3, scale, mode, causal,
+                                  matmul=torch.matmul):
     """Plain PyTorch version of the kernel on ``(BH, T, d)`` operands:
     returns ``(o, lse)``.  Closed form of the reference's online
     recurrence (start ``m = -1e9``; swept padding columns counted into
-    the denominator; causal sweep bounded at the diagonal 128-block)."""
+    the denominator; causal sweep bounded at the diagonal 128-block).
+    ``matmul`` computes its two products (:func:`matmul_3xtf32` to
+    emulate the kernel's tensor-core arithmetic)."""
     BH, T, d = q3.shape
     S = k3.shape[1]
     dev = q3.device
-    qf, kf, vf = q3.float(), k3.float(), v3.float()
-    s = torch.matmul(qf, kf.transpose(1, 2)) * scale          # (BH, T, S)
-    if mode != "none":
-        s = s + mask3
-    Sp = -(-S // _REF_BLOCK) * _REF_BLOCK
+    vf = v3.float()
+    s = _scores(q3, k3, mask3, scale, mode, causal, matmul)   # (BH, T, S)
+    hi, kend = _sweep(T, S, causal, dev)
     cols = torch.arange(S, device=dev)[None]
-    if causal:
-        rows = torch.arange(T, device=dev)[:, None]
-        hi = torch.clamp((rows // _REF_BLOCK + 1) * _REF_BLOCK, max=Sp)
-        s = torch.where(cols > rows, torch.full_like(s, _NEG_INF), s)
-        s = torch.where(cols < hi, s, torch.full_like(s, -math.inf))
-        n_pad = (hi - torch.clamp(hi, max=S)).to(torch.float32)  # (T, 1)
-    else:
-        n_pad = float(Sp - S)
+    s = torch.where(cols < kend, s, torch.full_like(s, -math.inf))
+    n_pad = (hi - kend).to(torch.float32)                       # (T, 1)
     m = torch.clamp(s.amax(dim=-1, keepdim=True), min=_NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True) + n_pad * torch.exp(_NEG_INF - m)
     l = torch.clamp(l, min=1e-30)
-    o = torch.matmul(p, vf) / l
+    o = matmul(p, vf) / l
     return o.to(q3.dtype), (m + torch.log(l))[..., 0]
 
 
-def _fn(lib_name, sym, n_ptr):
+class SplitPlan(NamedTuple):
+    """The forward's key split: range ``r`` of a query tile covers its
+    swept keys in 64-key units ``[r * per, (r + 1) * per)``;
+    ``n_split == 1`` is the unsplit route."""
+    n_split: int
+    per: int
+
+
+def _tile_kend(T, S, causal):
+    """End of the real swept key columns of each 64-row query tile."""
+    hi, kend = _sweep(T, S, causal, "cpu")
+    return [int(x) for x in kend[::_BM, 0]]
+
+
+def _fwd_split_plan(BH, T, S, causal, n_sm=132):
+    """The key split for ``BH x T`` queries against ``S`` keys on a card
+    of ``n_sm`` SMs.  Unsplit when the blocks (BH x 64-row query tiles)
+    fill the card; else the fewest equal ranges of 64-key tiles that
+    give at least ``2 n_sm`` blocks, at most one range a key tile."""
+    max_tiles = -(-max(_tile_kend(T, S, causal)) // _BN)
+    blocks = BH * -(-T // _BM)
+    if blocks >= n_sm or max_tiles <= 1:
+        return SplitPlan(1, max(max_tiles, 1))
+    n_split = min(-(-2 * n_sm // blocks), max_tiles)
+    per = -(-max_tiles // n_split)
+    return SplitPlan(-(-max_tiles // per), per)
+
+
+def _split_ranges(plan, T, S, causal):
+    """For each 64-row query tile, the key-column ranges ``(lo, hi)`` of
+    its non-empty split ranges, in order."""
+    out = []
+    for kend in _tile_kend(T, S, causal):
+        rs = []
+        for r in range(plan.n_split):
+            lo, hi = r * plan.per * _BN, min(kend, (r + 1) * plan.per * _BN)
+            if lo < hi:
+                rs.append((lo, hi))
+        out.append(rs)
+    return out
+
+
+def flash_attention_fwd_partial_reference(q3, k3, v3, mask3, scale, mode,
+                                          causal, plan,
+                                          matmul=torch.matmul):
+    """Plain version of the split route's forward kernel: for each range
+    ``r`` of ``plan``, every row's unnormalised output, running max and
+    denominator over its tile's range ``r`` of key columns.  Returns
+    ``(o_part (R, BH, T, d), m_part (R, BH, T), l_part (R, BH, T))``; an
+    empty range holds ``m = -1e9, l = 0, o = 0`` (the kernel leaves it
+    unwritten and the combine skips it)."""
+    BH, T, d = q3.shape
+    S = k3.shape[1]
+    s = _scores(q3, k3, mask3, scale, mode, causal, matmul)
+    _, kend = _sweep(T, S, causal, q3.device)
+    cols = torch.arange(S, device=q3.device)[None]
+    width = plan.per * _BN
+    o_part, m_part, l_part = [], [], []
+    for r in range(plan.n_split):
+        inside = (cols >= r * width) & (cols < torch.clamp(kend,
+                                                          max=(r + 1) * width))
+        sr = torch.where(inside, s, torch.full_like(s, -math.inf))
+        m = torch.clamp(sr.amax(dim=-1, keepdim=True), min=_NEG_INF)
+        p = torch.exp(sr - m)
+        o_part.append(matmul(p, v3.float()))
+        m_part.append(m[..., 0])
+        l_part.append(p.sum(dim=-1))
+    return torch.stack(o_part), torch.stack(m_part), torch.stack(l_part)
+
+
+def _valid_ranges(R, T, S, causal, per, device):
+    """``(R, 1, T)`` bool: which ranges of each row are non-empty."""
+    _, kend = _sweep(T, S, causal, device)
+    n_ranges = -(-(-(-kend[:, 0] // _BN)) // per)                # (T,)
+    return torch.arange(R, device=device)[:, None, None] < n_ranges[None, None]
+
+
+def flash_attention_fwd_combine_reference(o_part, m_part, l_part, T, S,
+                                          causal, per):
+    """Plain version of the combine kernel: merges each row's non-empty
+    ranges (``M = max m``, ``l = sum l_i e^(m_i - M)``,
+    ``o = sum o_i e^(m_i - M) / l``) with the padding term and the
+    clamp.  Returns ``(o (BH, T, d), lse (BH, T))``."""
+    R = o_part.shape[0]
+    valid = _valid_ranges(R, T, S, causal, per, o_part.device)
+    m = torch.where(valid, m_part, torch.full_like(m_part, -math.inf))
+    M = m.amax(dim=0)                                            # (BH, T)
+    w = torch.where(valid, torch.exp(m - M), torch.zeros_like(m))
+    l = (torch.where(valid, l_part, torch.zeros_like(l_part)) * w).sum(0)
+    o = (torch.where(valid[..., None], o_part, torch.zeros_like(o_part))
+         * w[..., None]).sum(0)
+    hi, kend = _sweep(T, S, causal, o_part.device)
+    l = l + (hi - kend)[:, 0].to(torch.float32) * torch.exp(_NEG_INF - M)
+    l = torch.clamp(l, min=1e-30)
+    return o / l[..., None], M + torch.log(l)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fn(lib_name, sym, n_ptr, n_int=7, tail=(ctypes.c_float,)):
     """The ctypes function ``sym`` of library ``lib_name``: ``n_ptr``
-    pointers, seven ints (BH, T, S, d, mode, mask_bh, causal), the
-    scale and the stream."""
+    pointers, ``n_int`` ints (by default BH, T, S, d, mode, mask_bh,
+    causal), then ``tail`` (by default the scale) and the stream."""
     fn = getattr(_build.load(lib_name), sym)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + list(tail) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -172,13 +342,36 @@ def _kernel_operands(name, q3, k3, v3, mask3, mode, extra=()):
             raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous operands")
+    for t in [q3, k3, v3] + [x for x in extra if x.dim() == 3]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel stages rows with 16-byte "
+                             f"cp.async: operands must be 16-byte aligned")
     return dev, mask_bh
 
 
-def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal):
+def _launch_fwd(q3, k3, v3, mask3, scale, mode, mask_bh, causal, outs,
+                parts, plan):
+    BH, T, d = q3.shape
+    dev = q3.device
+    fn = _fn("flash_attention_fwd", "singa_flash_attention_fwd", 9, 9)
+    ptrs = [t.data_ptr() if t is not None else None for t in outs + parts]
+    err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+             mask3.data_ptr() if mode != "none" else None, *ptrs, BH, T,
+             k3.shape[1], d, _MODES[mode], mask_bh, int(bool(causal)),
+             plan.n_split, plan.per, float(scale),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"(cudaError {err})")
+
+
+def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal, n_sm=None):
     """The kernel wrapper on ``(BH, T, d)`` operands: returns
     ``(o, lse)``.  CPU tensors run the plain version; CUDA tensors
-    launch ``csrc/flash_attention_fwd.cu`` or raise."""
+    launch ``csrc/flash_attention_fwd.cu`` or raise: one launch where
+    the blocks fill the card, else the key split (a partial launch and a
+    combine, :func:`_fwd_split_plan`).  ``n_sm`` overrides the card's SM
+    count in that plan (1 forces the unsplit route)."""
     global launches
     dev, mask_bh = _kernel_operands("flash_attention", q3, k3, v3, mask3,
                                     mode)
@@ -187,72 +380,139 @@ def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal):
                                              causal)
     BH, T, d = q3.shape
     S = k3.shape[1]
+    plan = _fwd_split_plan(BH, T, S, causal,
+                           _sm_count(dev.index if dev.index is not None
+                                     else torch.cuda.current_device())
+                           if n_sm is None else n_sm)
+    if plan.n_split > 1:
+        parts = flash_attention_fwd_partial(q3, k3, v3, mask3, scale, mode,
+                                            causal, plan)
+        return flash_attention_fwd_combine(*parts, T, S, causal, plan.per)
     o = torch.empty_like(q3)
     lse = torch.empty((BH, T), dtype=torch.float32, device=dev)
-    fn = _fn("flash_attention_fwd", "singa_flash_attention_fwd", 6)
-    err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-             mask3.data_ptr() if mode != "none" else None,
-             o.data_ptr(), lse.data_ptr(), BH, T, S, d, _MODES[mode],
-             mask_bh, int(bool(causal)), float(scale),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed "
-                           f"(cudaError {err})")
+    _launch_fwd(q3, k3, v3, mask3, scale, mode, mask_bh, causal, [o, lse],
+                [None] * 3, plan)
     launches += 1
     return o, lse
 
 
-def _bwd_probs(q3, k3, v3, mask3, lse, delta, do3, scale, mode, causal):
+def flash_attention_fwd_partial(q3, k3, v3, mask3, scale, mode, causal,
+                                plan):
+    """The split route's forward launch (``plan.n_split > 1``): returns
+    ``(o_part, m_part, l_part)`` as
+    :func:`flash_attention_fwd_partial_reference` does, except that an
+    empty range is left unwritten.  CPU tensors run that plain version;
+    CUDA tensors launch or raise."""
+    global launches
+    dev, mask_bh = _kernel_operands("flash_attention", q3, k3, v3, mask3,
+                                    mode)
+    if dev is None:
+        return flash_attention_fwd_partial_reference(q3, k3, v3, mask3, scale,
+                                                     mode, causal, plan)
+    if plan.n_split < 2:
+        raise ValueError("flash_attention_fwd_partial needs a split plan")
+    BH, T, d = q3.shape
+    o_part = torch.empty((plan.n_split, BH, T, d), dtype=torch.float32,
+                         device=dev)
+    m_part = torch.empty((plan.n_split, BH, T), dtype=torch.float32,
+                         device=dev)
+    l_part = torch.empty_like(m_part)
+    _launch_fwd(q3, k3, v3, mask3, scale, mode, mask_bh, causal, [None] * 2,
+                [o_part, m_part, l_part], plan)
+    launches += 1
+    return o_part, m_part, l_part
+
+
+def flash_attention_fwd_combine(o_part, m_part, l_part, T, S, causal, per):
+    """The combine kernel's wrapper (``csrc/flash_attention_fwd.cu``):
+    merges the ranges of :func:`flash_attention_fwd_partial` into
+    ``(o, lse)``.  CPU tensors run
+    :func:`flash_attention_fwd_combine_reference`; CUDA tensors launch
+    or raise."""
+    global launches_combine
+    R, BH, T_, d = o_part.shape
+    dev = o_part.device
+    if any(t.device != dev for t in (m_part, l_part)):
+        raise ValueError("flash_attention_fwd_combine: operands on "
+                         "different devices")
+    if dev.type == "cpu":
+        return flash_attention_fwd_combine_reference(o_part, m_part, l_part,
+                                                     T, S, causal, per)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_fwd_combine: unsupported device "
+                         f"{dev}")
+    if T_ != T or m_part.shape != (R, BH, T) or l_part.shape != (R, BH, T):
+        raise ValueError(f"flash_attention_fwd_combine: shapes "
+                         f"{tuple(o_part.shape)}, {tuple(m_part.shape)}, "
+                         f"{tuple(l_part.shape)} do not match T {T}")
+    for t in (o_part, m_part, l_part):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("flash_attention_fwd_combine takes contiguous "
+                             "float32 operands")
+    o = torch.empty((BH, T, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((BH, T), dtype=torch.float32, device=dev)
+    fn = _fn("flash_attention_fwd", "singa_flash_attention_fwd_combine", 5,
+             6, ())
+    err = fn(o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+             o.data_ptr(), lse.data_ptr(), BH, T, S, d, int(bool(causal)),
+             int(per), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention combine kernel launch failed "
+                           f"(cudaError {err})")
+    launches_combine += 1
+    return o, lse
+
+
+def _bwd_probs(q3, k3, v3, mask3, lse, delta, do3, scale, mode, causal,
+               matmul):
     """``(p, ds)`` of the reference kernels on ``(BH, T, S)``:
     ``p = exp(s - lse)`` on every pair of the reference's sweep (all
     columns, or with ``causal`` those up to the row's diagonal
     128-block), 0 elsewhere; ``ds = p (dp - delta)``."""
     T, S = q3.shape[1], k3.shape[1]
-    dev = q3.device
-    s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * scale
-    if mode != "none":
-        s = s + mask3
-    if causal:
-        rows = torch.arange(T, device=dev)[:, None]
-        cols = torch.arange(S, device=dev)[None]
-        s = torch.where(cols > rows, torch.full_like(s, _NEG_INF), s)
+    s = _scores(q3, k3, mask3, scale, mode, causal, matmul)
     p = torch.exp(s - lse[..., None])
     if causal:
-        swept = cols // _REF_BLOCK <= rows // _REF_BLOCK
+        _, kend = _sweep(T, S, causal, q3.device)
+        swept = torch.arange(S, device=q3.device)[None] < kend
         p = torch.where(swept, p, torch.zeros_like(p))
-    dp = torch.matmul(do3.float(), v3.float().transpose(1, 2))
+    dp = matmul(do3.float(), v3.float().transpose(1, 2))
     return p, p * (dp - delta[..., None])
 
 
 def flash_attention_bwd_dq_reference(q3, k3, v3, mask3, lse, delta, do3,
-                                     scale, mode, causal):
+                                     scale, mode, causal,
+                                     matmul=torch.matmul):
     """Plain PyTorch version of the dq kernel (the reference's
-    ``_dq_kernel``): ``dq = scale * ds @ k``."""
+    ``_dq_kernel``): ``dq = scale * ds @ k``.  ``matmul`` computes the
+    products, as in :func:`flash_attention_fwd_reference`."""
     _, ds = _bwd_probs(q3, k3, v3, mask3, lse, delta, do3, scale, mode,
-                       causal)
-    return (torch.matmul(ds, k3.float()) * scale).to(q3.dtype)
+                       causal, matmul)
+    return (matmul(ds, k3.float()) * scale).to(q3.dtype)
 
 
 def flash_attention_bwd_dkv_reference(q3, k3, v3, mask3, lse, delta, do3,
-                                      scale, mode, causal):
+                                      scale, mode, causal,
+                                      matmul=torch.matmul):
     """Plain PyTorch version of the dk/dv kernel (the reference's
     ``_dkv_kernel``): ``dk = scale * ds^T @ q``, ``dv = p^T @ dO``."""
     p, ds = _bwd_probs(q3, k3, v3, mask3, lse, delta, do3, scale, mode,
-                       causal)
-    dk = torch.matmul(ds.transpose(1, 2), q3.float()) * scale
-    dv = torch.matmul(p.transpose(1, 2), do3.float())
+                       causal, matmul)
+    dk = matmul(ds.transpose(1, 2), q3.float()) * scale
+    dv = matmul(p.transpose(1, 2), do3.float())
     return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
 def flash_attention_bwd_reference(q3, k3, v3, mask3, o3, lse, do3, scale,
-                                  mode, causal):
+                                  mode, causal, matmul=torch.matmul):
     """Plain PyTorch version of :func:`flash_attention_bwd`, written from
     the reference kernels' formulas, not from autograd."""
     delta = (do3.float() * o3.float()).sum(dim=-1)
     dq = flash_attention_bwd_dq_reference(q3, k3, v3, mask3, lse, delta, do3,
-                                          scale, mode, causal)
+                                          scale, mode, causal, matmul)
     dk, dv = flash_attention_bwd_dkv_reference(q3, k3, v3, mask3, lse, delta,
-                                               do3, scale, mode, causal)
+                                               do3, scale, mode, causal,
+                                               matmul)
     return dq, dk, dv
 
 

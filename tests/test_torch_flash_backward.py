@@ -7,7 +7,14 @@ summation order.  Cases include fully masked rows, where the
 reference's formula (p == 1 on every swept pair) differs from the
 autodiff of the forward; the cotangent is drawn at a tenth of unit
 scale so that such a row's gradient, a sum over up to 256 swept
-columns, stays O(1) like the others."""
+columns, stays O(1) like the others.
+
+The kernels compute every product on the tensor cores as 3xTF32;
+``matmul_3xtf32`` emulates that on the CPU, in place of the plain
+backward's matmuls, and must hold the same tolerance, where one TF32
+product (``matmul_1xtf32``) does not."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -64,6 +71,32 @@ def _inputs(name):
     return q, k, v, do, mask, causal
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_vjp(name):
+    """JAX's output and ``(dq, dk, dv)`` for case ``name``."""
+    q, k, v, do, mask, causal = _inputs(name)
+    jm = None if mask is None else jnp.asarray(mask)
+    out_j, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, jm,
+                                                   causal=causal),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out_j), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _plain_grads(name, matmul):
+    """``(dq, dk, dv)`` of the plain forward and backward with their
+    products computed by ``matmul``, as ``(B, H, T|S, d)`` arrays."""
+    q, k, v, do, mask, causal = _inputs(name)
+    q3, k3, v3, m3, scale, mode = fa._prepare(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        None if mask is None else torch.from_numpy(mask), None)
+    o, lse = fa.flash_attention_fwd_reference(q3, k3, v3, m3, scale, mode,
+                                              causal, matmul=matmul)
+    grads = fa.flash_attention_bwd_reference(
+        q3, k3, v3, m3, o, lse, torch.from_numpy(do).reshape(q3.shape), scale,
+        mode, causal, matmul=matmul)
+    return [g.reshape(a.shape).numpy() for g, a in zip(grads, (q, k, v))]
+
+
 def _port_grads(q, k, v, do, mask, causal):
     qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out = fa.flash_attention(qt, kt, vt,
@@ -76,11 +109,7 @@ def _port_grads(q, k, v, do, mask, causal):
 @pytest.mark.parametrize("name", CASES)
 def test_backward_matches_jax_vjp(name):
     q, k, v, do, mask, causal = _inputs(name)
-    jm = None if mask is None else jnp.asarray(mask)
-    out_j, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, jm,
-                                                   causal=causal),
-                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    out_j, want = _jax_vjp(name)
     before = (fa.launches, fa.launches_dq, fa.launches_dkv)
     out, got = _port_grads(q, k, v, do, mask, causal)
     assert (fa.launches, fa.launches_dq, fa.launches_dkv) == before
@@ -141,3 +170,21 @@ def test_backward_wrapper_refuses_other_devices():
     lse = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_bwd(q, q, q, None, q, lse, q, 0.25, "none", False)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_3xtf32_backward_matches_jax_vjp(name):
+    _, want = _jax_vjp(name)
+    for n, g, w in zip("qkv", _plain_grads(name, fa.matmul_3xtf32), want):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0,
+                                   err_msg=f"d{n}")
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_1xtf32_backward_misses_the_float32_tolerance(name):
+    _, want = _jax_vjp(name)
+    err = max(float(np.abs(g - w).max())
+              for g, w in zip(_plain_grads(name, fa.matmul_1xtf32), want))
+    print(f"{name}: 1xTF32 backward max abs error {err:.3e} against jax.vjp "
+          f"(CPU tolerance 1e-5; the card's FLASH_TOL 1e-4)")
+    assert err > 1e-5
