@@ -288,14 +288,30 @@ def _sdpa(*args, **kw):
 SDPA_NAME = "scaled_dot_product_attention (EFFICIENT_ATTENTION backend)"
 
 
+def _fwd_route(q3, k3, v3, m3, scale, mode, causal, n_sm):
+    """The forward kernel on the route that a card of ``n_sm`` SMs
+    takes (``None``: this card, through the public wrapper)."""
+    if n_sm is None:
+        return fa.flash_attention_fwd(q3, k3, v3, m3, scale, mode, causal)
+    BH, T, _ = q3.shape
+    S = k3.shape[1]
+    plan = fa._fwd_split_plan(BH, T, S, causal, n_sm)
+    if plan.n_split > 1:
+        parts = fa.flash_attention_fwd_partial(q3, k3, v3, m3, scale, mode,
+                                               causal, plan)
+        return fa.flash_attention_fwd_combine(*parts, T, S, causal, plan.per)
+    _, mask_bh = fa._kernel_operands("flash_attention", q3, k3, v3, m3, mode)
+    return fa._fwd_unsplit(q3, k3, v3, m3, scale, mode, mask_bh, causal,
+                           plan)
+
+
 def _fwd_case(q, k, v, mask, causal, n_sm):
     """Forward kernel (route chosen by ``n_sm``) against its plain
     version: ``(max abs error over o and lse, route)``."""
     q3, k3, v3, m3, scale, mode = fa._prepare(q, k, v, mask, None)
     q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
     before = fa.launches_combine
-    o, lse = fa.flash_attention_fwd(q3, k3, v3, m3, scale, mode, causal,
-                                    n_sm=n_sm)
+    o, lse = _fwd_route(q3, k3, v3, m3, scale, mode, causal, n_sm)
     route = "split" if fa.launches_combine > before else "unsplit"
     ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, m3, scale, mode,
                                                 causal)
@@ -385,8 +401,8 @@ def phase_flash():
         raise AssertionError(f"flash combine disagrees with its plain "
                              f"version: {err_combine}")
     ms = _time_ms(lambda: fa.flash_attention(q, k, v, mask, sm_scale=scale))
-    unsplit_ms = _time_ms(lambda: fa.flash_attention_fwd(
-        q3, k3, v3, m3, scale, mode, False, n_sm=1))
+    unsplit_ms = _time_ms(lambda: _fwd_route(q3, k3, v3, m3, scale, mode,
+                                             False, 1))
     partial_ms = _time_ms(lambda: fa.flash_attention_fwd_partial(
         q3, k3, v3, m3, scale, mode, False, plan))
     combine_ms = _time_ms(lambda: fa.flash_attention_fwd_combine(
@@ -461,7 +477,8 @@ def phase_flash_bwd():
     cases; times at the training shape for each kernel, its plain
     version and the backward of ``scaled_dot_product_attention`` (a
     yardstick the port never calls); the forward kernel's time at the
-    training shape too.  Returns ``(dq_row, dkv_row, fwd_train)``."""
+    training shape too, checked there against its plain version.  Returns
+    ``(dq_row, dkv_row, fwd_train)``."""
     g = torch.Generator(device="cuda").manual_seed(1)
     B, H, T, d = TRAIN_B, 12, TRAIN_T, 64
     cases = {"train(causal)": (B, H, T, T, d, None, True)}
@@ -499,9 +516,24 @@ def phase_flash_bwd():
             raise AssertionError(f"flash bwd {name} disagrees with its plain "
                                  f"version: dq {e_dq}, dk/dv {e_dkv}")
         errs[name] = (e_dq, e_dkv)
-    # times at the training shape
+    # the forward kernel at the training shape (unsplit route), then times
     args, (q, k, v, do) = _bwd_inputs(g, B, H, T, T, d, None, True)
     q3, k3, v3 = args[:3]
+    before = fa.launches_combine
+    fo, flse = fa.flash_attention_fwd(q3, k3, v3, None, args[7], "none", True)
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, None, args[7],
+                                                "none", True)
+    torch.cuda.synchronize()
+    fwd_err = max(float((fo - ro).abs().max()),
+                  float((flse - rlse).abs().max()))
+    ok = (bool(torch.isfinite(fo).all()) and bool(torch.isfinite(flse).all())
+          and fwd_err <= FLASH_TOL and fa.launches_combine == before)
+    _log(f"flash fwd train(causal) [unsplit]: max_abs_err {fwd_err:.3e} (o "
+         f"and lse, tol {FLASH_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash fwd at the training shape disagrees "
+                             f"with its plain version ({fwd_err}) or split")
+    del fo, flse, ro, rlse
     dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq(*args))
     dkv_ms = _time_ms(lambda: fa.flash_attention_bwd_dkv(*args))
     dq_plain = _time_ms(lambda: fa.flash_attention_bwd_dq_reference(*args))
@@ -542,8 +574,8 @@ def phase_flash_bwd():
             "library_ms": sdpa_bwd}
     f_bytes = 4 * qkv_bytes + 4 * BH * T              # q,k,v in; o, lse out
     f_bound, f_by = _bound(f_bytes, pairs * 4 * d)
-    fwd_train = {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": sdpa_fwd,
-                 "bound_ms": f_bound, "bound_by": f_by}
+    fwd_train = {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain,
+                 "library_ms": sdpa_fwd, "bound_ms": f_bound, "bound_by": f_by}
     _log(f"flash_attention_fwd training shape (unsplit route, "
          f"{BH * T // 64} blocks): kernel {fwd_ms:.4f} ms, plain "
          f"{fwd_plain:.4f} ms, {SDPA_NAME} {sdpa_fwd:.4f} ms, bound "

@@ -211,7 +211,12 @@ def _fwd_split_plan(BH, T, S, causal, n_sm=132):
     of ``n_sm`` SMs.  Unsplit when the blocks (BH x 64-row query tiles)
     fill the card; else the fewest equal ranges of 64-key tiles that
     give at least ``2 n_sm`` blocks, at most one range a key tile."""
-    max_tiles = -(-max(_tile_kend(T, S, causal)) // _BN)
+    # the last query tile sweeps the most real key columns
+    kend = S
+    if causal:
+        last = (-(-T // _BM) - 1) * _BM
+        kend = min(S, (last // _REF_BLOCK + 1) * _REF_BLOCK)
+    max_tiles = -(-kend // _BN)
     blocks = BH * -(-T // _BM)
     if blocks >= n_sm or max_tiles <= 1:
         return SplitPlan(1, max(max_tiles, 1))
@@ -365,14 +370,12 @@ def _launch_fwd(q3, k3, v3, mask3, scale, mode, mask_bh, causal, outs,
                            f"(cudaError {err})")
 
 
-def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal, n_sm=None):
+def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal):
     """The kernel wrapper on ``(BH, T, d)`` operands: returns
     ``(o, lse)``.  CPU tensors run the plain version; CUDA tensors
     launch ``csrc/flash_attention_fwd.cu`` or raise: one launch where
     the blocks fill the card, else the key split (a partial launch and a
-    combine, :func:`_fwd_split_plan`).  ``n_sm`` overrides the card's SM
-    count in that plan (1 forces the unsplit route)."""
-    global launches
+    combine, :func:`_fwd_split_plan`)."""
     dev, mask_bh = _kernel_operands("flash_attention", q3, k3, v3, mask3,
                                     mode)
     if dev is None:
@@ -382,14 +385,21 @@ def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal, n_sm=None):
     S = k3.shape[1]
     plan = _fwd_split_plan(BH, T, S, causal,
                            _sm_count(dev.index if dev.index is not None
-                                     else torch.cuda.current_device())
-                           if n_sm is None else n_sm)
+                                     else torch.cuda.current_device()))
     if plan.n_split > 1:
         parts = flash_attention_fwd_partial(q3, k3, v3, mask3, scale, mode,
                                             causal, plan)
         return flash_attention_fwd_combine(*parts, T, S, causal, plan.per)
+    return _fwd_unsplit(q3, k3, v3, mask3, scale, mode, mask_bh, causal,
+                        plan)
+
+
+def _fwd_unsplit(q3, k3, v3, mask3, scale, mode, mask_bh, causal, plan):
+    """The unsplit route's launch (``plan.n_split == 1``) on CUDA
+    operands that :func:`_kernel_operands` has checked."""
+    global launches
     o = torch.empty_like(q3)
-    lse = torch.empty((BH, T), dtype=torch.float32, device=dev)
+    lse = torch.empty(q3.shape[:2], dtype=torch.float32, device=q3.device)
     _launch_fwd(q3, k3, v3, mask3, scale, mode, mask_bh, causal, [o, lse],
                 [None] * 3, plan)
     launches += 1
