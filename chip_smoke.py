@@ -29,11 +29,19 @@ Phases (any failure exits non-zero before the result lines print):
    there too;
 5. paged decode attention, every variant (float32 pages; bfloat16
    pages, the storage override; int8 pages with bf16 and with fp32
-   scales) against its plain version at the serving shape (8 slots, 12
-   heads, d 64, 16-token pages, 64 pages a slot, NULL tails, mid-page
-   positions), plus 8-, 12- and 32-token pages at head dims 64, 32 and
-   128; times and byte bounds of the float32 and int8 variants at the
-   serving shape;
+   scales) against its plain version at 1e-4 through the public entry
+   and on three forced plans (the card's, unsplit, one page a range):
+   at the serving shape (8 slots, 12 heads, d 64, 16-token pages, 64
+   pages a slot, NULL tails, mid-page positions), the same with a slot
+   at pos -1 (the mean of V over its whole row), d 40 and d 18 with
+   5-token pages (element loads), 8-, 12- and 32-token pages at head
+   dims 64, 32 and 128, and pools one element off their alignment; the
+   split route's partials (read from the workspace) and its in-launch
+   merge each against their plain versions; 1,000 launches back to back
+   over variants, shapes, plans and positions, every output checked and
+   the workspace's counters zero after; times, plans, byte bounds and
+   the wrapper's host µs a call (median of 200, no sync) of the float32
+   and int8 variants at the serving shape;
 5a. the fused LSTM cell: its forward and backward kernels against their
    plain versions, and its autograd Function against the plain cell
    under torch's autograd, in float32, bfloat16 and float16, at the
@@ -47,18 +55,22 @@ Phases (any failure exits non-zero before the result lines print):
 5b. the elementwise catalogue, path ``ew``: every op and dtype pair
    through its own entry points at the char-LSTM's gate size (T * B *
    4H = 6,553,600 values), then each against its plain version, plus a
-   ragged length and NaN / +-inf / +-0 inputs; times of relu, exp, gelu,
+   ragged length, NaN / +-inf / +-0 inputs and views 1-8 values into
+   their buffers (on and off the output's 16-byte boundary, alike and
+   different between operands); times of relu, exp, gelu,
    add, copy to bf16 and clamp against the one torch call each;
 6. the serving path: the paged, chunked ``ServingEngine`` on GPT-2-small
    dimensions (fp32, seeded random weights carried in through
    ``GPT.from_jax_decode_params``) serves 8 staggered requests (one
    sampled, the rest greedy); two greedy requests are replayed through
    the port on the CPU and their tokens compared; the prefill chunks'
-   flash calls must take the split route (combine launches);
+   flash calls must take the split route (combine launches), and so
+   must the paged decode calls (``launches_split``);
 7. the quantized serving path: the same weights and stream served with
    ``kv_dtype="int8", weight_dtype="int8"`` (the model on the host, the
-   engine on the card); the int8 kernel must launch and neither float
-   kernel; a fresh engine must replay every request's tokens; the pool
+   engine on the card); the int8 kernel must launch, on its split route,
+   and neither float kernel; a fresh engine must replay every request's
+   tokens; the pool
    must hold exactly (d_head + 2) / (2 d_head) of a bf16-storage pool's
    bytes; the teacher-forced drift over a 256-token prompt (int8 against
    float params and pages) must hold the reference's committed
@@ -587,10 +599,12 @@ def phase_flash_bwd():
 
 def _paged_case(seed, S, H, d, P, Ps, pos_h, variant="f32"):
     """Random pools of ``S * Ps + 1`` pages; each slot's table holds
-    distinct pages up to its position and NULL (page 0) after it.
-    ``variant``: ``f32`` or ``bf16`` pages, or int8 pages with
-    ``int8_bf16`` / ``int8_f32`` scales in [0.002, 0.03).  Returns the
-    positional operands and the scale keywords."""
+    distinct pages up to its position and NULL (page 0) after it; a slot
+    at ``pos < 0`` holds stale pages in half its row and NULL in the
+    rest (it attends the whole row).  ``variant``: ``f32`` or ``bf16``
+    pages, or int8 pages with ``int8_bf16`` / ``int8_f32`` scales in
+    [0.002, 0.03).  Returns the positional operands and the scale
+    keywords."""
     N = S * Ps + 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(S, H, d, generator=g, device="cuda")
@@ -612,7 +626,7 @@ def _paged_case(seed, S, H, d, P, Ps, pos_h, variant="f32"):
     free = list(rng.permutation(np.arange(1, N)))
     table_h = np.zeros((S, Ps), np.int32)
     for s in range(S):
-        n = pos_h[s] // P + 1
+        n = pos_h[s] // P + 1 if pos_h[s] >= 0 else Ps // 2
         table_h[s, :n] = [free.pop() for _ in range(n)]
     return (q, kp, vp, torch.from_numpy(table_h).cuda(),
             torch.from_numpy(pos_h).cuda()), scales
@@ -621,57 +635,220 @@ def _paged_case(seed, S, H, d, P, Ps, pos_h, variant="f32"):
 # the paged decode variants: float32 pages (the float path), bfloat16
 # pages (the storage override), int8 pages with bf16 / fp32 scales
 PAGED_VARIANTS = ("f32", "bf16", "int8_bf16", "int8_f32")
+# serving-shape positions: mid-page frontiers from 5 to max_len - 1
+SERVING_POS = (100, 257, 511, 30, 700, 1023, 5, 300)
 
 
 def _paged_bound(args, scales, P, pos_h):
     """Bytes the function must move (q and pos in, out; the table entries
-    of the live pages; the K and V rows at columns <= pos, and their
-    scales, once) and float32 operations (two products of 2 flop a
-    multiply-add), and the bound they give."""
-    q, kp, _, _, _ = args
+    of the pages it reads; the K and V rows at columns <= pos, and their
+    scales, once; a slot at pos < 0 reads V and its scales over its
+    whole row, and no K) and float32 operations (2 flop a multiply-add:
+    the q.k and the p.v products, the latter alone at pos < 0), and the
+    bound they give."""
+    q, kp, _, table, _ = args
     S, H, d = q.shape
-    live_pages = int((pos_h // P + 1).sum())
-    live_cols = int((pos_h + 1).sum())
+    L = table.shape[1] * P
+    scored = pos_h >= 0
+    cols = np.where(scored, np.minimum(pos_h, L - 1) + 1, L)
+    pages = int((-(-cols // P)).sum())
+    live_cols = int(cols.sum())
     row_bytes = d * kp.element_size()
     if scales:
         row_bytes += scales["k_scales"].element_size()
-    nbytes = 4 * (2 * q.numel() + S + live_pages) \
-        + 2 * live_cols * H * row_bytes
-    flops = 4 * H * d * live_cols
+    kv_rows = int((cols * np.where(scored, 2, 1)).sum()) * H
+    nbytes = 4 * (2 * q.numel() + S + pages) + kv_rows * row_bytes
+    flops = 2 * H * d * kv_rows
     return nbytes, flops, live_cols, _bound(nbytes, flops)
 
 
+def _paged_routes(q, table):
+    """The plans phase 5 forces: the card's, unsplit, one page a range."""
+    S, H, _ = q.shape
+    Ps = table.shape[1]
+    return {"card": pa._split_plan(S, H, Ps, pa._sm_count(0)),
+            "unsplit": (1, Ps), "page_a_range": (Ps, 1)}
+
+
+def _paged_force(args, scales, plan):
+    """The kernel's C entry on ``args`` under ``plan``."""
+    q = args[0]
+    return pa._launch(*args, 1.0 / float(np.sqrt(q.shape[2])),
+                      scales.get("k_scales"), scales.get("v_scales"), plan)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _paged_split_parts(args, scales, plan):
+    """The split route's two halves held apart: after one call under
+    ``plan``, the partial states the live ranges left in the workspace
+    against ``paged_decode_partial_reference`` (max |delta| / max(1,
+    |ref|): the sums are not normalised), and the call's output against
+    ``paged_decode_merge_reference`` on the kernel's own partials, over
+    the slots with two or more live ranges (the others write no
+    partials).  Returns the two errors."""
+    q, kp, _, table, pos = args
+    S, H, d = q.shape
+    R, ppr = plan
+    got = _paged_force(args, scales, plan)
+    torch.cuda.synchronize()
+    buf, n_tickets = pa._WORKSPACE[0, pa._stream(0)][:2]
+    part = buf[n_tickets:n_tickets + S * H * R * (d + 2)].view(
+        torch.float32).view(S, H, R, d + 2)
+    ml, acc = part[..., :2], part[..., 2:]
+    n_live = pa._live_ranges(pos, R, ppr, kp.shape[2], table.shape[1])
+    split = n_live > 1
+    if not bool(split.any()):
+        return 0.0, 0.0
+    live = (torch.arange(R, device="cuda")[None] < n_live[:, None]) \
+        & split[:, None]
+    live = live[:, None, :].expand(S, H, R)
+    pml, pacc = pa.paged_decode_partial_reference(*args, plan, **scales)
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1))[live].max())
+
+    merged = pa.paged_decode_merge_reference(ml.clone(), acc.clone(), pos,
+                                             plan, kp.shape[2],
+                                             table.shape[1])
+    return (max(rel(ml, pml), rel(acc, pacc)),
+            float((got - merged)[split].abs().max()))
+
+
+def _paged_back_to_back(n=1000):
+    """The in-launch merge's counters under load: ``n`` launches back to
+    back with no sync, cycling over the variants, three shapes (serving,
+    d 40, d 18 with P 5), four plans and eight position vectors each
+    (pos -1 to max_len - 1), then every output against its plain version
+    and every workspace counter zero.  Returns the max abs error."""
+    rng = np.random.RandomState(31)
+    cases = []
+    for variant in PAGED_VARIANTS:
+        for seed, S, H, d, P, Ps in ((21, 8, 12, 64, 16, 64),
+                                     (22, 4, 3, 40, 16, 32),
+                                     (23, 5, 2, 18, 5, 20)):
+            L = Ps * P
+            args, scales = _paged_case(seed, S, H, d, P, Ps, [L - 1] * S,
+                                       variant)
+            poss = [rng.randint(-1, L, S).astype(np.int32)
+                    for _ in range(8)]
+            poss[0][0], poss[1][-1] = -1, L - 1
+            plans = list(_paged_routes(args[0], args[3]).values()) \
+                + [(-(-Ps // 3), 3)]
+            cases.append((args[:4], scales,
+                          [torch.from_numpy(p).cuda() for p in poss], plans))
+    runs = []
+    for i in range(n):
+        c = i % len(cases)
+        args, scales, poss, plans = cases[c]
+        j, k = (i // len(cases)) % 8, (i // len(cases) // 2) % 4
+        runs.append((c, j, _paged_force(args + (poss[j],), scales,
+                                        plans[k])))
+    torch.cuda.synchronize()
+    refs, worst = {}, 0.0
+    for c, j, got in runs:
+        if (c, j) not in refs:
+            args, scales, poss, _ = cases[c]
+            refs[c, j] = pa.paged_decode_attention_reference(
+                *args, poss[j], **scales)
+        worst = max(worst, float((got - refs[c, j]).abs().max()))
+    stale = sum(int((ws[0][:ws[1]] != 0).sum())
+                for (index, _), ws in pa._WORKSPACE.items() if index == 0)
+    _log(f"paged decode back to back: {n} launches over {len(cases)} "
+         f"cases x 8 positions x 4 plans, max_abs_err {worst:.3e} (tol "
+         f"{PAGED_TOL:g}); workspace counters left non-zero: {stale}")
+    if not worst <= PAGED_TOL or stale:
+        raise AssertionError(f"paged decode back to back: error {worst}, "
+                             f"{stale} counters left non-zero")
+
+
+def _host_us(fn, n=200):
+    """Median host µs of one call of ``fn`` over ``n`` calls issued with
+    no sync between them (the wrapper's own time)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
 def phase_paged():
-    """Every variant against its plain version at the serving shape and
-    on ragged cases; times and bounds of the float32 and the int8
-    (bf16-scale) variants at the serving shape.  Returns the float row
-    and the int8 row of the kernels line."""
+    """Every variant against its plain version on three routes (the
+    card's plan, unsplit, one page a range) at the serving shape, at the
+    serving shape with a slot at pos -1, at odd head dims (d 40, d 18
+    with P 5) and on the earlier page sizes; on pools one element off
+    their alignment; the split route's partials and merge held apart;
+    1,000 launches back to back.  Times, bounds, plans and host µs a call
+    of the float32 and the int8 (bf16-scale) variants at the serving
+    shape.  Returns the float row and the int8 row of the kernels
+    line."""
     S, H, d, P, Ps = N_SLOTS, 12, 64, PAGE, 1024 // PAGE
-    pos_h = np.array([100, 257, 511, 30, 700, 1023, 5, 300], np.int32)
-    shapes = {"serving": (1, S, H, d, P, Ps, pos_h)}
+    pos_h = np.array(SERVING_POS, np.int32)
+    shapes = {"serving": (1, S, H, d, P, Ps, pos_h),
+              "serving pos -1": (9, S, H, d, P, Ps, pos_h[:-1].tolist()
+                                 + [-1]),
+              "d40 P16": (10, 4, 12, 40, 16, 32, [-1, 15, 16, 511]),
+              "d18 P5": (11, 4, 3, 18, 5, 20, [-1, 4, 5, 99])}
     # other page sizes and head dims, positions on and off page edges
-    for seed, (dd, PP, pp) in enumerate(((64, 8, [7, 8, 0, 250]),
+    for seed, (dd, PP, pp) in enumerate(((64, 8, [7, 8, 0, 250, 511]),
                                          (32, 12, [11, 12, 131, 0]),
                                          (128, 32, [31, 32, 500, 1]))):
         shapes[f"d{dd} P{PP}"] = (2 + seed, len(pp), 4, dd, PP,
                                   -(-512 // PP), pp)
-    err_serving, cases = {}, {}
+    err_serving, cases, worst_parts = {}, {}, [0.0, 0.0]
+
+    def check(label, got, ref):
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= PAGED_TOL
+        _log(f"paged decode {label}: max_abs_err {err:.3e} (tol "
+             f"{PAGED_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"paged decode {label} disagrees with its "
+                                 f"plain version: {err}")
+        return err
+
     for variant in PAGED_VARIANTS:
         for name, shape in shapes.items():
             args, scales = _paged_case(*shape, variant=variant)
-            got = pa.paged_decode_attention(*args, **scales)
             ref = pa.paged_decode_attention_reference(*args, **scales)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            ok = bool(torch.isfinite(got).all()) and err <= PAGED_TOL
-            _log(f"paged decode {variant} {name}: max_abs_err {err:.3e} "
-                 f"(tol {PAGED_TOL:g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"paged decode {variant} {name} "
-                                     f"disagrees with its plain version: "
-                                     f"{err}")
+            err = check(f"{variant} {name} public",
+                        pa.paged_decode_attention(*args, **scales), ref)
             err_serving.setdefault(variant, err)
             cases.setdefault(variant, (args, scales))
+            for route, plan in _paged_routes(args[0], args[3]).items():
+                check(f"{variant} {name} {route} {plan}",
+                      _paged_force(args, scales, plan), ref)
+                if plan[0] > 1:
+                    parts = _paged_split_parts(args, scales, plan)
+                    if max(parts) > PAGED_TOL:
+                        raise AssertionError(f"paged decode {variant} "
+                                             f"{name} {route}: partials / "
+                                             f"merge off by {parts}")
+                    worst_parts = [max(a, b) for a, b in
+                                   zip(worst_parts, parts)]
+            if name in ("serving", "d40 P16"):
+                q, kp, vp, table, pos = args
+                off = {k: _misaligned(v) for k, v in scales.items()}
+                check(f"{variant} {name} pools one element off",
+                      pa.paged_decode_attention(
+                          q, _misaligned(kp), _misaligned(vp), table, pos,
+                          **off), ref)
+    _log(f"paged decode split route held apart: partials relative error "
+         f"{worst_parts[0]:.3e}, merge max_abs_err {worst_parts[1]:.3e} "
+         f"(tol {PAGED_TOL:g})")
+    _paged_back_to_back()
     rows = []
     for variant, name, replaces in (
             ("f32", "paged_decode_attention",
@@ -679,21 +856,32 @@ def phase_paged():
             ("int8_bf16", "paged_decode_attention_q8",
              "singa_tpu/ops/paged_attention.py:53")):
         args, scales = cases[variant]
-        ms = _time_ms(lambda: pa.paged_decode_attention(*args, **scales))
+        plan = _paged_routes(args[0], args[3])["card"]
+
+        def call():
+            return pa.paged_decode_attention(*args, **scales)
+
+        ms = _time_ms(call)
+        unsplit_ms = _time_ms(lambda: _paged_force(args, scales, (1, Ps)))
         plain_ms = _time_ms(lambda: pa.paged_decode_attention_reference(
             *args, **scales))
+        host_us = _host_us(call)
         nbytes, _, live_cols, (bound_ms, bound_by) = _paged_bound(
             args, scales, P, pos_h)
-        _log(f"paged decode {variant} serving shape: kernel {ms:.4f} ms, "
-             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-             f"({bound_by}: {nbytes / 1e6:.4f} MB over {live_cols} live "
-             f"rows)")
+        _log(f"paged decode {variant} serving shape: kernel {ms:.4f} ms on "
+             f"the card's plan {plan} ({S * H * plan[0]} blocks), unsplit "
+             f"route {unsplit_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+             f"{bound_ms:.6f} ms ({bound_by}: {nbytes / 1e6:.4f} MB over "
+             f"{live_cols} live rows); host {host_us:.1f} us a call "
+             f"(median of 200, no sync)")
         rows.append({"name": name, "route": "cuda",
                      "source": "singa_tpu_torch/ops/csrc/paged_decode.cu",
                      "replaces": replaces,
                      "max_abs_err": err_serving[variant], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
+                     "bound_by": bound_by, "library_ms": None,
+                     "plan": list(plan), "blocks": S * H * plan[0],
+                     "unsplit_ms": unsplit_ms, "host_us": host_us})
     return rows
 
 
@@ -989,6 +1177,31 @@ def _ew_cases():
                (name, spa, spb), None)
     yield ("clamp special", ew.clamp, ew.clamp_reference, (sp, -0.75, 1.5),
            None)
+    # views: alike (4 or 8 values in, on a 16-byte boundary with the fresh
+    # output: head, vector body, tail) and different (1-3 values in, off
+    # the output's boundary or each other's: element by element)
+    a16, b16 = a32[:ragged + 16].to(torch.bfloat16), \
+        b32[:ragged + 16].to(torch.float16)
+    for off in (4, 8, 1, 2, 3):
+        x, y = a32[off:off + ragged], b32[off:off + ragged]
+        yd = b32[off + 1:off + 1 + ragged]
+        yield (f"exp view +{off}", ew.ew_unary, ew.ew_unary_reference,
+               ("exp", x), None)
+        yield (f"copy view +{off} ->bf16", ew.ew_unary,
+               ew.ew_unary_reference, ("copy", x), torch.bfloat16)
+        yield (f"copy bf16 view +{off} ->f32", ew.ew_unary,
+               ew.ew_unary_reference, ("copy", a16[off:off + ragged]),
+               torch.float32)
+        yield (f"add views +{off} +{off}", ew.ew_binary,
+               ew.ew_binary_reference, ("add", x, y), None)
+        yield (f"div views +{off} +{off + 1}", ew.ew_binary,
+               ew.ew_binary_reference, ("div", x, yd), None)
+        yield (f"max f16 views +{off} +{off}", ew.ew_binary,
+               ew.ew_binary_reference,
+               ("max", b16[off:off + ragged], b16[off:off + ragged]),
+               torch.bfloat16)
+        yield (f"clamp view +{off}", ew.clamp, ew.clamp_reference,
+               (x, -0.75, 1.5), None)
 
 
 def _ew_call(fn, args, out_dtype):
@@ -1263,7 +1476,8 @@ def phase_slice():
     eng = ServingEngine(model, **kw)
     rids, res, launches, stats = _drive(eng, prompts, cfg, "slice")
     for name in ("flash_attention_fwd", "flash_attention_fwd_combine",
-                 "paged_decode_attention"):
+                 "paged_decode_attention",
+                 "paged_decode_attention_split"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"serving path")
@@ -1311,9 +1525,11 @@ def phase_slice_int8(setup, float_stats):
     _warm(cpu_model, qkw, prompts, device="cuda")      # quantizes, memoised
     eng = ServingEngine(cpu_model, device="cuda", **qkw)
     rids, res, launches, stats = _drive(eng, prompts, cfg, "int8 slice")
-    if launches["paged_decode_attention_q8"] <= 0:
-        raise AssertionError("the int8 paged decode kernel was never "
-                             "launched on the quantized serving path")
+    for name in ("paged_decode_attention_q8",
+                 "paged_decode_attention_split"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the "
+                                 f"quantized serving path")
     for name in ("flash_attention_fwd", "paged_decode_attention"):
         if launches[name] != 0:
             raise AssertionError(f"{name} launched {launches[name]} times "
@@ -1400,7 +1616,7 @@ def _train_setup():
 
 def _zero_launches():
     fa.launches = fa.launches_combine = fa.launches_dq = fa.launches_dkv = 0
-    pa.launches = pa.launches_q8 = 0
+    pa.launches = pa.launches_q8 = pa.launches_split = 0
     lc.launches = lc.launches_bwd = ew.launches = 0
 
 
@@ -1411,6 +1627,7 @@ def _read_launches():
             "flash_attention_bwd_dkv": fa.launches_dkv,
             "paged_decode_attention": pa.launches,
             "paged_decode_attention_q8": pa.launches_q8,
+            "paged_decode_attention_split": pa.launches_split,
             "lstm_cell": lc.launches, "lstm_cell_bwd": lc.launches_bwd,
             "elementwise": ew.launches}
 
@@ -2013,7 +2230,8 @@ def main(argv):
         {k: r[k] for k in KEYS + ("launches_by_path",)}
         | {k: r[k] for k in ("train_shape", "serving_split", "blocks",
                              "by_op",
-                             "low_precision", "flush_floor_ms",
+                             "low_precision", "flush_floor_ms", "plan",
+                             "unsplit_ms", "host_us",
                              "function_backward_ms",
                              "function_backward_launches") if k in r}
         for r in rows]}))

@@ -3,32 +3,67 @@
 //
 // Replaces the Pallas TPU kernel `_decode_kernel`
 // (singa_tpu/ops/paged_attention.py, launched by `paged_decode_attention`),
-// its float path and its quantized branch.  Same contract: one float32 query
-// per slot, q (S, H, D); page pools (N, H, P, D); block table (S, Ps) int32
-// of physical page ids; pos (S,) int32, the last logical position each slot
-// attends (columns > pos[s] carry zero weight); online softmax started at
-// m = -1e9 with l clamped to 1e-30.  Quantized pools add per-(page, head,
-// offset) scales ks/vs (N, H, P), folded as the reference folds them: the
-// score is dot(q, k) * scale * ks[t]; the running denominator sums the
-// UNSCALED p; the value accumulator adds p * vs[t] * v.  No dequantised page
-// is ever written anywhere: each int8 channel becomes a float in a register.
+// its float path and its quantized branch.  What the reference computes:
+// one float32 query per slot, q (S, H, D); page pools (N, H, P, D); block
+// table (S, Ps) int32 of physical page ids (NULL and stale entries are
+// valid ids); pos (S,) int32.  Every column t of a slot's Ps * P table row
+// is scored dot(q, k_t) * scale (times ks[t] for int8 pools), a column
+// t > pos[s] is replaced by the finite -1e9, and the softmax, an online
+// recurrence started at m = -1e9 with l clamped to 1e-30 at the end, sums
+// the UNSCALED weights in its denominator while the value sum adds
+// p * vs[t] * v_t.  So a column past pos weighs exactly zero whenever one
+// column is live, and a slot with pos < 0 has every column at -1e9: its
+// softmax is uniform and its output is sum_t vs_t * v_t / (Ps * P) over
+// the whole table row (vs_t = 1 for float pools).  pos >= Ps * P - 1 makes
+// every column live.  No dequantised page is written anywhere: each int8
+// channel becomes a float in a register.
 //
 // On the TPU the table was scalar-prefetched and the page loop was the
-// sequential minor grid axis, carrying (m, l, acc) in VMEM scratch from
-// one grid step to the next.  Hopper blocks run in no order and carry
-// nothing, so one thread block per (slot, head) reads its own table row
-// and does the whole reduction itself.  The loop stops at page
-// pos[s] / P: pages past the frontier (NULL fills, stale entries) are
-// never read, and the tail columns of the frontier page are skipped; in
-// the reference those columns are scored at -1e9 and weigh exactly zero.
+// sequential minor grid axis, carrying (m, l, acc) in VMEM from one grid
+// step to the next.  Hopper blocks run in no order and carry nothing, so
+// the page walk is split.
 //
-// The work is ~0.5 FLOP per byte (~2 with int8 pages), so the card's floor
-// is the K/V bytes (and scales) of the slots' live pages; what this kernel
-// has to hide is the latency of a long page chain.  The block's eight warps
-// take every eighth page each, each warp running its own online softmax
-// (lanes split the head dim and a shuffle reduction sums each column's
-// score); the eight partial states are merged through shared memory at the
-// end.
+// The plan.  The wrapper cuts each slot's Ps table entries into R ranges
+// of ppr pages (the last may be shorter), from the shapes alone, never
+// from pos (ops/paged_attention.py, `_split_plan`), and passes (R, ppr) as
+// launch arguments.  One block per (range, head, slot).  A range whose
+// first column lies past pos[s] reads nothing but pos and exits; a live
+// range reads its live table entries into shared memory, then only the K
+// and V rows at columns <= pos.  For pos < 0 every range is live over all
+// of its columns, and only V (and the V scales) is read: every score is
+// -1e9, so every weight is exp(0) = 1.
+//
+// Inside a block.  A row of D channels is read by a group of LPR lanes
+// (the next power of two >= D / VEC), each lane one 16-byte vector of VEC
+// channels (4 float32, 8 bfloat16, 16 int8).  Each group takes U rows at a
+// time and issues all 2U K and V loads (and the U rows' scales, one load a
+// row by one lane, shuffled to the others) before it reduces anything: V
+// does not depend on the scores.  A row's dot is summed over its group in
+// log2(LPR) shuffle steps.  Each group keeps its own online softmax state
+// (m, l, acc) over the rows it took; at the end the block merges its
+// groups through shared memory in group order.  A head dim that is not a
+// multiple of VEC, or a pool that is not 16-byte aligned, takes the same
+// code with element loads.
+//
+// The merge.  A slot with one live range (always so with R = 1) has its
+// block write o = acc / max(l, 1e-30) itself.  Otherwise each live block
+// writes its (m, l, acc) to the workspace's partials, fences, and takes a
+// ticket from the slot's counter (an integer atomic); the block that draws
+// the last ticket resets the counter to zero, fences (the acquire side of
+// the writers' fences) and merges the slot's live ranges in range order,
+// reading the partials with gpu-scope loads (acquire loads, each ordered
+// after the one before, cost 4 us at the serving shape).  The same sums
+// in the same order on every run, whichever block comes last, and no
+// float atomics.  The counters are the only state that outlives a
+// launch: the wrapper zeroes them once when it allocates the workspace
+// (one per device and stream), and every launch that completes leaves
+// them zero; a launch that fails to start drops the workspace.
+//
+// What bounds it: about 0.5 operation per byte read (2 with int8 pages),
+// so the K/V bytes of the live rows over the memory rate; what the design
+// has to hide is latency, hence blocks enough to fill the card at the
+// serving shape (8 slots x 12 heads x 8 ranges = 768), 2U 16-byte loads in
+// flight per lane, and one launch a call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,21 +74,75 @@
 
 namespace {
 
-constexpr int NW = 8;           // warps per block, one page stream each
-constexpr int NT = 32 * NW;
+constexpr int NT = 128;          // threads a block
 constexpr int MAX_D = 128;
-constexpr int CPL = MAX_D / 32;  // head channels per lane
 constexpr int MAX_P = 256;
+constexpr int MAX_PPR = 256;     // table entries a block stages
 constexpr float NEG = -1e9f;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct NoScale {};              // the float pools: no dequant scales
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
-__device__ __forceinline__ float ld(const int8_t* p) {
-  return static_cast<float>(*p);
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : (i == 1 ? r.y : (i == 2 ? r.z : r.w));
+}
+
+// element k of a 16-byte vector of E, as a float
+template <typename E>
+__device__ __forceinline__ float elem(const uint4& r, int k) {
+  if constexpr (std::is_same<E, float>::value) {
+    return __uint_as_float(word(r, k));
+  } else if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+    const uint32_t w = word(r, k >> 1);
+    return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+  } else {                                              // int8
+    const uint32_t w = word(r, k >> 2);
+    return static_cast<float>(
+        static_cast<int32_t>(w << (24 - 8 * (k & 3))) >> 24);
+  }
+}
+
+// A lane's VEC channels of one row, starting at p; `valid` of them exist.
+// One 16-byte load when the row is aligned and whole, else element loads
+// packed into the same layout (missing channels are zero).
+template <typename E>
+__device__ __forceinline__ uint4 load_slice(const E* p, int valid, bool vec) {
+  constexpr int VEC = 16 / sizeof(E);
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  using Raw = typename std::conditional<
+      sizeof(E) == 4, uint32_t,
+      typename std::conditional<sizeof(E) == 2, uint16_t, uint8_t>::type>::type;
+  const Raw* rp = reinterpret_cast<const Raw*>(p);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < VEC; ++k)
+    if (k < valid)
+      w[(k * sizeof(E)) / 4] |= static_cast<uint32_t>(__ldg(rp + k))
+                                << (8 * ((k * sizeof(E)) % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A gpu-scope load from L2 (never a stale L1 line), for the partials
+// other blocks wrote: the ticket's acquire fence orders it after them.
+__device__ __forceinline__ float ld_gpu(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Live rows of range r of slot s (0: the block reads nothing).
+__device__ __forceinline__ int live_rows(int ps, int r, int ppr, int P,
+                                         int Ps) {
+  const int range_rows = min(ppr, Ps - r * ppr) * P;
+  if (ps < 0) return range_rows;                        // all at -1e9
+  const int last = min(ps, Ps * P - 1);
+  return max(0, min(range_rows, last + 1 - r * ppr * P));
 }
 
 template <typename E, typename SC>
@@ -61,118 +150,193 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const float* __restrict__ q, const E* __restrict__ kp,
     const E* __restrict__ vp, const SC* __restrict__ ks,
     const SC* __restrict__ vs, const int* __restrict__ table,
-    const int* __restrict__ pos, float* __restrict__ o, int H, int P, int Ps,
-    int D, float scale) {
+    const int* __restrict__ pos, float* __restrict__ o,
+    unsigned* __restrict__ tickets, float* __restrict__ parts, int H, int P,
+    int Ps, int D, int ppr, int lpr, float scale) {
   constexpr bool QUANT = !std::is_same<SC, NoScale>::value;
-  __shared__ float sc[NW][MAX_P];
-  __shared__ float wm[NW];
-  __shared__ float wl[NW];
-  __shared__ float wacc[NW][MAX_D];
+  constexpr int VEC = 16 / sizeof(E);
+  constexpr int U = sizeof(E) == 1 ? 4 : 8;   // rows a group loads at once
+  __shared__ int tbl[MAX_PPR];
+  __shared__ float gm[NT], gl[NT], gf[NT];
+  __shared__ float gacc[NT * VEC];
+  __shared__ float bmax;
+  __shared__ bool is_last;
 
-  const int s = blockIdx.x;
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  const float* qs = q + ((size_t)s * H + h) * D;
-  float qr[CPL];
-  float acc[CPL];
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int c = lane + 32 * i;
-    qr[i] = c < D ? qs[c] : 0.f;
-    acc[i] = 0.f;
-  }
-
+  const int r = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int R = gridDim.x;
   const int ps = pos[s];
-  const int n_pages = ps < 0 ? 0 : min(ps / P, Ps - 1) + 1;
-  float m = NEG;
-  float l = 0.f;
+  const int n_rows = live_rows(ps, r, ppr, P, Ps);
+  if (n_rows == 0) return;              // wholly past pos: reads nothing
+  const bool scored = ps >= 0;
 
-  for (int j = warp; j < n_pages; j += NW) {
-    const int phys = table[(size_t)s * Ps + j];
-    const size_t row = ((size_t)phys * H + h) * P;   // (page, head) row
-    const E* kpage = kp + row * D;
-    const E* vpage = vp + row * D;
-    // the frontier page's columns past pos are never read
-    const int ncol = min(P, ps - j * P + 1);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int li = lane & (lpr - 1);      // lane in its row group
+  const int g = tid / lpr;              // row group in the block
+  const int G = NT / lpr;
+  const int c0 = li * VEC;              // the lane's first channel
+  const int valid = max(0, min(VEC, D - c0));
+  const bool vec = D % VEC == 0 &&
+      ((reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp))
+       & 15) == 0;
 
-    float tmax = -INFINITY;
-#pragma unroll 4
-    for (int t = 0; t < ncol; ++t) {
+  const int live_pages = (n_rows + P - 1) / P;
+  for (int i = tid; i < live_pages; i += NT)
+    tbl[i] = table[(size_t)s * Ps + r * ppr + i];
+  float qf[VEC];
+  const float* qs = q + ((size_t)s * H + h) * D + c0;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) qf[k] = (scored && k < valid) ? qs[k] : 0.f;
+  __syncthreads();
+
+  float m = NEG, l = 0.f;
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+
+  for (int base = 0; base < n_rows; base += U * G) {
+    uint4 kr[U], vr[U];
+    size_t row[U];
+    float ksc[U], vsc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = base + u * G + g;
+      const bool ok = t < n_rows;
+      const int j = ok ? t / P : 0;
+      row[u] = ok ? ((size_t)tbl[j] * H + h) * P + (t - j * P) : 0;
+      const int nv = ok ? valid : 0;
+      kr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (scored && nv > 0) kr[u] = load_slice(kp + row[u] * D + c0, nv, vec);
+      vr[u] = nv > 0 ? load_slice(vp + row[u] * D + c0, nv, vec)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      ksc[u] = vsc[u] = 1.f;
+      if constexpr (QUANT) {
+        if (ok && li == u % lpr) {      // one load a row, by one lane
+          if (scored) ksc[u] = to_f(ks[row[u]]);
+          vsc[u] = to_f(vs[row[u]]);
+        }
+      }
+    }
+    float x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const int c = lane + 32 * i;
-        if (c < D) dot = fmaf(qr[i], ld(kpage + (size_t)t * D + c), dot);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      float x = dot * scale;
-      if constexpr (QUANT) x *= ld(ks + row + t);
-      if (lane == 0) sc[warp][t] = x;
-      tmax = fmaxf(tmax, x);
+      for (int k = 0; k < VEC; ++k) dot = fmaf(qf[k], elem<E>(kr[u], k), dot);
+      x[u] = dot;
     }
-    __syncwarp();
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
+    if (scored) {
+      for (int off = lpr >> 1; off > 0; off >>= 1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) x[u] += __shfl_xor_sync(FULL, x[u], off);
+      }
+    }
+    const int src = lane & ~(lpr - 1);
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if constexpr (QUANT) {
+        ksc[u] = __shfl_sync(FULL, ksc[u], src + u % lpr);
+        vsc[u] = __shfl_sync(FULL, vsc[u], src + u % lpr);
+      }
+      const bool ok = base + u * G + g < n_rows;
+      x[u] = scored ? x[u] * scale * ksc[u] : NEG;
+      if (ok) mx = fmaxf(mx, x[u]);
+    }
+    const float alpha = expf(m - mx);
     float psum = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) acc[i] *= alpha;
-#pragma unroll 4
-    for (int t = 0; t < ncol; ++t) {
-      float p = expf(sc[warp][t] - m_new);
-      psum += p;                                   // the unscaled p
-      if constexpr (QUANT) p *= ld(vs + row + t);
+    for (int k = 0; k < VEC; ++k) acc[k] *= alpha;
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const int c = lane + 32 * i;
-        if (c < D) acc[i] = fmaf(p, ld(vpage + (size_t)t * D + c), acc[i]);
-      }
+    for (int u = 0; u < U; ++u) {
+      if (base + u * G + g >= n_rows) continue;
+      float p = expf(x[u] - mx);
+      psum += p;                                   // the unscaled p
+      p *= vsc[u];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = fmaf(p, elem<E>(vr[u], k), acc[k]);
     }
     l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();
+    m = mx;
   }
 
-  // merge the warps' partial softmax states
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
+  // merge the block's row groups, in group order
+  if (li == 0) {
+    gm[g] = m;
+    gl[g] = l;
   }
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < D) wacc[warp][c] = acc[i];
+  for (int k = 0; k < VEC; ++k)
+    if (k < valid) gacc[g * D + c0 + k] = acc[k];
+  __syncthreads();
+  if (tid < G) {
+    float mx = NEG;
+    for (int i = 0; i < G; ++i) mx = fmaxf(mx, gm[i]);
+    gf[tid] = expf(gm[tid] - mx);
+    if (tid == 0) bmax = mx;
   }
   __syncthreads();
-  const int c = threadIdx.x;
-  if (c < D) {
-    float mm = NEG;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wm[w]);
-    float ll = 0.f, aa = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float f = expf(wm[w] - mm);
-      ll = fmaf(wl[w], f, ll);
-      aa = fmaf(wacc[w][c], f, aa);
-    }
-    o[((size_t)s * H + h) * D + c] = aa / fmaxf(ll, 1e-30f);
+  const float mm = bmax;
+  float ll = 0.f, aa = 0.f;
+  for (int i = 0; i < G; ++i) {
+    ll = fmaf(gl[i], gf[i], ll);
+    if (tid < D) aa = fmaf(gacc[i * D + tid], gf[i], aa);
   }
+  const size_t sh = (size_t)s * gridDim.y + h;
+  const int n_live = ps < 0 ? R : min(ps, Ps * P - 1) / (P * ppr) + 1;
+  if (n_live == 1) {                    // the slot's only live range
+    if (tid < D) o[sh * D + tid] = aa / fmaxf(ll, 1e-30f);
+    return;
+  }
+
+  // the split: leave (m, l, acc) in the workspace, take a ticket, and let
+  // the slot's last block to finish merge its live ranges in range order
+  float* part = parts + (sh * R + r) * (D + 2);
+  if (tid < D) part[2 + tid] = aa;
+  if (tid == 0) {
+    part[0] = mm;
+    part[1] = ll;
+  }
+  __threadfence();                      // the partials before the ticket
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned ticket = atomicAdd(tickets + sh, 1u);
+    is_last = ticket == (unsigned)n_live - 1;
+    if (is_last) {
+      tickets[sh] = 0u;                 // ready for the next launch
+      __threadfence();                  // acquire: the partials after it
+    }
+  }
+  __syncthreads();
+  if (!is_last || tid >= D) return;
+  const float* mine = parts + sh * R * (D + 2);
+  float mt = NEG;
+  for (int i = 0; i < n_live; ++i)
+    mt = fmaxf(mt, ld_gpu(mine + (size_t)i * (D + 2)));
+  float lt = 0.f, at = 0.f;
+  for (int i = 0; i < n_live; ++i) {
+    const float* pi = mine + (size_t)i * (D + 2);
+    const float f = expf(ld_gpu(pi) - mt);
+    lt = fmaf(ld_gpu(pi + 1), f, lt);
+    at = fmaf(ld_gpu(pi + 2 + tid), f, at);
+  }
+  o[sh * D + tid] = at / fmaxf(lt, 1e-30f);
 }
 
 template <typename E, typename SC>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* ks, const void* vs, const int* table,
-                   const int* pos, float* o, int S, int H, int P, int Ps,
-                   int D, float scale, cudaStream_t st) {
-  dim3 grid(S, H);
-  paged_decode_kernel<E, SC><<<grid, NT, 0, st>>>(
+                   const int* pos, float* o, unsigned* tickets, float* parts,
+                   int S, int H, int P, int Ps, int D, int R, int ppr,
+                   float scale, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(E);
+  int lpr = 1;
+  while (lpr * VEC < D) lpr <<= 1;
+  paged_decode_kernel<E, SC><<<dim3(R, H, S), NT, 0, st>>>(
       static_cast<const float*>(q), static_cast<const E*>(kp),
       static_cast<const E*>(vp), static_cast<const SC*>(ks),
-      static_cast<const SC*>(vs), table, pos, o, H, P, Ps, D, scale);
+      static_cast<const SC*>(vs), table, pos, o, tickets, parts, H, P, Ps,
+      D, ppr, lpr, scale);
   return cudaGetLastError();
 }
 
@@ -180,30 +344,41 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 // Page element codes: 0 float32, 1 bfloat16, 2 int8.  Scale codes: 0 none,
 // 1 bfloat16, 2 float32.  The variants built: float32 and bfloat16 pages
-// without scales, int8 pages with either scale type.  Returns the
-// cudaError_t of the launch (0 on success).
+// without scales, int8 pages with either scale type.  The plan: R ranges
+// of ppr table entries (R = ceil(Ps / ppr)).  R > 1 needs the workspace:
+// `tickets`, S * H counters that are zero on entry (and left zero by every
+// launch that completes), and `parts`, S * H * R * (D + 2) floats.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int singa_paged_decode(const void* q, const void* k_pages,
                                   const void* v_pages, const void* k_scales,
                                   const void* v_scales, const int* table,
-                                  const int* pos, float* o, int S, int H,
-                                  int P, int Ps, int D, float scale, int elem,
-                                  int scale_kind, void* stream) {
-  if (D < 1 || D > MAX_D || P < 1 || P > MAX_P) return (int)cudaErrorInvalidValue;
+                                  const int* pos, float* o, unsigned* tickets,
+                                  float* parts, int S, int H, int P, int Ps,
+                                  int D, int R, int ppr, float scale,
+                                  int elem, int scale_kind, void* stream) {
+  if (D < 1 || D > MAX_D || P < 1 || P > MAX_P || ppr < 1 ||
+      ppr > MAX_PPR || R != (Ps + ppr - 1) / ppr ||
+      (R > 1 && (tickets == nullptr || parts == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (elem == 0 && scale_kind == 0)
     err = launch<float, NoScale>(q, k_pages, v_pages, k_scales, v_scales,
-                                 table, pos, o, S, H, P, Ps, D, scale, st);
+                                 table, pos, o, tickets, parts, S, H, P, Ps,
+                                 D, R, ppr, scale, st);
   else if (elem == 1 && scale_kind == 0)
     err = launch<__nv_bfloat16, NoScale>(q, k_pages, v_pages, k_scales,
-                                         v_scales, table, pos, o, S, H, P,
-                                         Ps, D, scale, st);
+                                         v_scales, table, pos, o, tickets,
+                                         parts, S, H, P, Ps, D, R, ppr, scale,
+                                         st);
   else if (elem == 2 && scale_kind == 1)
     err = launch<int8_t, __nv_bfloat16>(q, k_pages, v_pages, k_scales,
-                                        v_scales, table, pos, o, S, H, P, Ps,
-                                        D, scale, st);
+                                        v_scales, table, pos, o, tickets,
+                                        parts, S, H, P, Ps, D, R, ppr, scale,
+                                        st);
   else if (elem == 2 && scale_kind == 2)
     err = launch<int8_t, float>(q, k_pages, v_pages, k_scales, v_scales,
-                                table, pos, o, S, H, P, Ps, D, scale, st);
+                                table, pos, o, tickets, parts, S, H, P, Ps,
+                                D, R, ppr, scale, st);
   return (int)err;
 }

@@ -5,8 +5,13 @@ Counterpart: ``singa_tpu/ops/pallas_kernels.py`` — ``ew_unary``,
 ``ew_binary`` and ``clamp`` (the entries), ``_ew_call`` with
 ``_unary_kernel`` / ``_binary_kernel`` (the Pallas TPU kernels) and the
 dicts ``EW_UNARY`` / ``EW_BINARY`` of plain functions.  The kernel source
-is ``csrc/elementwise.cu``: one grid-stride kernel per arity, templated on
-the op and on the input and output types.
+is ``csrc/elementwise.cu``: one kernel per arity, templated on the op and
+on the input and output types, over 16-byte vectors.  ``_vector_split``
+cuts the flat operands into a head of single values, a body of 16-byte
+units (``16 / smaller element size`` values, so float32 to bfloat16 is
+two loads to one store) and a tail, from the operands' addresses;
+operands whose misalignments differ run element by element in the same
+kernel.  The output is a plain ``torch.empty``.
 
 Names, as the reference's: unary ``relu abs exp log sqrt square sign
 sigmoid tanh gelu`` (``gelu`` is the tanh form, ``jax.nn.gelu``'s
@@ -125,16 +130,36 @@ def clamp_reference(x, low, high):
 def _lib():
     lib = _build.load("elementwise")
     if lib.singa_ew_unary.argtypes is None:
+        ll = ctypes.c_longlong
         lib.singa_ew_unary.argtypes = (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ll, ll, ll,
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+             ctypes.c_void_p])
         lib.singa_ew_unary.restype = ctypes.c_int
         lib.singa_ew_binary.argtypes = (
             [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             ll, ll, ll, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.singa_ew_binary.restype = ctypes.c_int
     return lib
+
+
+def _vector_split(n, operands):
+    """``(head, units, tail)`` for ``n`` values of the operands ``[(address,
+    element size), ...]``: ``head`` single values until every operand
+    sits on a 16-byte boundary at once, then ``units`` units of ``W = 16
+    / (smallest element size)`` values, then ``tail`` single values.
+    When no such boundary exists within the first ``W`` values (the
+    operands' misalignments differ), ``(n, 0, 0)``: element by element."""
+    W = 16 // min(e for _, e in operands)
+    for head in range(W):
+        if all((p + head * e) % 16 == 0 for p, e in operands):
+            break
+    else:
+        return n, 0, 0
+    if head >= n:
+        return n, 0, 0
+    units = (n - head) // W
+    return head, units, n - head - units * W
 
 
 def _route(ops, what):
@@ -153,11 +178,14 @@ def _route(ops, what):
 def _launch_unary(code, x, out, lo=0.0, hi=0.0):
     global launches
     y = torch.empty(x.shape, dtype=out, device=x.device)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return y
+    head, units, _ = _vector_split(n, [(x.data_ptr(), x.element_size()),
+                                       (y.data_ptr(), y.element_size())])
     err = _lib().singa_ew_unary(
-        code, x.data_ptr(), y.data_ptr(), x.numel(), _TYPE_CODE[x.dtype],
-        _TYPE_CODE[out], lo, hi,
+        code, x.data_ptr(), y.data_ptr(), n, head, units,
+        _TYPE_CODE[x.dtype], _TYPE_CODE[out], lo, hi,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"elementwise kernel launch failed (cudaError "
@@ -192,11 +220,14 @@ def ew_binary(name, a, b, out_dtype=None):
     if _route([a, b], "ew_binary") == "cpu":
         return ew_binary_reference(name, a, b, out_dtype)
     y = torch.empty(a.shape, dtype=out, device=a.device)
-    if a.numel() == 0:
+    n = a.numel()
+    if n == 0:
         return y
+    head, units, _ = _vector_split(n, [(t.data_ptr(), t.element_size())
+                                       for t in (a, b, y)])
     err = _lib().singa_ew_binary(
-        _BINARY_CODE[name], a.data_ptr(), b.data_ptr(), y.data_ptr(),
-        a.numel(), _TYPE_CODE[a.dtype], _TYPE_CODE[out],
+        _BINARY_CODE[name], a.data_ptr(), b.data_ptr(), y.data_ptr(), n,
+        head, units, _TYPE_CODE[a.dtype], _TYPE_CODE[out],
         torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"elementwise kernel launch failed (cudaError "

@@ -1,5 +1,5 @@
 """Paged decode attention: a hand-written CUDA kernel and its plain
-PyTorch version.
+PyTorch versions.
 
 Counterpart: ``singa_tpu/ops/paged_attention.py`` —
 ``paged_decode_attention`` (the entry) and ``_decode_kernel`` (the
@@ -8,16 +8,40 @@ is ``csrc/paged_decode.cu``.
 
 Contract, as in the reference: one query per slot, ``q (S, H, d)``;
 page pools ``(N, H, P, d)``; block table ``(S, Ps)`` int32 of physical
-page ids (NULL/stale entries are fine: their columns are masked);
-``pos (S,)`` int32, the last logical position each slot attends —
-columns ``> pos[s]`` carry zero weight.  Returns ``(S, H, d)`` in q's
+page ids (NULL/stale entries are valid ids); ``pos (S,)`` int32, the
+last logical position each slot attends.  Returns ``(S, H, d)`` in q's
 dtype.  Quantized pools pass ``k_scales``/``v_scales`` ``(N, H, P)``
 (pass both or neither): the K scale multiplies the score column, the
 softmax denominator sums the unscaled weights, and the V scale folds
 into each weight before the V product.
 
+What the reference computes: every column of a slot's ``Ps * P`` table
+row is scored, a column ``> pos[s]`` is replaced by the finite ``-1e9``,
+and the softmax runs over the whole row.  So columns past ``pos`` weigh
+exactly zero while one column is live, and a slot with ``pos < 0`` has
+every column at ``-1e9``: a uniform softmax, whose output is the mean of
+``v_scale * v`` over the slot's whole table row (stale and NULL entries
+included).  ``pos >= Ps * P - 1`` makes every column live.
+
 The kernel takes float32 queries against float32 or bfloat16 pages
 (the storage override), or int8 pages with bfloat16 or float32 scales.
+It splits each slot's page walk: ``_split_plan`` cuts the ``Ps`` table
+entries into ``R`` ranges of ``ppr`` pages from the shapes alone (never
+from ``pos``, which stays on the device), at least two blocks a
+multiprocessor and at most ``_MAX_PPR`` pages a range: at the serving
+shape (8 slots, 12 heads, 64 pages) 8 ranges of 8 pages, 768 blocks.
+A range wholly past ``pos`` reads nothing.  A slot with one live range
+gets its output from that range's block; otherwise each live range
+leaves its online-softmax state ``(m, l, acc)`` in the workspace and
+takes a ticket from the slot's counter, and the block with the last
+ticket merges the slot's live ranges in range order (deterministic, no
+float atomics; one launch a call).  The workspace is one buffer per
+device and stream (``_workspace``): the counters, zeroed once when it is
+allocated and left zero by every launch that completes, and the
+partials, which each launch writes before it reads them; a launch that
+fails to start drops it.  ``paged_decode_partial_reference`` and
+``paged_decode_merge_reference`` are the plain versions of the two
+halves of that decomposition.
 
 Routing: the tensor's device decides.  CPU tensors take the plain
 version; CUDA tensors launch the kernel or raise.
@@ -26,17 +50,22 @@ version; CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from . import _build
+from .flash_attention import _sm_count
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_reference"]
+__all__ = ["paged_decode_attention", "paged_decode_attention_reference",
+           "paged_decode_partial_reference", "paged_decode_merge_reference"]
 
 _NEG_INF = -1e9
 _MAX_D = 128
 _MAX_P = 256
+# pages a range at most, in the card's plan
+_MAX_PPR = 8
 
 # the kernel's type codes (csrc/paged_decode.cu)
 _ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -44,9 +73,11 @@ _SCALE = {torch.bfloat16: 1, torch.float32: 2}
 
 # kernel launches made by paged_decode_attention (plain-version calls
 # and CPU calls do not count): ``launches`` over float32 / bfloat16
-# pages, ``launches_q8`` over int8 pages
+# pages, ``launches_q8`` over int8 pages; ``launches_split`` counts the
+# launches of either on the split route (R > 1)
 launches = 0
 launches_q8 = 0
+launches_split = 0
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, table, pos,
@@ -78,15 +109,135 @@ def paged_decode_attention_reference(q, k_pages, v_pages, table, pos,
     return torch.einsum("shl,shld->shd", w, vr.float()).to(q.dtype)
 
 
-def _lib():
-    lib = _build.load("paged_decode")
-    fn = lib.singa_paged_decode
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+@functools.lru_cache(maxsize=None)
+def _split_plan(S, H, Ps, n_sm):
+    """``(R, ppr)``: each slot's ``Ps`` table entries cut into ``R``
+    ranges of ``ppr`` pages (the last may be shorter, none is empty),
+    from the shapes alone: at least ``2 * n_sm`` blocks of (range, head,
+    slot) where the pages allow it, and at most ``_MAX_PPR`` pages a
+    range."""
+    R = max(-(-2 * n_sm // (S * H)), -(-Ps // _MAX_PPR))
+    ppr = max(1, Ps // R)             # ceil(Ps / ppr) >= R
+    return -(-Ps // ppr), ppr
+
+
+def _live_ranges(pos, R, ppr, P, Ps):
+    """``(S,)`` ranges a slot's launch reads: those up to the one holding
+    column ``pos`` (``pos`` past the row counts as its last column), or
+    all ``R`` for ``pos < 0``."""
+    last = torch.clamp(pos.long(), max=Ps * P - 1)
+    return torch.where(pos < 0, R, torch.div(last, P * ppr,
+                                             rounding_mode="floor") + 1)
+
+
+def paged_decode_partial_reference(q, k_pages, v_pages, table, pos, plan,
+                                   sm_scale=None, k_scales=None,
+                                   v_scales=None):
+    """Plain version of the kernel's partial states under ``plan = (R,
+    ppr)``: for each (slot, head, range) the online-softmax state over
+    the range's live columns, ``ml (S, H, R, 2)`` (``m`` from ``-1e9``,
+    ``l`` the sum of unscaled weights) and ``acc (S, H, R, d)``, float32.
+    A slot with ``pos < 0`` scores every column ``-1e9`` (weight 1); a
+    range past ``pos`` holds ``(-1e9, 0, 0)``, which the kernel never
+    writes and the merge never reads."""
+    R, ppr = plan
+    S, H, d = q.shape
+    P = k_pages.shape[2]
+    Ps = table.shape[1]
+    scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
+    idx = table.long()
+    L, Lp = Ps * P, R * ppr * P
+
+    def rows(pool):                     # (N, H, P, ...) -> (S, H, Lp, ...)
+        g = pool[idx].float().transpose(1, 2).reshape(S, H, L,
+                                                      *pool.shape[3:])
+        pad = [0, 0] * (g.dim() - 3) + [0, Lp - L]
+        return torch.nn.functional.pad(g, pad)
+
+    sc = torch.einsum("shd,shld->shl", q.float(), rows(k_pages)) * scale
+    if k_scales is not None:
+        sc = sc * rows(k_scales)
+    neg = (pos < 0)[:, None, None]
+    sc = torch.where(neg, torch.full_like(sc, _NEG_INF), sc)
+    cols = torch.arange(Lp, device=q.device)
+    live = ((cols[None] <= pos.long()[:, None]) | (pos < 0)[:, None]) \
+        & (cols < L)[None]                                  # (S, Lp)
+    sc = sc.view(S, H, R, ppr * P)
+    live = live.view(S, 1, R, ppr * P)
+    m = torch.where(live, sc, torch.full_like(sc, -math.inf)).amax(-1)
+    m = torch.clamp(m, min=_NEG_INF)                        # (S, H, R)
+    p = torch.where(live, torch.exp(sc - m[..., None]), torch.zeros_like(sc))
+    l = p.sum(-1)
+    if v_scales is not None:
+        p = p * rows(v_scales).view(S, H, R, ppr * P)
+    acc = torch.einsum("shrc,shrcd->shrd", p,
+                       rows(v_pages).view(S, H, R, ppr * P, d))
+    return torch.stack([m, l], -1), acc
+
+
+def paged_decode_merge_reference(ml, acc, pos, plan, page_tokens,
+                                 pages_per_slot):
+    """Plain version of the split route's merge (by each slot's last
+    block): each slot's live ranges (``_live_ranges``) merged, ``o = sum_r acc_r e^(m_r - M) /
+    max(sum_r l_r e^(m_r - M), 1e-30)``.  Returns ``(S, H, d)``
+    float32."""
+    R, ppr = plan
+    n_live = _live_ranges(pos, R, ppr, page_tokens, pages_per_slot)
+    use = (torch.arange(R, device=pos.device)[None] < n_live[:, None])
+    use = use[:, None, :]                                   # (S, 1, R)
+    m = torch.where(use, ml[..., 0], torch.full_like(ml[..., 0], _NEG_INF))
+    top = m.amax(-1, keepdim=True)
+    f = torch.where(use, torch.exp(m - top), torch.zeros_like(m))
+    # ranges past pos were never written: their slots hold anything
+    den = torch.where(use, ml[..., 1] * f, torch.zeros_like(f)).sum(-1)
+    num = torch.where(use[..., None], acc * f[..., None],
+                      torch.zeros_like(acc)).sum(-2)
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+_FN = None
+
+
+def _fn():
+    """The kernel's C entry, resolved once."""
+    global _FN
+    if _FN is None:
+        fn = _build.load("paged_decode").singa_paged_decode
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_float] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        _FN = fn
+    return _FN
+
+
+def _stream(index):
+    """The current stream of CUDA device ``index`` as a raw handle."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+# The split route's workspace, one per (device index, stream handle):
+# ``(buffer, n_tickets, n_parts, tickets address, parts address)``.  The
+# buffer holds ``n_tickets`` int32 counters, zeroed here once and left
+# zero by every launch that completes, then ``n_parts`` float32 partials
+# that each launch writes before it reads them.  It grows (zeroed anew)
+# when a call needs more, and a launch that fails drops it.
+_WORKSPACE = {}
+
+
+def _workspace(index, stream, n_tickets, n_parts):
+    """``(tickets address, parts address)`` of the workspace for ``stream``
+    with room for ``n_tickets`` counters and ``n_parts`` partials."""
+    ws = _WORKSPACE.get((index, stream))
+    if ws is None or ws[1] < n_tickets or ws[2] < n_parts:
+        if ws is not None:
+            n_tickets, n_parts = max(n_tickets, ws[1]), max(n_parts, ws[2])
+        buf = torch.zeros(n_tickets + n_parts, dtype=torch.int32,
+                          device=torch.device("cuda", index))
+        ws = _WORKSPACE[index, stream] = (buf, n_tickets, n_parts,
+                                          buf.data_ptr(),
+                                          buf.data_ptr() + 4 * n_tickets)
+    return ws[3], ws[4]
 
 
 def _check_kernel_operands(q, k_pages, v_pages, table, pos, k_scales,
@@ -140,7 +291,6 @@ def paged_decode_attention(q, k_pages, v_pages, table, pos, sm_scale=None,
     """Single-token attention over paged K/V (see the module docstring).
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/paged_decode.cu`` or raise."""
-    global launches, launches_q8
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales or neither")
     ops = [q, k_pages, v_pages, table, pos]
@@ -156,28 +306,57 @@ def paged_decode_attention(q, k_pages, v_pages, table, pos, sm_scale=None,
                                                 v_scales)
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {dev}")
+    return _kernel_call(q, k_pages, v_pages, table, pos, sm_scale, k_scales,
+                        v_scales)
+
+
+def _kernel_call(q, k_pages, v_pages, table, pos, sm_scale, k_scales,
+                 v_scales):
+    """The wrapper's CUDA path: check the operands, take the card's plan
+    (from the shapes and the SM count, cached) and launch."""
     _check_kernel_operands(q, k_pages, v_pages, table, pos, k_scales,
                            v_scales)
-    if not all(t.is_contiguous() for t in ops):
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous() and table.is_contiguous()
+            and pos.is_contiguous()
+            and (k_scales is None or (k_scales.is_contiguous()
+                                      and v_scales.is_contiguous()))):
         raise ValueError("paged_decode_attention kernel takes contiguous "
                          "operands")
     S, H, d = q.shape
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
-    quant = k_scales is not None
+    return _launch(q, k_pages, v_pages, table, pos, scale, k_scales,
+                   v_scales, _split_plan(S, H, table.shape[1],
+                                         _sm_count(q.device.index)))
+
+
+def _launch(q, k_pages, v_pages, table, pos, scale, k_scales, v_scales,
+            plan):
+    """One launch of the kernel under ``plan = (R, ppr)``."""
+    global launches, launches_q8, launches_split
+    S, H, d = q.shape
+    R, ppr = plan
+    index = q.device.index
+    stream = _stream(index)
+    tickets, parts = _workspace(index, stream, S * H, S * H * R * (d + 2)) \
+        if R > 1 else (None, None)
     out = torch.empty_like(q)
-    fn = _lib()
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scales.data_ptr() if quant else None,
-             v_scales.data_ptr() if quant else None,
-             table.data_ptr(), pos.data_ptr(), out.data_ptr(), S, H,
-             k_pages.shape[2], table.shape[1], d, scale,
-             _ELEM[k_pages.dtype], _SCALE[k_scales.dtype] if quant else 0,
-             torch.cuda.current_stream(dev).cuda_stream)
+    quant = k_scales is not None
+    err = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scales.data_ptr() if quant else None,
+                v_scales.data_ptr() if quant else None,
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(), tickets,
+                parts, S, H, k_pages.shape[2], table.shape[1], d, R, ppr,
+                scale, _ELEM[k_pages.dtype],
+                _SCALE[k_scales.dtype] if quant else 0, stream)
     if err != 0:
+        _WORKSPACE.pop((index, stream), None)
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
                            f"(cudaError {err})")
     if quant:
         launches_q8 += 1
     else:
         launches += 1
+    if R > 1:
+        launches_split += 1
     return out

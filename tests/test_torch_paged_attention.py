@@ -1,11 +1,22 @@
 """Paged decode attention of the port
-(singa_tpu_torch.ops.paged_attention, the plain version CPU tensors
+(singa_tpu_torch.ops.paged_attention, the plain versions CPU tensors
 take) against the JAX Pallas kernel
 (singa_tpu.ops.paged_attention.paged_decode_attention, interpret=True),
 on the block table of tests/test_paged_serving.py (NULL and stale
 entries, mid-page positions).  Tolerance: atol 1e-5 in float32.  The
-int8 and bfloat16-page variants are held against the reference in
-tests/test_torch_quantized_serving.py."""
+int8 and bfloat16-page variants of the whole function are held against
+the reference in tests/test_torch_quantized_serving.py.
+
+The kernel's decomposition: the split plan (every table entry in one
+range, the serving shape's block target, the same launch arguments for
+any pos), and the plain versions of its two launches
+(``paged_decode_partial_reference`` / ``paged_decode_merge_reference``)
+against the JAX kernel under several plans, for float32 pages and int8
+pages with bf16 and float32 scales, at pos -1, 0, a page edge and
+max_len - 1.  A slot at pos -1 gets the reference's uniform mean of
+v_scale * v over its whole table row."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +27,8 @@ from singa_tpu.ops.paged_attention import \
     paged_decode_attention as jax_paged
 from singa_tpu_torch.ops import paged_attention as pa_mod
 from singa_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_attention_reference)
+    paged_decode_attention, paged_decode_attention_reference,
+    paged_decode_merge_reference, paged_decode_partial_reference)
 
 torch.set_num_threads(1)
 
@@ -87,3 +99,163 @@ def test_scales_come_in_pairs(which):
     with pytest.raises(ValueError, match="both k_scales and v_scales"):
         jax_paged(*(jnp.asarray(t.numpy()) for t in (q, kq, vq, table, pos)),
                   interpret=True, **{which: jnp.ones((10, 2, 8))})
+
+
+# ---- the kernel's decomposition: the split plan and its plain pair ----
+
+_SERVING = dict(S=8, H=12, Ps=64, n_sm=132)
+
+
+@pytest.mark.parametrize("S,H,Ps,n_sm", [
+    (8, 12, 64, 132), (1, 1, 64, 132), (3, 2, 4, 132), (64, 32, 64, 132),
+    (2, 4, 43, 132), (5, 3, 7, 8), (1, 12, 1, 132), (8, 12, 128, 114)])
+def test_split_plan_covers_every_table_entry_once(S, H, Ps, n_sm):
+    R, ppr = pa_mod._split_plan(S, H, Ps, n_sm)
+    ranges = [range(r * ppr, min((r + 1) * ppr, Ps)) for r in range(R)]
+    seen = [j for rg in ranges for j in rg]
+    assert sorted(seen) == list(range(Ps))          # each entry once
+    assert all(len(rg) > 0 for rg in ranges)        # no empty range
+    assert ppr <= pa_mod._MAX_PPR
+    # the block target, wherever one page a range allows it
+    assert S * H * R >= min(2 * n_sm, S * H * Ps)
+
+
+def test_serving_shape_reaches_its_block_target():
+    R, ppr = pa_mod._split_plan(*_SERVING.values())
+    assert (R, ppr) == (8, 8)
+    assert 8 * 12 * R >= 2 * 132
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _stub_launch_path(monkeypatch, fn):
+    monkeypatch.setattr(pa_mod, "_fn", lambda: fn)
+    monkeypatch.setattr(pa_mod, "_stream", lambda index: 7)
+    monkeypatch.setattr(pa_mod, "_sm_count", lambda index: 132)
+
+    def workspace(index, stream, n_tickets, n_parts):
+        pa_mod._WORKSPACE[index, stream] = (n_tickets, n_parts)
+        return 1000, 2000
+
+    monkeypatch.setattr(pa_mod, "_workspace", workspace)
+    S, H, d, P, Ps = 8, 12, 8, 16, 64
+    return (torch.zeros(S, H, d), torch.zeros(3, H, P, d),
+            torch.zeros(S, Ps, dtype=torch.int32))
+
+
+def test_launch_path_passes_the_same_plan_for_any_pos(monkeypatch):
+    """The wrapper's launch path on host tensors, with the C entry, the
+    stream and the SM count stubbed: whatever pos holds, the call passes
+    the same arguments but for the buffers' addresses, and pos only as
+    an address (the plan never reads it: no device-to-host sync)."""
+    rec = _Recorder()
+    q, kp, table = _stub_launch_path(monkeypatch, rec)
+    before = (pa_mod.launches, pa_mod.launches_split)
+    for fill in (-1, 0, 15, 16, 64 * 16 - 1, 10 ** 6):
+        pos = torch.full((8,), fill, dtype=torch.int32)
+        pa_mod._kernel_call(q, kp, kp, table, pos, None, None, None)
+        assert rec.calls[-1][6] == pos.data_ptr()
+    assert (pa_mod.launches, pa_mod.launches_split) == (before[0] + 6,
+                                                        before[1] + 6)
+    # every argument but the pos and output addresses, the same
+    keep = [i for i in range(len(rec.calls[0])) if i not in (6, 7)]
+    assert len({tuple(c[i] for i in keep) for c in rec.calls}) == 1
+    assert rec.calls[0][15:17] == (8, 8)                     # R, ppr
+    assert rec.calls[0][8:10] == (1000, 2000)     # tickets, partials
+    pa_mod._WORKSPACE.pop((None, 7), None)
+
+
+def test_a_launch_that_fails_raises_and_drops_the_workspace(monkeypatch):
+    q, kp, table = _stub_launch_path(monkeypatch, lambda *args: 700)
+    before = (pa_mod.launches, pa_mod.launches_split)
+    pos = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        pa_mod._kernel_call(q, kp, kp, table, pos, None, None, None)
+    assert (None, 7) not in pa_mod._WORKSPACE
+    assert (pa_mod.launches, pa_mod.launches_split) == before
+
+
+def _decomposition_case(variant):
+    """4 slots at pos -1, 0, a page edge (P) and max_len - 1 over a
+    table with stale and NULL entries; float32 pages, or int8 pages
+    with bf16 / float32 scales."""
+    S, H, d, P, Ps, N = 4, 2, 16, 8, 6, 13
+    rng, q, kp, vp = _inputs(S, H, d, P, Ps, N, seed=3)
+    table = rng.randint(0, N, size=(S, Ps)).astype(np.int32)
+    table[1, 1:] = 0                                 # NULL tail
+    pos = np.array([-1, 0, P, Ps * P - 1], np.int32)
+    scales = {}
+    if variant != "f32":
+        kp = rng.randint(-127, 128, size=kp.shape).astype(np.int8)
+        vp = rng.randint(-127, 128, size=vp.shape).astype(np.int8)
+        scales = {k: (0.002 + 0.028 * rng.rand(N, H, P)).astype(np.float32)
+                  for k in ("k_scales", "v_scales")}
+    return q, kp, vp, table, pos, scales
+
+
+_VARIANTS = {"f32": None, "int8_bf16_scales": "bfloat16",
+             "int8_f32_scales": "float32"}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decomposition_ref(variant):
+    q, kp, vp, table, pos, scales = _decomposition_case(variant)
+    low = _VARIANTS[variant]
+    kw = {k: jnp.asarray(v).astype(getattr(jnp, low))
+          for k, v in scales.items()}
+    return np.asarray(jax_paged(jnp.asarray(q), jnp.asarray(kp),
+                                jnp.asarray(vp), jnp.asarray(table),
+                                jnp.asarray(pos), interpret=True, **kw))
+
+
+def _torch_case(variant):
+    q, kp, vp, table, pos, scales = _decomposition_case(variant)
+    low = _VARIANTS[variant]
+    args = [torch.from_numpy(a) for a in (q, kp, vp, table, pos)]
+    kw = {k: torch.from_numpy(v).to(getattr(torch, low))
+          for k, v in scales.items()}
+    return args, kw
+
+
+@pytest.mark.parametrize("plan", [(1, 6), (6, 1), (2, 3), (3, 2), (2, 4)],
+                         ids=["unsplit", "page_a_range", "2x3", "3x2",
+                              "4_then_2"])
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+def test_partial_merge_pair_matches_jax_kernel(variant, plan):
+    """The plain version of the kernel's two launches under several
+    plans, against the JAX kernel in interpret mode, at pos -1 (every
+    column at -1e9: the uniform mean of v_scale * v over the table row),
+    0, a page edge and max_len - 1."""
+    args, kw = _torch_case(variant)
+    before = (pa_mod.launches, pa_mod.launches_q8, pa_mod.launches_split)
+    ml, acc = paged_decode_partial_reference(*args, plan, **kw)
+    got = paged_decode_merge_reference(ml, acc, args[4], plan, 8, 6)
+    assert (pa_mod.launches, pa_mod.launches_q8,
+            pa_mod.launches_split) == before
+    np.testing.assert_allclose(got.numpy(), _jax_decomposition_ref(variant),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+def test_pos_below_zero_is_the_mean_of_v_over_the_row(variant):
+    """The reference's answer for a slot at pos -1, written out: every
+    column of the table row weighs 1 / (Ps * P), stale and NULL entries
+    included.  A kernel returning zeros there fails this."""
+    args, kw = _torch_case(variant)
+    q, kp, vp, table, pos = args
+    rows = vp[table[0].long()].float()                      # (Ps, H, P, d)
+    if kw:
+        rows = rows * kw["v_scales"][table[0].long()].float()[..., None]
+    want = rows.transpose(0, 1).reshape(2, -1, 16).mean(1)  # (H, d)
+    ref = _jax_decomposition_ref(variant)[0]
+    np.testing.assert_allclose(want.numpy(), ref, atol=1e-5, rtol=0)
+    assert np.abs(ref).max() > 1e-3
+    got = paged_decode_attention(q, kp, vp, table, pos, **kw)[0]
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
