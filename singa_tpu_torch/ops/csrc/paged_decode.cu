@@ -52,12 +52,12 @@
 // the last ticket resets the counter to zero, fences (the acquire side of
 // the writers' fences) and merges the slot's live ranges in range order,
 // reading the partials with gpu-scope loads (acquire loads, each ordered
-// after the one before, cost 4 us at the serving shape).  The same sums
-// in the same order on every run, whichever block comes last, and no
-// float atomics.  The counters are the only state that outlives a
-// launch: the wrapper zeroes them once when it allocates the workspace
-// (one per device and stream), and every launch that completes leaves
-// them zero; a launch that fails to start drops the workspace.
+// after the one before, cost 3.7 us on an H100 at the serving shape).
+// The same sums in the same order on every run, whichever block comes
+// last, and no float atomics.  The counters are the only state that
+// outlives a launch: the wrapper zeroes them once when it allocates the
+// workspace (one per device and stream), and every launch that completes
+// leaves them zero; a launch that fails to start drops the workspace.
 //
 // What bounds it: about 0.5 operation per byte read (2 with int8 pages),
 // so the K/V bytes of the live rows over the memory rate; what the design
@@ -116,7 +116,8 @@ __device__ __forceinline__ uint4 load_slice(const E* p, int valid, bool vec) {
   if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
   using Raw = typename std::conditional<
       sizeof(E) == 4, uint32_t,
-      typename std::conditional<sizeof(E) == 2, uint16_t, uint8_t>::type>::type;
+      typename std::conditional<sizeof(E) == 2, uint16_t,
+                                uint8_t>::type>::type;
   const Raw* rp = reinterpret_cast<const Raw*>(p);
   uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
@@ -254,7 +255,8 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       psum += p;                                   // the unscaled p
       p *= vsc[u];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = fmaf(p, elem<E>(vr[u], k), acc[k]);
+      for (int k = 0; k < VEC; ++k)
+        acc[k] = fmaf(p, elem<E>(vr[u], k), acc[k]);
     }
     l = l * alpha + psum;
     m = mx;

@@ -178,9 +178,9 @@ def paged_decode_partial_reference(q, k_pages, v_pages, table, pos, plan,
 def paged_decode_merge_reference(ml, acc, pos, plan, page_tokens,
                                  pages_per_slot):
     """Plain version of the split route's merge (by each slot's last
-    block): each slot's live ranges (``_live_ranges``) merged, ``o = sum_r acc_r e^(m_r - M) /
-    max(sum_r l_r e^(m_r - M), 1e-30)``.  Returns ``(S, H, d)``
-    float32."""
+    block): each slot's live ranges (``_live_ranges``) merged,
+    ``o = sum_r acc_r e^(m_r - M) / max(sum_r l_r e^(m_r - M), 1e-30)``.
+    Returns ``(S, H, d)`` float32."""
     R, ppr = plan
     n_live = _live_ranges(pos, R, ppr, page_tokens, pages_per_slot)
     use = (torch.arange(R, device=pos.device)[None] < n_live[:, None])
