@@ -36,12 +36,13 @@ Phases (any failure exits non-zero before the result lines print):
    at pos -1 (the mean of V over its whole row), d 40 and d 18 with
    5-token pages (element loads), 8-, 12- and 32-token pages at head
    dims 64, 32 and 128, and pools one element off their alignment; the
-   split route's partials (read from the workspace) and its in-launch
-   merge each against their plain versions; 1,000 launches back to back
-   over variants, shapes, plans and positions, every output checked and
-   the workspace's counters zero after; times, plans, byte bounds and
-   the wrapper's host µs a call (median of 200, no sync) of the float32
-   and int8 variants at the serving shape;
+   split route's partials (read from its scratch buffer) and its merge
+   launch, through the call and alone, each against their plain
+   versions; 1,000 launches back to back over variants, shapes, plans
+   and positions (the one scratch buffer reused in stream order), every
+   output checked; times, plans, byte bounds and the wrapper's host µs
+   a call (median of 200, no sync) of the float32 and int8 variants at
+   the serving shape, and the merge launch's time alone;
 5a. the fused LSTM cell: its forward and backward kernels against their
    plain versions, and its autograd Function against the plain cell
    under torch's autograd, in float32, bfloat16 and float16, at the
@@ -65,7 +66,7 @@ Phases (any failure exits non-zero before the result lines print):
    sampled, the rest greedy); two greedy requests are replayed through
    the port on the CPU and their tokens compared; the prefill chunks'
    flash calls must take the split route (combine launches), and so
-   must the paged decode calls (``launches_split``);
+   must the paged decode calls (merge launches, ``launches_merge``);
 7. the quantized serving path: the same weights and stream served with
    ``kv_dtype="int8", weight_dtype="int8"`` (the model on the host, the
    engine on the card); the int8 kernel must launch, on its split route,
@@ -687,20 +688,20 @@ def _misaligned(t):
 
 def _paged_split_parts(args, scales, plan):
     """The split route's two halves held apart: after one call under
-    ``plan``, the partial states the live ranges left in the workspace
-    against ``paged_decode_partial_reference`` (max |delta| / max(1,
-    |ref|): the sums are not normalised), and the call's output against
-    ``paged_decode_merge_reference`` on the kernel's own partials, over
-    the slots with two or more live ranges (the others write no
-    partials).  Returns the two errors."""
+    ``plan``, the partial states the live ranges left in the scratch
+    buffer against ``paged_decode_partial_reference`` (max |delta| /
+    max(1, |ref|): the sums are not normalised), and, over the slots
+    with two or more live ranges (the others write no partials), the
+    call's output and the merge launch alone (``pa._merge_launch``) on
+    the kernel's own partials against ``paged_decode_merge_reference``
+    on them.  Returns the two errors."""
     q, kp, _, table, pos = args
     S, H, d = q.shape
     R, ppr = plan
     got = _paged_force(args, scales, plan)
     torch.cuda.synchronize()
-    buf, n_tickets = pa._WORKSPACE[0, pa._stream(0)][:2]
-    part = buf[n_tickets:n_tickets + S * H * R * (d + 2)].view(
-        torch.float32).view(S, H, R, d + 2)
+    part = pa._parts(0, pa._stream(0), S * H * R * (d + 2))[0].view(
+        S, H, R, d + 2).clone()
     ml, acc = part[..., :2], part[..., 2:]
     n_live = pa._live_ranges(pos, R, ppr, kp.shape[2], table.shape[1])
     split = n_live > 1
@@ -714,19 +715,23 @@ def _paged_split_parts(args, scales, plan):
     def rel(a, b):
         return float(((a - b).abs() / b.abs().clamp(min=1))[live].max())
 
-    merged = pa.paged_decode_merge_reference(ml.clone(), acc.clone(), pos,
-                                             plan, kp.shape[2],
+    merged = pa.paged_decode_merge_reference(ml, acc, pos, plan, kp.shape[2],
                                              table.shape[1])
+    alone = pa._merge_launch(part, pos, torch.zeros_like(q), kp.shape[2],
+                             table.shape[1], plan)
+    torch.cuda.synchronize()
     return (max(rel(ml, pml), rel(acc, pacc)),
-            float((got - merged)[split].abs().max()))
+            max(float((got - merged)[split].abs().max()),
+                float((alone - merged)[split].abs().max())))
 
 
 def _paged_back_to_back(n=1000):
-    """The in-launch merge's counters under load: ``n`` launches back to
-    back with no sync, cycling over the variants, three shapes (serving,
-    d 40, d 18 with P 5), four plans and eight position vectors each
-    (pos -1 to max_len - 1), then every output against its plain version
-    and every workspace counter zero.  Returns the max abs error."""
+    """The split route's scratch under load: ``n`` launches back to back
+    with no sync, cycling over the variants, three shapes (serving, d 40,
+    d 18 with P 5), four plans and eight position vectors each (pos -1
+    to max_len - 1), so that launches of one plan and shape reuse one
+    partials buffer in stream order; then every output against its
+    plain version.  Returns the max abs error."""
     rng = np.random.RandomState(31)
     cases = []
     for variant in PAGED_VARIANTS:
@@ -758,14 +763,11 @@ def _paged_back_to_back(n=1000):
             refs[c, j] = pa.paged_decode_attention_reference(
                 *args, poss[j], **scales)
         worst = max(worst, float((got - refs[c, j]).abs().max()))
-    stale = sum(int((ws[0][:ws[1]] != 0).sum())
-                for (index, _), ws in pa._WORKSPACE.items() if index == 0)
     _log(f"paged decode back to back: {n} launches over {len(cases)} "
          f"cases x 8 positions x 4 plans, max_abs_err {worst:.3e} (tol "
-         f"{PAGED_TOL:g}); workspace counters left non-zero: {stale}")
-    if not worst <= PAGED_TOL or stale:
-        raise AssertionError(f"paged decode back to back: error {worst}, "
-                             f"{stale} counters left non-zero")
+         f"{PAGED_TOL:g})")
+    if not worst <= PAGED_TOL:
+        raise AssertionError(f"paged decode back to back: error {worst}")
 
 
 def _host_us(fn, n=200):
@@ -791,8 +793,8 @@ def phase_paged():
     their alignment; the split route's partials and merge held apart;
     1,000 launches back to back.  Times, bounds, plans and host µs a call
     of the float32 and the int8 (bf16-scale) variants at the serving
-    shape.  Returns the float row and the int8 row of the kernels
-    line."""
+    shape, and of the merge launch alone.  Returns the float, the int8
+    and the merge rows of the kernels line."""
     S, H, d, P, Ps = N_SLOTS, 12, 64, PAGE, 1024 // PAGE
     pos_h = np.array(SERVING_POS, np.int32)
     shapes = {"serving": (1, S, H, d, P, Ps, pos_h),
@@ -882,7 +884,43 @@ def phase_paged():
                      "bound_by": bound_by, "library_ms": None,
                      "plan": list(plan), "blocks": S * H * plan[0],
                      "unsplit_ms": unsplit_ms, "host_us": host_us})
+    rows.append(_paged_merge_row(*cases["f32"], max(worst_parts[1], 0.0)))
     return rows
+
+
+def _paged_merge_row(args, scales, err):
+    """The merge launch at the serving shape on the card's plan, alone,
+    on the partials the float32 call left: its time against
+    ``paged_decode_merge_reference``'s on the same partials, and its
+    bound (the live ranges' partials of the split slots read once, their
+    output rows written once, pos)."""
+    q, kp, _, table, pos = args
+    S, H, d = q.shape
+    P, Ps = kp.shape[2], table.shape[1]
+    plan = _paged_routes(q, table)["card"]
+    R = plan[0]
+    _paged_force(args, scales, plan)
+    torch.cuda.synchronize()
+    part = pa._parts(0, pa._stream(0), S * H * R * (d + 2))[0].view(
+        S, H, R, d + 2).clone()
+    out = torch.zeros_like(q)
+    ms = _time_ms(lambda: pa._merge_launch(part, pos, out, P, Ps, plan))
+    plain_ms = _time_ms(lambda: pa.paged_decode_merge_reference(
+        part[..., :2], part[..., 2:], pos, plan, P, Ps))
+    n_live = pa._live_ranges(pos, R, plan[1], P, Ps).cpu().numpy()
+    split = n_live[n_live > 1]
+    nbytes = 4 * (S + H * int((split * (d + 2)).sum()) + H * d * len(split))
+    flops = 2 * H * (d + 1) * int(split.sum())
+    bound_ms, bound_by = _bound(nbytes, flops)
+    _log(f"paged decode merge alone, serving shape, plan {plan}: "
+         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+         f"({bound_by}: {nbytes / 1e3:.1f} kB, {len(split)} split slots)")
+    return {"name": "paged_decode_merge", "route": "cuda",
+            "source": "singa_tpu_torch/ops/csrc/paged_decode.cu",
+            "replaces": "singa_tpu/ops/paged_attention.py:88",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "plan": list(plan)}
 
 
 # the char-LSTM of bench_rnn.py at the reference char-RNN shape
@@ -1477,7 +1515,7 @@ def phase_slice():
     rids, res, launches, stats = _drive(eng, prompts, cfg, "slice")
     for name in ("flash_attention_fwd", "flash_attention_fwd_combine",
                  "paged_decode_attention",
-                 "paged_decode_attention_split"):
+                 "paged_decode_merge"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"serving path")
@@ -1526,7 +1564,7 @@ def phase_slice_int8(setup, float_stats):
     eng = ServingEngine(cpu_model, device="cuda", **qkw)
     rids, res, launches, stats = _drive(eng, prompts, cfg, "int8 slice")
     for name in ("paged_decode_attention_q8",
-                 "paged_decode_attention_split"):
+                 "paged_decode_merge"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"quantized serving path")
@@ -1616,7 +1654,7 @@ def _train_setup():
 
 def _zero_launches():
     fa.launches = fa.launches_combine = fa.launches_dq = fa.launches_dkv = 0
-    pa.launches = pa.launches_q8 = pa.launches_split = 0
+    pa.launches = pa.launches_q8 = pa.launches_merge = 0
     lc.launches = lc.launches_bwd = ew.launches = 0
 
 
@@ -1627,7 +1665,7 @@ def _read_launches():
             "flash_attention_bwd_dkv": fa.launches_dkv,
             "paged_decode_attention": pa.launches,
             "paged_decode_attention_q8": pa.launches_q8,
-            "paged_decode_attention_split": pa.launches_split,
+            "paged_decode_merge": pa.launches_merge,
             "lstm_cell": lc.launches, "lstm_cell_bwd": lc.launches_bwd,
             "elementwise": ew.launches}
 
@@ -2032,6 +2070,8 @@ def _kernel_bucket(name):
         return "flash_attention_bwd dk/dv kernel"
     if "flash_fwd" in name:
         return "flash_attention_fwd kernel"
+    if "paged_merge" in name:
+        return "paged_decode merge kernel"
     if "paged_decode" in name:
         return "paged_decode kernel"
     low = name.lower()
@@ -2195,14 +2235,14 @@ def main(argv):
         return 0
     fwd, combine = phase_flash()
     dq, dkv, fwd["train_shape"] = phase_flash_bwd()
-    paged, paged_q8 = phase_paged()
+    paged, paged_q8, paged_merge = phase_paged()
     t_k = time.perf_counter()
     lstm, lstm_bwd = phase_lstm()
     elementwise, ew_launches = phase_ew()
     _log(f"lstm and elementwise kernel phases (5a-5b): "
          f"{time.perf_counter() - t_k:.1f}s")
     rows = [fwd, combine, dq, dkv, elementwise, lstm, lstm_bwd, paged,
-            paged_q8]
+            paged_q8, paged_merge]
     serve_launches, serve_stats, setup = phase_slice()
     int8_launches, _ = phase_slice_int8(setup, serve_stats)
     del setup

@@ -18,5 +18,5 @@ Kernels build from ``csrc/`` at first use (:mod:`._build`); nothing is
 compiled or loaded at import time.  Each module keeps its launch counts
 in module-level integers (``launches``; flash's backward kernels
 ``launches_dq`` and ``launches_dkv``; paged decode's int8 variant
-``launches_q8`` and its split route ``launches_split``).
+``launches_q8`` and its split route's merge ``launches_merge``).
 """

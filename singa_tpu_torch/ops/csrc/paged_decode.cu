@@ -47,23 +47,18 @@
 //
 // The merge.  A slot with one live range (always so with R = 1) has its
 // block write o = acc / max(l, 1e-30) itself.  Otherwise each live block
-// writes its (m, l, acc) to the workspace's partials, fences, and takes a
-// ticket from the slot's counter (an integer atomic); the block that draws
-// the last ticket resets the counter to zero, fences (the acquire side of
-// the writers' fences) and merges the slot's live ranges in range order,
-// reading the partials with gpu-scope loads (acquire loads, each ordered
-// after the one before, cost 3.7 us on an H100 at the serving shape).
-// The same sums in the same order on every run, whichever block comes
-// last, and no float atomics.  The counters are the only state that
-// outlives a launch: the wrapper zeroes them once when it allocates the
-// workspace (one per device and stream), and every launch that completes
-// leaves them zero; a launch that fails to start drops the workspace.
+// writes its (m, l, acc) to the partials buffer, and a second launch on
+// the same stream, one block per (head, slot), merges the slot's live
+// ranges in range order (its blocks for the other slots exit at once).
+// The same sums in the same order on every run, no atomics, and nothing
+// that outlives a call: the merge reads only what the launch before it
+// wrote.  Both launches come from one C entry, so the host makes one call.
 //
 // What bounds it: about 0.5 operation per byte read (2 with int8 pages),
 // so the K/V bytes of the live rows over the memory rate; what the design
 // has to hide is latency, hence blocks enough to fill the card at the
-// serving shape (8 slots x 12 heads x 8 ranges = 768), 2U 16-byte loads in
-// flight per lane, and one launch a call.
+// serving shape (8 slots x 12 heads x 8 ranges = 768) and 2U 16-byte loads
+// in flight per lane.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,7 +72,10 @@ namespace {
 constexpr int NT = 128;          // threads a block
 constexpr int MAX_D = 128;
 constexpr int MAX_P = 256;
-constexpr int MAX_PPR = 256;     // table entries a block stages
+// table entries a block stages in shared memory: the card's plan takes at
+// most 8 a range (`_MAX_PPR` in ops/paged_attention.py), but the entry
+// takes up to this many, so a caller may force the unsplit plan
+constexpr int MAX_STAGED_PAGES = 256;
 constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -128,15 +126,6 @@ __device__ __forceinline__ uint4 load_slice(const E* p, int valid, bool vec) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// A gpu-scope load from L2 (never a stale L1 line), for the partials
-// other blocks wrote: the ticket's acquire fence orders it after them.
-__device__ __forceinline__ float ld_gpu(const float* p) {
-  float v;
-  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
 // Live rows of range r of slot s (0: the block reads nothing).
 __device__ __forceinline__ int live_rows(int ps, int r, int ppr, int P,
                                          int Ps) {
@@ -152,16 +141,15 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const E* __restrict__ vp, const SC* __restrict__ ks,
     const SC* __restrict__ vs, const int* __restrict__ table,
     const int* __restrict__ pos, float* __restrict__ o,
-    unsigned* __restrict__ tickets, float* __restrict__ parts, int H, int P,
-    int Ps, int D, int ppr, int lpr, float scale) {
+    float* __restrict__ parts, int H, int P, int Ps, int D, int ppr, int lpr,
+    float scale) {
   constexpr bool QUANT = !std::is_same<SC, NoScale>::value;
   constexpr int VEC = 16 / sizeof(E);
   constexpr int U = sizeof(E) == 1 ? 4 : 8;   // rows a group loads at once
-  __shared__ int tbl[MAX_PPR];
+  __shared__ int tbl[MAX_STAGED_PAGES];
   __shared__ float gm[NT], gl[NT], gf[NT];
   __shared__ float gacc[NT * VEC];
   __shared__ float bmax;
-  __shared__ bool is_last;
 
   const int r = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int R = gridDim.x;
@@ -291,55 +279,64 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     return;
   }
 
-  // the split: leave (m, l, acc) in the workspace, take a ticket, and let
-  // the slot's last block to finish merge its live ranges in range order
+  // a split slot: leave (m, l, acc) for the merge launch
   float* part = parts + (sh * R + r) * (D + 2);
   if (tid < D) part[2 + tid] = aa;
   if (tid == 0) {
     part[0] = mm;
     part[1] = ll;
   }
-  __threadfence();                      // the partials before the ticket
-  __syncthreads();
-  if (tid == 0) {
-    const unsigned ticket = atomicAdd(tickets + sh, 1u);
-    is_last = ticket == (unsigned)n_live - 1;
-    if (is_last) {
-      tickets[sh] = 0u;                 // ready for the next launch
-      __threadfence();                  // acquire: the partials after it
-    }
-  }
-  __syncthreads();
-  if (!is_last || tid >= D) return;
+}
+
+// One block per (head, slot): the slot's live ranges merged in range
+// order, o = sum_r acc_r e^(m_r - M) / max(sum_r l_r e^(m_r - M), 1e-30).
+// A slot with one live range was written by the launch before.
+__global__ void __launch_bounds__(NT) paged_merge_kernel(
+    const float* __restrict__ parts, const int* __restrict__ pos,
+    float* __restrict__ o, int P, int Ps, int D, int R, int ppr) {
+  const int h = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
+  const int ps = pos[s];
+  const int n_live = ps < 0 ? R : min(ps, Ps * P - 1) / (P * ppr) + 1;
+  if (n_live == 1 || tid >= D) return;
+  const size_t sh = (size_t)s * gridDim.x + h;
   const float* mine = parts + sh * R * (D + 2);
   float mt = NEG;
-  for (int i = 0; i < n_live; ++i)
-    mt = fmaxf(mt, ld_gpu(mine + (size_t)i * (D + 2)));
+  for (int i = 0; i < n_live; ++i) mt = fmaxf(mt, mine[(size_t)i * (D + 2)]);
   float lt = 0.f, at = 0.f;
   for (int i = 0; i < n_live; ++i) {
     const float* pi = mine + (size_t)i * (D + 2);
-    const float f = expf(ld_gpu(pi) - mt);
-    lt = fmaf(ld_gpu(pi + 1), f, lt);
-    at = fmaf(ld_gpu(pi + 2 + tid), f, at);
+    const float f = expf(pi[0] - mt);
+    lt = fmaf(pi[1], f, lt);
+    at = fmaf(pi[2 + tid], f, at);
   }
   o[sh * D + tid] = at / fmaxf(lt, 1e-30f);
+}
+
+cudaError_t launch_merge(const float* parts, const int* pos, float* o, int S,
+                         int H, int P, int Ps, int D, int R, int ppr,
+                         cudaStream_t st) {
+  paged_merge_kernel<<<dim3(H, S), NT, 0, st>>>(parts, pos, o, P, Ps, D, R,
+                                                ppr);
+  return cudaGetLastError();
 }
 
 template <typename E, typename SC>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* ks, const void* vs, const int* table,
-                   const int* pos, float* o, unsigned* tickets, float* parts,
-                   int S, int H, int P, int Ps, int D, int R, int ppr,
-                   float scale, cudaStream_t st) {
+                   const int* pos, float* o, float* parts, int S, int H,
+                   int P, int Ps, int D, int R, int ppr, float scale,
+                   cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(E);
   int lpr = 1;
   while (lpr * VEC < D) lpr <<= 1;
   paged_decode_kernel<E, SC><<<dim3(R, H, S), NT, 0, st>>>(
       static_cast<const float*>(q), static_cast<const E*>(kp),
       static_cast<const E*>(vp), static_cast<const SC*>(ks),
-      static_cast<const SC*>(vs), table, pos, o, tickets, parts, H, P, Ps,
-      D, ppr, lpr, scale);
-  return cudaGetLastError();
+      static_cast<const SC*>(vs), table, pos, o, parts, H, P, Ps, D, ppr, lpr,
+      scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || R == 1) return err;
+  return launch_merge(parts, pos, o, S, H, P, Ps, D, R, ppr, st);
 }
 
 }  // namespace
@@ -347,40 +344,51 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 // Page element codes: 0 float32, 1 bfloat16, 2 int8.  Scale codes: 0 none,
 // 1 bfloat16, 2 float32.  The variants built: float32 and bfloat16 pages
 // without scales, int8 pages with either scale type.  The plan: R ranges
-// of ppr table entries (R = ceil(Ps / ppr)).  R > 1 needs the workspace:
-// `tickets`, S * H counters that are zero on entry (and left zero by every
-// launch that completes), and `parts`, S * H * R * (D + 2) floats.
-// Returns the cudaError_t of the launch (0 on success).
+// of ppr table entries (R = ceil(Ps / ppr)).  R > 1 launches the merge
+// after the ranges and needs `parts`, S * H * R * (D + 2) floats of
+// scratch, which both launches use in stream order.  Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int singa_paged_decode(const void* q, const void* k_pages,
                                   const void* v_pages, const void* k_scales,
                                   const void* v_scales, const int* table,
-                                  const int* pos, float* o, unsigned* tickets,
-                                  float* parts, int S, int H, int P, int Ps,
-                                  int D, int R, int ppr, float scale,
-                                  int elem, int scale_kind, void* stream) {
+                                  const int* pos, float* o, float* parts,
+                                  int S, int H, int P, int Ps, int D, int R,
+                                  int ppr, float scale, int elem,
+                                  int scale_kind, void* stream) {
   if (D < 1 || D > MAX_D || P < 1 || P > MAX_P || ppr < 1 ||
-      ppr > MAX_PPR || R != (Ps + ppr - 1) / ppr ||
-      (R > 1 && (tickets == nullptr || parts == nullptr)))
+      ppr > MAX_STAGED_PAGES || R != (Ps + ppr - 1) / ppr ||
+      (R > 1 && parts == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (elem == 0 && scale_kind == 0)
     err = launch<float, NoScale>(q, k_pages, v_pages, k_scales, v_scales,
-                                 table, pos, o, tickets, parts, S, H, P, Ps,
-                                 D, R, ppr, scale, st);
+                                 table, pos, o, parts, S, H, P, Ps, D, R, ppr,
+                                 scale, st);
   else if (elem == 1 && scale_kind == 0)
     err = launch<__nv_bfloat16, NoScale>(q, k_pages, v_pages, k_scales,
-                                         v_scales, table, pos, o, tickets,
-                                         parts, S, H, P, Ps, D, R, ppr, scale,
-                                         st);
+                                         v_scales, table, pos, o, parts, S, H,
+                                         P, Ps, D, R, ppr, scale, st);
   else if (elem == 2 && scale_kind == 1)
     err = launch<int8_t, __nv_bfloat16>(q, k_pages, v_pages, k_scales,
-                                        v_scales, table, pos, o, tickets,
-                                        parts, S, H, P, Ps, D, R, ppr, scale,
-                                        st);
+                                        v_scales, table, pos, o, parts, S, H,
+                                        P, Ps, D, R, ppr, scale, st);
   else if (elem == 2 && scale_kind == 2)
     err = launch<int8_t, float>(q, k_pages, v_pages, k_scales, v_scales,
-                                table, pos, o, tickets, parts, S, H, P, Ps,
-                                D, R, ppr, scale, st);
+                                table, pos, o, parts, S, H, P, Ps, D, R, ppr,
+                                scale, st);
   return (int)err;
+}
+
+// The merge launch alone, on partials a split launch left in `parts`
+// under the same plan (R > 1): for checking and timing it by itself.
+extern "C" int singa_paged_decode_merge(const float* parts, const int* pos,
+                                        float* o, int S, int H, int P,
+                                        int Ps, int D, int R, int ppr,
+                                        void* stream) {
+  if (D < 1 || D > MAX_D || P < 1 || ppr < 1 || R < 2 ||
+      R != (Ps + ppr - 1) / ppr)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_merge(parts, pos, o, S, H, P, Ps, D, R, ppr,
+                           static_cast<cudaStream_t>(stream));
 }

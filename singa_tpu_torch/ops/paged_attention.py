@@ -32,15 +32,13 @@ multiprocessor and at most ``_MAX_PPR`` pages a range: at the serving
 shape (8 slots, 12 heads, 64 pages) 8 ranges of 8 pages, 768 blocks.
 A range wholly past ``pos`` reads nothing.  A slot with one live range
 gets its output from that range's block; otherwise each live range
-leaves its online-softmax state ``(m, l, acc)`` in the workspace and
-takes a ticket from the slot's counter, and the block with the last
-ticket merges the slot's live ranges in range order (deterministic, no
-float atomics; one launch a call).  The workspace is one buffer per
-device and stream (``_workspace``): the counters, zeroed once when it is
-allocated and left zero by every launch that completes, and the
-partials, which each launch writes before it reads them; a launch that
-fails to start drops it.  ``paged_decode_partial_reference`` and
-``paged_decode_merge_reference`` are the plain versions of the two
+leaves its online-softmax state ``(m, l, acc)`` in a partials buffer,
+and a second launch from the same C entry merges each slot's live
+ranges in range order (deterministic, no atomics, one host call).
+Nothing carries from one call to the next: the partials buffer
+(``_parts``, cached per device, stream and size) is scratch that each
+call writes before its merge reads it.  ``paged_decode_partial_reference``
+and ``paged_decode_merge_reference`` are the plain versions of the two
 halves of that decomposition.
 
 Routing: the tensor's device decides.  CPU tensors take the plain
@@ -73,11 +71,11 @@ _SCALE = {torch.bfloat16: 1, torch.float32: 2}
 
 # kernel launches made by paged_decode_attention (plain-version calls
 # and CPU calls do not count): ``launches`` over float32 / bfloat16
-# pages, ``launches_q8`` over int8 pages; ``launches_split`` counts the
-# launches of either on the split route (R > 1)
+# pages, ``launches_q8`` over int8 pages; ``launches_merge`` counts the
+# merge launches of either (the split route, R > 1)
 launches = 0
 launches_q8 = 0
-launches_split = 0
+launches_merge = 0
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, table, pos,
@@ -177,8 +175,8 @@ def paged_decode_partial_reference(q, k_pages, v_pages, table, pos, plan,
 
 def paged_decode_merge_reference(ml, acc, pos, plan, page_tokens,
                                  pages_per_slot):
-    """Plain version of the split route's merge (by each slot's last
-    block): each slot's live ranges (``_live_ranges``) merged,
+    """Plain version of the split route's merge launch: each slot's live
+    ranges (``_live_ranges``) merged,
     ``o = sum_r acc_r e^(m_r - M) / max(sum_r l_r e^(m_r - M), 1e-30)``.
     Returns ``(S, H, d)`` float32."""
     R, ppr = plan
@@ -203,7 +201,7 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.load("paged_decode").singa_paged_decode
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_float] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -216,28 +214,15 @@ def _stream(index):
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-# The split route's workspace, one per (device index, stream handle):
-# ``(buffer, n_tickets, n_parts, tickets address, parts address)``.  The
-# buffer holds ``n_tickets`` int32 counters, zeroed here once and left
-# zero by every launch that completes, then ``n_parts`` float32 partials
-# that each launch writes before it reads them.  It grows (zeroed anew)
-# when a call needs more, and a launch that fails drops it.
-_WORKSPACE = {}
-
-
-def _workspace(index, stream, n_tickets, n_parts):
-    """``(tickets address, parts address)`` of the workspace for ``stream``
-    with room for ``n_tickets`` counters and ``n_parts`` partials."""
-    ws = _WORKSPACE.get((index, stream))
-    if ws is None or ws[1] < n_tickets or ws[2] < n_parts:
-        if ws is not None:
-            n_tickets, n_parts = max(n_tickets, ws[1]), max(n_parts, ws[2])
-        buf = torch.zeros(n_tickets + n_parts, dtype=torch.int32,
-                          device=torch.device("cuda", index))
-        ws = _WORKSPACE[index, stream] = (buf, n_tickets, n_parts,
-                                          buf.data_ptr(),
-                                          buf.data_ptr() + 4 * n_tickets)
-    return ws[3], ws[4]
+@functools.lru_cache(maxsize=8)
+def _parts(index, stream, n):
+    """``(buffer, address)``: ``n`` float32 of scratch for the split
+    route's partials on ``stream``.  Each call writes the partials it
+    merges before the merge reads them, in stream order, so nothing in it
+    carries from one call to the next."""
+    buf = torch.empty(n, dtype=torch.float32,
+                      device=torch.device("cuda", index))
+    return buf, buf.data_ptr()
 
 
 def _check_kernel_operands(q, k_pages, v_pages, table, pos, k_scales,
@@ -332,25 +317,24 @@ def _kernel_call(q, k_pages, v_pages, table, pos, sm_scale, k_scales,
 
 def _launch(q, k_pages, v_pages, table, pos, scale, k_scales, v_scales,
             plan):
-    """One launch of the kernel under ``plan = (R, ppr)``."""
-    global launches, launches_q8, launches_split
+    """The kernel's launches under ``plan = (R, ppr)``: the ranges, and
+    their merge when ``R > 1``."""
+    global launches, launches_q8, launches_merge
     S, H, d = q.shape
     R, ppr = plan
     index = q.device.index
     stream = _stream(index)
-    tickets, parts = _workspace(index, stream, S * H, S * H * R * (d + 2)) \
-        if R > 1 else (None, None)
+    parts = _parts(index, stream, S * H * R * (d + 2))[1] if R > 1 else None
     out = torch.empty_like(q)
     quant = k_scales is not None
     err = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scales.data_ptr() if quant else None,
                 v_scales.data_ptr() if quant else None,
-                table.data_ptr(), pos.data_ptr(), out.data_ptr(), tickets,
-                parts, S, H, k_pages.shape[2], table.shape[1], d, R, ppr,
-                scale, _ELEM[k_pages.dtype],
-                _SCALE[k_scales.dtype] if quant else 0, stream)
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(), parts, S, H,
+                k_pages.shape[2], table.shape[1], d, R, ppr, scale,
+                _ELEM[k_pages.dtype], _SCALE[k_scales.dtype] if quant else 0,
+                stream)
     if err != 0:
-        _WORKSPACE.pop((index, stream), None)
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
                            f"(cudaError {err})")
     if quant:
@@ -358,5 +342,23 @@ def _launch(q, k_pages, v_pages, table, pos, scale, k_scales, v_scales,
     else:
         launches += 1
     if R > 1:
-        launches_split += 1
+        launches_merge += 1
+    return out
+
+
+def _merge_launch(parts, pos, out, page_tokens, pages_per_slot, plan):
+    """The merge launch alone, on the partials ``parts`` (S, H, R, d + 2)
+    float32 that a split launch under ``plan`` left, into ``out`` (S, H,
+    d): for checking and timing it by itself (not counted)."""
+    S, H, R, d2 = parts.shape
+    fn = _build.load("paged_decode").singa_paged_decode_merge
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(parts.data_ptr(), pos.data_ptr(), out.data_ptr(), S, H,
+             page_tokens, pages_per_slot, d2 - 2, R, plan[1],
+             _stream(out.device.index))
+    if err != 0:
+        raise RuntimeError(f"paged_decode merge launch failed (cudaError "
+                           f"{err})")
     return out

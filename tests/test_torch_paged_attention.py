@@ -139,15 +139,16 @@ def _stub_launch_path(monkeypatch, fn):
     monkeypatch.setattr(pa_mod, "_fn", lambda: fn)
     monkeypatch.setattr(pa_mod, "_stream", lambda index: 7)
     monkeypatch.setattr(pa_mod, "_sm_count", lambda index: 132)
+    sizes = []
 
-    def workspace(index, stream, n_tickets, n_parts):
-        pa_mod._WORKSPACE[index, stream] = (n_tickets, n_parts)
-        return 1000, 2000
+    def parts(index, stream, n):
+        sizes.append((index, stream, n))
+        return None, 2000
 
-    monkeypatch.setattr(pa_mod, "_workspace", workspace)
+    monkeypatch.setattr(pa_mod, "_parts", parts)
     S, H, d, P, Ps = 8, 12, 8, 16, 64
     return (torch.zeros(S, H, d), torch.zeros(3, H, P, d),
-            torch.zeros(S, Ps, dtype=torch.int32))
+            torch.zeros(S, Ps, dtype=torch.int32), sizes)
 
 
 def test_launch_path_passes_the_same_plan_for_any_pos(monkeypatch):
@@ -156,30 +157,44 @@ def test_launch_path_passes_the_same_plan_for_any_pos(monkeypatch):
     the same arguments but for the buffers' addresses, and pos only as
     an address (the plan never reads it: no device-to-host sync)."""
     rec = _Recorder()
-    q, kp, table = _stub_launch_path(monkeypatch, rec)
-    before = (pa_mod.launches, pa_mod.launches_split)
+    q, kp, table, sizes = _stub_launch_path(monkeypatch, rec)
+    before = (pa_mod.launches, pa_mod.launches_merge)
     for fill in (-1, 0, 15, 16, 64 * 16 - 1, 10 ** 6):
         pos = torch.full((8,), fill, dtype=torch.int32)
         pa_mod._kernel_call(q, kp, kp, table, pos, None, None, None)
         assert rec.calls[-1][6] == pos.data_ptr()
-    assert (pa_mod.launches, pa_mod.launches_split) == (before[0] + 6,
+    assert (pa_mod.launches, pa_mod.launches_merge) == (before[0] + 6,
                                                         before[1] + 6)
     # every argument but the pos and output addresses, the same
     keep = [i for i in range(len(rec.calls[0])) if i not in (6, 7)]
     assert len({tuple(c[i] for i in keep) for c in rec.calls}) == 1
-    assert rec.calls[0][15:17] == (8, 8)                     # R, ppr
-    assert rec.calls[0][8:10] == (1000, 2000)     # tickets, partials
-    pa_mod._WORKSPACE.pop((None, 7), None)
+    assert rec.calls[0][14:16] == (8, 8)                     # R, ppr
+    assert rec.calls[0][8] == 2000                           # partials
+    # scratch for (m, l, acc) of every (slot, head, range)
+    assert set(sizes) == {(None, 7, 8 * 12 * 8 * (8 + 2))}
 
 
-def test_a_launch_that_fails_raises_and_drops_the_workspace(monkeypatch):
-    q, kp, table = _stub_launch_path(monkeypatch, lambda *args: 700)
-    before = (pa_mod.launches, pa_mod.launches_split)
+def test_the_unsplit_plan_launches_no_merge(monkeypatch):
+    """Under ``R = 1`` the call passes no partials buffer and counts no
+    merge launch."""
+    rec = _Recorder()
+    q, kp, table, sizes = _stub_launch_path(monkeypatch, rec)
+    before = (pa_mod.launches, pa_mod.launches_merge)
+    pa_mod._launch(q, kp, kp, table, torch.zeros(8, dtype=torch.int32),
+                   0.125, None, None, (1, 64))
+    assert rec.calls[0][8] is None and rec.calls[0][14:16] == (1, 64)
+    assert sizes == []
+    assert (pa_mod.launches, pa_mod.launches_merge) == (before[0] + 1,
+                                                        before[1])
+
+
+def test_a_launch_that_fails_raises_and_counts_nothing(monkeypatch):
+    q, kp, table, _ = _stub_launch_path(monkeypatch, lambda *args: 700)
+    before = (pa_mod.launches, pa_mod.launches_merge)
     pos = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="cudaError 700"):
         pa_mod._kernel_call(q, kp, kp, table, pos, None, None, None)
-    assert (None, 7) not in pa_mod._WORKSPACE
-    assert (pa_mod.launches, pa_mod.launches_split) == before
+    assert (pa_mod.launches, pa_mod.launches_merge) == before
 
 
 def _decomposition_case(variant):
@@ -234,11 +249,11 @@ def test_partial_merge_pair_matches_jax_kernel(variant, plan):
     column at -1e9: the uniform mean of v_scale * v over the table row),
     0, a page edge and max_len - 1."""
     args, kw = _torch_case(variant)
-    before = (pa_mod.launches, pa_mod.launches_q8, pa_mod.launches_split)
+    before = (pa_mod.launches, pa_mod.launches_q8, pa_mod.launches_merge)
     ml, acc = paged_decode_partial_reference(*args, plan, **kw)
     got = paged_decode_merge_reference(ml, acc, args[4], plan, 8, 6)
     assert (pa_mod.launches, pa_mod.launches_q8,
-            pa_mod.launches_split) == before
+            pa_mod.launches_merge) == before
     np.testing.assert_allclose(got.numpy(), _jax_decomposition_ref(variant),
                                atol=1e-5, rtol=0)
 
