@@ -19,7 +19,13 @@ Phases (any failure exits non-zero before the result lines print):
    Times at the serving shape for the split route (and its two
    launches), the unsplit route, the plain version and
    ``scaled_dot_product_attention`` pinned to its memory-efficient
-   backend, the one float32 takes (a yardstick the port never calls);
+   backend, the one float32 takes (a yardstick the port never calls).
+   The causal serving shapes on the card's plan (H 12, d 64):
+   ``generate``'s prefill at B 4, T 256 (unsplit) and the monolithic
+   engine's at B 1, T 128 / 256 / 512 (the key split, whose early query
+   tiles have empty ranges; the combine alone there too), each against
+   its plain version, timed beside its bound and the pinned
+   ``scaled_dot_product_attention`` with ``is_causal``;
 4. flash-attention backward: the dq and dk/dv kernels against their
    plain versions at the training shape (B 8, H 12, T = S = 1024, d 64,
    causal) and on ragged cases at d 16/32/64/128 (per-head dense and
@@ -77,6 +83,25 @@ Phases (any failure exits non-zero before the result lines print):
    float params and pages) must hold the reference's committed
    tolerances; two greedy requests are replayed on the CPU; tokens/s,
    TTFT, KV and weight bytes and peak memory print beside phase 6's;
+7a. path ``generate``: ``GPT.generate`` on the card, B 4 of phase 6's
+   prompts cut to 200 tokens, 32 new greedy tokens, monolithic and with
+   ``decode_horizon=8``: exactly 12 flash forward launches a call (one a
+   layer, unsplit), no combine, no other kernel; the routes' tokens
+   identical; each row against the paged engine's tokens for its
+   prompt, and two rows replayed through the port on the CPU, under the
+   margin rule;
+7b. path ``serve_slot``: phase 6's stream through ``ServingEngine(
+   paged=False)``, horizon 8: 8/8 complete; greedy requests equal phase
+   6's tokens under the margin rule; flash forward and its combine
+   launched (the chunks' dense-mask split route), paged decode never;
+   metrics beside phase 6's;
+7c. path ``serve_mono``: the same through the monolithic engine
+   (``chunked=False``): the same checks, the combine showing the causal
+   split route of the B 1 prefills;
+7d. path ``serve_slot_int8``: the stream on the int8 slot layout: no
+   flash and no paged decode launch; a fresh engine replays every
+   request; the cache holds exactly (d_head + 2) / (2 d_head) of a
+   bf16-storage slot cache's bytes;
 8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
    of ``train_one_batch`` with Adam at B 8, T 1024 (loss, step time,
    tokens/s, peak memory; the loss must fall; exactly 12 launches of
@@ -102,24 +127,25 @@ Phases (any failure exits non-zero before the result lines print):
 14. one ``kernels`` JSON line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
-7, 8, 11 and 13) and read just after it; a kernel's ``launches`` is the
-sum over them, ``launches_by_path`` splits it.
+7, 7a-7d, 8, 11 and 13) and read just after it; a kernel's ``launches``
+is the sum over them, ``launches_by_path`` splits it.
 
-    python3 chip_smoke.py --profile [serve|serve_int8|train|rnn_train|
-                                     rnn_train_plain]
+    python3 chip_smoke.py --profile [serve|serve_int8|serve_slot|generate|
+                                     train|rnn_train|rnn_train_plain]
 
-runs phases 1-2 and then the serving stream (float or int8), or two
-training steps (GPT, the fused char-LSTM or the char-LSTM through the
-plain cell) after a warm-up step, once
-under ``torch.profiler`` (CPU and CUDA activity), and prints the
-device's busy and idle share over the run, device time by kernel group
-and the costliest kernels.
+runs phases 1-2 and then the serving stream (float or int8 pages, or
+float slots), one ``GPT.generate`` call of path 7a, or two training
+steps (GPT, the fused char-LSTM or the char-LSTM through the plain cell)
+after a warm-up, once under ``torch.profiler`` (CPU and CUDA activity),
+and prints the device's busy and idle share over the run, device time by
+kernel group and the costliest kernels.
 
-    python3 chip_smoke.py --compare-serve
+    python3 chip_smoke.py --compare-serve [layouts]
 
 runs phases 1-2 and then the float and the int8 serving slices
-alternately, four runs of each on fresh engines, and prints each run's
-tokens/s, TTFT p50, ITL p99 and wall time and their spread.
+alternately, four runs of each on fresh engines (with ``layouts``: the
+paged, slot and monolithic engines, three runs of each), and prints
+each run's tokens/s, TTFT p50, ITL p99 and wall time and their spread.
 
 Kernel times are the median of single launches timed with CUDA events,
 each after a 64 MiB write that evicts the 50 MB L2, so operands come
@@ -184,6 +210,8 @@ DRIFT_T = 256
 
 # serving configuration of phase 5 (GPT-2-small widths, 12 layers)
 N_SLOTS, PAGE, CHUNK, HORIZON, NEW = 8, 16, 64, 8, 32
+# the generate path: rows of phase 6's prompts cut to GEN_T tokens
+GEN_B, GEN_T = 4, 200
 # training configuration (GPT-2-small, fp32, Adam)
 TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 8, 1024, 5, 3e-4
 
@@ -448,7 +476,8 @@ def phase_flash():
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
            "serving_split": {"n_split": plan.n_split, "per": plan.per,
                              "partial_ms": partial_ms,
-                             "unsplit_route_ms": unsplit_ms}}
+                             "unsplit_route_ms": unsplit_ms},
+           "causal_serving": _flash_causal_serving(rnd)}
     combine = {"name": "flash_attention_fwd_combine", "route": "cuda",
                "source": "singa_tpu_torch/ops/csrc/flash_attention_fwd.cu",
                "replaces": "singa_tpu/ops/pallas_kernels.py:254",
@@ -456,6 +485,74 @@ def phase_flash():
                "plain_ms": combine_plain, "bound_ms": c_bound,
                "bound_by": c_by, "library_ms": None}
     return fwd, combine
+
+
+# the causal prefill shapes of the serving paths: GPT.generate at B 4 with
+# a 256-token bucket, and the monolithic engine's per-request prefill at
+# B 1 with its 128/256/512-token buckets
+CAUSAL_SERVING = ((4, 256), (1, 128), (1, 256), (1, 512))
+
+
+def _flash_causal_serving(rnd):
+    """The forward kernel on the card's plan against its plain version at
+    the causal serving shapes (H 12, d 64): the route the plan takes
+    (unsplit at B 4, the key split at B 1, where the early query tiles'
+    later ranges are empty), the split route's combine alone against its
+    plain version, and times beside the bound and the pinned
+    ``scaled_dot_product_attention`` with ``is_causal``."""
+    H, d = 12, 64
+    scale = 1.0 / np.sqrt(d)
+    n_sm = fa._sm_count(0)
+    out = {}
+    for B, T in CAUSAL_SERVING:
+        q, k, v = rnd(B, H, T, d), rnd(B, H, T, d), rnd(B, H, T, d)
+        err, route = _fwd_case(q, k, v, None, True, None)
+        plan = fa._fwd_split_plan(B * H, T, T, True, n_sm)
+        want = "split" if plan.n_split > 1 else "unsplit"
+        name = f"B{B} H{H} T{T} causal"
+        _log(f"flash {name} [{route}, plan {tuple(plan)}, "
+             f"{B * H * -(-T // 64) * plan.n_split} blocks]: max_abs_err "
+             f"{err:.3e} (o and lse, tol {FLASH_TOL:g})")
+        if not err <= FLASH_TOL or route != want:
+            raise AssertionError(f"flash {name}: error {err}, route {route} "
+                                 f"(plan {tuple(plan)})")
+        row = {"route": route, "n_split": plan.n_split, "per": plan.per,
+               "max_abs_err": err}
+        if plan.n_split > 1:
+            q3, k3, v3 = (t.reshape(B * H, T, d) for t in (q, k, v))
+            parts = fa.flash_attention_fwd_partial(q3, k3, v3, None, scale,
+                                                   "none", True, plan)
+            co, clse = fa.flash_attention_fwd_combine(*parts, T, T, True,
+                                                      plan.per)
+            ro, rlse = fa.flash_attention_fwd_combine_reference(
+                *parts, T, T, True, plan.per)
+            torch.cuda.synchronize()
+            row["combine_err"] = max(float((co - ro).abs().max()),
+                                     float((clse - rlse).abs().max()))
+            empty = sum(len(rs) < plan.n_split
+                        for rs in fa._split_ranges(plan, T, T, True))
+            _log(f"flash {name} combine alone: max_abs_err "
+                 f"{row['combine_err']:.3e} ({empty} of {-(-T // 64)} query "
+                 f"tiles with empty ranges)")
+            if not row["combine_err"] <= FLASH_TOL:
+                raise AssertionError(f"flash {name} combine disagrees: "
+                                     f"{row['combine_err']}")
+        row["ms"] = _time_ms(lambda: fa.flash_attention(
+            q, k, v, sm_scale=scale, causal=True))
+        row["plain_ms"] = _time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, sm_scale=scale, causal=True))
+        row["library_ms"] = _time_ms(lambda: _sdpa(q, k, v, is_causal=True,
+                                                   scale=scale))
+        nbytes = 4 * (4 * q.numel() + B * H * T)      # q,k,v in; o,lse out
+        flops = 4 * _needed_pairs(B * H, T, T, True) * d
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops)
+        _log(f"flash {name}: kernel {row['ms']:.4f} ms, plain "
+             f"{row['plain_ms']:.4f} ms, {SDPA_NAME} causal "
+             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+             f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+             f"{flops / 1e9:.3f} GFLOP)")
+        out[f"B{B} T{T}"] = row
+    return out
 
 
 def _needed_pairs(BH, T, S, causal):
@@ -1480,10 +1577,26 @@ def _drive(eng, prompts, cfg, label):
     return rids, res, launches, stats
 
 
+def _margin_check(label, cpu_model, prompt, a, b, weight_dtype=None):
+    """Greedy tokens ``a`` and ``b`` after ``prompt``: identical, or a
+    first difference where the CPU's top-2 logit margin is below
+    ``MARGIN_TOL``."""
+    if np.array_equal(a, b):
+        _log(f"{label}: {len(a)} greedy tokens identical")
+        return
+    j = int(np.flatnonzero(a != b)[0])
+    margin = _cpu_margin(cpu_model, np.concatenate([prompt, a[:j]]),
+                         weight_dtype)
+    _log(f"{label}: first difference at token {j}, CPU top-2 logit margin "
+         f"{margin:.3e}")
+    if margin >= MARGIN_TOL:
+        raise AssertionError(f"{label} differs at token {j} with margin "
+                             f"{margin}")
+
+
 def _cpu_oracle(cpu_model, kw, prompts, res, rids, weight_dtype=None):
     """The prefix-sharing pair of greedy requests through the port on
-    the CPU: identical tokens, or a first difference where the CPU's
-    top-2 logit margin is below ``MARGIN_TOL``."""
+    the CPU, held to :func:`_margin_check`."""
     torch.set_num_threads(os.cpu_count() or 1)
     qkw = {} if weight_dtype is None else dict(kv_dtype="int8",
                                                weight_dtype=weight_dtype)
@@ -1494,22 +1607,16 @@ def _cpu_oracle(cpu_model, kw, prompts, res, rids, weight_dtype=None):
     cres = ceng.run()
     tag = "int8 " if weight_dtype else ""
     for i, cr in zip(pair, crids):
-        a, b = res[rids[i]], cres[cr]
-        if np.array_equal(a, b):
-            _log(f"{tag}oracle request {i}: {NEW} greedy tokens identical "
-                 f"to the CPU run")
-            continue
-        j = int(np.flatnonzero(a != b)[0])
-        margin = _cpu_margin(cpu_model, np.concatenate([prompts[i], a[:j]]),
-                             weight_dtype)
-        _log(f"{tag}oracle request {i}: first difference at token {j}, "
-             f"CPU top-2 logit margin {margin:.3e}")
-        if margin >= MARGIN_TOL:
-            raise AssertionError(f"{tag}request {i} differs from the CPU "
-                                 f"run at token {j} with margin {margin}")
+        _margin_check(f"{tag}oracle request {i} against the CPU run",
+                      cpu_model, prompts[i], res[rids[i]], cres[cr],
+                      weight_dtype)
 
 
 def phase_slice():
+    """Returns ``(launches, stats, setup)``: ``setup`` carries the
+    configuration, the seeded tree, the engine arguments, the prompts,
+    the model on the host and this path's tokens to the later serving
+    phases."""
     cfg, tree, model, kw, prompts = _slice_setup()
     eng = ServingEngine(model, **kw)
     rids, res, launches, stats = _drive(eng, prompts, cfg, "slice")
@@ -1524,7 +1631,9 @@ def phase_slice():
     del eng, model
     cpu_model = tgpt.GPT.from_jax_decode_params(tree, cfg, device="cpu")
     _cpu_oracle(cpu_model, kw, prompts, res, rids)
-    return launches, stats, (cfg, kw, prompts, cpu_model)
+    return launches, stats, {"cfg": cfg, "tree": tree, "kw": kw,
+                             "prompts": prompts, "cpu_model": cpu_model,
+                             "rids": rids, "res": res}
 
 
 def _teacher_forced_drift(cpu_model, qparams, cfg):
@@ -1558,7 +1667,8 @@ def phase_slice_int8(setup, float_stats):
     (2 d_head) of a bf16-storage engine's; the teacher-forced drift is
     within the reference's committed tolerances; the greedy pair agrees
     with the port on the CPU under the top-2 margin rule."""
-    cfg, kw, prompts, cpu_model = setup
+    cfg, kw, prompts, cpu_model = (setup[k] for k in ("cfg", "kw", "prompts",
+                                                       "cpu_model"))
     qkw = dict(kw, kv_dtype="int8", weight_dtype="int8")
     _warm(cpu_model, qkw, prompts, device="cuda")      # quantizes, memoised
     eng = ServingEngine(cpu_model, device="cuda", **qkw)
@@ -1615,6 +1725,171 @@ def phase_slice_int8(setup, float_stats):
     del eng
     _cpu_oracle(cpu_model, kw, prompts, res, rids, weight_dtype="int8")
     return launches, stats | drift
+
+
+def _card_model(setup):
+    """Phase 6's seeded model on the card (built once, kept in
+    ``setup``)."""
+    if "model" not in setup:
+        setup["model"] = tgpt.GPT.from_jax_decode_params(setup["tree"],
+                                                         setup["cfg"])
+    return setup["model"]
+
+
+def _generate_rows(prompts):
+    """The first GEN_B of phase 6's prompts with GEN_T tokens or more,
+    cut to GEN_T."""
+    return [p[:GEN_T] for p in prompts if p.size >= GEN_T][:GEN_B]
+
+
+def phase_generate(setup):
+    """Path ``generate``: ``GPT.generate`` on the card at B 4 (phase 6's
+    prompts cut to 200 tokens, a 256-token bucket), 32 new greedy tokens,
+    on the monolithic route and with ``decode_horizon=8``.  Each call
+    launches the flash forward exactly once a layer, unsplit (no
+    combine), and nothing else of the port's kernels.  Checks: the two
+    routes give identical tokens; each row matches the paged engine's
+    tokens for its prompt, and two rows replayed through the port on the
+    CPU match, under the margin rule."""
+    cfg, cpu_model = setup["cfg"], setup["cpu_model"]
+    model = _card_model(setup)
+    rows = _generate_rows(setup["prompts"])
+    batch = np.stack(rows)
+    gc.collect()
+    torch.cuda.synchronize()
+    _zero_launches()
+    toks, stats = {}, {}
+    for K in (None, HORIZON):
+        before = _read_launches()
+        t0 = time.perf_counter()
+        toks[K] = model.generate(batch, NEW, decode_horizon=K)
+        wall = time.perf_counter() - t0
+        after = _read_launches()
+        call = {k: after[k] - before[k] for k in after}
+        stats[K] = {"wall_s": wall, "tokens_per_s": GEN_B * NEW / wall}
+        _log(f"generate B {GEN_B} T {GEN_T} (bucket "
+             f"{tgpt.bucket_length(GEN_T, cfg.max_len)}), {NEW} new, "
+             f"decode_horizon {K}: {wall:.3f}s, "
+             f"{stats[K]['tokens_per_s']:.1f} tokens/s; launches "
+             + json.dumps({k: v for k, v in call.items() if v}))
+        want = dict.fromkeys(call, 0) | {"flash_attention_fwd": cfg.n_layers}
+        if call != want:
+            raise AssertionError(f"generate (decode_horizon {K}) launched "
+                                 f"{call}, expected {want}")
+        t = toks[K]
+        if t.shape != (GEN_B, NEW) or t.min() < 0 or t.max() >= cfg.vocab_size:
+            raise AssertionError(f"generate: bad tokens {t}")
+    launches = _read_launches()
+    if not np.array_equal(toks[None], toks[HORIZON]):
+        raise AssertionError("generate: the horizon route's tokens differ "
+                             "from the monolithic route's")
+    _log(f"generate: the two routes give identical tokens "
+         f"({GEN_B} x {NEW})")
+    eng = ServingEngine(model, **setup["kw"])
+    rids = [eng.submit(r, NEW) for r in rows]
+    res = eng.run()
+    del eng
+    for i, (r, rid) in enumerate(zip(rows, rids)):
+        _margin_check(f"generate row {i} against the paged engine",
+                      cpu_model, r, toks[None][i], res[rid])
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = cpu_model.generate(batch[:2], NEW)
+    _log(f"generate: 2 rows on the CPU in {time.perf_counter() - t0:.1f}s")
+    for i in range(2):
+        _margin_check(f"generate row {i} against the CPU run", cpu_model,
+                      rows[i], toks[None][i], cpu[i])
+    return launches, stats
+
+
+def _greedy_against_serve(setup, label, rids, res):
+    """Every greedy request of the stream (all but request 3) against
+    phase 6's paged tokens, under the margin rule."""
+    for i, p in enumerate(setup["prompts"]):
+        if i != 3:
+            _margin_check(f"{label} request {i} against serve",
+                          setup["cpu_model"], p, res[rids[i]],
+                          setup["res"][setup["rids"][i]])
+
+
+def _beside(label, stats, float_stats):
+    _log(f"serving, paged vs {label} (this call): tokens/s "
+         f"{float_stats['tokens_per_s']} vs {stats['tokens_per_s']}; TTFT "
+         f"p50 {float_stats['ttft_p50_ms']} vs {stats['ttft_p50_ms']} ms; "
+         f"kv_bytes_committed {float_stats['kv_bytes_committed']} vs "
+         f"{stats['kv_bytes_committed']}; peak memory "
+         f"{float_stats['peak_memory_bytes']} vs "
+         f"{stats['peak_memory_bytes']} bytes")
+
+
+PAGED_COUNTERS = ("paged_decode_attention", "paged_decode_attention_q8",
+                  "paged_decode_merge")
+
+
+def phase_serve_layout(setup, label, kw, float_stats):
+    """Paths ``serve_slot`` (``ServingEngine(paged=False)``, horizon 8:
+    the prefill chunks' flash calls take the dense-mask split route,
+    decode is the slot einsum) and ``serve_mono`` (``chunked=False,
+    paged=False``: one causal flash prefill a request at B 1, 128/256/
+    512-token buckets, the causal split route): phase 6's stream through
+    the card model after a warm-up run; every greedy request against
+    phase 6's tokens; the flash forward and its combine launched, paged
+    decode never; metrics beside phase 6's."""
+    model = _card_model(setup)
+    _warm(model, kw, setup["prompts"])
+    eng = ServingEngine(model, **kw)
+    rids, res, launches, stats = _drive(eng, setup["prompts"], setup["cfg"],
+                                        label)
+    del eng
+    for name in ("flash_attention_fwd", "flash_attention_fwd_combine"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on {label}")
+    for name in PAGED_COUNTERS:
+        if launches[name] != 0:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"on {label}")
+    _greedy_against_serve(setup, label, rids, res)
+    _beside(label, stats, float_stats)
+    return launches, stats
+
+
+def phase_serve_slot_int8(setup):
+    """Path ``serve_slot_int8``: the stream on the int8 slot layout
+    (``kv_dtype="int8", weight_dtype="int8"``, the model on the host and
+    the engine on the card).  Checks: 8/8 complete; no flash and no paged
+    decode launch (the quantized chunk and slot decode are einsums); a
+    fresh engine replays every request; the cache holds exactly (d_head
+    + 2) / (2 d_head) of a bf16-storage slot cache's bytes."""
+    cfg, kw, prompts, cpu_model = (setup[k] for k in ("cfg", "kw", "prompts",
+                                                       "cpu_model"))
+    qkw = dict(kw, paged=False, kv_dtype="int8", weight_dtype="int8")
+    _warm(cpu_model, qkw, prompts, device="cuda")
+    eng = ServingEngine(cpu_model, device="cuda", **qkw)
+    rids, res, launches, stats = _drive(eng, prompts, cfg, "serve_slot_int8")
+    for name, n in launches.items():
+        if n != 0:
+            raise AssertionError(f"{name} launched {n} times on the int8 "
+                                 f"slot path")
+    fresh = ServingEngine(cpu_model, device="cuda", **qkw)
+    frids, fres = _serve(fresh, prompts)
+    del fresh
+    same = [bool(np.array_equal(res[a], fres[b])) for a, b in zip(rids, frids)]
+    _log(f"serve_slot_int8 determinism: a fresh engine replays {sum(same)} "
+         f"of {len(same)} requests identically (request 3 sampled)")
+    if not all(same):
+        raise AssertionError(f"a fresh int8 slot engine gave other tokens: "
+                             f"{same}")
+    dh = cfg.d_model // cfg.n_heads
+    b16 = ServingEngine(cpu_model, device="cuda",
+                        **dict(kw, paged=False, kv_dtype="bfloat16"))
+    ratio = eng.kv.nbytes() / b16.kv.nbytes()
+    del b16, eng
+    _log(f"serve_slot_int8 cache bytes: {stats['kv_bytes_committed']} = "
+         f"{ratio} of the bf16 slot cache (want exactly "
+         f"{(dh + 2) / (2 * dh)})")
+    if ratio != (dh + 2) / (2 * dh):
+        raise AssertionError(f"int8 slot cache byte ratio {ratio}")
+    return launches, stats
 
 
 def synthetic_stream(vocab, n, seed=0):
@@ -2092,56 +2367,86 @@ def _int8_engine_setup(cfg, tree, kw, prompts):
     return cpu_model, qkw
 
 
-def phase_compare_serve(pairs=4):
-    """The float and the int8 serving slices, alternated in one process
-    (float, int8, int8, float, ...: ``pairs`` runs of each), each run on
-    a fresh engine over the staggered stream.  Prints every run's
-    tokens/s, TTFT p50, ITL p99 and wall time, then the smallest, median
-    and largest of each and the ratio of the medians."""
+def _compare_engine(kind, model, cpu_model, kw, qkw):
+    """A fresh engine of ``kind`` and the kernel counter its run must
+    move: ``paged`` the float paged engine, ``int8`` the quantized one,
+    ``slot`` the slot chunked engine, ``mono`` the monolithic one."""
+    if kind == "int8":
+        return (ServingEngine(cpu_model, device="cuda", **qkw),
+                "paged_decode_attention_q8")
+    if kind == "paged":
+        return ServingEngine(model, **kw), "paged_decode_attention"
+    if kind == "slot":
+        return (ServingEngine(model, **dict(kw, paged=False)),
+                "flash_attention_fwd_combine")
+    return (ServingEngine(model, n_slots=N_SLOTS, paged=False, chunked=False),
+            "flash_attention_fwd_combine")
+
+
+def phase_compare_serve(kinds=("paged", "int8"), runs=4):
+    """Serving engines alternated in one process, ``runs`` runs of each
+    on fresh engines over the staggered stream, the order reversed every
+    other round (paged, int8, int8, paged, ...; or paged, slot, mono,
+    mono, slot, paged, ...).  Prints every run's tokens/s, TTFT p50, ITL
+    p99 and wall time, then the smallest, median and largest of each and
+    each kind's medians over the first kind's."""
     cfg, tree, model, kw, prompts = _slice_setup()
-    cpu_model, qkw = _int8_engine_setup(cfg, tree, kw, prompts)
-    runs = {"float": [], "int8": []}
-    order = [("float", "int8")[(i + i // 2) % 2] for i in range(2 * pairs)]
+    cpu_model = qkw = None
+    if "int8" in kinds:
+        cpu_model, qkw = _int8_engine_setup(cfg, tree, kw, prompts)
+    for kind in kinds:                  # one short warm-up run each
+        eng = _compare_engine(kind, model, cpu_model, kw, qkw)[0]
+        eng.submit(prompts[0][:80], 9)
+        eng.run()
+        del eng
+    order = [k for r in range(runs)
+             for k in (kinds if r % 2 == 0 else kinds[::-1])]
+    out = {k: [] for k in kinds}
     for i, kind in enumerate(order):
-        eng = ServingEngine(model, **kw) if kind == "float" else \
-            ServingEngine(cpu_model, device="cuda", **qkw)
+        eng, want = _compare_engine(kind, model, cpu_model, kw, qkw)
         _, _, launches, stats = _drive(eng, prompts, cfg,
                                        f"compare {i} {kind}")
-        want = "paged_decode_attention" + ("_q8" if kind == "int8" else "")
         if launches[want] <= 0:
             raise AssertionError(f"compare {i} {kind}: {want} not launched")
         snap = eng.metrics.snapshot()
-        runs[kind].append({"tokens_per_s": snap["tokens_per_s"],
-                           "ttft_p50_ms": snap["ttft_p50_ms"],
-                           "itl_p99_ms": snap["itl_p99_ms"],
-                           "wall_s": stats["wall_s"]})
+        out[kind].append({"tokens_per_s": snap["tokens_per_s"],
+                          "ttft_p50_ms": snap["ttft_p50_ms"],
+                          "itl_p99_ms": snap["itl_p99_ms"],
+                          "wall_s": stats["wall_s"]})
         del eng
+    keys = ("tokens_per_s", "ttft_p50_ms", "itl_p99_ms", "wall_s")
     med = {}
-    for kind, rs in runs.items():
-        for key in ("tokens_per_s", "ttft_p50_ms", "itl_p99_ms", "wall_s"):
+    for kind, rs in out.items():
+        for key in keys:
             v = sorted(r[key] for r in rs)
             med[kind, key] = float(np.median(v))
             _log(f"compare {kind} {key}: min {v[0]} median "
                  f"{med[kind, key]} max {v[-1]} over {len(v)} runs {v}")
-    _log("compare int8 / float, ratio of medians: " + json.dumps(
-        {key: med["int8", key] / med["float", key]
-         for key in ("tokens_per_s", "ttft_p50_ms", "itl_p99_ms",
-                     "wall_s")}))
+    for kind in kinds[1:]:
+        _log(f"compare {kind} / {kinds[0]}, ratio of medians: " + json.dumps(
+            {key: med[kind, key] / med[kinds[0], key] for key in keys}))
 
 
 def phase_profile(path):
     """One path once more under ``torch.profiler`` (CPU and CUDA
     activity): ``serve``, the slice's stream; ``serve_int8``, the same
-    stream on the quantized engine; ``train``, two training steps after
-    one unprofiled warm-up step; ``rnn_train``, two steps of the fused
-    char-LSTM after one warm-up step; ``rnn_train_plain``, the same
-    through the plain cell.  Prints the device busy and idle share
-    over the window, device time by kernel group and by kernel.  Times
-    under the profiler include its own host overhead."""
+    stream on the quantized engine; ``serve_slot``, the same stream on
+    the slot chunked engine (after a warm-up run); ``generate``, one
+    ``GPT.generate`` call of the generate path after a warm-up call;
+    ``train``, two training steps after one unprofiled warm-up step;
+    ``rnn_train``, two steps of the fused char-LSTM after one warm-up
+    step; ``rnn_train_plain``, the same through the plain cell.  Prints
+    the device busy and idle share over the window, device time by
+    kernel group and by kernel.  Times under the profiler include its
+    own host overhead."""
     from torch.profiler import ProfilerActivity, profile
-    if path in ("serve", "serve_int8"):
+    if path in ("serve", "serve_int8", "serve_slot"):
         cfg, tree, model, kw, prompts = _slice_setup()
         if path == "serve":
+            eng = ServingEngine(model, **kw)
+        elif path == "serve_slot":
+            kw = dict(kw, paged=False)
+            _warm(model, kw, prompts)
             eng = ServingEngine(model, **kw)
         else:
             del model
@@ -2150,6 +2455,13 @@ def phase_profile(path):
 
         def run():
             _serve(eng, prompts)
+    elif path == "generate":
+        cfg, tree, model, kw, prompts = _slice_setup()
+        batch = np.stack(_generate_rows(prompts))
+        model.generate(batch, NEW)
+
+        def run():
+            model.generate(batch, NEW)
     elif path == "train":
         cfg, model, batches = _train_setup()
         model.train_one_batch(*batches[0])[1].item()
@@ -2208,6 +2520,8 @@ def phase_profile(path):
              f"{key[:110]}")
 
 
+PROFILE_PATHS = ("serve", "serve_int8", "serve_slot", "generate", "train",
+                 "rnn_train", "rnn_train_plain")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2217,14 +2531,14 @@ def main(argv):
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     modes = {(): None, ("--profile",): lambda: phase_profile("serve"),
-             ("--compare-serve",): phase_compare_serve}
-    for path in ("serve", "serve_int8", "train", "rnn_train",
-                 "rnn_train_plain"):
+             ("--compare-serve",): phase_compare_serve,
+             ("--compare-serve", "layouts"):
+             lambda: phase_compare_serve(("paged", "slot", "mono"), 3)}
+    for path in PROFILE_PATHS:
         modes["--profile", path] = lambda p=path: phase_profile(p)
     if tuple(argv) not in modes:
-        print("usage: chip_smoke.py [--profile [serve|serve_int8|train|"
-              "rnn_train|rnn_train_plain] | --compare-serve]",
-              file=sys.stderr)
+        print(f"usage: chip_smoke.py [--profile [{'|'.join(PROFILE_PATHS)}]"
+              f" | --compare-serve [layouts]]", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     card = phase_card()
@@ -2245,6 +2559,16 @@ def main(argv):
             paged_q8, paged_merge]
     serve_launches, serve_stats, setup = phase_slice()
     int8_launches, _ = phase_slice_int8(setup, serve_stats)
+    t_s = time.perf_counter()
+    gen_launches, _ = phase_generate(setup)
+    slot_launches, _ = phase_serve_layout(
+        setup, "serve_slot", dict(setup["kw"], paged=False), serve_stats)
+    mono_launches, _ = phase_serve_layout(
+        setup, "serve_mono", dict(n_slots=N_SLOTS, paged=False,
+                                  chunked=False), serve_stats)
+    slot8_launches, _ = phase_serve_slot_int8(setup)
+    _log(f"generate and slot-layout phases (7a-7d): "
+         f"{time.perf_counter() - t_s:.1f}s")
     del setup
     model, train_launches, _ = phase_train()
     phase_card_vs_cpu(model)
@@ -2259,6 +2583,10 @@ def main(argv):
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
                    "serve_int8": int8_launches[row["name"]],
+                   "generate": gen_launches[row["name"]],
+                   "serve_slot": slot_launches[row["name"]],
+                   "serve_mono": mono_launches[row["name"]],
+                   "serve_slot_int8": slot8_launches[row["name"]],
                    "train": train_launches[row["name"]],
                    "rnn_train": rnn_train_launches[row["name"]],
                    "rnn_sample": rnn_sample_launches[row["name"]],
@@ -2268,7 +2596,8 @@ def main(argv):
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
     _log(json.dumps({"kernels": [
         {k: r[k] for k in KEYS + ("launches_by_path",)}
-        | {k: r[k] for k in ("train_shape", "serving_split", "blocks",
+        | {k: r[k] for k in ("train_shape", "serving_split",
+                             "causal_serving", "blocks",
                              "by_op",
                              "low_precision", "flush_floor_ms", "plan",
                              "unsplit_ms", "host_us",

@@ -5,32 +5,42 @@ Ported here: the configuration (``GPTConfig`` with ``use_flash`` and
 ``precision``, ``bucket_length``, the ``NONFINITE_TOKEN`` sentinel);
 ``GPTBlock`` (the pre-LN block with the erf-gelu FFN) and :class:`GPT`,
 the port's :class:`~singa_tpu_torch.model.Model` with ``tok``, ``pos``
-(absent with rope), ``blocks``, ``ln_f`` and ``head``, its ``forward``
-and ``train_one_batch``; ``decode_params()``, the JAX decode pytree
-built from those same parameters (``_build_decode_params``), float or
-with every Linear quantized per output channel, so a model trained in
-the port serves through the engine; the int8 quantization helpers
-(``_quantize_rows``, ``_quantize_channels``); and the functional decode
-pieces the paged serving engine runs — the chunked paged prefill block
-(float pools: attention through the flash-attention kernel with the
-``(C, L)`` dense mask; quantized pools: the reference's einsum with the
-scales folded in) and the paged one-token decode block (attention
-through the paged decode kernel, float or int8).  ``generate`` and the
-slot decode paths belong to later slices.
+(absent with rope), ``blocks``, ``ln_f`` and ``head``, its ``forward``,
+``train_one_batch`` and ``generate``; ``decode_params()``, the JAX
+decode pytree built from those same parameters (``_build_decode_params``),
+float or with every Linear quantized per output channel, so a model
+trained in the port serves through the engine; the int8 quantization
+helpers (``_quantize_rows``, ``_quantize_channels``); and the functional
+decode pieces:
 
-Unlike JAX's functional updates, the page pools (and their scale pools)
-are updated in place: each block writes its K/V rows into the pool
+* ``generate``'s own: the causal prefill block (attention through the
+  flash-attention kernel, ``causal=True``) and the one-token decode
+  block over a ``(B, H, L, dh)`` cache at a shared position;
+* the slot-layout serving engine's: the chunked prefill block over one
+  slot's row (float caches: attention through the flash-attention kernel
+  with the ``(C, L)`` dense mask; quantized caches: the reference's
+  einsum with the scales folded in), the one-token decode block over
+  every slot and its decode iteration (the reference's einsum: no
+  kernel computes slot decode attention on the TPU either);
+* the paged serving engine's: the chunked paged prefill block (flash
+  with the dense mask, or the einsum when quantized) and the paged
+  one-token decode block (the paged decode kernel, float or int8).
+
+Unlike JAX's functional updates, caches and page pools (and their scale
+pools) are updated in place: each block writes its K/V rows into the
 tensors it was handed and returns those same tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import autograd, layer
-from ..device import get_device
+from ..device import get_device, seeded_generator
 from ..layer import apply_rope
 from ..model import Model
 from ..ops.flash_attention import flash_attention
@@ -39,8 +49,9 @@ from ..precision import dtype_name, resolve_dtype
 from ..tensor import Tensor
 
 __all__ = ["GPTConfig", "GPTBlock", "GPT", "bucket_length",
-           "NONFINITE_TOKEN", "MIN_PREFILL_BUCKET", "seeded_decode_params",
-           "decode_slots_iteration_paged"]
+           "ensure_decode_ready", "generated_lengths", "NONFINITE_TOKEN",
+           "MIN_PREFILL_BUCKET", "seeded_decode_params",
+           "decode_slots_iteration", "decode_slots_iteration_paged"]
 
 # Sentinel token emitted when a row's logits go non-finite; -1 is never a
 # real token id, so the ordinary token fetch doubles as the poison probe.
@@ -61,6 +72,28 @@ def bucket_length(n: int, max_len: int,
     while b < n:
         b *= 2
     return min(b, max_len)
+
+
+def ensure_decode_ready(model, weight_dtype=None, scale_dtype=torch.bfloat16):
+    """Materialise the model's lazy params (a placeholder pass on the
+    model's device) and return its decode tree there, float or, with
+    ``weight_dtype``, the memoised quantized one (quantized at the first
+    call, not at an engine's first step).  Shared by :meth:`GPT.generate`
+    and the serving engine.  Nothing moves between devices here: a
+    caller that serves from another device copies the tree itself."""
+    return model.decode_params(weight_dtype, scale_dtype)
+
+
+def generated_lengths(tokens: np.ndarray, stop_tokens) -> np.ndarray:
+    """Per-row generated length under stop-token semantics: the stop
+    token is included in the length (the engine streams it, then
+    evicts).  ``stop_tokens`` empty or None: every row is full length."""
+    B, n = tokens.shape
+    if not stop_tokens:
+        return np.full(B, n, np.int32)
+    hit = np.isin(tokens, np.asarray(sorted(stop_tokens), np.int32))
+    first = np.where(hit.any(axis=1), hit.argmax(axis=1) + 1, n)
+    return first.astype(np.int32)
 
 
 class GPTConfig:
@@ -353,6 +386,80 @@ class GPT(Model):
             out["pos"] = self.pos.W.data.detach()
         return out
 
+    @torch.no_grad()
+    def generate(self, prompt_ids, max_new_tokens: int,
+                 temperature: float = 0.0, top_k: int | None = None,
+                 seed: int = 0, stop_tokens=None,
+                 return_lengths: bool = False,
+                 decode_horizon: int | None = None):
+        """Autoregressive generation on the model's device: the prompt
+        (B, Tp), padded to its power-of-2 bucket, is prefilled through
+        the causal flash-attention kernel into per-layer ``(B, H,
+        max_len, dh)`` caches; the first new token comes from the true
+        last prompt position; then one-token decode steps follow.
+        ``temperature=0`` is greedy; otherwise samples from
+        ``logits/temperature`` (optionally top-k filtered), drawing from
+        one ``torch.Generator`` seeded by ``seed`` for the call.
+
+        ``decode_horizon=None`` runs the ``max_new_tokens - 1`` decode
+        steps; ``decode_horizon=K`` runs them in chunks of K steps and
+        discards the last chunk's overrun.  Both draw from the generator
+        in the same order, so they give the same tokens, greedy or
+        sampled.  The token blocks stay on the device and are fetched
+        once at the end.
+
+        Returns a numpy array (B, max_new_tokens); with ``stop_tokens=``
+        or ``return_lengths=True``, ``(tokens, lengths)`` where
+        ``lengths[b]`` counts tokens up to and including the first stop
+        token.  The reference's jit-program cache (``GEN_CACHE_MAX``,
+        ``TRACE_EVENTS``) has no counterpart: eager PyTorch compiles
+        nothing per bucket or budget."""
+        c = self.config
+        prompt = np.asarray(prompt_ids, np.int32)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        B, Tp = prompt.shape
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, "
+                             f"got {max_new_tokens}")
+        if Tp + max_new_tokens > c.max_len:
+            raise ValueError(f"{Tp}+{max_new_tokens} exceeds max_len "
+                             f"{c.max_len}")
+        params = ensure_decode_ready(self)
+        Tb = bucket_length(Tp, c.max_len)
+        padded = np.zeros((B, Tb), np.int32)
+        padded[:, :Tp] = prompt
+        if decode_horizon is not None and decode_horizon < 1:
+            raise ValueError(f"decode_horizon must be >= 1, "
+                             f"got {decode_horizon}")
+        dev = self.device.torch_device
+        gen = seeded_generator(seed, dev)
+        samp = (float(temperature), int(top_k or 0), gen)
+        n_new = int(max_new_tokens)
+        caches, tok = _make_gen_prefill(c)(
+            params, torch.from_numpy(padded).to(dev), Tp, *samp)
+        if decode_horizon is None:
+            toks = [tok]
+            carry = (caches, Tp, tok) + samp
+            for _ in range(n_new - 1):
+                carry = _gen_decode_step(params, carry, c)
+                toks.append(carry[2])
+            block = torch.stack(toks)                     # (n_new, B)
+        elif n_new == 1:
+            block = tok[None]
+        else:
+            K = int(decode_horizon)
+            hz = _make_gen_horizon(c, K)
+            blocks, pos = [], Tp
+            for _ in range(-(-n_new // K)):
+                pos, tok, blk = hz(params, caches, pos, tok, *samp)
+                blocks.append(blk)
+            block = torch.cat(blocks)[:n_new]             # (n_new, B)
+        toks = np.ascontiguousarray(block.T.cpu().numpy())
+        if stop_tokens is None and not return_lengths:
+            return toks
+        return toks, generated_lengths(toks, stop_tokens)
+
 
 # ---- pure decode math (mirrors the JAX functions one for one) ----------
 
@@ -476,63 +583,269 @@ def _gather_page_scales(scales, page_rows):
     return _gather_pages(scales[..., None], page_rows)[..., 0]
 
 
+def _qkv(bp, h, H):
+    """The block's pre-LN and its q, k, v heads, each (B, H, T, dh)."""
+    x = _ln(h, bp["ln1"])
+    return tuple(_heads(_lin(x, bp[n]), H) for n in ("q", "k", "v"))
+
+
+def _block_out(bp, h, ctx):
+    """The block after attention: ``ctx`` (B, H, T, dh) through the
+    output projection and the residual, then the erf-gelu FFN."""
+    B, H, T, dh = ctx.shape
+    ctx = ctx.permute(0, 2, 1, 3).reshape(B, T, H * dh)
+    h = h + _lin(ctx, bp["o"])
+    f = F.gelu(_lin(_ln(h, bp["ln2"]), bp["f1"]))
+    return h + _lin(f, bp["f2"])
+
+
+def _chunk_attention(q, kr, vr, positions, scale, ksr=None, vsr=None):
+    """A prompt chunk's queries ``q`` (1, H, C, dh) over one slot's whole
+    row ``kr``/``vr`` (1, H, L, dh) under the ``(C, L)`` mask ``col <=
+    position``: columns past the written prefix weigh exactly zero.
+    Float rows go through the flash-attention kernel with that dense
+    mask.  With ``ksr``/``vsr`` (1, H, L), the quantized rows' scales,
+    it is the reference's own route, an einsum with the K scales folded
+    into the scores and the V scales into the softmax weights: no kernel
+    runs there on the TPU either, so flash is not launched."""
+    L = kr.shape[2]
+    cols = torch.arange(L, device=positions.device)
+    mask = torch.where(cols[None] <= positions[:, None], 0.0, -1e9)  # (C, L)
+    if ksr is None:
+        return flash_attention(q.contiguous(), kr, vr, mask[None, None],
+                               sm_scale=scale)
+    s = torch.einsum("bhtd,bhsd->bhts", q, kr) * scale
+    s = s * ksr.to(s.dtype)[:, :, None, :]
+    s = s + mask[None, None].to(s.dtype)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", w * vsr.to(w.dtype)[:, :, None, :],
+                        vr)
+
+
+def _block_prefill(bp, h, H, scale, rope=False, base=10000.0):
+    """Full causal attention over the (bucket-padded) prompt ``h`` (B, T,
+    D): returns ``(h', k, v)`` with k, v (B, H, T, dh) for the cache.
+    With rope, K enters the cache already rotated (decode never rotates
+    cached keys again).  Attention runs through the flash-attention
+    kernel with ``causal=True``; the pad tail's rows are garbage that no
+    real position attends."""
+    q, k, v = _qkv(bp, h, H)
+    if rope:
+        q, k = apply_rope(q, base=base), apply_rope(k, base=base)
+    ctx = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          sm_scale=scale, causal=True)
+    return _block_out(bp, h, ctx), k, v
+
+
+def _block_decode(bp, h, k_cache, v_cache, pos: int, H, scale, rope=False,
+                  base=10000.0):
+    """``generate``'s one-token step for the whole batch at the shared
+    position ``pos`` (a host int): ``h`` (B, 1, D), caches (B, H, L, dh).
+    Writes this token's K/V at ``pos`` first, then attends over the whole
+    row under the mask ``col <= pos``.  Returns ``(h', k_cache,
+    v_cache)``, the caches updated in place."""
+    q, k1, v1 = _qkv(bp, h, H)                              # (B,H,1,dh)
+    if rope:
+        p1 = torch.arange(pos, pos + 1, device=h.device)
+        q = apply_rope(q, positions=p1, base=base)
+        k1 = apply_rope(k1, positions=p1, base=base)
+    k_cache[:, :, pos] = k1[:, :, 0].to(k_cache.dtype)
+    v_cache[:, :, pos] = v1[:, :, 0].to(v_cache.dtype)
+    s = torch.einsum("bhtd,bhsd->bhts", q, k_cache.to(q.dtype)) * scale
+    L = k_cache.shape[2]
+    cols = torch.arange(L, device=h.device)
+    s = s + torch.where(cols <= pos, 0.0, -1e9)[None, None, None]
+    ctx = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, dim=-1),
+                       v_cache.to(q.dtype))                 # (B,H,1,dh)
+    return _block_out(bp, h, ctx), k_cache, v_cache
+
+
+def _gen_decode_step(params, carry, c):
+    """``generate``'s decode body (one token for the whole batch at a
+    shared position), shared by both of its routes.  ``carry`` is
+    ``(caches, pos, tok, temperature, top_k, gen)`` with ``pos`` a host
+    int; returns the next carry.  A step past the cache (the overrun of
+    a horizon's last chunk, whose tokens are discarded) works at
+    position ``max_len - 1``, as JAX's clamped ``dynamic_update_slice``
+    does."""
+    from ..serving.sampling import sample_logits
+
+    caches, pos, tok, temperature, top_k, gen = carry
+    H = c.n_heads
+    scale = 1.0 / math.sqrt(c.d_model // H)
+    p = min(pos, caches[0][0].shape[2] - 1)
+    h = _embed(params, tok[:, None], torch.arange(p, p + 1, device=tok.device),
+               c.use_rope)                                  # (B,1,D)
+    for bp, (kc, vc) in zip(params["blocks"], caches):
+        h = _block_decode(bp, h, kc, vc, p, H, scale, c.use_rope,
+                          c.rope_base)[0]
+    nxt = sample_logits(_logits(params, h)[:, 0], temperature, top_k, gen)
+    return (caches, pos + 1, nxt, temperature, top_k, gen)
+
+
+def _make_gen_prefill(c):
+    """``generate``'s prefill: the bucket-padded prompt (B, Tb) through
+    every block into fresh ``(B, H, max_len, dh)`` caches, and the first
+    new token sampled from the true last prompt position ``tp - 1``.
+    Returns ``run(params, prompt, tp, temperature, top_k, gen) ->
+    (caches, tok)``."""
+    H = c.n_heads
+    dh = c.d_model // H
+    scale = 1.0 / math.sqrt(dh)
+
+    def run(params, prompt, tp, temperature, top_k, gen):
+        from ..serving.sampling import sample_logits
+
+        B, Tb = prompt.shape
+        dev = prompt.device
+        h = _embed(params, prompt, torch.arange(Tb, device=dev), c.use_rope)
+        caches = []
+        for bp in params["blocks"]:
+            h, k, v = _block_prefill(bp, h, H, scale, c.use_rope, c.rope_base)
+            kc = torch.zeros((B, H, c.max_len, dh), dtype=k.dtype, device=dev)
+            vc = torch.zeros_like(kc)
+            kc[:, :, :Tb] = k
+            vc[:, :, :Tb] = v
+            caches.append((kc, vc))
+        tok = sample_logits(_logits(params, h[:, tp - 1:tp])[:, 0],
+                            temperature, top_k, gen)
+        return tuple(caches), tok
+
+    return run
+
+
+def _make_gen_horizon(c, K):
+    """``generate``'s K-step decode chunk: K iterations of
+    :func:`_gen_decode_step`.  Returns ``run(params, caches, pos, tok,
+    temperature, top_k, gen) -> (pos, tok, block)``; ``block`` (K, B)
+    holds the token each step started from, as the reference's scan
+    emits it."""
+    def run(params, caches, pos, tok, temperature, top_k, gen):
+        carry = (caches, pos, tok, temperature, top_k, gen)
+        toks = []
+        for _ in range(K):
+            toks.append(carry[2])
+            carry = _gen_decode_step(params, carry, c)
+        return carry[1], carry[2], torch.stack(toks)
+
+    return run
+
+
+def _block_chunk_prefill(bp, h, k_cache, v_cache, slot: int, off: int,
+                         positions, H, scale, rope=False, base=10000.0,
+                         k_scale=None, v_scale=None):
+    """Chunked-prefill block step of the slot-layout engine: ONE prompt
+    chunk ``h`` (1, C, D) of the admitting slot ``slot`` (a host int),
+    caches (S, H, L, dh), ``positions = off + arange(C)``.  Writes the
+    chunk's K/V at ``[off, off + C)`` of the slot's row first, then the
+    chunk's queries attend over the whole row (:func:`_chunk_attention`:
+    flash with the ``(C, L)`` dense mask).  ``k_scale``/``v_scale`` (S,
+    H, L): the quantized 4-leaf cache; the rows are quantized on write
+    and attention is the reference's einsum with the scales folded in.
+    Returns ``(h, k_cache, v_cache)``, plus the two scale caches when
+    quantized, all updated in place."""
+    q, k, v = _qkv(bp, h, H)
+    if rope:
+        q = apply_rope(q, positions=positions, base=base)
+        k = apply_rope(k, positions=positions, base=base)
+    C = positions.shape[0]
+    ksr = vsr = None
+    if k_scale is not None:
+        k, ks = _quantize_rows(k, k_scale.dtype, k_cache.dtype)  # (1,H,C)
+        v, vs = _quantize_rows(v, v_scale.dtype, v_cache.dtype)
+        k_scale[slot, :, off:off + C] = ks[0]
+        v_scale[slot, :, off:off + C] = vs[0]
+        ksr, vsr = k_scale[slot:slot + 1], v_scale[slot:slot + 1]
+    k_cache[slot, :, off:off + C] = k[0].to(k_cache.dtype)
+    v_cache[slot, :, off:off + C] = v[0].to(v_cache.dtype)
+    kr = k_cache[slot:slot + 1].to(q.dtype)                 # (1,H,L,dh)
+    vr = v_cache[slot:slot + 1].to(q.dtype)
+    ctx = _chunk_attention(q, kr, vr, positions, scale, ksr, vsr)
+    return (_block_out(bp, h, ctx),) + _pack_kv(k_cache, v_cache, k_scale,
+                                                v_scale)
+
+
 def _block_chunk_prefill_paged(bp, h, k_pages, v_pages, page_row,
                                positions, H, scale, rope=False,
                                base=10000.0, k_scale=None, v_scale=None):
     """Chunked-prefill block step over the paged cache: the chunk's K/V
     scatter through the admitting slot's block-table row ``page_row``
     (Ps,), then attention gathers the row back under the ``(C, L)`` mask
-    ``col <= position``.  Chunk positions past the request's pages land
-    in NULL page 0, which no query attends.
-
-    Float pools: attention runs through the flash-attention kernel; the
-    gathered rows are cast to q's dtype first (exact for the bfloat16
-    storage override — what the reference's einsum promotion computes).
-    ``k_scale``/``v_scale`` (N, H, P): the quantized 4-leaf pool.  The
-    rows are quantized on write (:func:`_quantize_rows`) and attention is
-    the reference's own route, an einsum with the K scales folded into
-    the scores and the V scales into the softmax weights: no kernel runs
-    here, on the TPU either, so the flash kernel is not launched on the
-    quantized path.  Returns ``(h, k_pages, v_pages)``, plus the two
-    scale pools when quantized."""
-    x = _ln(h, bp["ln1"])
-    q, k, v = (_heads(_lin(x, bp[n]), H) for n in ("q", "k", "v"))
+    ``col <= position`` (:func:`_chunk_attention`).  Chunk positions
+    past the request's pages land in NULL page 0, which no query
+    attends.  The gathered rows are cast to q's dtype first (exact for
+    the bfloat16 storage override — what the reference's einsum
+    promotion computes).  ``k_scale``/``v_scale`` (N, H, P): the
+    quantized 4-leaf pool, quantized on write.  Returns ``(h, k_pages,
+    v_pages)``, plus the two scale pools when quantized."""
+    q, k, v = _qkv(bp, h, H)
     if rope:
         q = apply_rope(q, positions=positions, base=base)
         k = apply_rope(k, positions=positions, base=base)
     P = k_pages.shape[2]
     phys = page_row.long()[positions // P]                   # (C,)
     offs = positions % P
+    ksr = vsr = None
     if k_scale is not None:
         k, ks = _quantize_rows(k, k_scale.dtype, k_pages.dtype)  # (1,H,C)
         v, vs = _quantize_rows(v, v_scale.dtype, v_pages.dtype)
         k_scale[phys, :, offs] = ks[0].transpose(0, 1)
         v_scale[phys, :, offs] = vs[0].transpose(0, 1)
+        ksr = _gather_page_scales(k_scale, page_row)[None]   # (1,H,L)
+        vsr = _gather_page_scales(v_scale, page_row)[None]
     k_pages[phys, :, offs] = k[0].permute(1, 0, 2).to(k_pages.dtype)
     v_pages[phys, :, offs] = v[0].permute(1, 0, 2).to(v_pages.dtype)
     kr = _gather_pages(k_pages, page_row)[None].to(q.dtype)  # (1,H,L,dh)
     vr = _gather_pages(v_pages, page_row)[None].to(q.dtype)
-    L = kr.shape[2]
-    cols = torch.arange(L, device=positions.device)
-    mask = torch.where(cols[None] <= positions[:, None], 0.0, -1e9)  # (C, L)
+    ctx = _chunk_attention(q, kr, vr, positions, scale, ksr, vsr)
+    return (_block_out(bp, h, ctx),) + _pack_kv(k_pages, v_pages, k_scale,
+                                                v_scale)
+
+
+def _decode_qkv(bp, h, H, dpos, rope, base):
+    """A one-token step's q (S, H, 1, dh) and this token's K/V rows (S, H,
+    dh), rotated at each slot's own position with rope."""
+    q, k1, v1 = _qkv(bp, h, H)
+    if rope:
+        q = _rope_rows(q, dpos, base)
+        k1 = _rope_rows(k1, dpos, base)
+    return q, k1[:, :, 0], v1[:, :, 0]
+
+
+def _block_decode_slots(bp, h, k_cache, v_cache, pos, H, scale, rope=False,
+                        base=10000.0, k_scale=None, v_scale=None):
+    """One-token step over the slot batch with per-slot positions: ``h``
+    (S, 1, D), caches (S, H, L, dh), ``pos`` (S,).  Row for row the math
+    of :func:`_block_decode`: each slot writes its K/V at its ``pos``
+    first, then attends over its whole row under ``col <= pos``, the
+    reference's einsum.  ``k_scale``/``v_scale`` (S, H, L): the quantized
+    4-leaf cache; rows are quantized on write and the scales fold into
+    the scores and the softmax weights.  Returns ``(h, k_cache,
+    v_cache)``, plus the two scale caches when quantized, all updated in
+    place."""
+    q, k1, v1 = _decode_qkv(bp, h, H, pos, rope, base)
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    cols = pos.long()
     if k_scale is not None:
-        ksr = _gather_page_scales(k_scale, page_row)[None]   # (1,H,L)
-        vsr = _gather_page_scales(v_scale, page_row)[None]
-        s = torch.einsum("bhtd,bhsd->bhts", q, kr) * scale
-        s = s * ksr.to(s.dtype)[:, :, None, :]
-        s = s + mask[None, None].to(s.dtype)
-        w = torch.softmax(s, dim=-1)
-        ctx = torch.einsum("bhts,bhsd->bhtd",
-                           w * vsr.to(w.dtype)[:, :, None, :], vr)
-    else:
-        ctx = flash_attention(q.contiguous(), kr, vr, mask[None, None],
-                              sm_scale=scale)
-    B, _, C, dh = ctx.shape
-    ctx = ctx.permute(0, 2, 1, 3).reshape(B, C, H * dh)
-    h = h + _lin(ctx, bp["o"])
-    f = F.gelu(_lin(_ln(h, bp["ln2"]), bp["f1"]))
-    h = h + _lin(f, bp["f2"])
-    return (h,) + _pack_kv(k_pages, v_pages, k_scale, v_scale)
+        k1, k1s = _quantize_rows(k1, k_scale.dtype, k_cache.dtype)  # (S,H)
+        v1, v1s = _quantize_rows(v1, v_scale.dtype, v_cache.dtype)
+        k_scale[rows, :, cols] = k1s
+        v_scale[rows, :, cols] = v1s
+    k_cache[rows, :, cols] = k1.to(k_cache.dtype)
+    v_cache[rows, :, cols] = v1.to(v_cache.dtype)
+    s = torch.einsum("bhtd,bhsd->bhts", q,
+                     k_cache.to(q.dtype)) * scale           # (S,H,1,L)
+    if k_scale is not None:
+        s = s * k_scale.to(s.dtype)[:, :, None, :]
+    L = k_cache.shape[2]
+    mask = torch.where(torch.arange(L, device=pos.device)[None]
+                       <= pos[:, None], 0.0, -1e9)          # (S, L)
+    w = torch.softmax(s + mask[:, None, None], dim=-1)
+    if k_scale is not None:
+        w = w * v_scale.to(w.dtype)[:, :, None, :]
+    ctx = torch.einsum("bhts,bhsd->bhtd", w, v_cache.to(w.dtype))
+    return (_block_out(bp, h, ctx),) + _pack_kv(k_cache, v_cache, k_scale,
+                                                v_scale)
 
 
 def _block_decode_slots_paged(bp, h, k_pages, v_pages, table, dpos, active,
@@ -546,14 +859,7 @@ def _block_decode_slots_paged(bp, h, k_pages, v_pages, table, dpos, active,
     the quantized 4-leaf pool — the rows are quantized on write and the
     kernel's int8 variant folds the scales in.  Returns ``(h, k_pages,
     v_pages)``, plus the two scale pools when quantized."""
-    x = _ln(h, bp["ln1"])                                   # (S, 1, D)
-    q = _heads(_lin(x, bp["q"]), H)                         # (S,H,1,dh)
-    k1h = _heads(_lin(x, bp["k"]), H)
-    if rope:
-        q = _rope_rows(q, dpos, base)
-        k1h = _rope_rows(k1h, dpos, base)
-    k1 = k1h[:, :, 0]                                       # (S,H,dh)
-    v1 = _heads(_lin(x, bp["v"]), H)[:, :, 0]
+    q, k1, v1 = _decode_qkv(bp, h, H, dpos, rope, base)
     P = k_pages.shape[2]
     S = dpos.shape[0]
     rows = torch.arange(S, device=dpos.device)
@@ -569,32 +875,19 @@ def _block_decode_slots_paged(bp, h, k_pages, v_pages, table, dpos, active,
     ctx = paged_decode_attention(q[:, :, 0].contiguous(), k_pages, v_pages,
                                  table, dpos, sm_scale=scale,
                                  k_scales=k_scale, v_scales=v_scale)
-    ctx = ctx.reshape(S, 1, -1)                             # (S,1,H*dh)
-    h = h + _lin(ctx, bp["o"])
-    f = F.gelu(_lin(_ln(h, bp["ln2"]), bp["f1"]))
-    h = h + _lin(f, bp["f2"])
-    return (h,) + _pack_kv(k_pages, v_pages, k_scale, v_scale)
+    return (_block_out(bp, h, ctx[:, :, None]),) + _pack_kv(
+        k_pages, v_pages, k_scale, v_scale)
 
 
-def decode_slots_iteration_paged(params, pages, table, tok, pos, active,
-                                 temps, top_ks, gens, limits, stops, *, H,
-                                 scale, rope=False, base=10000.0, max_len):
-    """One decode iteration over every slot: embed, the paged decode
-    blocks, logits, sampling, and the on-device finish predicate (stop
-    token, token budget, non-finite logits).  ``gens`` is a per-slot
-    list of ``torch.Generator`` (None for greedy slots) or None; it
-    takes the place of the JAX per-slot keys.  ``pages`` holds one
-    2-leaf ``(k, v)`` or quantized 4-leaf ``(k, v, k_scale, v_scale)``
-    tuple per layer.  Returns ``(pages, nxt, new_pos, new_active)``."""
+def _finish_iteration(params, h, tok, pos, active, temps, top_ks, gens,
+                      limits, stops):
+    """The tail every slot decode iteration shares: logits, sampling and
+    the on-device finish predicate (stop token, token budget, non-finite
+    logits, whose rows emit ``NONFINITE_TOKEN``).  An inactive slot
+    freezes its token and position.  Returns ``(nxt, new_pos,
+    new_active)``."""
     from ..serving.sampling import sample_logits_per_row
 
-    dpos = torch.where(active, pos, max_len - 1)
-    h = _embed(params, tok[:, None], dpos[:, None], rope)
-    for bp, layer_kv in zip(params["blocks"], pages):
-        kp, vp, ksp, vsp = _layer_kv(layer_kv)
-        h = _block_decode_slots_paged(bp, h, kp, vp, table, dpos, active, H,
-                                      scale, rope, base, k_scale=ksp,
-                                      v_scale=vsp)[0]
     logits = _logits(params, h)[:, 0]                   # (S, V)
     ok = torch.isfinite(logits).all(dim=-1)             # poison probe
     samp = sample_logits_per_row(logits, temps, top_ks, gens)
@@ -602,5 +895,45 @@ def decode_slots_iteration_paged(params, pages, table, tok, pos, active,
     nxt = torch.where(active, samp, tok)
     new_pos = torch.where(active, pos + 1, pos)
     stop_hit = (nxt[:, None] == stops).any(dim=-1)
-    new_active = active & ok & ~stop_hit & (new_pos < limits)
-    return pages, nxt, new_pos, new_active
+    return nxt, new_pos, active & ok & ~stop_hit & (new_pos < limits)
+
+
+def decode_slots_iteration(params, caches, tok, pos, active, temps, top_ks,
+                           gens, limits, stops, *, H, scale, rope=False,
+                           base=10000.0):
+    """One decode iteration over every slot of the slot-layout cache:
+    embed, the slot decode blocks, then :func:`_finish_iteration`.  An
+    inactive slot parks its write at ``L - 1`` of its own row, so a
+    mid-horizon stop never touches committed K/V.  ``gens`` is a per-slot
+    list of ``torch.Generator`` (None for greedy slots) or None, in
+    place of the JAX per-slot keys.  ``caches`` holds one 2-leaf ``(k,
+    v)`` or quantized 4-leaf tuple per layer.  Returns ``(caches, nxt,
+    new_pos, new_active)``."""
+    L = caches[0][0].shape[2]
+    dpos = torch.where(active, pos, L - 1)
+    h = _embed(params, tok[:, None], dpos[:, None], rope)
+    for bp, layer_kv in zip(params["blocks"], caches):
+        kc, vc, ksc, vsc = _layer_kv(layer_kv)
+        h = _block_decode_slots(bp, h, kc, vc, dpos, H, scale, rope, base,
+                                k_scale=ksc, v_scale=vsc)[0]
+    return (caches,) + _finish_iteration(params, h, tok, pos, active, temps,
+                                         top_ks, gens, limits, stops)
+
+
+def decode_slots_iteration_paged(params, pages, table, tok, pos, active,
+                                 temps, top_ks, gens, limits, stops, *, H,
+                                 scale, rope=False, base=10000.0, max_len):
+    """One decode iteration over every slot of the paged cache: embed, the
+    paged decode blocks, then :func:`_finish_iteration`.  ``gens`` as in
+    :func:`decode_slots_iteration`; ``pages`` holds one 2-leaf ``(k, v)``
+    or quantized 4-leaf ``(k, v, k_scale, v_scale)`` tuple per layer.
+    Returns ``(pages, nxt, new_pos, new_active)``."""
+    dpos = torch.where(active, pos, max_len - 1)
+    h = _embed(params, tok[:, None], dpos[:, None], rope)
+    for bp, layer_kv in zip(params["blocks"], pages):
+        kp, vp, ksp, vsp = _layer_kv(layer_kv)
+        h = _block_decode_slots_paged(bp, h, kp, vp, table, dpos, active, H,
+                                      scale, rope, base, k_scale=ksp,
+                                      v_scale=vsp)[0]
+    return (pages,) + _finish_iteration(params, h, tok, pos, active, temps,
+                                        top_ks, gens, limits, stops)

@@ -1,16 +1,17 @@
-"""Serving of the port (counterpart: ``singa_tpu/serving``): the chunked,
-paged continuous-batching engine with its KV cache, sampling and
-metrics."""
+"""Serving of the port (counterpart: ``singa_tpu/serving``): the
+continuous-batching engine (chunked over slots or pages, or monolithic
+over slots) with its KV caches, sampling and metrics."""
 
 from .engine import (DEFAULT_CHUNK_TOKENS, DEFAULT_DECODE_HORIZON,
                      MAX_STOP_TOKENS, EngineStalledError, Request,
                      RequestStatus, ServingEngine)
-from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache
+from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache, SlotKVCache
 from .metrics import ServingMetrics
 from .sampling import SamplingParams, sample_logits, sample_logits_per_row
 
 __all__ = ["ServingEngine", "Request", "RequestStatus",
-           "EngineStalledError", "PagedKVCache", "ServingMetrics",
+           "EngineStalledError", "SlotKVCache", "PagedKVCache",
+           "ServingMetrics",
            "SamplingParams", "sample_logits", "sample_logits_per_row",
            "DEFAULT_CHUNK_TOKENS", "DEFAULT_DECODE_HORIZON",
            "DEFAULT_PAGE_TOKENS", "MAX_STOP_TOKENS"]

@@ -1,18 +1,20 @@
 """Continuous-batching serving engine: chunked prefill fused into the
-decode step, a paged KV cache with prefix sharing, and device-resident
-scheduler state.
-Counterpart: ``singa_tpu/serving/engine.py`` — the ``paged=True,
-chunked=True`` engine with one admission lane.
+decode step over a slot or a paged KV cache (with prefix sharing), and
+device-resident scheduler state; or the monolithic baseline.
+Counterpart: ``singa_tpu/serving/engine.py`` — the chunked engine with
+one admission lane on either layout (``paged=True`` or ``False``) and
+the monolithic engine (``chunked=False``, slots).
 
-Per ``step()``:
+Chunked engine, per ``step()``:
 
 * while an admission is in flight (or could start), one UNIFIED step:
   (a) one ``chunk_tokens`` prompt chunk for the admitting slot, its
-  attention through the flash-attention kernel; (b) one decode token
-  for every active slot, attention through the paged decode kernel;
-  (c) the admission commit, a masked write of the admitted slot's
-  token/pos/active/sampling/limit/stops/table row into the device
-  state;
+  attention through the flash-attention kernel over the slot's whole
+  row; (b) one decode token for every active slot, attention through
+  the paged decode kernel (paged) or the reference's einsum over each
+  slot's row (slots); (c) the admission commit, a masked write of the
+  admitted slot's token/pos/active/sampling/limit/stops (and table row)
+  into the device state;
 * otherwise (steady-state decode), one HORIZON: ``decode_horizon``
   decode iterations back to back, emitting one ``(K, n_slots)`` int32
   token block.  The block is copied to pinned host memory behind the
@@ -20,13 +22,21 @@ Per ``step()``:
   emission overlaps the next horizon's device work.
 
 The per-slot scheduler state (token, position, active mask,
-temperature, top-k, token budget, stop row, block table) lives in
-device tensors updated in place; finish detection (stop token, budget,
-non-finite logits) happens on the device and the host replays the same
-predicate from the fetched tokens.  Steady-state decode uploads nothing
-and fetches one block per horizon; an admission step uploads one
-packed int32 array (chunk tokens, table row, stop row).  Both counts
-land in :class:`ServingMetrics` (``host_uploads`` / ``host_syncs``).
+temperature, top-k, token budget, stop row, and the block table when
+paged) lives in device tensors updated in place; finish detection (stop
+token, budget, non-finite logits) happens on the device and the host
+replays the same predicate from the fetched tokens.  Steady-state decode
+uploads nothing and fetches one block per horizon; an admission step
+uploads one packed int32 array (chunk tokens, table row, stop row).
+Both counts land in :class:`ServingMetrics` (``host_uploads`` /
+``host_syncs``).
+
+Monolithic engine (``chunked=False``, the reference's baseline): each
+admission prefills the whole bucket-padded prompt into its slot in one
+call (causal flash attention at B 1) and fetches the first token; each
+step uploads the host-resident scheduler state, advances every slot one
+token and fetches the tokens.  One sync an admission and one a step;
+``decode_horizon`` is 1.
 
 Where the JAX package compiles each step once and branches under
 ``lax.cond``, PyTorch runs eagerly: the chunk half runs only when an
@@ -35,18 +45,23 @@ both decided from host state that is exact at that point (no device
 sync).  Sampling draws from per-slot ``torch.Generator`` objects in
 place of JAX keys.
 
-Quantized serving (``kv_dtype="int8"``, ``weight_dtype="int8"``) stores
-K/V as int8 rows with one scale per (page, head, offset) and every
-decode Linear as int8 with one scale per output channel; the dequant
-folds into the attention (the paged decode kernel's int8 variant; the
-reference's einsum for the prefill chunk) and into each matmul's
-output.  ``kv_dtype="bfloat16"``/``"float32"`` is a plain storage
-override.  The quality contract is the reference's: drift under its
-committed tolerances against the float engine, and same-seed
-determinism — not a bit-match.
+Quantized serving (``kv_dtype="int8"``, ``weight_dtype="int8"``, the
+chunked engine on either layout) stores K/V as int8 rows with one scale
+per (slot or page, head, position) and every decode Linear as int8 with
+one scale per output channel; the dequant folds into the attention (the
+paged decode kernel's int8 variant; the reference's einsum for the
+prefill chunk and for slot decode) and into each matmul's output.
+``kv_dtype="bfloat16"``/``"float32"`` is a plain storage override.  The
+quality contract is the reference's: drift under its committed
+tolerances against the float engine, and same-seed determinism — not a
+bit-match.
 
 Constructor arguments that select other engines or features raise
 ``NotImplementedError`` naming the ROADMAP.md slice that will port them.
+The defaults differ from the reference's (``paged=False,
+admit_lanes=2, preemption=True`` there): the port's are ``paged=True,
+admit_lanes=1, preemption=False`` until multi-lane admission and
+preemption are ported.
 """
 
 from __future__ import annotations
@@ -63,9 +78,9 @@ import torch
 from .. import precision as _precision
 from ..device import resolve_device, seeded_generator
 from ..models import gpt as _gpt
-from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache
+from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache, SlotKVCache
 from .metrics import ServingMetrics
-from .sampling import SamplingParams, sample_logits
+from .sampling import SamplingParams, sample_logits, sample_logits_per_row
 
 __all__ = ["Request", "RequestStatus", "ServingEngine",
            "EngineStalledError", "DEFAULT_CHUNK_TOKENS",
@@ -154,32 +169,59 @@ class _Admission:
     commit: bool
     gen: object
     toks: torch.Tensor          # (C,) int32, device
-    pages: torch.Tensor         # (Ps,) int32, device
+    pages: torch.Tensor | None  # (Ps,) int32, device; None for slots
     stops: torch.Tensor         # (M,) int32, device
 
 
-def _make_unified_step_paged(cfg, C, max_len):
-    """The unified step (port of the JAX ``_make_unified_step_paged``
-    with one lane): (a) one prompt chunk when ``adm`` is given, (b) one
-    decode iteration for every slot when ``decode``, (c) the masked
-    admission commit when ``adm.commit``.  ``st`` is the engine's
-    device state, updated in place."""
+def _decode_iteration(params, caches, st, gens, H, scale, rope, base,
+                      max_len):
+    """One decode iteration of every slot on the engine's layout (paged
+    when the state carries a block table), the state updated in place;
+    returns the iteration's tokens ``(S,)``."""
+    if "table" in st:
+        _, nxt, new_pos, new_active = _gpt.decode_slots_iteration_paged(
+            params, caches, st["table"], st["tok"], st["pos"], st["active"],
+            st["temp"], st["topk"], gens, st["limit"], st["stops"], H=H,
+            scale=scale, rope=rope, base=base, max_len=max_len)
+    else:
+        _, nxt, new_pos, new_active = _gpt.decode_slots_iteration(
+            params, caches, st["tok"], st["pos"], st["active"], st["temp"],
+            st["topk"], gens, st["limit"], st["stops"], H=H, scale=scale,
+            rope=rope, base=base)
+    st["tok"].copy_(nxt)
+    st["pos"].copy_(new_pos)
+    st["active"].copy_(new_active)
+    return nxt
+
+
+def _make_unified_step(cfg, C, max_len):
+    """The unified step (port of the JAX ``_make_unified_step`` and
+    ``_make_unified_step_paged`` with one lane): (a) one prompt chunk
+    when ``adm`` is given, (b) one decode iteration for every slot when
+    ``decode``, (c) the masked admission commit when ``adm.commit``.
+    ``st`` is the engine's device state, updated in place; the layout
+    is paged when ``adm.pages`` (and ``st["table"]``) is given."""
     rope, base = cfg.use_rope, cfg.rope_base
     H = cfg.n_heads
     scale = 1.0 / math.sqrt(cfg.d_model // H)
 
-    def step(params, pages, st, gens, adm, decode):
+    def step(params, caches, st, gens, adm, decode):
         tok1 = None
         # ---- (a) one prompt chunk for the admitting slot --------------
         if adm is not None:
             dev = adm.toks.device
             positions = adm.woff + torch.arange(C, device=dev)
             h = _gpt._embed(params, adm.toks[None], positions, rope)
-            for bp, layer_kv in zip(params["blocks"], pages):
-                kp, vp, ksp, vsp = _gpt._layer_kv(layer_kv)
-                h = _gpt._block_chunk_prefill_paged(
-                    bp, h, kp, vp, adm.pages, positions, H, scale, rope,
-                    base, k_scale=ksp, v_scale=vsp)[0]
+            for bp, layer_kv in zip(params["blocks"], caches):
+                kc, vc, ksc, vsc = _gpt._layer_kv(layer_kv)
+                if adm.pages is not None:
+                    h = _gpt._block_chunk_prefill_paged(
+                        bp, h, kc, vc, adm.pages, positions, H, scale, rope,
+                        base, k_scale=ksc, v_scale=vsc)[0]
+                else:
+                    h = _gpt._block_chunk_prefill(
+                        bp, h, kc, vc, adm.slot, adm.woff, positions, H,
+                        scale, rope, base, k_scale=ksc, v_scale=vsc)[0]
             # the final chunk samples the first new token from the TRUE
             # last prompt position
             if adm.commit:
@@ -192,14 +234,8 @@ def _make_unified_step_paged(cfg, C, max_len):
         # ---- (b) advance every active decode slot one token -----------
         # on the PRE-commit mask: the admitted slot goes live next step
         if decode:
-            _, nxt, new_pos, new_active = _gpt.decode_slots_iteration_paged(
-                params, pages, st["table"], st["tok"], st["pos"],
-                st["active"], st["temp"], st["topk"], gens, st["limit"],
-                st["stops"], H=H, scale=scale, rope=rope, base=base,
-                max_len=max_len)
-            st["tok"].copy_(nxt)
-            st["pos"].copy_(new_pos)
-            st["active"].copy_(new_active)
+            _decode_iteration(params, caches, st, gens, H, scale, rope,
+                              base, max_len)
 
         # ---- (c) commit the finished admission into slot state --------
         if adm is not None and adm.commit:
@@ -215,35 +251,77 @@ def _make_unified_step_paged(cfg, C, max_len):
             st["limit"].copy_(torch.where(oh, adm.limit, st["limit"]))
             st["stops"].copy_(torch.where(oh[:, None], adm.stops[None],
                                           st["stops"]))
-            st["table"].copy_(torch.where(oh[:, None], adm.pages[None],
-                                          st["table"]))
+            if adm.pages is not None:
+                st["table"].copy_(torch.where(oh[:, None], adm.pages[None],
+                                              st["table"]))
 
     return step
 
 
-def _make_horizon_step_paged(cfg, K, max_len):
-    """The decode horizon (port of ``_make_horizon_step_paged``): K
-    iterations of the same decode body, the block table a loop
-    invariant; returns the ``(K, S)`` int32 token block."""
+def _make_horizon_step(cfg, K, max_len):
+    """The decode horizon (port of ``_make_horizon_step`` and
+    ``_make_horizon_step_paged``): K iterations of the unified step's
+    decode body, the block table (when paged) a loop invariant; returns
+    the ``(K, S)`` int32 token block."""
     rope, base = cfg.use_rope, cfg.rope_base
     H = cfg.n_heads
     scale = 1.0 / math.sqrt(cfg.d_model // H)
 
-    def horizon(params, pages, st, gens):
-        toks = []
-        for _ in range(K):
-            _, nxt, new_pos, new_active = _gpt.decode_slots_iteration_paged(
-                params, pages, st["table"], st["tok"], st["pos"],
-                st["active"], st["temp"], st["topk"], gens, st["limit"],
-                st["stops"], H=H, scale=scale, rope=rope, base=base,
-                max_len=max_len)
-            st["tok"].copy_(nxt)
-            st["pos"].copy_(new_pos)
-            st["active"].copy_(new_active)
-            toks.append(nxt)
-        return torch.stack(toks)                         # (K, S)
+    def horizon(params, caches, st, gens):
+        return torch.stack([
+            _decode_iteration(params, caches, st, gens, H, scale, rope,
+                              base, max_len)
+            for _ in range(K)])                          # (K, S)
 
     return horizon
+
+
+def _make_decode_step(cfg):
+    """The monolithic engine's decode step (port of
+    ``_make_decode_step``): every slot advances one token at its own
+    position, the slot decode blocks writing each slot's K/V at its
+    ``pos`` (a free slot writes into its own row, which its next
+    occupant's prefill overwrites).  Returns ``(nxt, new_pos)``; no
+    finish predicate on the device (the host decides)."""
+    rope, base = cfg.use_rope, cfg.rope_base
+    H = cfg.n_heads
+    scale = 1.0 / math.sqrt(cfg.d_model // H)
+
+    def step(params, caches, toks, pos, active, temps, top_ks, gens):
+        h = _gpt._embed(params, toks[:, None], pos[:, None], rope)
+        for bp, (kc, vc) in zip(params["blocks"], caches):
+            h = _gpt._block_decode_slots(bp, h, kc, vc, pos, H, scale, rope,
+                                         base)[0]
+        logits = _gpt._logits(params, h)[:, 0]             # (S, V)
+        samp = sample_logits_per_row(logits, temps, top_ks, gens)
+        return (torch.where(active, samp, toks),
+                torch.where(active, pos + 1, pos))
+
+    return step
+
+
+def _make_prefill(cfg):
+    """The monolithic engine's prefill (port of ``_make_prefill``): the
+    bucket-padded prompt (1, Tb) through every block (causal flash
+    attention), its K/V written into row ``[0, Tb)`` of the request's
+    slot, and the first new token sampled from the true last prompt
+    position ``tp - 1``.  Returns the token, on the device."""
+    rope, base = cfg.use_rope, cfg.rope_base
+    H = cfg.n_heads
+    scale = 1.0 / math.sqrt(cfg.d_model // H)
+
+    def prefill(params, caches, prompt, tp, slot, temp, top_k, gen):
+        Tb = prompt.shape[1]
+        positions = torch.arange(Tb, device=prompt.device)
+        h = _gpt._embed(params, prompt, positions, rope)     # (1,Tb,D)
+        for bp, (kc, vc) in zip(params["blocks"], caches):
+            h, k, v = _gpt._block_prefill(bp, h, H, scale, rope, base)
+            kc[slot, :, :Tb] = k[0].to(kc.dtype)
+            vc[slot, :, :Tb] = v[0].to(vc.dtype)
+        lg = _gpt._logits(params, h[:, tp - 1:tp])[:, 0]    # (1, V)
+        return sample_logits(lg, temp, top_k, gen)[0]
+
+    return prefill
 
 
 class ServingEngine:
@@ -256,15 +334,19 @@ class ServingEngine:
 
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` to run the plain versions of the kernels on the
-    CPU.  ``paged``, ``chunked`` and ``admit_lanes`` keep the JAX
-    names; only ``paged=True, chunked=True, admit_lanes=1`` is ported.
+    CPU.  ``paged``, ``chunked``, ``min_bucket`` and ``admit_lanes``
+    keep the JAX names; ported are the chunked engine on pages
+    (``paged=True``, the port's default) or slots (``paged=False``) with
+    one admission lane, and the monolithic engine (``chunked=False,
+    paged=False``; ``min_bucket`` is its smallest prefill bucket).
     ``kv_dtype`` (``"int8"`` quantizes; ``"bfloat16"``/``"float32"``
-    override the pool's storage dtype), ``weight_dtype`` (``"int8"``)
+    override the cache's storage dtype), ``weight_dtype`` (``"int8"``)
     and ``scale_dtype`` (bfloat16 or float32) are the reference's
     quantized-serving arguments (see the module docstring).
     """
 
     def __init__(self, model, n_slots: int = 8, max_len: int | None = None,
+                 min_bucket: int = _gpt.MIN_PREFILL_BUCKET,
                  chunked: bool = True,
                  chunk_tokens: int = DEFAULT_CHUNK_TOKENS,
                  decode_horizon: int = DEFAULT_DECODE_HORIZON,
@@ -288,26 +370,6 @@ class ServingEngine:
                  clock=None,
                  device=None):
         self.device = dev = resolve_device(device)
-        # ---- quantized serving ----------------------------------------
-        # kv_dtype: a plain float STORAGE override ("bfloat16"/"float32",
-        # the drift oracle) or a quantization dtype ("int8"); fp8 raises
-        kv_store = kvq = None
-        if kv_dtype is not None:
-            dt = _precision.resolve_dtype(kv_dtype)
-            if dt in (torch.bfloat16, torch.float32):
-                kv_store = dt
-            else:
-                kvq = dt
-        self.policy = pol = _precision.Policy(
-            kv_dtype=kvq, weight_dtype=weight_dtype,
-            scale_dtype=scale_dtype, backend=dev.type)
-        if pol.quantized and not chunked:
-            raise ValueError("quantized serving requires the chunked "
-                             "engine (the monolithic baseline stays float)")
-        if not chunked:
-            _not_ported("chunked=False (the monolithic engine)", 7)
-        if not paged:
-            _not_ported("paged=False (the slot-layout KV cache)", 7)
         if int(admit_lanes) != 1:
             _not_ported(f"admit_lanes={admit_lanes}", 11)
         if speculative:
@@ -326,12 +388,33 @@ class ServingEngine:
             _not_ported("max_queue", 9)
         if step_budget_ms is not None:
             _not_ported("step_budget_ms", 9)
+        self.chunked, self.paged = bool(chunked), bool(paged)
+        if self.paged and not self.chunked:
+            raise ValueError("paged=True requires the chunked engine (the "
+                             "monolithic baseline keeps the slot layout)")
+        # ---- quantized serving ----------------------------------------
+        # kv_dtype: a plain float STORAGE override ("bfloat16"/"float32",
+        # the drift oracle) or a quantization dtype ("int8"); fp8 raises
+        kv_store = kvq = None
+        if kv_dtype is not None:
+            dt = _precision.resolve_dtype(kv_dtype)
+            if dt in (torch.bfloat16, torch.float32):
+                kv_store = dt
+            else:
+                kvq = dt
+        self.policy = pol = _precision.Policy(
+            kv_dtype=kvq, weight_dtype=weight_dtype,
+            scale_dtype=scale_dtype, backend=dev.type)
+        if pol.quantized and not self.chunked:
+            raise ValueError("quantized serving requires the chunked "
+                             "engine (the monolithic baseline stays float)")
         self.model = model
         self.cfg = cfg = model.config
         if max_len is not None and max_len > cfg.max_len:
             raise ValueError(f"max_len {max_len} exceeds model max_len "
                              f"{cfg.max_len}")
         self.max_len = max_len or cfg.max_len
+        self.min_bucket = int(min_bucket)
         if chunk_tokens < 1:
             raise ValueError(f"chunk_tokens must be >= 1, "
                              f"got {chunk_tokens}")
@@ -341,18 +424,26 @@ class ServingEngine:
         if stall_limit < 1:
             raise ValueError(f"stall_limit must be >= 1, got {stall_limit}")
         self.chunk_tokens = min(int(chunk_tokens), self.max_len)
-        self.decode_horizon = int(decode_horizon)
+        # the horizon belongs to the unified-step engine; the monolithic
+        # baseline keeps its per-token host loop
+        self.decode_horizon = int(decode_horizon) if self.chunked else 1
         self.stall_limit = int(stall_limit)
-        self.params = _to_device(
-            model.decode_params(pol.weight_dtype, pol.scale_dtype), dev)
-        self.kv = PagedKVCache(cfg.n_layers, n_slots, cfg.n_heads,
-                               int(page_tokens), cfg.d_model // cfg.n_heads,
-                               self.max_len, n_pages=kv_pages,
-                               dtype=kv_store or self.params["tok"].dtype,
-                               device=dev, prefix_cache=prefix_cache,
-                               kv_dtype=pol.kv_dtype,
-                               scale_dtype=pol.scale_dtype)
-        self.page_tokens = self.kv.page_tokens
+        self.params = _to_device(_gpt.ensure_decode_ready(
+            model, pol.weight_dtype, pol.scale_dtype), dev)
+        dtype = kv_store or self.params["tok"].dtype
+        H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+        if self.paged:
+            self.kv = PagedKVCache(cfg.n_layers, n_slots, H,
+                                   int(page_tokens), dh, self.max_len,
+                                   n_pages=kv_pages, dtype=dtype, device=dev,
+                                   prefix_cache=prefix_cache,
+                                   kv_dtype=pol.kv_dtype,
+                                   scale_dtype=pol.scale_dtype)
+            self.page_tokens = self.kv.page_tokens
+        else:
+            self.kv = SlotKVCache(cfg.n_layers, n_slots, H, self.max_len, dh,
+                                  dtype, device=dev, kv_dtype=pol.kv_dtype,
+                                  scale_dtype=pol.scale_dtype)
         self.metrics = (ServingMetrics(clock=clock) if clock is not None
                         else ServingMetrics())
         self.queue: deque[Request] = deque()
@@ -361,13 +452,23 @@ class ServingEngine:
         S, C, M = n_slots, self.chunk_tokens, MAX_STOP_TOKENS
         self._slot_req: list[Request | None] = [None] * S
         self._gens: list = [None] * S      # per-slot generator (sampled)
-        # host MIRROR of the device active mask, trailing it by at most
-        # one pipelined horizon
+        # host MIRROR of the device active mask (chunked: trailing it by
+        # at most one pipelined horizon; monolithic: the authority)
         self._active = np.zeros(S, bool)
         self._lane: _Prefill | None = None
-        self._step_fn = _make_unified_step_paged(cfg, C, self.max_len)
+        if not self.chunked:
+            # the monolithic engine's host-resident scheduler state,
+            # uploaded every step
+            self._tok = np.zeros(S, np.int32)
+            self._pos = np.zeros(S, np.int32)
+            self._temp = np.zeros(S, np.float32)
+            self._topk = np.zeros(S, np.int32)
+            self._decode_fn = _make_decode_step(cfg)
+            self._prefill_fn = _make_prefill(cfg)
+            return
+        self._step_fn = _make_unified_step(cfg, C, self.max_len)
         self._horizon_fn = (
-            _make_horizon_step_paged(cfg, self.decode_horizon, self.max_len)
+            _make_horizon_step(cfg, self.decode_horizon, self.max_len)
             if self.decode_horizon > 1 else None)
         # the device-resident scheduler state: allocated once here (no
         # host copy: zeros/fill run on the device) and only ever updated
@@ -380,9 +481,10 @@ class ServingEngine:
             "topk": torch.zeros(S, dtype=torch.int32, device=dev),
             "limit": torch.zeros(S, dtype=torch.int32, device=dev),
             "stops": torch.full((S, M), -1, dtype=torch.int32, device=dev),
-            "table": torch.zeros((S, self.kv.pages_per_slot),
-                                 dtype=torch.int32, device=dev),
         }
+        if self.paged:
+            self._dstate["table"] = torch.zeros(
+                (S, self.kv.pages_per_slot), dtype=torch.int32, device=dev)
         self._hz_pending: list = []        # dispatched, unemitted blocks
 
     # ---- submission ------------------------------------------------------
@@ -408,14 +510,17 @@ class ServingEngine:
         if prompt.size + max_new_tokens > self.max_len:
             raise ValueError(f"{prompt.size}+{max_new_tokens} exceeds "
                              f"max_len {self.max_len}")
-        need = self.kv.pages_needed(prompt.size + max_new_tokens)
-        if need > self.kv.usable_pages:
-            raise ValueError(
-                f"request needs {need} KV pages but the pool holds "
-                f"{self.kv.usable_pages} — it could never be admitted "
-                f"(raise kv_pages or page_tokens)")
+        if self.paged:
+            need = self.kv.pages_needed(prompt.size + max_new_tokens)
+            if need > self.kv.usable_pages:
+                raise ValueError(
+                    f"request needs {need} KV pages but the pool holds "
+                    f"{self.kv.usable_pages} — it could never be admitted "
+                    f"(raise kv_pages or page_tokens)")
         stops = frozenset(int(t) for t in (stop_tokens or ()))
-        if len(stops) > MAX_STOP_TOKENS:
+        # the chunked engine's stop predicate is a fixed-width compare on
+        # the device; the monolithic engine checks stops on the host
+        if self.chunked and len(stops) > MAX_STOP_TOKENS:
             raise ValueError(f"at most {MAX_STOP_TOKENS} stop tokens per "
                              f"request, got {len(stops)}")
         req = Request(next(self._rid), prompt, int(max_new_tokens),
@@ -474,31 +579,43 @@ class ServingEngine:
 
     # ---- admission -------------------------------------------------------
     def _admission_possible(self) -> bool:
-        """Could an admission start right now?  (The queue HEAD must fit:
-        FIFO order is kept.)"""
+        """Could an admission start right now?  A free slot; on pages the
+        queue HEAD must also fit (FIFO order is kept)."""
         if not self.queue:
             return False
+        if not self.paged:
+            return bool(self.kv.free_slots)
         req = self.queue[0]
         total = min(req.prompt.size + req.max_new_tokens, self.max_len)
         return self.kv.can_admit(req.prompt, total)
 
+    def _gen(self, req: Request):
+        """The request's own generator (None when greedy)."""
+        return (seeded_generator(req.params.seed, self.device)
+                if req.params.temperature > 0 else None)
+
     def _start_admission(self) -> None:
-        """Grant the queue head a slot and its pages (mapping cached
-        prefix pages: its prefill then starts at the first uncached
-        position)."""
+        """Grant the queue head a slot (and on pages its pages, mapping
+        cached prefix pages: its prefill then starts at the first
+        uncached position)."""
         if self._lane is not None or not self.queue:
             return
         req = self.queue[0]
         prompt, n_new = req.prompt, req.max_new_tokens
-        adm = self.kv.admit(prompt, min(prompt.size + n_new, self.max_len))
-        if adm is None:
-            return
+        if self.paged:
+            adm = self.kv.admit(prompt,
+                                min(prompt.size + n_new, self.max_len))
+            if adm is None:
+                return
+            slot, cached = adm
+            self.metrics.record_prefix(cached, prompt.size)
+        else:
+            slot, cached = self.kv.alloc(), 0
+            if slot is None:
+                return
         self.queue.popleft()
-        slot, cached = adm
-        self.metrics.record_prefix(cached, prompt.size)
-        gen = (seeded_generator(req.params.seed, self.device)
-               if req.params.temperature > 0 else None)
-        self._lane = _Prefill(req, slot, cached, gen, prompt, n_new)
+        self._lane = _Prefill(req, slot, cached, self._gen(req), prompt,
+                              n_new)
         req.status = RequestStatus.RUNNING
         self.metrics.record_admitted(req.rid)
 
@@ -528,15 +645,20 @@ class ServingEngine:
         pf = self._lane
         woff, valid, last, chunk, p_last, limit, stops_row = \
             self._lane_chunk(pf)
-        C, Ps = self.chunk_tokens, self.kv.pages_per_slot
-        packed = np.concatenate([chunk, self.kv.table_row(pf.slot),
-                                 stops_row]).astype(np.int32)
+        C = self.chunk_tokens
+        # the admitted slot's block-table row, on pages: the chunk
+        # scatters and gathers through it; the commit installs it
+        row = (self.kv.table_row(pf.slot) if self.paged
+               else np.zeros(0, np.int32))
+        packed = np.concatenate([chunk, row, stops_row]).astype(np.int32)
         dev_packed = torch.from_numpy(packed).to(self.device)
         self.metrics.record_upload(1)
         sp = pf.req.params
+        Ps = row.size
         adm = _Admission(pf.slot, woff, p_last, pf.prompt.size,
                          sp.temperature, sp.top_k, limit, last, pf.gen,
-                         dev_packed[:C], dev_packed[C:C + Ps],
+                         dev_packed[:C],
+                         dev_packed[C:C + Ps] if self.paged else None,
                          dev_packed[C + Ps:])
         return adm, (pf, woff, valid, last)
 
@@ -588,10 +710,13 @@ class ServingEngine:
         for slot in emitted:
             self._maybe_finish(slot)
         if meta is not None:
-            pf, _, _, last = meta
+            pf, woff, valid, last = meta
+            if not self.paged:
+                self.kv.note_prefill(pf.slot, woff + valid)
             if last:                    # prompt done: slot goes live
                 slot, req = pf.slot, pf.req
-                self.kv.register_prefix(slot, req.prompt)
+                if self.paged:
+                    self.kv.register_prefix(slot, req.prompt)
                 self._lane = None
                 self._slot_req[slot] = req
                 self._gens[slot] = pf.gen
@@ -655,10 +780,77 @@ class ServingEngine:
                 self._maybe_finish(slot)
         self.metrics.record_horizon(emitted, K, S)
 
+    # ---- monolithic path (the baseline, chunked=False) ---------------------
+    def _admit(self) -> int:
+        """FIFO admission: prefill queued requests into free slots, one
+        whole bucket-padded prompt a call, one sync each (the first
+        token: the TTFT point)."""
+        n = 0
+        while self.queue and self.kv.free_slots:
+            req = self.queue.popleft()
+            slot = self.kv.alloc()
+            tp = req.prompt.size
+            Tb = _gpt.bucket_length(tp, self.max_len, self.min_bucket)
+            padded = np.zeros((1, Tb), np.int32)
+            padded[0, :tp] = req.prompt
+            sp, gen = req.params, self._gen(req)
+            req.status = RequestStatus.RUNNING
+            self.metrics.record_admitted(req.rid)
+            caches = self.kv.handoff()
+            tok = self._prefill_fn(
+                self.params, caches, torch.from_numpy(padded).to(self.device),
+                tp, slot, sp.temperature, sp.top_k, gen)
+            self.kv.commit(caches)
+            self.kv.note_prefill(slot, tp)
+            self.metrics.record_upload(1)
+            tok = int(tok)                              # THE sync
+            self.metrics.record_sync()
+            self._slot_req[slot] = req
+            self._gens[slot] = gen
+            self._tok[slot] = tok
+            self._pos[slot] = tp
+            self._active[slot] = True
+            self._temp[slot] = sp.temperature
+            self._topk[slot] = sp.top_k
+            self._emit(req, tok, self.metrics.now())
+            self._maybe_finish(slot)
+            n += 1
+        return n
+
+    def _step_monolithic(self) -> bool:
+        """Admit what fits, then advance every slot one token: the host
+        state goes up as five arrays, the tokens come back in one
+        fetch."""
+        admitted = self._admit()
+        n_active = self.kv.active_slots
+        self.metrics.record_step(n_active, self.kv.n_slots, len(self.queue))
+        self._record_kv()
+        if n_active == 0:
+            return admitted > 0
+        up = [torch.from_numpy(a).to(self.device) for a in (
+            self._tok, self._pos, self._active, self._temp, self._topk)]
+        self.metrics.record_upload(len(up))
+        caches = self.kv.handoff()
+        nxt, _ = self._decode_fn(self.params, caches, *up,
+                                 self._decode_gens())
+        self.kv.commit(caches)
+        nxt = nxt.cpu().numpy()                         # THE step's sync
+        self.metrics.record_sync()
+        t = self.metrics.now()
+        was_active = np.flatnonzero(self._active)
+        self._pos[was_active] += 1
+        self._tok = nxt
+        for slot in was_active:
+            self._emit(self._slot_req[slot], int(nxt[slot]), t)
+        for slot in was_active:
+            self._maybe_finish(slot)
+        return True
+
     @torch.no_grad()
     def step(self) -> bool:
         """One scheduler iteration; False when there was nothing to do."""
-        return self._step_chunked()
+        return self._step_chunked() if self.chunked \
+            else self._step_monolithic()
 
     def _progress_sig(self):
         return (self.metrics.total_tokens, len(self.queue),

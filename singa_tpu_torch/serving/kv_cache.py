@@ -1,20 +1,27 @@
-"""Paged KV cache with a content-hash prefix index.
-Counterpart: ``singa_tpu/serving/kv_cache.py`` ``PagedKVCache`` (the
-slot layout, ``SlotKVCache``, arrives with the slot-engine slice; the
-fleet's shared index and cross-replica page export with the fleet
-slice).
+"""KV caches of the serving engine: contiguous slots and fixed-size
+pages.
+Counterpart: ``singa_tpu/serving/kv_cache.py`` — ``SlotKVCache`` and
+``PagedKVCache`` (the fleet's shared index and cross-replica page export
+arrive with the fleet slice; ``SlotKVCache.rewind`` with preemption).
 
-Device side: per layer a ``(k_pages, v_pages)`` pair of shape
-``(n_pages, n_heads, page_tokens, d_head)``, updated IN PLACE by the
-decode blocks (where the JAX package donates and returns new buffers).
-A quantized pool (``kv_dtype="int8"``) holds 4-leaf layers
-``(k_pages, v_pages, k_scale, v_scale)``, the scales shaped
-``(n_pages, n_heads, page_tokens)`` in ``scale_dtype``: a page's rows
-and their scales share its physical page id, so prefix-shared pages
-share their scales and a fresh (copy-on-write) page gets both written
-by its own prefill.
-Host side, the allocator and prefix index, kept as the port's own copy
-of the JAX package's numpy/hashlib code:
+:class:`SlotKVCache`: one fixed allocation for the engine's lifetime,
+per layer a ``(k, v)`` pair of shape ``(n_slots, n_heads, max_len,
+d_head)``; quantized (``kv_dtype="int8"``), 4-leaf layers ``(k, v,
+k_scale, v_scale)`` with scales ``(n_slots, n_heads, max_len)`` in
+``scale_dtype``.  A slot holds one request's whole row.
+
+:class:`PagedKVCache`: per layer a ``(k_pages, v_pages)`` pair of shape
+``(n_pages, n_heads, page_tokens, d_head)``.  A quantized pool holds
+4-leaf layers ``(k_pages, v_pages, k_scale, v_scale)``, the scales
+shaped ``(n_pages, n_heads, page_tokens)`` in ``scale_dtype``: a page's
+rows and their scales share its physical page id, so prefix-shared
+pages share their scales and a fresh (copy-on-write) page gets both
+written by its own prefill.
+
+Both are updated IN PLACE by the decode blocks (where the JAX package
+donates and returns new buffers).  Host side, the allocator and prefix
+index, kept as the port's own copy of the JAX package's numpy/hashlib
+code:
 
 * physical page 0 is RESERVED: unassigned table entries point at it and
   inactive decode slots park their writes at its last offset;
@@ -28,8 +35,9 @@ of the JAX package's numpy/hashlib code:
   allocates a fresh page (copy-on-write at page granularity); index-only
   pages are reclaimed LRU under page pressure.
 
-Freed pages are not zeroed: a position is written before the causal
-mask lets attention read it, and masked columns weigh exactly zero.
+Freed slots and pages are not zeroed: a position is written before the
+causal mask lets attention read it, and masked columns weigh exactly
+zero.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import torch
 from ..device import resolve_device
 from ..precision import resolve_dtype
 
-__all__ = ["PagedKVCache", "DEFAULT_PAGE_TOKENS"]
+__all__ = ["SlotKVCache", "PagedKVCache", "DEFAULT_PAGE_TOKENS"]
 
 # Tokens per KV page (the JAX package's default).
 DEFAULT_PAGE_TOKENS = 16
@@ -56,6 +64,132 @@ def _page_digest(prev: bytes, page_tokens: np.ndarray) -> bytes:
     return hashlib.sha256(
         prev + np.ascontiguousarray(page_tokens, np.int32).tobytes()
     ).digest()
+
+
+class SlotKVCache:
+    """Slot-layout KV cache: per layer ``(n_slots, n_heads, max_len,
+    d_head)`` K and V (plus their scales when quantized) on ``device``,
+    the card unless the CPU is named, and the host's slot allocator.
+    ``dtype`` is the float storage; ``kv_dtype`` (int8) quantizes."""
+
+    def __init__(self, n_layers: int, n_slots: int, n_heads: int,
+                 max_len: int, d_head: int, dtype=torch.float32,
+                 device=None, kv_dtype=None, scale_dtype=torch.bfloat16):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.n_layers = n_layers
+        self.n_slots = n_slots
+        self.n_heads = n_heads
+        self.max_len = max_len
+        self.d_head = d_head
+        self.dtype = dtype
+        self.kv_dtype = None if kv_dtype is None else resolve_dtype(kv_dtype)
+        self.scale_dtype = resolve_dtype(scale_dtype)
+        self.device = resolve_device(device)
+        shape = (n_slots, n_heads, max_len, d_head)
+
+        def zeros(shp, dt):
+            return torch.zeros(shp, dtype=dt, device=self.device)
+
+        if self.kv_dtype is None:
+            self.caches = tuple((zeros(shape, dtype), zeros(shape, dtype))
+                                for _ in range(n_layers))
+        else:
+            self.caches = tuple(
+                (zeros(shape, self.kv_dtype), zeros(shape, self.kv_dtype),
+                 zeros(shape[:3], self.scale_dtype),
+                 zeros(shape[:3], self.scale_dtype))
+                for _ in range(n_layers))
+        self._handed_off = False
+        self._free = list(range(n_slots))               # kept sorted
+        # per slot: prompt positions of the current occupant whose K/V
+        # are written (the chunked engine advances it a chunk a step)
+        self.prefill_pos = [0] * n_slots
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_slots(self) -> int:
+        return self.n_slots - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        return self.active_slots / self.n_slots
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype is not None
+
+    def alloc(self) -> int | None:
+        """Claim the lowest free slot, or None when every slot is
+        taken."""
+        if not self._free:
+            return None
+        slot = self._free.pop(0)
+        self.prefill_pos[slot] = 0
+        return slot
+
+    def release(self, slot: int) -> None:
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range")
+        if slot in self._free:
+            raise ValueError(f"slot {slot} already free")
+        self.prefill_pos[slot] = 0
+        bisect.insort(self._free, slot)
+
+    def note_prefill(self, slot: int, upto: int) -> None:
+        """Record that the occupant's prompt K/V is written for positions
+        ``[0, upto)`` (monotone per occupant)."""
+        if slot in self._free:
+            raise ValueError(f"slot {slot} is free")
+        if upto > self.max_len:
+            raise ValueError(f"prefill upto {upto} exceeds max_len "
+                             f"{self.max_len}")
+        self.prefill_pos[slot] = max(self.prefill_pos[slot], int(upto))
+
+    def handoff(self):
+        """The cache layers, for a call that updates them in place; the
+        caller hands them back with :meth:`commit` before the next
+        handoff (the reference's guard against reusing donated
+        buffers, kept as a check on the engine's call order)."""
+        if self._handed_off:
+            raise RuntimeError("KV cache handed off twice without an "
+                               "intervening commit()")
+        self._handed_off = True
+        return self.caches
+
+    def commit(self, caches) -> None:
+        """Take back the layers a call was handed: the same per-layer
+        2-leaf or 4-leaf tuples."""
+        if not self._handed_off:
+            raise RuntimeError("commit() without a pending handoff()")
+        if len(caches) != self.n_layers:
+            raise ValueError(f"expected {self.n_layers} layers, "
+                             f"got {len(caches)}")
+        self.caches = tuple(tuple(layer) for layer in caches)
+        self._handed_off = False
+
+    def nbytes(self) -> int:
+        """Total device bytes pinned by the cache (quantized: int8 rows
+        plus their per-(slot, head, position) scales)."""
+        per = self.n_slots * self.n_heads * self.max_len * self.d_head
+        if self.kv_dtype is None:
+            return 2 * self.n_layers * per * self.dtype.itemsize
+        scales = self.n_slots * self.n_heads * self.max_len
+        return 2 * self.n_layers * (per * self.kv_dtype.itemsize
+                                    + scales * self.scale_dtype.itemsize)
+
+    def live_bytes(self) -> int:
+        """Bytes committed to current occupants: a whole ``max_len`` row
+        per occupied slot (the headroom the paged cache avoids)."""
+        return self.active_slots * (self.nbytes() // self.n_slots)
+
+    def page_utilization(self) -> float:
+        """The slot layout has no pages: slot occupancy, under the same
+        gauge as the paged cache's."""
+        return self.occupancy
 
 
 class PagedKVCache:

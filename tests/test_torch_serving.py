@@ -5,7 +5,8 @@ greedy tokens per request identical on a staggered stream, plus the
 port's own contracts (prefix sharing, slot reuse, zero-upload steady
 state, one fetch per horizon, seeded sampling, out-of-slice arguments,
 no silent CPU).  Quantized serving is held in
-tests/test_torch_quantized_serving.py."""
+tests/test_torch_quantized_serving.py, the slot-layout and monolithic
+engines in tests/test_torch_slot_serving.py."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from singa_tpu_torch.layer import Linear as TLinear
 from singa_tpu_torch.model import Model as TModel
 from singa_tpu_torch.tensor import Tensor as TTensor
 from singa_tpu_torch.models import gpt as tgpt
-from singa_tpu_torch.serving import PagedKVCache
+from singa_tpu_torch.serving import PagedKVCache, SlotKVCache
 from singa_tpu_torch.serving import ServingEngine as TorchEngine
 
 torch.set_num_threads(1)
@@ -209,7 +210,8 @@ def _tree_of(tm):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(chunked=False), dict(paged=False), dict(admit_lanes=2),
+    dict(paged=False, tp_degree=2), dict(chunked=False, preemption=True),
+    dict(admit_lanes=2),
     dict(speculative=True), dict(tp_degree=2), dict(prefill_only=True),
     dict(faults=object()), dict(tracer=object()), dict(preemption=True),
     dict(max_queue=4), dict(step_budget_ms=5.0)])
@@ -217,6 +219,12 @@ def test_out_of_slice_arguments_raise(served, kw):
     _, tm, _ = served
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         TorchEngine(tm, device="cpu", **kw)
+
+
+def test_paged_monolithic_raises(served):
+    _, tm, _ = served
+    with pytest.raises(ValueError, match="requires the chunked engine"):
+        TorchEngine(tm, device="cpu", paged=True, chunked=False)
 
 
 @pytest.mark.parametrize("kw", [dict(priority=1), dict(deadline_ms=50.0)])
@@ -247,6 +255,8 @@ def test_no_silent_cpu(monkeypatch, served):
         tgpt.GPT(tgpt.GPTConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedKVCache(1, 2, 2, 8, 16, 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SlotKVCache(1, 2, 2, 64, 16)
     # the training path's entry points: a Tensor, a model's compile with
     # host inputs and no device named
     with pytest.raises(RuntimeError, match="device='cpu'"):
