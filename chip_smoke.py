@@ -84,10 +84,11 @@ Phases (any failure exits non-zero before the result lines print):
    tolerances; two greedy requests are replayed on the CPU; tokens/s,
    TTFT, KV and weight bytes and peak memory print beside phase 6's;
 7a. path ``generate``: ``GPT.generate`` on the card, B 4 of phase 6's
-   prompts cut to 200 tokens, 32 new greedy tokens, monolithic and with
-   ``decode_horizon=8``: exactly 12 flash forward launches a call (one a
-   layer, unsplit), no combine, no other kernel; the routes' tokens
-   identical; each row against the paged engine's tokens for its
+   prompts cut to 200 tokens, 32 new greedy tokens, with
+   ``decode_horizon`` None and 8 (one decode loop in the port; the
+   argument changes nothing): exactly 12 flash forward launches a call
+   (one a layer, unsplit), no combine, no other kernel; the two calls'
+   tokens identical; each row against the paged engine's tokens for its
    prompt, and two rows replayed through the port on the CPU, under the
    margin rule;
 7b. path ``serve_slot``: phase 6's stream through ``ServingEngine(
@@ -1745,10 +1746,10 @@ def _generate_rows(prompts):
 def phase_generate(setup):
     """Path ``generate``: ``GPT.generate`` on the card at B 4 (phase 6's
     prompts cut to 200 tokens, a 256-token bucket), 32 new greedy tokens,
-    on the monolithic route and with ``decode_horizon=8``.  Each call
-    launches the flash forward exactly once a layer, unsplit (no
-    combine), and nothing else of the port's kernels.  Checks: the two
-    routes give identical tokens; each row matches the paged engine's
+    with ``decode_horizon`` None and 8 (the port runs one decode loop
+    for either).  Each call launches the flash forward exactly once a
+    layer, unsplit (no combine), and nothing else of the port's kernels.
+    Checks: the two calls give identical tokens; each row matches the paged engine's
     tokens for its prompt, and two rows replayed through the port on the
     CPU match, under the margin rule."""
     cfg, cpu_model = setup["cfg"], setup["cpu_model"]
@@ -1781,9 +1782,9 @@ def phase_generate(setup):
             raise AssertionError(f"generate: bad tokens {t}")
     launches = _read_launches()
     if not np.array_equal(toks[None], toks[HORIZON]):
-        raise AssertionError("generate: the horizon route's tokens differ "
-                             "from the monolithic route's")
-    _log(f"generate: the two routes give identical tokens "
+        raise AssertionError("generate: decode_horizon 8 changed the "
+                             "tokens")
+    _log(f"generate: decode_horizon None and 8 give identical tokens "
          f"({GEN_B} x {NEW})")
     eng = ServingEngine(model, **setup["kw"])
     rids = [eng.submit(r, NEW) for r in rows]

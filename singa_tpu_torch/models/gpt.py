@@ -14,8 +14,8 @@ helpers (``_quantize_rows``, ``_quantize_channels``); and the functional
 decode pieces:
 
 * ``generate``'s own: the causal prefill block (attention through the
-  flash-attention kernel, ``causal=True``) and the one-token decode
-  block over a ``(B, H, L, dh)`` cache at a shared position;
+  flash-attention kernel, ``causal=True``); its one-token steps run the
+  slot decode block with every row at one position;
 * the slot-layout serving engine's: the chunked prefill block over one
   slot's row (float caches: attention through the flash-attention kernel
   with the ``(C, L)`` dense mask; quantized caches: the reference's
@@ -72,16 +72,6 @@ def bucket_length(n: int, max_len: int,
     while b < n:
         b *= 2
     return min(b, max_len)
-
-
-def ensure_decode_ready(model, weight_dtype=None, scale_dtype=torch.bfloat16):
-    """Materialise the model's lazy params (a placeholder pass on the
-    model's device) and return its decode tree there, float or, with
-    ``weight_dtype``, the memoised quantized one (quantized at the first
-    call, not at an engine's first step).  Shared by :meth:`GPT.generate`
-    and the serving engine.  Nothing moves between devices here: a
-    caller that serves from another device copies the tree itself."""
-    return model.decode_params(weight_dtype, scale_dtype)
 
 
 def generated_lengths(tokens: np.ndarray, stop_tokens) -> np.ndarray:
@@ -401,19 +391,19 @@ class GPT(Model):
         ``logits/temperature`` (optionally top-k filtered), drawing from
         one ``torch.Generator`` seeded by ``seed`` for the call.
 
-        ``decode_horizon=None`` runs the ``max_new_tokens - 1`` decode
-        steps; ``decode_horizon=K`` runs them in chunks of K steps and
-        discards the last chunk's overrun.  Both draw from the generator
-        in the same order, so they give the same tokens, greedy or
-        sampled.  The token blocks stay on the device and are fetched
-        once at the end.
+        ``decode_horizon`` is checked (>= 1) as in the reference and
+        changes nothing here: the reference runs the decode steps as
+        jitted K-step programs and caches them (``GEN_CACHE_MAX``,
+        ``TRACE_EVENTS``) so that one program serves every
+        ``max_new_tokens``; eager PyTorch compiles nothing, so every
+        horizon runs the same ``max_new_tokens - 1`` steps and gives the
+        same tokens, greedy or sampled.  The tokens stay on the device
+        and are fetched once at the end.
 
         Returns a numpy array (B, max_new_tokens); with ``stop_tokens=``
         or ``return_lengths=True``, ``(tokens, lengths)`` where
         ``lengths[b]`` counts tokens up to and including the first stop
-        token.  The reference's jit-program cache (``GEN_CACHE_MAX``,
-        ``TRACE_EVENTS``) has no counterpart: eager PyTorch compiles
-        nothing per bucket or budget."""
+        token."""
         c = self.config
         prompt = np.asarray(prompt_ids, np.int32)
         if prompt.ndim == 1:
@@ -425,7 +415,7 @@ class GPT(Model):
         if Tp + max_new_tokens > c.max_len:
             raise ValueError(f"{Tp}+{max_new_tokens} exceeds max_len "
                              f"{c.max_len}")
-        params = ensure_decode_ready(self)
+        params = self.decode_params()
         Tb = bucket_length(Tp, c.max_len)
         padded = np.zeros((B, Tb), np.int32)
         padded[:, :Tp] = prompt
@@ -435,30 +425,21 @@ class GPT(Model):
         dev = self.device.torch_device
         gen = seeded_generator(seed, dev)
         samp = (float(temperature), int(top_k or 0), gen)
-        n_new = int(max_new_tokens)
         caches, tok = _make_gen_prefill(c)(
             params, torch.from_numpy(padded).to(dev), Tp, *samp)
-        if decode_horizon is None:
-            toks = [tok]
-            carry = (caches, Tp, tok) + samp
-            for _ in range(n_new - 1):
-                carry = _gen_decode_step(params, carry, c)
-                toks.append(carry[2])
-            block = torch.stack(toks)                     # (n_new, B)
-        elif n_new == 1:
-            block = tok[None]
-        else:
-            K = int(decode_horizon)
-            hz = _make_gen_horizon(c, K)
-            blocks, pos = [], Tp
-            for _ in range(-(-n_new // K)):
-                pos, tok, blk = hz(params, caches, pos, tok, *samp)
-                blocks.append(blk)
-            block = torch.cat(blocks)[:n_new]             # (n_new, B)
-        toks = np.ascontiguousarray(block.T.cpu().numpy())
+        toks = [tok]
+        carry = (caches, Tp, tok) + samp
+        for _ in range(int(max_new_tokens) - 1):
+            carry = _gen_decode_step(params, carry, c)
+            toks.append(carry[2])
+        toks = np.ascontiguousarray(torch.stack(toks).T.cpu().numpy())
         if stop_tokens is None and not return_lengths:
             return toks
         return toks, generated_lengths(toks, stop_tokens)
+
+
+# the reference's name for the same call
+ensure_decode_ready = GPT.decode_params
 
 
 # ---- pure decode math (mirrors the JAX functions one for one) ----------
@@ -637,48 +618,22 @@ def _block_prefill(bp, h, H, scale, rope=False, base=10000.0):
     return _block_out(bp, h, ctx), k, v
 
 
-def _block_decode(bp, h, k_cache, v_cache, pos: int, H, scale, rope=False,
-                  base=10000.0):
-    """``generate``'s one-token step for the whole batch at the shared
-    position ``pos`` (a host int): ``h`` (B, 1, D), caches (B, H, L, dh).
-    Writes this token's K/V at ``pos`` first, then attends over the whole
-    row under the mask ``col <= pos``.  Returns ``(h', k_cache,
-    v_cache)``, the caches updated in place."""
-    q, k1, v1 = _qkv(bp, h, H)                              # (B,H,1,dh)
-    if rope:
-        p1 = torch.arange(pos, pos + 1, device=h.device)
-        q = apply_rope(q, positions=p1, base=base)
-        k1 = apply_rope(k1, positions=p1, base=base)
-    k_cache[:, :, pos] = k1[:, :, 0].to(k_cache.dtype)
-    v_cache[:, :, pos] = v1[:, :, 0].to(v_cache.dtype)
-    s = torch.einsum("bhtd,bhsd->bhts", q, k_cache.to(q.dtype)) * scale
-    L = k_cache.shape[2]
-    cols = torch.arange(L, device=h.device)
-    s = s + torch.where(cols <= pos, 0.0, -1e9)[None, None, None]
-    ctx = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, dim=-1),
-                       v_cache.to(q.dtype))                 # (B,H,1,dh)
-    return _block_out(bp, h, ctx), k_cache, v_cache
-
-
 def _gen_decode_step(params, carry, c):
-    """``generate``'s decode body (one token for the whole batch at a
-    shared position), shared by both of its routes.  ``carry`` is
-    ``(caches, pos, tok, temperature, top_k, gen)`` with ``pos`` a host
-    int; returns the next carry.  A step past the cache (the overrun of
-    a horizon's last chunk, whose tokens are discarded) works at
-    position ``max_len - 1``, as JAX's clamped ``dynamic_update_slice``
-    does."""
+    """``generate``'s decode body: one token for the whole batch at the
+    shared position ``pos`` (a host int), through
+    :func:`_block_decode_slots` with every row at ``pos``.  ``carry`` is
+    ``(caches, pos, tok, temperature, top_k, gen)``; returns the next
+    carry."""
     from ..serving.sampling import sample_logits
 
     caches, pos, tok, temperature, top_k, gen = carry
     H = c.n_heads
     scale = 1.0 / math.sqrt(c.d_model // H)
-    p = min(pos, caches[0][0].shape[2] - 1)
-    h = _embed(params, tok[:, None], torch.arange(p, p + 1, device=tok.device),
-               c.use_rope)                                  # (B,1,D)
+    dpos = torch.full(tok.shape, pos, dtype=torch.long, device=tok.device)
+    h = _embed(params, tok[:, None], dpos[:, None], c.use_rope)  # (B,1,D)
     for bp, (kc, vc) in zip(params["blocks"], caches):
-        h = _block_decode(bp, h, kc, vc, p, H, scale, c.use_rope,
-                          c.rope_base)[0]
+        h = _block_decode_slots(bp, h, kc, vc, dpos, H, scale, c.use_rope,
+                                c.rope_base)[0]
     nxt = sample_logits(_logits(params, h)[:, 0], temperature, top_k, gen)
     return (caches, pos + 1, nxt, temperature, top_k, gen)
 
@@ -710,23 +665,6 @@ def _make_gen_prefill(c):
         tok = sample_logits(_logits(params, h[:, tp - 1:tp])[:, 0],
                             temperature, top_k, gen)
         return tuple(caches), tok
-
-    return run
-
-
-def _make_gen_horizon(c, K):
-    """``generate``'s K-step decode chunk: K iterations of
-    :func:`_gen_decode_step`.  Returns ``run(params, caches, pos, tok,
-    temperature, top_k, gen) -> (pos, tok, block)``; ``block`` (K, B)
-    holds the token each step started from, as the reference's scan
-    emits it."""
-    def run(params, caches, pos, tok, temperature, top_k, gen):
-        carry = (caches, pos, tok, temperature, top_k, gen)
-        toks = []
-        for _ in range(K):
-            toks.append(carry[2])
-            carry = _gen_decode_step(params, carry, c)
-        return carry[1], carry[2], torch.stack(toks)
 
     return run
 
@@ -815,10 +753,10 @@ def _decode_qkv(bp, h, H, dpos, rope, base):
 def _block_decode_slots(bp, h, k_cache, v_cache, pos, H, scale, rope=False,
                         base=10000.0, k_scale=None, v_scale=None):
     """One-token step over the slot batch with per-slot positions: ``h``
-    (S, 1, D), caches (S, H, L, dh), ``pos`` (S,).  Row for row the math
-    of :func:`_block_decode`: each slot writes its K/V at its ``pos``
-    first, then attends over its whole row under ``col <= pos``, the
-    reference's einsum.  ``k_scale``/``v_scale`` (S, H, L): the quantized
+    (S, 1, D), caches (S, H, L, dh), ``pos`` (S,); also ``generate``'s
+    step, every row at one position.  Each slot writes its K/V at its
+    ``pos`` first, then attends over its whole row under ``col <= pos``,
+    the reference's einsum.  ``k_scale``/``v_scale`` (S, H, L): the quantized
     4-leaf cache; rows are quantized on write and the scales fold into
     the scores and the softmax weights.  Returns ``(h, k_cache,
     v_cache)``, plus the two scale caches when quantized, all updated in

@@ -428,8 +428,8 @@ class ServingEngine:
         # baseline keeps its per-token host loop
         self.decode_horizon = int(decode_horizon) if self.chunked else 1
         self.stall_limit = int(stall_limit)
-        self.params = _to_device(_gpt.ensure_decode_ready(
-            model, pol.weight_dtype, pol.scale_dtype), dev)
+        self.params = _to_device(model.decode_params(
+            pol.weight_dtype, pol.scale_dtype), dev)
         dtype = kv_store or self.params["tok"].dtype
         H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
         if self.paged:
@@ -710,9 +710,7 @@ class ServingEngine:
         for slot in emitted:
             self._maybe_finish(slot)
         if meta is not None:
-            pf, woff, valid, last = meta
-            if not self.paged:
-                self.kv.note_prefill(pf.slot, woff + valid)
+            pf, _, _, last = meta
             if last:                    # prompt done: slot goes live
                 slot, req = pf.slot, pf.req
                 if self.paged:
@@ -796,12 +794,10 @@ class ServingEngine:
             sp, gen = req.params, self._gen(req)
             req.status = RequestStatus.RUNNING
             self.metrics.record_admitted(req.rid)
-            caches = self.kv.handoff()
             tok = self._prefill_fn(
-                self.params, caches, torch.from_numpy(padded).to(self.device),
+                self.params, self.kv.caches,
+                torch.from_numpy(padded).to(self.device),
                 tp, slot, sp.temperature, sp.top_k, gen)
-            self.kv.commit(caches)
-            self.kv.note_prefill(slot, tp)
             self.metrics.record_upload(1)
             tok = int(tok)                              # THE sync
             self.metrics.record_sync()
@@ -830,10 +826,8 @@ class ServingEngine:
         up = [torch.from_numpy(a).to(self.device) for a in (
             self._tok, self._pos, self._active, self._temp, self._topk)]
         self.metrics.record_upload(len(up))
-        caches = self.kv.handoff()
-        nxt, _ = self._decode_fn(self.params, caches, *up,
+        nxt, _ = self._decode_fn(self.params, self.kv.caches, *up,
                                  self._decode_gens())
-        self.kv.commit(caches)
         nxt = nxt.cpu().numpy()                         # THE step's sync
         self.metrics.record_sync()
         t = self.metrics.now()

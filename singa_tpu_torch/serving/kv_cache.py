@@ -100,11 +100,7 @@ class SlotKVCache:
                  zeros(shape[:3], self.scale_dtype),
                  zeros(shape[:3], self.scale_dtype))
                 for _ in range(n_layers))
-        self._handed_off = False
         self._free = list(range(n_slots))               # kept sorted
-        # per slot: prompt positions of the current occupant whose K/V
-        # are written (the chunked engine advances it a chunk a step)
-        self.prefill_pos = [0] * n_slots
 
     @property
     def free_slots(self) -> int:
@@ -127,49 +123,14 @@ class SlotKVCache:
         taken."""
         if not self._free:
             return None
-        slot = self._free.pop(0)
-        self.prefill_pos[slot] = 0
-        return slot
+        return self._free.pop(0)
 
     def release(self, slot: int) -> None:
         if not 0 <= slot < self.n_slots:
             raise ValueError(f"slot {slot} out of range")
         if slot in self._free:
             raise ValueError(f"slot {slot} already free")
-        self.prefill_pos[slot] = 0
         bisect.insort(self._free, slot)
-
-    def note_prefill(self, slot: int, upto: int) -> None:
-        """Record that the occupant's prompt K/V is written for positions
-        ``[0, upto)`` (monotone per occupant)."""
-        if slot in self._free:
-            raise ValueError(f"slot {slot} is free")
-        if upto > self.max_len:
-            raise ValueError(f"prefill upto {upto} exceeds max_len "
-                             f"{self.max_len}")
-        self.prefill_pos[slot] = max(self.prefill_pos[slot], int(upto))
-
-    def handoff(self):
-        """The cache layers, for a call that updates them in place; the
-        caller hands them back with :meth:`commit` before the next
-        handoff (the reference's guard against reusing donated
-        buffers, kept as a check on the engine's call order)."""
-        if self._handed_off:
-            raise RuntimeError("KV cache handed off twice without an "
-                               "intervening commit()")
-        self._handed_off = True
-        return self.caches
-
-    def commit(self, caches) -> None:
-        """Take back the layers a call was handed: the same per-layer
-        2-leaf or 4-leaf tuples."""
-        if not self._handed_off:
-            raise RuntimeError("commit() without a pending handoff()")
-        if len(caches) != self.n_layers:
-            raise ValueError(f"expected {self.n_layers} layers, "
-                             f"got {len(caches)}")
-        self.caches = tuple(tuple(layer) for layer in caches)
-        self._handed_off = False
 
     def nbytes(self) -> int:
         """Total device bytes pinned by the cache (quantized: int8 rows

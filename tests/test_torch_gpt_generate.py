@@ -1,5 +1,6 @@
 """The port's standalone decode (singa_tpu_torch.models.gpt: GPT.generate,
-its causal prefill and one-token decode blocks, generated_lengths,
+its causal prefill block, its one-token step through the slot decode
+block with every row at one position, generated_lengths,
 ensure_decode_ready) against the JAX package's, with and without RoPE.
 
 The JAX side runs as its own tests run it on the CPU: the prefill block's
@@ -7,8 +8,9 @@ einsum route (prefill_flash_enabled is False off the TPU); the port's
 prefill block runs the flash-attention kernel's plain version with
 ``causal=True``.  Tolerances: block outputs and caches atol 1e-5; greedy
 tokens identical on the lightly trained tiny GPT of
-tests/test_torch_serving.py's fixture, at every decode_horizon (3 and 8
-overrun the last chunk).  The port samples from a torch.Generator, so
+tests/test_torch_serving.py's fixture, at every decode_horizon (the
+reference's 3 and 8 overrun the last chunk; the port's horizon changes
+nothing).  The port samples from a torch.Generator, so
 sampled tokens are held against the port's own other route, not JAX.
 
 The JAX models train and compile once per module (module-scoped
@@ -124,9 +126,9 @@ def test_block_decode_matches_jax(trained, pos):
                                     jnp.asarray(kc), jnp.asarray(vc), pos, H,
                                     scale, cfg.use_rope, cfg.rope_base)
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
-    th, tk2, tv2 = tgpt._block_decode(tm.decode_params()["blocks"][0],
-                                      torch.from_numpy(h), tk, tv, pos, H,
-                                      scale, cfg.use_rope, cfg.rope_base)
+    th, tk2, tv2 = tgpt._block_decode_slots(
+        tm.decode_params()["blocks"][0], torch.from_numpy(h), tk, tv,
+        torch.full((3,), pos), H, scale, cfg.use_rope, cfg.rope_base)
     assert tk2 is tk and tv2 is tv                # updated in place
     for mine, ref in ((th, jh), (tk, jk), (tv, jv)):
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), atol=1e-5)
