@@ -4,7 +4,9 @@
 
 Phases (any failure exits non-zero before the result lines print):
 
-1. the card's name and power limit (``nvidia-smi``); TF32 off;
+1. the card's name and power limit (``nvidia-smi``); TF32 off, and no
+   16-bit reductions in cuBLAS (the reference accumulates 16-bit
+   products in float32);
 2. build every kernel from ``singa_tpu_torch/ops/csrc`` (one ``nvcc``
    per source, in parallel); each kernel's registers and spills, and
    the spills of the flash kernels' D 64 instantiations;
@@ -49,6 +51,21 @@ Phases (any failure exits non-zero before the result lines print):
    output checked; times, plans, byte bounds and the wrapper's host µs
    a call (median of 200, no sync) of the float32 and int8 variants at
    the serving shape, and the merge launch's time alone;
+3b, 4b. the flash kernels on bfloat16 and float16 operands: the forward
+   on both routes at the serving, causal-serving and training shapes and
+   ragged cases at every head dim, the split route's partials and its
+   combine alone, the dq and dk/dv kernels at the training shape and on
+   ragged cases, each against its plain version on the same 16-bit
+   operands (outputs within one unit in the last place of their dtype,
+   taken at max(|x|, 2^-6); lse and partials within 1e-4); times beside
+   the float32 ones, the bound at 2 bytes an element and the 3xTF32
+   rate, and ``scaled_dot_product_attention`` in the same dtype (pinned
+   as above; a yardstick that rounds P to 16 bits, so another function);
+5c. paged decode on a 16-bit query: bf16 over bf16 pages, fp16 over fp16,
+   bf16 over int8 (bf16 scales), bf16 over float32, fp16 over int8
+   (fp32 scales), on phase 5's shapes and three plans each, the split
+   route's halves and misaligned pools, outputs within one unit of the
+   query's dtype; times at the serving shape beside float32's;
 5a. the fused LSTM cell: its forward and backward kernels against their
    plain versions, and its autograd Function against the plain cell
    under torch's autograd, in float32, bfloat16 and float16, at the
@@ -103,6 +120,16 @@ Phases (any failure exits non-zero before the result lines print):
    flash and no paged decode launch; a fresh engine replays every
    request; the cache holds exactly (d_head + 2) / (2 d_head) of a
    bf16-storage slot cache's bytes;
+7e. path ``serve_bf16``: phase 6's stream on the paged engine under
+   ``precision="bfloat16"`` (the same seeded masters): 8/8 complete,
+   bf16 pools holding exactly half of phase 6's KV bytes, the flash
+   forward, its combine and paged decode launched on 16-bit operands
+   only (the ``*_lowp`` counters), the prefix pair against the port in
+   bf16 on the CPU under the margin rule (16-bit limit:
+   ``LOWP_MARGIN_ULPS`` units of the top logit; a tie is within it);
+7f. path ``generate_bf16``: phase 7a's batch under bf16: exactly 12 flash
+   launches on bf16 operands a call and nothing else; rows against the
+   bf16 paged engine and two against the CPU, under the margin rule;
 8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
    of ``train_one_batch`` with Adam at B 8, T 1024 (loss, step time,
    tokens/s, peak memory; the loss must fall; exactly 12 launches of
@@ -110,6 +137,13 @@ Phases (any failure exits non-zero before the result lines print):
 9. one full-width training step (B 1, T 128) from the trained weights on
    the card and in the port on the CPU: loss and every gradient compared;
 10. the trained model serves 2 requests through the ``ServingEngine``;
+8b, 8c. paths ``train_bf16`` and ``train_fp16``: phase 8 under
+   ``precision="bfloat16"`` / ``"float16"`` from the same weights and
+   batches: the loss falls and ends within 2 % of phase 8's; 12 launches
+   of each flash kernel a step, all on 16-bit operands; every parameter
+   and optimizer state float32 after the steps; step time and peak
+   memory beside float32's; fp16 then takes one step with its loss
+   scale forced to 2^40: nothing moves and the scale halves;
 11. path ``rnn_train``: the char-LSTM of ``bench_rnn.py`` (V 86, H 256,
    T 100, B 64, ``LSTM(use_fused_cell=True)``, SGD 0.1 with momentum
    0.9) takes 10 graph-mode steps on a seeded batch, then the same model
@@ -128,24 +162,30 @@ Phases (any failure exits non-zero before the result lines print):
 14. one ``kernels`` JSON line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
-7, 7a-7d, 8, 11 and 13) and read just after it; a kernel's ``launches``
-is the sum over them, ``launches_by_path`` splits it.
+7, 7a-7f, 8, 8b, 8c, 11 and 13) and read just after it; a kernel's
+``launches`` is the sum over them, ``launches_by_path`` splits it.  The
+``*_lowp`` rows count the launches on 16-bit operands (also counted in
+the row without the suffix) and carry the bf16 figures (fp16's and the
+other paged combinations under ``by_dtype`` / ``by_combination``).
 
     python3 chip_smoke.py --profile [serve|serve_int8|serve_slot|generate|
-                                     train|rnn_train|rnn_train_plain]
+                                     train|train_bf16|rnn_train|
+                                     rnn_train_plain]
 
 runs phases 1-2 and then the serving stream (float or int8 pages, or
 float slots), one ``GPT.generate`` call of path 7a, or two training
-steps (GPT, the fused char-LSTM or the char-LSTM through the plain cell)
-after a warm-up, once under ``torch.profiler`` (CPU and CUDA activity),
+steps (GPT in float32 or under the bf16 policy, the fused char-LSTM or
+the char-LSTM through the plain cell) after a warm-up, once under ``torch.profiler`` (CPU and CUDA activity),
 and prints the device's busy and idle share over the run, device time by
 kernel group and the costliest kernels.
 
-    python3 chip_smoke.py --compare-serve [layouts]
+    python3 chip_smoke.py --compare-serve [layouts|precision]
 
 runs phases 1-2 and then the float and the int8 serving slices
 alternately, four runs of each on fresh engines (with ``layouts``: the
-paged, slot and monolithic engines, three runs of each), and prints
+paged, slot and monolithic engines, three runs of each; with
+``precision``: the float32 and the bf16 paged engines, four each), and
+prints
 each run's tokens/s, TTFT p50, ITL p99 and wall time and their spread.
 
 Kernel times are the median of single launches timed with CUDA events,
@@ -157,7 +197,11 @@ bytes moved (each input read once, each output written once) over
 3.35 TB/s and float32 operations over 495 / 3 = 165 TFLOP/s, the
 3xTF32 tensor-core rate (three TF32 products at 495 TFLOP/s a float32
 product; H100 SXM data sheet).  The flash rows also print the bound at
-the SIMT float32 rate of 67 TFLOP/s, the bound of PR 6 and before.
+the SIMT float32 rate of 67 TFLOP/s, the bound of PR 6 and before.  The
+16-bit rows count 2 bytes an element of q, k, v, dO and the outputs, and
+their operations at the same 3xTF32 rate: the kernels compute in
+float32 on the upcast operands (fewer TF32 products a product, but the
+same operations of the function).
 """
 
 from __future__ import annotations
@@ -203,6 +247,13 @@ SPLIT_SM = 1 << 20
 FLASH_TOL = 1e-4
 PAGED_TOL = 1e-4
 MARGIN_TOL = 1e-3
+# the margin a first difference may have when the logits are 16-bit, in
+# units in the last place of the top logit: both sides round every op to
+# 16 bits, the card in cuBLAS's and the kernels' summation order, the CPU
+# in its own, so near-ties flip.  A tie (margin 0) is always within it:
+# both sides take the first index of the largest logit, and which index
+# that is depends on the last bit
+LOWP_MARGIN_ULPS = 8
 REPS = 30
 # the reference's committed drift tolerances for int8 serving
 # (tests/test_quantized_serving.py), over a DRIFT_T-token prompt
@@ -265,6 +316,10 @@ def phase_card():
     _log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # 16-bit products accumulate in float32 as the reference's do (cuBLAS
+    # may otherwise reduce in 16 bits)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     _log(f"bounds: bytes at {HBM_BYTES_PER_S / 1e12:g} TB/s; float32 "
          f"operations at the 3xTF32 tensor-core rate "
          f"{FP32_TC_FLOP_PER_S / 1e12:g} TFLOP/s (PR 6 and before: the SIMT "
@@ -339,9 +394,7 @@ def _fwd_route(q3, k3, v3, m3, scale, mode, causal, n_sm):
     S = k3.shape[1]
     plan = fa._fwd_split_plan(BH, T, S, causal, n_sm)
     if plan.n_split > 1:
-        parts = fa.flash_attention_fwd_partial(q3, k3, v3, m3, scale, mode,
-                                               causal, plan)
-        return fa.flash_attention_fwd_combine(*parts, T, S, causal, plan.per)
+        return fa._fwd_split(q3, k3, v3, m3, scale, mode, causal, plan)
     _, mask_bh = fa._kernel_operands("flash_attention", q3, k3, v3, m3, mode)
     return fa._fwd_unsplit(q3, k3, v3, m3, scale, mode, mask_bh, causal,
                            plan)
@@ -566,18 +619,18 @@ def _needed_pairs(BH, T, S, causal):
     return BH * int(np.minimum(S, np.arange(T) + 1).sum())
 
 
-def _bwd_inputs(g, B, H, T, S, d, mask, causal):
-    """Operands of the backward kernels: q/k/v, a cotangent at a tenth
-    of unit scale, and ``o``, ``lse`` and ``delta`` from the forward
-    kernel."""
-    q = torch.randn(B, H, T, d, generator=g, device="cuda")
-    k = torch.randn(B, H, S, d, generator=g, device="cuda")
-    v = torch.randn(B, H, S, d, generator=g, device="cuda")
-    do = 0.1 * torch.randn(B, H, T, d, generator=g, device="cuda")
+def _bwd_inputs(g, B, H, T, S, d, mask, causal, dtype=torch.float32):
+    """Operands of the backward kernels in ``dtype``: q/k/v, a cotangent
+    at a tenth of unit scale, and ``o``, ``lse`` and ``delta`` (float32,
+    from the upcast operands) from the forward kernel."""
+    q, k, v = (torch.randn(B, H, n, d, generator=g, device="cuda").to(dtype)
+               for n in (T, S, S))
+    do = (0.1 * torch.randn(B, H, T, d, generator=g, device="cuda")).to(
+        dtype)
     q3, k3, v3, m3, scale, mode = fa._prepare(q, k, v, mask, None)
     do3 = do.reshape(B * H, T, d)
     o3, lse = fa.flash_attention_fwd(q3, k3, v3, m3, scale, mode, causal)
-    delta = (do3 * o3).sum(dim=-1)
+    delta = (do3.float() * o3.float()).sum(dim=-1)
     return (q3, k3, v3, m3, lse, delta, do3, scale, mode, causal), \
         (q, k, v, do)
 
@@ -696,17 +749,18 @@ def phase_flash_bwd():
         fwd_train
 
 
-def _paged_case(seed, S, H, d, P, Ps, pos_h, variant="f32"):
+def _paged_case(seed, S, H, d, P, Ps, pos_h, variant="f32",
+                q_dtype=torch.float32):
     """Random pools of ``S * Ps + 1`` pages; each slot's table holds
     distinct pages up to its position and NULL (page 0) after it; a slot
     at ``pos < 0`` holds stale pages in half its row and NULL in the
-    rest (it attends the whole row).  ``variant``: ``f32`` or ``bf16``
-    pages, or int8 pages with ``int8_bf16`` / ``int8_f32`` scales in
-    [0.002, 0.03).  Returns the positional operands and the scale
-    keywords."""
+    rest (it attends the whole row).  ``variant``: ``f32``, ``bf16`` or
+    ``f16`` pages, or int8 pages with ``int8_bf16`` / ``int8_f32`` scales
+    in [0.002, 0.03); the query in ``q_dtype``.  Returns the positional
+    operands and the scale keywords."""
     N = S * Ps + 1
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(S, H, d, generator=g, device="cuda")
+    q = torch.randn(S, H, d, generator=g, device="cuda").to(q_dtype)
     scales = {}
     if variant.startswith("int8"):
         kp, vp = (torch.randint(-127, 128, (N, H, P, d), generator=g,
@@ -718,8 +772,7 @@ def _paged_case(seed, S, H, d, P, Ps, pos_h, variant="f32"):
                   for k in ("k_scales", "v_scales")}
     else:
         kp, vp = (torch.randn(N, H, P, d, generator=g, device="cuda").to(
-            torch.bfloat16 if variant == "bf16" else torch.float32)
-            for _ in range(2))
+            PAGE_DTYPES[variant]) for _ in range(2))
     pos_h = np.asarray(pos_h, np.int32)
     rng = np.random.RandomState(seed)
     free = list(rng.permutation(np.arange(1, N)))
@@ -734,6 +787,8 @@ def _paged_case(seed, S, H, d, P, Ps, pos_h, variant="f32"):
 # the paged decode variants: float32 pages (the float path), bfloat16
 # pages (the storage override), int8 pages with bf16 / fp32 scales
 PAGED_VARIANTS = ("f32", "bf16", "int8_bf16", "int8_f32")
+PAGE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "f16": torch.float16}
 # serving-shape positions: mid-page frontiers from 5 to max_len - 1
 SERVING_POS = (100, 257, 511, 30, 700, 1023, 5, 300)
 
@@ -756,7 +811,8 @@ def _paged_bound(args, scales, P, pos_h):
     if scales:
         row_bytes += scales["k_scales"].element_size()
     kv_rows = int((cols * np.where(scored, 2, 1)).sum()) * H
-    nbytes = 4 * (2 * q.numel() + S + pages) + kv_rows * row_bytes
+    nbytes = (2 * q.numel() * q.element_size() + 4 * (S + pages)
+              + kv_rows * row_bytes)
     flops = 2 * H * d * kv_rows
     return nbytes, flops, live_cols, _bound(nbytes, flops)
 
@@ -1019,6 +1075,404 @@ def _paged_merge_row(args, scales, err):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "plan": list(plan)}
+
+
+# ---- the kernels on 16-bit operands (phases 3b, 4b, 5c) -------------------
+
+LOWP = (torch.bfloat16, torch.float16)
+LOWP_NAME = {torch.bfloat16: "bf16", torch.float16: "fp16"}
+# 16-bit outputs: at most one unit in the last place of their dtype from
+# the plain version (both compute the float32 function of the same
+# operands and round once, so a float32 difference flips at most the last
+# bit), the unit taken at max(|got|, |ref|, ULP_FLOOR): float32 sums of
+# unit-scale terms carry ~1e-7 of absolute error, which near a result of
+# 0 is many of its own units, so an output below 2^-6 is held to the
+# unit at 2^-6 (bf16 1.2e-4, fp16 1.5e-5); lse and the float32 partials
+# at LOWP_F32_TOL
+ULP_TOL = 1.0
+ULP_FLOOR = 2.0 ** -6
+LOWP_F32_TOL = 1e-4
+
+
+def _ulps(got, ref):
+    """Largest ``|got - ref|`` in units in the last place of the output's
+    16-bit dtype, the unit taken at ``max(|got|, |ref|, ULP_FLOOR)``; inf
+    where either is not finite."""
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(ref).all())):
+        return float("inf")
+    if got.numel() == 0:
+        return 0.0
+    p = {torch.bfloat16: 8, torch.float16: 11}[got.dtype]
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(torch.clamp(torch.maximum(g.abs(), r.abs()),
+                                   min=ULP_FLOOR))
+    ulp = torch.ldexp(torch.ones_like(g), e - p)
+    return float(((g - r).abs() / ulp).max())
+
+
+def _lowp_check(label, errs):
+    """``errs``: [(kind, error)] with kind ``ulp`` (16-bit output) or
+    ``abs`` (float32 output); raises past the tolerances."""
+    ok = all(e <= (ULP_TOL if k == "ulp" else LOWP_F32_TOL) for k, e in errs)
+    _log(f"{label}: " + ", ".join(
+        f"{e:.3g} {'ulp' if k == 'ulp' else 'abs'}" for k, e in errs)
+        + f" (tol {ULP_TOL:g} ulp, {LOWP_F32_TOL:g} abs) "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{errs}")
+
+
+def _fwd_case_lowp(q, k, v, mask, causal, n_sm):
+    """The forward on 16-bit operands (route by ``n_sm``) against its plain
+    version: ``(o ulps, lse abs error, route, o abs error)``."""
+    q3, k3, v3, m3, scale, mode = fa._prepare(q, k, v, mask, None)
+    q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
+    before = fa.launches_combine_lowp
+    o, lse = _fwd_route(q3, k3, v3, m3, scale, mode, causal, n_sm)
+    route = "split" if fa.launches_combine_lowp > before else "unsplit"
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, m3, scale, mode,
+                                                causal)
+    torch.cuda.synchronize()
+    if o.dtype != q.dtype:
+        raise AssertionError(f"flash forward returned {o.dtype} for "
+                             f"{q.dtype} operands")
+    return (_ulps(o, ro), float((lse - rlse).abs().max()), route,
+            _abs(o, ro))
+
+
+def _abs(got, ref):
+    return float((got.float() - ref.float()).abs().max())
+
+
+def _lowp_bytes(*tensors, extra=0):
+    return sum(t.numel() * t.element_size() for t in tensors) + extra
+
+
+def phase_flash_lowp(rows):
+    """Phases 3b and 4b: the flash kernels on bfloat16 and float16
+    operands.  The forward on both routes (the card's plan and forced
+    each way) at the serving shape (dense mask), the causal serving
+    shapes, the training shape and ragged cases at every head dim; the
+    split route's partials and its combine alone; the dq and dk/dv
+    kernels at the training shape and on ragged cases; each against its
+    plain version on the same 16-bit operands (outputs within one ulp,
+    lse and partials within 1e-4).  Times beside the float32 rows of
+    ``rows`` (phases 3-4), the bound at 2 bytes an element and the
+    3xTF32 rate, and ``scaled_dot_product_attention`` pinned to its
+    memory-efficient backend in the same dtype (a yardstick that rounds
+    P to 16 bits, so another function).  Returns the 16-bit rows of the
+    kernels line (numbers of the bf16 cases; fp16's under
+    ``by_dtype``)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    f32 = {r["name"]: r for r in rows}
+    H, d, C, L = 12, 64, 64, 1024
+    scale = 1.0 / np.sqrt(d)
+    n_sm = fa._sm_count(0)
+    out = {n: {} for n in ("fwd", "combine", "dq", "dkv")}
+    for dt in LOWP:
+        tag = LOWP_NAME[dt]
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+        q, k, v = rnd(1, H, C, d), rnd(1, H, L, d), rnd(1, H, L, d)
+        positions = 512 + torch.arange(C, device="cuda")
+        cols = torch.arange(L, device="cuda")
+        mask = torch.where(cols[None] <= positions[:, None], 0.0, -1e9)
+        mask = mask[None, None].contiguous()
+        cases = {"dense(serving)": (q, k, v, mask, False, (None, 1))}
+        for B, T in CAUSAL_SERVING:
+            cases[f"B{B} T{T} causal"] = (rnd(B, H, T, d), rnd(B, H, T, d),
+                                          rnd(B, H, T, d), None, True,
+                                          (None,))
+        vec = torch.zeros(1, 1, 1, L, device="cuda")
+        vec[..., 900:] = -1e9
+        cases["vec"] = (q, k, v, vec, False, (1, SPLIT_SM))
+        for dd, (B, Hh, T, S), causal in ((16, (2, 3, 70, 200), False),
+                                          (32, (2, 2, 33, 77), False),
+                                          (64, (1, 2, 130, 260), True),
+                                          (128, (1, 2, 150, 150), True)):
+            m = torch.where(torch.rand(B, Hh, T, S, generator=g,
+                                       device="cuda") < 0.2, -1e9, 0.0)
+            m[-1, -1, T // 2] = -1e9
+            cases[f"ragged d{dd} per-head"] = (
+                rnd(B, Hh, T, dd), rnd(B, Hh, S, dd), rnd(B, Hh, S, dd), m,
+                causal, (1, SPLIT_SM))
+        err_serving = None
+        for name, (a, b, c, m, causal, routes) in cases.items():
+            for r in routes:
+                eo, el, route, ea = _fwd_case_lowp(a, b, c, m, causal, r)
+                _lowp_check(f"flash {tag} {name} [{route}] o, lse",
+                            [("ulp", eo), ("abs", el)])
+                if name == "dense(serving)" and r is None:
+                    if route != "split":
+                        raise AssertionError("the 16-bit serving shape did "
+                                             "not split")
+                    err_serving = (eo, ea)
+        # the split route's halves at the serving shape
+        q3, k3, v3, m3, _, mode = fa._prepare(q, k, v, mask, scale)
+        plan = fa._fwd_split_plan(H, C, L, False, n_sm)
+        parts = fa.flash_attention_fwd_partial(q3, k3, v3, m3, scale, mode,
+                                               False, plan)
+        rparts = fa.flash_attention_fwd_partial_reference(
+            q3, k3, v3, m3, scale, mode, False, plan)
+        co, clse = fa.flash_attention_fwd_combine(*parts, C, L, False,
+                                                  plan.per, dt)
+        ro, rlse = fa.flash_attention_fwd_combine_reference(
+            *parts, C, L, False, plan.per, dt)
+        torch.cuda.synchronize()
+        e_parts = max(float(((a - b).abs() / b.abs().clamp(min=1)).max())
+                      for a, b in zip(parts, rparts))
+        e_comb = (_ulps(co, ro), float((clse - rlse).abs().max()),
+                  _abs(co, ro))
+        _lowp_check(f"flash {tag} serving partials (relative), combine "
+                    f"alone o, lse", [("abs", e_parts), ("ulp", e_comb[0]),
+                                      ("abs", e_comb[1])])
+        ms = _time_ms(lambda: fa.flash_attention(q, k, v, mask,
+                                                 sm_scale=scale))
+        plain = _time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, mask, sm_scale=scale))
+        lib = _time_ms(lambda: _sdpa(q, k, v, attn_mask=mask.to(dt),
+                                     scale=scale))
+        nbytes = _lowp_bytes(q, k, v, mask, q, extra=4 * H * C)
+        bound, by = _bound(nbytes, 4 * H * C * L * d)
+        c_ms = _time_ms(lambda: fa.flash_attention_fwd_combine(
+            *parts, C, L, False, plan.per, dt))
+        c_plain = _time_ms(lambda: fa.flash_attention_fwd_combine_reference(
+            *parts, C, L, False, plan.per, dt))
+        c_bytes = 4 * sum(t.numel() for t in parts) + _lowp_bytes(
+            q, extra=4 * H * C)
+        c_bound, c_by = _bound(c_bytes, 3 * parts[0].numel())
+        _log(f"flash {tag} serving shape (split route): kernel {ms:.4f} ms "
+             f"(float32 {f32['flash_attention_fwd']['ms']:.4f}), plain "
+             f"{plain:.4f} ms, {SDPA_NAME} {tag} {lib:.4f} ms (rounds P to "
+             f"16 bits: another function), bound {bound:.4f} ms ({by}: "
+             f"{nbytes / 1e6:.2f} MB); combine {c_ms:.4f} ms (float32 "
+             f"{f32['flash_attention_fwd_combine']['ms']:.4f}), plain "
+             f"{c_plain:.4f} ms, bound {c_bound:.6f} ms ({c_by})")
+        out["fwd"][tag] = {"max_abs_err": err_serving[1],
+                           "max_ulp_err": err_serving[0], "ms": ms,
+                           "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by, "library_ms": lib,
+                           "float32_ms": f32["flash_attention_fwd"]["ms"]}
+        out["combine"][tag] = {"max_abs_err": e_comb[2],
+                               "max_ulp_err": e_comb[0], "ms": c_ms,
+                               "plain_ms": c_plain, "bound_ms": c_bound,
+                               "bound_by": c_by, "library_ms": None,
+                               "float32_ms":
+                               f32["flash_attention_fwd_combine"]["ms"]}
+        # the backward: the training shape and ragged cases
+        bcases = {"train(causal)": (TRAIN_B, H, TRAIN_T, TRAIN_T, d, None,
+                                    True)}
+        for dd, (b, h, t, s_), causal, kind in (
+                (16, (2, 3, 70, 200), False, "dense"),
+                (32, (2, 2, 33, 77), False, "vec"),
+                (128, (1, 2, 150, 150), True, "dense")):
+            shape = (b, h, t if kind == "dense" else 1, s_)
+            m = torch.where(torch.rand(*shape, generator=g, device="cuda")
+                            < 0.2, -1e9, 0.0)
+            if kind == "dense":
+                m[-1, -1, t // 2] = -1e9
+            bcases[f"ragged d{dd} {kind}"] = (b, h, t, s_, dd, m, causal)
+        for name, (b, h, t, s_, dd, m, causal) in bcases.items():
+            args, (q_, k_, v_, do_) = _bwd_inputs(g, b, h, t, s_, dd, m,
+                                                  causal, dt)
+            dq = fa.flash_attention_bwd_dq(*args)
+            dk, dv = fa.flash_attention_bwd_dkv(*args)
+            rq = fa.flash_attention_bwd_dq_reference(*args)
+            rk, rv = fa.flash_attention_bwd_dkv_reference(*args)
+            torch.cuda.synchronize()
+            e_dq, e_dkv = _ulps(dq, rq), max(_ulps(dk, rk), _ulps(dv, rv))
+            a_dq, a_dkv = _abs(dq, rq), max(_abs(dk, rk), _abs(dv, rv))
+            _lowp_check(f"flash bwd {tag} {name} dq, dk/dv",
+                        [("ulp", e_dq), ("ulp", e_dkv)])
+            if name != "train(causal)":
+                continue
+            q3, k3, v3 = args[:3]
+            fo, flse = fa.flash_attention_fwd(q3, k3, v3, None, args[7],
+                                              "none", True)
+            ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, None,
+                                                        args[7], "none",
+                                                        True)
+            torch.cuda.synchronize()
+            _lowp_check(f"flash {tag} train(causal) [unsplit] o, lse",
+                        [("ulp", _ulps(fo, ro)),
+                         ("abs", float((flse - rlse).abs().max()))])
+            del fo, flse, ro, rlse
+            BH, T = b * h, t
+            pairs = _needed_pairs(BH, T, T, True)
+            qkv = q3.numel() * q3.element_size()
+            ins = 4 * qkv + 2 * 4 * BH * T
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q_, k_, v_))
+            so = _sdpa(qs, ks, vs, is_causal=True)
+            sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
+                so, (qs, ks, vs), do_, retain_graph=True))
+            for key, fn, plain_fn, outs, flop_pair, f32name in (
+                    ("dq", fa.flash_attention_bwd_dq,
+                     fa.flash_attention_bwd_dq_reference, 1, 6 * d,
+                     "flash_attention_bwd_dq"),
+                    ("dkv", fa.flash_attention_bwd_dkv,
+                     fa.flash_attention_bwd_dkv_reference, 2, 8 * d,
+                     "flash_attention_bwd_dkv")):
+                k_ms = _time_ms(lambda: fn(*args))
+                p_ms = _time_ms(lambda: plain_fn(*args))
+                bnd, bby = _bound(ins + outs * qkv, pairs * flop_pair)
+                _log(f"{f32name} {tag} training shape: kernel {k_ms:.4f} ms "
+                     f"(float32 {f32[f32name]['ms']:.4f}), plain {p_ms:.4f} "
+                     f"ms, {SDPA_NAME} {tag} backward {sdpa_bwd:.4f} ms, "
+                     f"bound {bnd:.4f} ms ({bby})")
+                out[key][tag] = {"max_abs_err": a_dq if outs == 1 else a_dkv,
+                                 "max_ulp_err": e_dq if outs == 1 else e_dkv,
+                                 "ms": k_ms, "plain_ms": p_ms,
+                                 "bound_ms": bnd, "bound_by": bby,
+                                 "library_ms": sdpa_bwd,
+                                 "float32_ms": f32[f32name]["ms"]}
+            f_ms = _time_ms(lambda: fa.flash_attention_fwd(
+                q3, k3, v3, None, args[7], "none", True))
+            f_sdpa = _time_ms(lambda: _sdpa(q_, k_, v_, is_causal=True))
+            f_bound, f_by = _bound(4 * qkv + 4 * BH * T, pairs * 4 * d)
+            out["fwd"][tag]["train_shape"] = {
+                "ms": f_ms, "library_ms": f_sdpa, "bound_ms": f_bound,
+                "bound_by": f_by,
+                "float32_ms": f32["flash_attention_fwd"]["train_shape"]["ms"]}
+            _log(f"flash_attention_fwd {tag} training shape: kernel "
+                 f"{f_ms:.4f} ms (float32 "
+                 f"{f32['flash_attention_fwd']['train_shape']['ms']:.4f}), "
+                 f"{SDPA_NAME} {tag} {f_sdpa:.4f} ms, bound {f_bound:.4f} ms "
+                 f"({f_by})")
+    result = []
+    for key, name, replaces in (
+            ("fwd", "flash_attention_fwd_lowp",
+             "singa_tpu/ops/pallas_kernels.py:102"),
+            ("combine", "flash_attention_fwd_combine_lowp",
+             "singa_tpu/ops/pallas_kernels.py:269"),
+            ("dq", "flash_attention_bwd_dq_lowp",
+             "singa_tpu/ops/pallas_kernels.py:146"),
+            ("dkv", "flash_attention_bwd_dkv_lowp",
+             "singa_tpu/ops/pallas_kernels.py:185")):
+        src = "fwd" if key in ("fwd", "combine") else "bwd"
+        row = {"name": name, "route": "cuda",
+               "source": f"singa_tpu_torch/ops/csrc/flash_attention_{src}.cu",
+               "replaces": replaces} | out[key]["bf16"]
+        row["by_dtype"] = out[key]
+        row["low_precision"] = "bf16 operands; fp16 under by_dtype"
+        result.append(row)
+    return result
+
+
+# the combinations of phase 5c: (query, pages) as the engines produce them,
+# and a float16 query over int8 pages with float32 scales
+PAGED_LOWP = ((torch.bfloat16, "bf16"), (torch.float16, "f16"),
+              (torch.bfloat16, "int8_bf16"), (torch.bfloat16, "f32"),
+              (torch.float16, "int8_f32"))
+
+
+def phase_paged_lowp(rows):
+    """Phase 5c: paged decode on a 16-bit query, for each combination of
+    ``PAGED_LOWP``, on phase 5's shapes (the serving shape, a slot at
+    pos -1, d 40 and d 18 with 5-token pages, other page sizes) and
+    three plans each (the card's, unsplit, one page a range): the output
+    in the query's dtype within one ulp of the plain version; the split
+    route's partials within 1e-4 (relative to max(1, |ref|)) and its
+    merge alone within one ulp; pools one element off their alignment.
+    Times at the serving shape beside the float32 rows of ``rows``.
+    Returns the row of the kernels line (bf16 query over bf16 pages;
+    the other combinations under ``by_combination``)."""
+    f32 = {r["name"]: r for r in rows}
+    S, H, d, P, Ps = N_SLOTS, 12, 64, PAGE, 1024 // PAGE
+    pos_h = np.array(SERVING_POS, np.int32)
+    shapes = {"serving": (1, S, H, d, P, Ps, pos_h),
+              "serving pos -1": (9, S, H, d, P, Ps, pos_h[:-1].tolist()
+                                 + [-1]),
+              "d40 P16": (10, 4, 12, 40, 16, 32, [-1, 15, 16, 511]),
+              "d18 P5": (11, 4, 3, 18, 5, 20, [-1, 4, 5, 99]),
+              "d128 P32": (4, 4, 4, 128, 32, 16, [31, 32, 500, 1])}
+    combos = {}
+    for qdt, variant in PAGED_LOWP:
+        tag = f"{LOWP_NAME[qdt]} query, {variant} pages"
+        worst = worst_abs = 0.0
+        for name, shape in shapes.items():
+            args, scales = _paged_case(*shape, variant=variant, q_dtype=qdt)
+            ref = pa.paged_decode_attention_reference(*args, **scales)
+            got = pa.paged_decode_attention(*args, **scales)
+            torch.cuda.synchronize()
+            if got.dtype != qdt:
+                raise AssertionError(f"paged decode {tag}: output "
+                                     f"{got.dtype}")
+            errs = [("ulp", _ulps(got, ref))]
+            if name == "serving":
+                worst_abs = _abs(got, ref)
+            for route, plan in _paged_routes(args[0], args[3]).items():
+                errs.append(("ulp", _ulps(_paged_force(args, scales, plan),
+                                          ref)))
+                if plan[0] > 1:
+                    errs += _paged_split_lowp(args, scales, plan)
+            if name in ("serving", "d40 P16"):
+                q, kp, vp, table, pos = args
+                off = {k_: _misaligned(v_) for k_, v_ in scales.items()}
+                errs.append(("ulp", _ulps(pa.paged_decode_attention(
+                    q, _misaligned(kp), _misaligned(vp), table, pos, **off),
+                    ref)))
+            _lowp_check(f"paged decode {tag} {name} (public, 3 plans, "
+                        f"split halves, misaligned)", errs)
+            worst = max(worst, max(e for k_, e in errs if k_ == "ulp"))
+            if name == "serving":
+                serving = (args, scales)
+        args, scales = serving
+        ms = _time_ms(lambda: pa.paged_decode_attention(*args, **scales))
+        plain = _time_ms(lambda: pa.paged_decode_attention_reference(
+            *args, **scales))
+        nbytes, _, _, (bound, by) = _paged_bound(args, scales, P, pos_h)
+        f32name = ("paged_decode_attention_q8" if variant.startswith("int8")
+                   else "paged_decode_attention")
+        _log(f"paged decode {tag} serving shape: kernel {ms:.4f} ms "
+             f"({f32name} float32 query {f32[f32name]['ms']:.4f}), plain "
+             f"{plain:.4f} ms, bound {bound:.6f} ms ({by}: "
+             f"{nbytes / 1e6:.4f} MB)")
+        combos[tag] = {"max_abs_err": worst_abs, "max_ulp_err": worst,
+                       "ms": ms, "plain_ms": plain,
+                       "bound_ms": bound, "bound_by": by, "library_ms": None,
+                       "float32_query_ms": f32[f32name]["ms"]}
+    main = combos["bf16 query, bf16 pages"]
+    return {"name": "paged_decode_attention_lowp", "route": "cuda",
+            "source": "singa_tpu_torch/ops/csrc/paged_decode.cu",
+            "replaces": "singa_tpu/ops/paged_attention.py:45"} | main | {
+                "by_combination": combos,
+                "low_precision": "bf16 query over bf16 pages; the rest "
+                                 "under by_combination"}
+
+
+def _paged_split_lowp(args, scales, plan):
+    """The split route's halves on a 16-bit query: the partials a call
+    left against the plain partials (relative to max(1, |ref|)), and the
+    merge launch alone on them, in the query's dtype, against the plain
+    merge rounded to it (ulps), over the slots with 2+ live ranges."""
+    q, kp, _, table, pos = args
+    S, H, d = q.shape
+    R, ppr = plan
+    _paged_force(args, scales, plan)
+    torch.cuda.synchronize()
+    part = pa._parts(0, pa._stream(0), S * H * R * (d + 2))[0].view(
+        S, H, R, d + 2).clone()
+    n_live = pa._live_ranges(pos, R, ppr, kp.shape[2], table.shape[1])
+    split = n_live > 1
+    if not bool(split.any()):
+        return []
+    live = (torch.arange(R, device="cuda")[None] < n_live[:, None]) \
+        & split[:, None]
+    live = live[:, None, :].expand(S, H, R)
+    pml, pacc = pa.paged_decode_partial_reference(*args, plan, **scales)
+    rel = max(float(((a - b).abs() / b.abs().clamp(min=1))[live].max())
+              for a, b in ((part[..., :2], pml), (part[..., 2:], pacc)))
+    merged = pa.paged_decode_merge_reference(part[..., :2], part[..., 2:],
+                                             pos, plan, kp.shape[2],
+                                             table.shape[1]).to(q.dtype)
+    alone = pa._merge_launch(part, pos, torch.zeros_like(q), kp.shape[2],
+                             table.shape[1], plan)
+    torch.cuda.synchronize()
+    return [("abs", rel), ("ulp", _ulps(alone[split], merged[split]))]
 
 
 # the char-LSTM of bench_rnn.py at the reference char-RNN shape
@@ -1463,10 +1917,11 @@ def _prefill_logits(params, cfg, tokens, quant, device):
     def zeros(shp, dt):
         return torch.zeros(shp, dtype=dt, device=device)
 
+    fdt = params["tok"].dtype
     pages = [(zeros(shape, torch.int8), zeros(shape, torch.int8),
               zeros(shape[:3], torch.bfloat16),
               zeros(shape[:3], torch.bfloat16)) if quant
-             else (zeros(shape, torch.float32), zeros(shape, torch.float32))
+             else (zeros(shape, fdt), zeros(shape, fdt))
              for _ in range(cfg.n_layers)]
     row = torch.arange(1, n_pages + 1, dtype=torch.int32, device=device)
     positions = torch.arange(T, device=device)
@@ -1483,12 +1938,20 @@ def _prefill_logits(params, cfg, tokens, quant, device):
 
 def _cpu_margin(cpu_model, tokens, weight_dtype=None):
     """Top-2 logit margin at the end of ``tokens``, from the port's
-    plain path on the CPU (float, or int8 weights and pages)."""
+    plain path on the CPU (float, or int8 weights and pages; in the
+    model's compute dtype), and the margin a first difference may have:
+    ``MARGIN_TOL``, or for 16-bit logits ``LOWP_MARGIN_ULPS`` units in the
+    last place of the top logit if that is more."""
     params = cpu_model.decode_params(weight_dtype)
     lg = _prefill_logits(params, cpu_model.config, tokens,
                          weight_dtype is not None, "cpu")[-1]
     top = torch.topk(lg, 2).values
-    return float(top[0] - top[1])
+    tol = MARGIN_TOL
+    if lg.dtype in LOWP:
+        _, e = torch.frexp(top[0].abs().float())
+        bits = 8 if lg.dtype == torch.bfloat16 else 11
+        tol = max(tol, LOWP_MARGIN_ULPS * 2.0 ** (int(e) - bits))
+    return float(top[0].float() - top[1].float()), tol
 
 
 def _serve(eng, prompts):
@@ -1586,11 +2049,11 @@ def _margin_check(label, cpu_model, prompt, a, b, weight_dtype=None):
         _log(f"{label}: {len(a)} greedy tokens identical")
         return
     j = int(np.flatnonzero(a != b)[0])
-    margin = _cpu_margin(cpu_model, np.concatenate([prompt, a[:j]]),
-                         weight_dtype)
+    margin, tol = _cpu_margin(cpu_model, np.concatenate([prompt, a[:j]]),
+                              weight_dtype)
     _log(f"{label}: first difference at token {j}, CPU top-2 logit margin "
-         f"{margin:.3e}")
-    if margin >= MARGIN_TOL:
+         f"{margin:.3e} (limit {tol:.3e})")
+    if margin >= tol and margin > 0:
         raise AssertionError(f"{label} differs at token {j} with margin "
                              f"{margin}")
 
@@ -1906,11 +2369,12 @@ def synthetic_stream(vocab, n, seed=0):
     return x
 
 
-def _train_setup():
-    """GPT-2-small (``use_flash=True``) with weights from a seeded card
-    generator, Adam(lr 3e-4), compiled on the first batch; the batches of
-    the seeded stream."""
-    cfg = tgpt.GPTConfig.small(use_flash=True)
+def _train_setup(precision=None):
+    """GPT-2-small (``use_flash=True``, under ``precision``) with weights
+    from a seeded card generator (the same for every precision),
+    Adam(lr 3e-4), compiled on the first batch; the batches of the
+    seeded stream."""
+    cfg = tgpt.GPTConfig.small(use_flash=True, precision=precision)
     dev = tdevice.create_cuda_gpu(seed=0)
     data = synthetic_stream(cfg.vocab_size,
                             TRAIN_STEPS * TRAIN_B * TRAIN_T + 1, seed=0)
@@ -1930,11 +2394,15 @@ def _train_setup():
 
 def _zero_launches():
     fa.launches = fa.launches_combine = fa.launches_dq = fa.launches_dkv = 0
-    pa.launches = pa.launches_q8 = pa.launches_merge = 0
+    fa.launches_lowp = fa.launches_combine_lowp = fa.launches_dq_lowp = 0
+    fa.launches_dkv_lowp = 0
+    pa.launches = pa.launches_q8 = pa.launches_merge = pa.launches_lowp = 0
     lc.launches = lc.launches_bwd = ew.launches = 0
 
 
 def _read_launches():
+    """Every kernel counter; a ``*_lowp`` entry counts the launches on
+    16-bit operands, which the entry without the suffix counts too."""
     return {"flash_attention_fwd": fa.launches,
             "flash_attention_fwd_combine": fa.launches_combine,
             "flash_attention_bwd_dq": fa.launches_dq,
@@ -1943,7 +2411,12 @@ def _read_launches():
             "paged_decode_attention_q8": pa.launches_q8,
             "paged_decode_merge": pa.launches_merge,
             "lstm_cell": lc.launches, "lstm_cell_bwd": lc.launches_bwd,
-            "elementwise": ew.launches}
+            "elementwise": ew.launches,
+            "flash_attention_fwd_lowp": fa.launches_lowp,
+            "flash_attention_fwd_combine_lowp": fa.launches_combine_lowp,
+            "flash_attention_bwd_dq_lowp": fa.launches_dq_lowp,
+            "flash_attention_bwd_dkv_lowp": fa.launches_dkv_lowp,
+            "paged_decode_attention_lowp": pa.launches_lowp}
 
 
 def phase_train():
@@ -1989,6 +2462,202 @@ def phase_train():
     if launches["flash_attention_fwd_combine"] != 0:
         raise AssertionError("the training shape took the split route")
     return model, launches, stats
+
+
+# ---- the 16-bit paths (phases 7e, 7f, 8b, 8c) ------------------------------
+
+def _lowp_launches(label, launches, names):
+    """Each of ``names`` launched, and every launch on 16-bit operands."""
+    for name in names:
+        if launches[name] <= 0 or launches[name + "_lowp"] != launches[name]:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} "
+                                 f"times, {launches[name + '_lowp']} of them "
+                                 f"on 16-bit operands")
+
+
+def _bf16_models(setup):
+    """Phase 6's seeded masters under ``precision="bfloat16"``: on the
+    card, and on the host (the CPU oracle), kept in ``setup``."""
+    if "model16" not in setup:
+        cfg16 = tgpt.GPTConfig.small(precision="bfloat16")
+        setup["cfg16"] = cfg16
+        setup["model16"] = tgpt.GPT.from_jax_decode_params(setup["tree"],
+                                                           cfg16)
+        setup["cpu_model16"] = tgpt.GPT.from_jax_decode_params(
+            setup["tree"], cfg16, device="cpu")
+    return setup["cfg16"], setup["model16"], setup["cpu_model16"]
+
+
+def phase_serve_bf16(setup, float_stats):
+    """Path ``serve_bf16``: phase 6's stream on the paged engine under
+    ``precision="bfloat16"`` (the same seeded float32 masters through
+    ``GPT.from_jax_decode_params``).  Checks: 8/8 complete; the pools are
+    bfloat16 and the committed KV bytes exactly half of phase 6's; the
+    flash forward, its combine, paged decode and its merge launched,
+    every flash and paged launch on 16-bit operands; the prefix-sharing
+    pair against the port on the CPU in bfloat16 under the margin rule
+    (16-bit limit, ``LOWP_MARGIN_ULPS``)."""
+    cfg16, model, cpu_model = _bf16_models(setup)
+    kw, prompts = setup["kw"], setup["prompts"]
+    _warm(model, kw, prompts)
+    eng = ServingEngine(model, **kw)
+    if eng.kv.caches[0][0].dtype != torch.bfloat16:
+        raise AssertionError(f"serve_bf16 pools are "
+                             f"{eng.kv.caches[0][0].dtype}")
+    rids, res, launches, stats = _drive(eng, prompts, cfg16, "serve_bf16")
+    del eng
+    _lowp_launches("serve_bf16", launches,
+                   ("flash_attention_fwd", "flash_attention_fwd_combine",
+                    "paged_decode_attention"))
+    if launches["paged_decode_merge"] <= 0:
+        raise AssertionError("serve_bf16: the paged merge never launched")
+    ratio = stats["kv_bytes_committed"] / float_stats["kv_bytes_committed"]
+    _log(f"serve_bf16 KV bytes committed {stats['kv_bytes_committed']} = "
+         f"{ratio} of phase 6's (want exactly 0.5)")
+    if ratio != 0.5:
+        raise AssertionError(f"serve_bf16 KV byte ratio {ratio}")
+    _cpu_oracle(cpu_model, kw, prompts, res, rids)
+    _beside("bf16 paged", stats, float_stats)
+    setup["rids16"], setup["res16"] = rids, res
+    return launches, stats
+
+
+def phase_generate_bf16(setup):
+    """Path ``generate_bf16``: ``GPT.generate`` on the card under
+    ``precision="bfloat16"``, phase 7a's batch: exactly 12 flash forward
+    launches a call, all on bfloat16 operands, no combine, nothing else;
+    each row against the bf16 paged engine's tokens for its prompt, and
+    two rows against the port's bf16 ``generate`` on the CPU, under the
+    margin rule."""
+    cfg16, model, cpu_model = _bf16_models(setup)
+    rows = _generate_rows(setup["prompts"])
+    batch = np.stack(rows)
+    model.generate(batch[:1, :40], 4)           # warm-up, not counted
+    gc.collect()
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    toks = model.generate(batch, NEW)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    stats = {"wall_s": wall, "tokens_per_s": GEN_B * NEW / wall}
+    _log(f"generate_bf16 B {GEN_B} T {GEN_T}, {NEW} new: {wall:.3f}s, "
+         f"{stats['tokens_per_s']:.1f} tokens/s; launches "
+         + json.dumps({k: v for k, v in launches.items() if v}))
+    want = dict.fromkeys(launches, 0) | {
+        "flash_attention_fwd": cfg16.n_layers,
+        "flash_attention_fwd_lowp": cfg16.n_layers}
+    if launches != want:
+        raise AssertionError(f"generate_bf16 launched {launches}, expected "
+                             f"{want}")
+    if toks.shape != (GEN_B, NEW) or toks.min() < 0 \
+            or toks.max() >= cfg16.vocab_size:
+        raise AssertionError(f"generate_bf16: bad tokens {toks}")
+    eng = ServingEngine(model, **setup["kw"])
+    rids = [eng.submit(r, NEW) for r in rows]
+    res = eng.run()
+    del eng
+    for i, (r, rid) in enumerate(zip(rows, rids)):
+        _margin_check(f"generate_bf16 row {i} against the bf16 paged engine",
+                      cpu_model, r, toks[i], res[rid])
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = cpu_model.generate(batch[:2], NEW)
+    _log(f"generate_bf16: 2 rows on the CPU in "
+         f"{time.perf_counter() - t0:.1f}s")
+    for i in range(2):
+        _margin_check(f"generate_bf16 row {i} against the CPU run",
+                      cpu_model, rows[i], toks[i], cpu[i])
+    return launches, stats
+
+
+def phase_train_lowp(precision, f32_stats):
+    """Paths ``train_bf16`` and ``train_fp16``: phase 8's run under
+    ``precision`` (the same seeded weights and batches).  Checks: the
+    loss falls, stays finite and ends within 2 % of phase 8's float32
+    loss at step 5 (the bound of the reference's
+    ``test_bf16_tracks_fp32_mlp``); exactly 12 launches a step of each
+    flash kernel, all on 16-bit operands, no combine; every parameter
+    and optimizer state float32 after the steps.  Step time and peak
+    memory print beside float32's.  ``float16`` then takes one step
+    with its loss scale forced to 2^40, so that the 16-bit gradients
+    overflow: every parameter and optimizer state must come back
+    bit-unchanged and the scale must halve."""
+    label = {"bfloat16": "train_bf16", "float16": "train_fp16"}[precision]
+    gc.collect()
+    cfg, model, batches = _train_setup(precision)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses, walls = [], []
+    for s, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        _, loss = model.train_one_batch(x, y)
+        lv = loss.item()                      # synchronises
+        walls.append(time.perf_counter() - t0)
+        losses.append(lv)
+        _log(f"{label} step {s}: loss {lv:.6f}, {walls[-1] * 1e3:.1f} ms")
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steady = walls[1:]
+    stats = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+             "steady_step_ms": float(np.mean(steady)) * 1e3,
+             "tokens_per_s": TRAIN_B * TRAIN_T * len(steady) / sum(steady),
+             "peak_memory_bytes": peak}
+    _log(f"{label} launches " + json.dumps(launches))
+    rel = abs(losses[-1] - f32_stats["losses"][-1]) / f32_stats["losses"][-1]
+    _log(f"{label}: steady step {stats['steady_step_ms']:.1f} ms (float32 "
+         f"{f32_stats['steady_step_ms']:.1f}), {stats['tokens_per_s']:.0f} "
+         f"tokens/s (float32 {f32_stats['tokens_per_s']:.0f}), peak memory "
+         f"{peak / 2**30:.2f} GiB (float32 "
+         f"{f32_stats['peak_memory_bytes'] / 2**30:.2f}); loss at step "
+         f"{TRAIN_STEPS} {losses[-1]:.6f} against float32's "
+         f"{f32_stats['losses'][-1]:.6f} (relative {rel:.4f}, tol 0.02)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    if not rel <= 0.02:
+        raise AssertionError(f"{label}: step-{TRAIN_STEPS} loss {rel:.4f} "
+                             f"off float32's")
+    want = cfg.n_layers * TRAIN_STEPS
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if launches[name] != want or launches[name + "_lowp"] != want:
+            raise AssertionError(f"{label}: {name} {launches[name]} "
+                                 f"launches ({launches[name + '_lowp']} "
+                                 f"16-bit), expected {want}")
+    if launches["flash_attention_fwd_combine"] != 0:
+        raise AssertionError(f"{label}: the training shape took the split "
+                             f"route")
+    opt = model.optimizer
+    states = list(model.get_states().items()) + [
+        (t.name, t) for t in opt.state_tensors()
+        if t.data.is_floating_point() and not t.name.startswith("loss")]
+    bad = [n for n, t in states if t.data.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{label}: not float32 after the steps: {bad}")
+    _log(f"{label}: all {len(states)} parameters and optimizer states are "
+         f"float32 after {TRAIN_STEPS} steps")
+    if precision == "float16":
+        ls = model.precision_policy.loss_scale
+        _log(f"{label}: loss scale {float(ls.scale.data)} after "
+             f"{TRAIN_STEPS} steps, good steps {int(ls.good_steps.data)}")
+        before = {n: t.data.detach().clone() for n, t in states}
+        ls.scale.data.fill_(2.0 ** 40)
+        x, y = batches[0]
+        _, loss = model.train_one_batch(x, y)
+        torch.cuda.synchronize()
+        moved = [n for n, t in states if not torch.equal(t.data, before[n])]
+        new_scale = float(ls.scale.data)
+        _log(f"{label} forced overflow (loss scale 2^40): loss "
+             f"{loss.item():.6f}, {len(moved)} of {len(states)} tensors "
+             f"moved, scale now {new_scale} (want {2.0 ** 39})")
+        if moved or new_scale != 2.0 ** 39 or bool(ls.found_inf.data):
+            raise AssertionError(f"{label}: the overflowed step was not a "
+                                 f"no-op: moved {moved[:5]}, scale "
+                                 f"{new_scale}")
+        stats["overflow_step"] = {"moved": len(moved), "scale": new_scale}
+    del model, opt, states
+    return launches, stats
 
 
 def _loss_and_grads(model, x, y):
@@ -2351,7 +3020,8 @@ def _kernel_bucket(name):
     if "paged_decode" in name:
         return "paged_decode kernel"
     low = name.lower()
-    if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "cublas")):
+    if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "cublas",
+                              "nvjet")):
         return "matmuls (cuBLAS)"
     if "memcpy" in low or "memset" in low:
         return "copies and fills"
@@ -2368,10 +3038,13 @@ def _int8_engine_setup(cfg, tree, kw, prompts):
     return cpu_model, qkw
 
 
-def _compare_engine(kind, model, cpu_model, kw, qkw):
+def _compare_engine(kind, model, cpu_model, kw, qkw, model16=None):
     """A fresh engine of ``kind`` and the kernel counter its run must
     move: ``paged`` the float paged engine, ``int8`` the quantized one,
-    ``slot`` the slot chunked engine, ``mono`` the monolithic one."""
+    ``slot`` the slot chunked engine, ``mono`` the monolithic one,
+    ``bf16`` the paged engine of ``model16`` (``precision="bfloat16"``)."""
+    if kind == "bf16":
+        return ServingEngine(model16, **kw), "paged_decode_attention_lowp"
     if kind == "int8":
         return (ServingEngine(cpu_model, device="cuda", **qkw),
                 "paged_decode_attention_q8")
@@ -2388,15 +3061,19 @@ def phase_compare_serve(kinds=("paged", "int8"), runs=4):
     """Serving engines alternated in one process, ``runs`` runs of each
     on fresh engines over the staggered stream, the order reversed every
     other round (paged, int8, int8, paged, ...; or paged, slot, mono,
-    mono, slot, paged, ...).  Prints every run's tokens/s, TTFT p50, ITL
+    mono, slot, paged, ...; or paged, bf16, bf16, paged, ...).  Prints
+    every run's tokens/s, TTFT p50, ITL
     p99 and wall time, then the smallest, median and largest of each and
     each kind's medians over the first kind's."""
     cfg, tree, model, kw, prompts = _slice_setup()
-    cpu_model = qkw = None
+    cpu_model = qkw = model16 = None
     if "int8" in kinds:
         cpu_model, qkw = _int8_engine_setup(cfg, tree, kw, prompts)
+    if "bf16" in kinds:
+        model16 = tgpt.GPT.from_jax_decode_params(
+            tree, tgpt.GPTConfig.small(precision="bfloat16"))
     for kind in kinds:                  # one short warm-up run each
-        eng = _compare_engine(kind, model, cpu_model, kw, qkw)[0]
+        eng = _compare_engine(kind, model, cpu_model, kw, qkw, model16)[0]
         eng.submit(prompts[0][:80], 9)
         eng.run()
         del eng
@@ -2404,7 +3081,7 @@ def phase_compare_serve(kinds=("paged", "int8"), runs=4):
              for k in (kinds if r % 2 == 0 else kinds[::-1])]
     out = {k: [] for k in kinds}
     for i, kind in enumerate(order):
-        eng, want = _compare_engine(kind, model, cpu_model, kw, qkw)
+        eng, want = _compare_engine(kind, model, cpu_model, kw, qkw, model16)
         _, _, launches, stats = _drive(eng, prompts, cfg,
                                        f"compare {i} {kind}")
         if launches[want] <= 0:
@@ -2463,8 +3140,9 @@ def phase_profile(path):
 
         def run():
             model.generate(batch, NEW)
-    elif path == "train":
-        cfg, model, batches = _train_setup()
+    elif path in ("train", "train_bf16"):
+        cfg, model, batches = _train_setup(
+            "bfloat16" if path == "train_bf16" else None)
         model.train_one_batch(*batches[0])[1].item()
 
         def run():
@@ -2522,7 +3200,7 @@ def phase_profile(path):
 
 
 PROFILE_PATHS = ("serve", "serve_int8", "serve_slot", "generate", "train",
-                 "rnn_train", "rnn_train_plain")
+                 "train_bf16", "rnn_train", "rnn_train_plain")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2534,12 +3212,14 @@ def main(argv):
     modes = {(): None, ("--profile",): lambda: phase_profile("serve"),
              ("--compare-serve",): phase_compare_serve,
              ("--compare-serve", "layouts"):
-             lambda: phase_compare_serve(("paged", "slot", "mono"), 3)}
+             lambda: phase_compare_serve(("paged", "slot", "mono"), 3),
+             ("--compare-serve", "precision"):
+             lambda: phase_compare_serve(("paged", "bf16"))}
     for path in PROFILE_PATHS:
         modes["--profile", path] = lambda p=path: phase_profile(p)
     if tuple(argv) not in modes:
         print(f"usage: chip_smoke.py [--profile [{'|'.join(PROFILE_PATHS)}]"
-              f" | --compare-serve [layouts]]", file=sys.stderr)
+              f" | --compare-serve [layouts|precision]]", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     card = phase_card()
@@ -2552,12 +3232,17 @@ def main(argv):
     dq, dkv, fwd["train_shape"] = phase_flash_bwd()
     paged, paged_q8, paged_merge = phase_paged()
     t_k = time.perf_counter()
+    lowp = phase_flash_lowp([fwd, combine, dq, dkv])
+    lowp.append(phase_paged_lowp([paged, paged_q8]))
+    _log(f"16-bit kernel phases (3b, 4b, 5c): "
+         f"{time.perf_counter() - t_k:.1f}s")
+    t_k = time.perf_counter()
     lstm, lstm_bwd = phase_lstm()
     elementwise, ew_launches = phase_ew()
     _log(f"lstm and elementwise kernel phases (5a-5b): "
          f"{time.perf_counter() - t_k:.1f}s")
     rows = [fwd, combine, dq, dkv, elementwise, lstm, lstm_bwd, paged,
-            paged_q8, paged_merge]
+            paged_q8, paged_merge] + lowp
     serve_launches, serve_stats, setup = phase_slice()
     int8_launches, _ = phase_slice_int8(setup, serve_stats)
     t_s = time.perf_counter()
@@ -2570,11 +3255,19 @@ def main(argv):
     slot8_launches, _ = phase_serve_slot_int8(setup)
     _log(f"generate and slot-layout phases (7a-7d): "
          f"{time.perf_counter() - t_s:.1f}s")
+    t_s = time.perf_counter()
+    serve16_launches, _ = phase_serve_bf16(setup, serve_stats)
+    gen16_launches, _ = phase_generate_bf16(setup)
+    _log(f"bf16 serving phases (7e-7f): {time.perf_counter() - t_s:.1f}s")
     del setup
-    model, train_launches, _ = phase_train()
+    model, train_launches, train_stats = phase_train()
     phase_card_vs_cpu(model)
     phase_serve_trained(model)
     del model
+    t_s = time.perf_counter()
+    train16_launches, _ = phase_train_lowp("bfloat16", train_stats)
+    trainf16_launches, _ = phase_train_lowp("float16", train_stats)
+    _log(f"16-bit training phases (8b-8c): {time.perf_counter() - t_s:.1f}s")
     t_rnn = time.perf_counter()
     rnn_model, rnn_train_launches, _ = phase_rnn_train()
     phase_rnn_card_vs_cpu(rnn_model)
@@ -2588,7 +3281,11 @@ def main(argv):
                    "serve_slot": slot_launches[row["name"]],
                    "serve_mono": mono_launches[row["name"]],
                    "serve_slot_int8": slot8_launches[row["name"]],
+                   "serve_bf16": serve16_launches[row["name"]],
+                   "generate_bf16": gen16_launches[row["name"]],
                    "train": train_launches[row["name"]],
+                   "train_bf16": train16_launches[row["name"]],
+                   "train_fp16": trainf16_launches[row["name"]],
                    "rnn_train": rnn_train_launches[row["name"]],
                    "rnn_sample": rnn_sample_launches[row["name"]],
                    "ew": ew_launches[row["name"]]}
@@ -2599,7 +3296,8 @@ def main(argv):
         {k: r[k] for k in KEYS + ("launches_by_path",)}
         | {k: r[k] for k in ("train_shape", "serving_split",
                              "causal_serving", "blocks",
-                             "by_op",
+                             "by_op", "by_dtype", "by_combination",
+                             "max_ulp_err",
                              "low_precision", "flush_floor_ms", "plan",
                              "unsplit_ms", "host_us",
                              "function_backward_ms",

@@ -4,8 +4,9 @@ Counterpart: ``singa_tpu/autograd.py`` — the module-level ``training``
 flag, ``backward(y, dy)`` (:208), ``gradients(y)`` and the operators the
 training path runs, by the reference's names and semantics: ``add``,
 ``mul``, ``matmul``, ``add_bias``, ``reshape``, ``transpose``,
-``gather``, ``gelu`` (the exact erf form), ``softmax`` (float32 pin),
-``softmax_cross_entropy`` (mean; integer or one-hot targets), ``cast``,
+``gather``, ``relu``, ``gelu`` (the exact erf form), ``softmax``
+(float32 pin), ``softmax_cross_entropy`` (mean; integer or one-hot
+targets), ``cast``,
 ``reduce_mean`` and ``onehot`` (no gradient, as the reference's
 ``_nograd`` ops).
 
@@ -27,8 +28,8 @@ import torch.nn.functional as F
 from .tensor import Tensor
 
 __all__ = ["training", "Operation", "backward", "gradients", "add", "mul",
-           "matmul", "add_bias", "reshape", "transpose", "gather", "gelu",
-           "softmax", "softmax_cross_entropy", "cast", "reduce_mean",
+           "matmul", "add_bias", "reshape", "transpose", "gather", "relu",
+           "gelu", "softmax", "softmax_cross_entropy", "cast", "reduce_mean",
            "onehot", "op"]
 
 # module-level training flag (parity: ``autograd.training``); ops record
@@ -193,6 +194,11 @@ def _fill_value(dtype):
         return True
     info = torch.iinfo(dtype)
     return info.min if info.min < 0 else info.max
+
+
+def relu(x):
+    # jax.nn.relu's derivative at 0 is 0, as torch.relu's
+    return op("Relu", torch.relu, x)
 
 
 def gelu(x):

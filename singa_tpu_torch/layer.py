@@ -3,8 +3,9 @@
 ``Layer`` (lazy parameter creation on the first call, on the first
 input's device; ``get_params`` / ``get_states`` / ``set_states`` under
 dotted attribute-path names, as the reference), ``Linear`` (:123, ``W``
-is ``(in, out)``, ``y = x @ W + b``), ``Embedding`` (:312),
-``LayerNorm`` (:330, ``scale`` / ``bias``, float32 statistics), ``Gelu``,
+is ``(in, out)``, ``y = x @ W + b``), ``ReLU`` (:265), ``Embedding``
+(:312), ``LayerNorm`` (:330, ``scale`` / ``bias``, float32 statistics),
+``Gelu``,
 ``MultiHeadAttention`` (:441: the naive decomposition of
 layer.py:559-583 or the differentiable flash-attention kernels), ``RNN``,
 ``LSTM``, ``GRU`` and ``CudnnRNN`` (:359-419, optionally through the
@@ -27,7 +28,7 @@ from .ops.flash_attention import flash_attention
 from .ops.rnn import RNNHandle, rnn_forward
 from .tensor import Tensor
 
-__all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "Gelu",
+__all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "ReLU", "Gelu",
            "MultiHeadAttention", "RNN", "LSTM", "GRU", "CudnnRNN",
            "apply_rope"]
 
@@ -142,6 +143,11 @@ class Linear(Layer):
         if self.use_bias:
             y = autograd.add_bias(y, self.b)
         return y
+
+
+class ReLU(Layer):
+    def forward(self, x):
+        return autograd.relu(x)
 
 
 class Gelu(Layer):

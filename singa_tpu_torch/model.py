@@ -23,9 +23,17 @@ argument does.  Capturing the step in a CUDA graph is later work
 outputs through as they are.
 ``sequential`` is accepted and ignored, as in the reference, which stores
 it and reads it nowhere.
-A ``precision`` other than None / ``"float32"``, a ``communicator``, a
-``mesh``, ``debug`` and ``lint`` raise ``NotImplementedError`` naming
-their slice.
+
+Mixed precision (``compile(precision=...)`` or
+:meth:`Model.set_precision_policy`; reference model.py:108, :288-310,
+:626-651): under an active policy every ``train_one_batch`` call runs
+``Policy.begin_step`` (compute-dtype leaves for the float32 masters),
+casts float32 batch inputs to the compute dtype, runs the user's step,
+then ``end_step`` and casts the step's outputs to the output dtype, in
+eager and in graph mode alike; the parameters, the optimizer's state
+and the checkpoints stay float32.
+A ``communicator``, a ``mesh``, ``debug`` and ``lint`` raise
+``NotImplementedError`` naming their slice.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from . import autograd
+from . import precision as _precision
 from .device import get_device
 from .layer import Layer
 from .tensor import Tensor
@@ -54,12 +63,24 @@ class Model(Layer):
         self.device = None
         self.graph_mode = False
         self._user_tob = None
+        self.precision_policy = None   # a precision.Policy or None
 
     # ------------------------------------------------------------------
     # configuration (reference-parity API)
     # ------------------------------------------------------------------
     def set_optimizer(self, optimizer):
         self.optimizer = optimizer
+        if self.precision_policy is not None and optimizer is not None:
+            optimizer.attach_precision_policy(self.precision_policy)
+
+    def set_precision_policy(self, policy):
+        """Install a mixed-precision policy (``"bfloat16"``,
+        ``"float16"``, ``"float32"`` or a
+        :class:`~singa_tpu_torch.precision.Policy`; see the module
+        docstring) and attach it to the optimizer."""
+        self.precision_policy = _precision.get_policy(policy)
+        if self.optimizer is not None and self.precision_policy is not None:
+            self.optimizer.attach_precision_policy(self.precision_policy)
 
     def train(self, mode: bool = True):
         self.training = mode
@@ -112,10 +133,10 @@ class Model(Layer):
         input's device; numpy or torch inputs go to the model's device
         (the card when it has none).  ``use_graph=True`` runs the same
         eager step, cut from the graph at its inputs and outputs, and
-        ``sequential`` is ignored (see the module docstring).  Returns the
-        placeholder pass's output."""
-        if precision not in (None, "float32"):
-            _not_ported(f"precision={precision!r}", "item 4 (precision.py)")
+        ``sequential`` is ignored (see the module docstring).
+        ``precision``, when given, is installed by
+        :meth:`set_precision_policy`.  Returns the placeholder pass's
+        output."""
         if communicator is not None:
             _not_ported("a communicator (DistOpt)", "item 12")
         if mesh is not None:
@@ -128,6 +149,8 @@ class Model(Layer):
         self.device = (first.device if isinstance(first, Tensor)
                        else get_device(self.device))
         self.graph_mode = use_graph
+        if precision is not None:
+            self.set_precision_policy(precision)
         xs = [self._as_input(x) for x in inputs]
         for t in self.get_states().values():   # eagerly created params
             t.to_device(self.device)
@@ -145,18 +168,30 @@ class Model(Layer):
 
     def _dispatch_tob(self, *xs):
         xs = [self._as_input(x) for x in xs]
-        if not self.graph_mode:
-            return self._user_tob(*xs)
-        return _cut(self._user_tob(*[_cut(x) for x in xs]))
+        pol = self.precision_policy
+        if pol is None or not pol.active:
+            if not self.graph_mode:
+                return self._user_tob(*xs)
+            return _cut(self._user_tob(*[_cut(x) for x in xs]))
+        # the master swap around the user's step; inputs enter and outputs
+        # leave as fresh Tensors in either mode, as in the reference
+        token = pol.begin_step(self.get_states().values(), self.optimizer)
+        try:
+            out = self._user_tob(*[_cut(x, pol.cast_input) for x in xs])
+        finally:
+            pol.end_step(token, self.optimizer)
+        return _cut(out, pol.cast_output)
 
 
-def _cut(x):
+def _cut(x, cast=None):
     """The compiled step's boundary: a Tensor becomes a fresh Tensor on
-    the same data, detached, with no creator; tuples and lists are cut
+    the same data (through ``cast`` when given: a policy's input or
+    output cast), detached, with no creator; tuples and lists are cut
     item by item; anything else passes as it is."""
     if isinstance(x, Tensor):
-        return Tensor(data=x.data.detach(), device=x.device,
+        data = x.data.detach()
+        return Tensor(data=cast(data) if cast else data, device=x.device,
                       requires_grad=False)
     if isinstance(x, (tuple, list)):
-        return type(x)(_cut(v) for v in x)
+        return type(x)(_cut(v, cast) for v in x)
     return x

@@ -29,6 +29,17 @@ decode pieces:
 Unlike JAX's functional updates, caches and page pools (and their scale
 pools) are updated in place: each block writes its K/V rows into the
 tensors it was handed and returns those same tensors.
+
+Mixed precision: ``GPTConfig(precision="bfloat16" | "float16" | a
+Policy)`` installs the policy on the model (reference gpt.py:231).
+Training then runs in the compute dtype with float32 masters
+(:mod:`singa_tpu_torch.model`), and ``decode_params()`` casts every
+float leaf to the compute dtype (one copy; a quantized tree quantizes
+its Linear weights from the float32 masters and casts the rest), so
+``generate`` and the engines run in it and their caches take its dtype.
+Each decode op keeps the dtype the reference's gives: a float32
+constant mask added to 16-bit scores is cast to their dtype first, as
+JAX's weakly typed ``jnp.where(..., 0.0, -1e9)`` is.
 """
 
 from __future__ import annotations
@@ -102,10 +113,8 @@ class GPTConfig:
         # rotary position embeddings instead of the learned pos table
         self.use_rope = use_rope
         self.rope_base = float(rope_base)
-        if precision not in (None, "float32"):
-            raise NotImplementedError(
-                f"precision={precision!r} belongs to the mixed-precision "
-                f"slice of the port (ROADMAP.md queue 1, item 4)")
+        # a mixed-precision policy name ("bfloat16"/"float16"/"float32") or
+        # a precision.Policy, installed by GPT; None keeps Model.compile's
         self.precision = precision
 
     @classmethod
@@ -220,6 +229,8 @@ class GPT(Model):
         # quantized decode trees, by (weight_dtype, scale_dtype) name:
         # (Linear weights, their version counters, tree)
         self._decode_quant: dict = {}
+        if c.precision is not None:
+            self.set_precision_policy(c.precision)
 
     # ---- training path (layer API) ------------------------------------
     def forward(self, ids):
@@ -282,7 +293,8 @@ class GPT(Model):
         no JAX import.  Every leaf must be float and shaped as
         ``config`` says; quantized pytrees (``Ws`` scales) are refused."""
         model = cls(config, device=device)
-        mine = model.decode_params()
+        model._materialize()
+        mine = model._build_decode_params(None, None, cast=False)
         want = _shapes(config)
 
         def copy(dst, src, spec, path):
@@ -322,7 +334,8 @@ class GPT(Model):
         """The parameters as the JAX decode pytree
         (``_build_decode_params``): a nested dict of ``{W, b}`` Linears
         with ``W`` as (in, out) and ``{g, b}`` LayerNorms.  The float tree
-        shares storage with the layers' parameters.
+        shares storage with the layers' parameters; under a mixed
+        precision policy every float leaf is a copy in the compute dtype.
 
         ``weight_dtype`` (int8): quantized serving — every Linear
         (q/k/v/o/f1/f2/head) stores a per-output-channel quantized ``W``
@@ -352,16 +365,27 @@ class GPT(Model):
             yield from (a.Wq, a.Wk, a.Wv, a.Wo, blk.fc1, blk.fc2)
         yield self.head
 
-    def _build_decode_params(self, weight_dtype, scale_dtype):
+    def _build_decode_params(self, weight_dtype, scale_dtype, cast=True):
+        """The decode tree; with ``cast`` and a mixed policy, its float
+        leaves in the compute dtype (reference gpt.py:283-290), the
+        quantized Linear weights from the float32 masters."""
+        pol = self.precision_policy
+        to = pol.compute_dtype if (cast and pol is not None
+                                   and pol.mixed) else None
+
+        def c(t):
+            t = t.detach()
+            return t.to(to) if to is not None else t
+
         def lin(lay):
-            W, b = lay.W.data.detach(), lay.b.data.detach()
+            W, b = lay.W.data.detach(), c(lay.b.data)
             if weight_dtype is None:
-                return {"W": W, "b": b}
+                return {"W": c(W), "b": b}
             Wq, Ws = _quantize_channels(W, scale_dtype, weight_dtype)
             return {"W": Wq, "Ws": Ws, "b": b}
 
         def ln(lay):
-            return {"g": lay.scale.data.detach(), "b": lay.bias.data.detach()}
+            return {"g": c(lay.scale.data), "b": c(lay.bias.data)}
 
         blocks = []
         for blk in self.blocks:
@@ -370,10 +394,10 @@ class GPT(Model):
                 "ln1": ln(blk.ln1), "ln2": ln(blk.ln2),
                 "q": lin(a.Wq), "k": lin(a.Wk), "v": lin(a.Wv),
                 "o": lin(a.Wo), "f1": lin(blk.fc1), "f2": lin(blk.fc2)})
-        out = {"tok": self.tok.W.data.detach(), "lnf": ln(self.ln_f),
+        out = {"tok": c(self.tok.W.data), "lnf": ln(self.ln_f),
                "head": lin(self.head), "blocks": blocks}
         if self.pos is not None:
-            out["pos"] = self.pos.W.data.detach()
+            out["pos"] = c(self.pos.W.data)
         return out
 
     @torch.no_grad()
@@ -778,7 +802,7 @@ def _block_decode_slots(bp, h, k_cache, v_cache, pos, H, scale, rope=False,
     L = k_cache.shape[2]
     mask = torch.where(torch.arange(L, device=pos.device)[None]
                        <= pos[:, None], 0.0, -1e9)          # (S, L)
-    w = torch.softmax(s + mask[:, None, None], dim=-1)
+    w = torch.softmax(s + mask.to(s.dtype)[:, None, None], dim=-1)
     if k_scale is not None:
         w = w * v_scale.to(w.dtype)[:, :, None, :]
     ctx = torch.einsum("bhts,bhsd->bhtd", w, v_cache.to(w.dtype))

@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), float32, on 3xTF32
-// tensor-core tiles (flash_mma.cuh): the dq pass and the dk/dv pass.
+// Flash-attention backward for Hopper (sm_90a), on 3xTF32 tensor-core tiles
+// (flash_mma.cuh): the dq pass and the dk/dv pass, on float32, bfloat16 or
+// float16 operands with float32 arithmetic.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel`
 // (singa_tpu/ops/pallas_kernels.py, launched by `_flash_bwd_call`).  Same
@@ -8,7 +9,14 @@
 // natural rank ("vec": (MB, 1, S), "dense": (MB, T, S), MB in {1, BH}),
 // causal masking from indices with masked scores set to -1e9, `lse` (BH, T)
 // from the forward and `delta = rowsum(dO * O)` (BH, T) computed before the
-// launch.
+// launch.  q, k, v and dO share one type E (float32, bfloat16 or float16);
+// dq is written in E as are dk and dv, each rounded once from its float32
+// sum; lse, delta and the mask are float32.  As the reference's kernels do,
+// every step computes on the upcast values: a raw E tile becomes float32 in
+// the block's pre-split pass (or where a resident tile is read), and with
+// 16-bit operands the products of two E tiles (Q K^T, dO V^T and their
+// transposes) take one TF32 product instead of three and those of an E tile
+// with P or dS two; P and dS stay float32.
 //
 // Both passes recompute p = exp(s - lse) over exactly the (row, column) pairs
 // the reference sweeps and form ds = p * (dp - delta) for every swept pair,
@@ -61,27 +69,28 @@ namespace {
 
 using namespace flash;
 
-template <int D>
+template <int D, typename E>
 struct DqCfg {
   static constexpr int BNB = 32;  // keys a streamed tile
-  static constexpr int LD = D + 4;
+  static constexpr int LD = kLd<D, E>;
   static constexpr int RAW = BNB * LD;
   static constexpr int NKP = BNB * PreSplit<D>::NK4;         // float4s
   static constexpr int PERMP = BNB / 2 * PreSplit<D>::PERM4;  // float4s
   // pre-split K (nk, perm) and V (nk); resident Q, dO; raw K, V
   static constexpr int SMEM =
-      ((2 * NKP + PERMP) * 4 + 2 * BM * LD + 2 * RAW) * 4;
+      (2 * NKP + PERMP) * 16 + (2 * BM * LD + 2 * RAW) * (int)sizeof(E);
 };
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_mma(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ mask,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int T, int S,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ mask,
+    const E* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, E* __restrict__ dq, int T, int S,
     int mode, int mask_bh, int causal, float scale) {
-  using C = DqCfg<D>;
+  using C = DqCfg<D, E>;
   constexpr int LD = C::LD;
+  constexpr bool EX = kExact<E>;
   constexpr int KT = D / 8;
   constexpr int NS = C::BNB / 8;
   constexpr int NO = D / 8;
@@ -89,10 +98,10 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_mma(
   float4* knk = smem4;
   float4* vnk = knk + C::NKP;
   float4* kperm = vnk + C::NKP;
-  float* qs = reinterpret_cast<float*>(kperm + C::PERMP);
-  float* dos = qs + BM * LD;
-  float* kraw = dos + BM * LD;
-  float* vraw = kraw + C::RAW;
+  E* qs = reinterpret_cast<E*>(kperm + C::PERMP);
+  E* dos = qs + BM * LD;
+  E* kraw = dos + BM * LD;
+  E* vraw = kraw + C::RAW;
 
   // heavy causal tiles first: blocks are dispatched in x-fastest order
   const int bh = blockIdx.x;
@@ -108,8 +117,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_mma(
   const int kend = min(S, sweep_hi(r0, S, causal));
 
   const size_t qoff = (size_t)bh * T * D;
-  const float* kb = k + (size_t)bh * S * D;
-  const float* vb = v + (size_t)bh * S * D;
+  const E* kb = k + (size_t)bh * S * D;
+  const E* vb = v + (size_t)bh * S * D;
   const float* mb = mask_base(mask, mode, mask_bh, bh, T, S);
 
   load_rows<BM, D>(qs, q + qoff, r0, T, tid);
@@ -152,8 +161,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_mma(
       const FragA ad = frag_a(dos, LD, warp * 16, kk * 8, g, t);
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        mma3(sacc[n], aq, frag_b_nk_pre<D>(knk, n * 8, kk, g, t));
-        mma3(pacc[n], ad, frag_b_nk_pre<D>(vnk, n * 8, kk, g, t));
+        mma3<EX, EX>(sacc[n], aq, frag_b_nk_pre<D>(knk, n * 8, kk, g, t));
+        mma3<EX, EX>(pacc[n], ad, frag_b_nk_pre<D>(vnk, n * 8, kk, g, t));
       }
     }
 
@@ -184,7 +193,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_mma(
       const FragA a = acc_as_a(sacc[n]);
 #pragma unroll
       for (int j = 0; j < NO; ++j)
-        mma3(dqacc[j], a, frag_b_perm_pre<D>(kperm, n * 8, j * 8, g, t));
+        mma3<false, EX>(dqacc[j], a,
+                        frag_b_perm_pre<D>(kperm, n * 8, j * 8, g, t));
     }
   }
 
@@ -192,37 +202,39 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_mma(
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
     if (rA < T)
-      *reinterpret_cast<float2*>(dq + qoff + (size_t)rA * D + j * 8 + c0) =
-          make_float2(dqacc[j][0] * scale, dqacc[j][1] * scale);
+      store2(dq + qoff + (size_t)rA * D + j * 8 + c0, dqacc[j][0] * scale,
+             dqacc[j][1] * scale);
     if (rB < T)
-      *reinterpret_cast<float2*>(dq + qoff + (size_t)rB * D + j * 8 + c0) =
-          make_float2(dqacc[j][2] * scale, dqacc[j][3] * scale);
+      store2(dq + qoff + (size_t)rB * D + j * 8 + c0, dqacc[j][2] * scale,
+             dqacc[j][3] * scale);
   }
 }
 
-template <int D>
+template <int D, typename E>
 struct DkvCfg {
   static constexpr bool KREG = D <= 64;  // K fragments in registers
   static constexpr int BNB = 16;  // queries a streamed tile
-  static constexpr int LD = D + 4;
+  static constexpr int LD = kLd<D, E>;
   static constexpr int RAW = BNB * LD;
   static constexpr int NKP = BNB * PreSplit<D>::NK4;         // float4s
   static constexpr int PERMP = BNB / 2 * PreSplit<D>::PERM4;  // float4s
   // pre-split Q and dO (nk, perm); raw Q, dO; resident V (and K at D 128)
-  static constexpr int SMEM = ((2 * NKP + 2 * PERMP) * 4 + 2 * RAW +
-                               (KREG ? 1 : 2) * BM * LD) * 4;
+  static constexpr int SMEM =
+      (2 * NKP + 2 * PERMP) * 16 +
+      (2 * RAW + (KREG ? 1 : 2) * BM * LD) * (int)sizeof(E);
 };
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_mma(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ mask,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk,
-    float* __restrict__ dv, int T, int S, int mode, int mask_bh, int causal,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ mask,
+    const E* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, E* __restrict__ dk,
+    E* __restrict__ dv, int T, int S, int mode, int mask_bh, int causal,
     float scale) {
-  using C = DkvCfg<D>;
+  using C = DkvCfg<D, E>;
   constexpr int LD = C::LD;
+  constexpr bool EX = kExact<E>;
   constexpr int KT = D / 8;
   constexpr int NS = C::BNB / 8;
   constexpr int NO = D / 8;
@@ -231,10 +243,10 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_mma(
   float4* dnk = qnk + C::NKP;
   float4* qperm = dnk + C::NKP;
   float4* dperm = qperm + C::PERMP;
-  float* qraw = reinterpret_cast<float*>(dperm + C::PERMP);
-  float* draw = qraw + C::RAW;
-  float* vss = draw + C::RAW;
-  float* kss = vss + BM * LD;  // D 128 only
+  E* qraw = reinterpret_cast<E*>(dperm + C::PERMP);
+  E* draw = qraw + C::RAW;
+  E* vss = draw + C::RAW;
+  E* kss = vss + BM * LD;  // D 128 only
 
   const int bh = blockIdx.x;
   const int tile = blockIdx.y;  // tile 0 sweeps the most queries: first
@@ -249,8 +261,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_mma(
   const int lo = sweep_lo(c0, causal);
 
   const size_t koff = (size_t)bh * S * D;
-  const float* qb = q + (size_t)bh * T * D;
-  const float* dob = dout + (size_t)bh * T * D;
+  const E* qb = q + (size_t)bh * T * D;
+  const E* dob = dout + (size_t)bh * T * D;
   const float* lb = lse + (size_t)bh * T;
   const float* db = delta + (size_t)bh * T;
   const float* mb = mask_base(mask, mode, mask_bh, bh, T, S);
@@ -265,14 +277,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_mma(
 
   FragA kf[C::KREG ? KT : 1];
   if constexpr (C::KREG) {
-    const float* kr = k + koff;
+    const E* kr = k + koff;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
       const int c = kk * 8 + t;
-      kf[kk] = split_a(kA < S ? kr[(size_t)kA * D + c] : 0.f,
-                       kB < S ? kr[(size_t)kB * D + c] : 0.f,
-                       kA < S ? kr[(size_t)kA * D + c + 4] : 0.f,
-                       kB < S ? kr[(size_t)kB * D + c + 4] : 0.f);
+      kf[kk] = split_a(kA < S ? to_f(kr[(size_t)kA * D + c]) : 0.f,
+                       kB < S ? to_f(kr[(size_t)kB * D + c]) : 0.f,
+                       kA < S ? to_f(kr[(size_t)kA * D + c + 4]) : 0.f,
+                       kB < S ? to_f(kr[(size_t)kB * D + c + 4]) : 0.f);
     }
   }
 
@@ -329,8 +341,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_mma(
       const FragA av = frag_a(vss, LD, warp * 16, kk * 8, g, t);
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        mma3(sacc[n], ak, frag_b_nk_pre<D>(qnk, n * 8, kk, g, t));
-        mma3(pacc[n], av, frag_b_nk_pre<D>(dnk, n * 8, kk, g, t));
+        mma3<EX, EX>(sacc[n], ak, frag_b_nk_pre<D>(qnk, n * 8, kk, g, t));
+        mma3<EX, EX>(pacc[n], av, frag_b_nk_pre<D>(dnk, n * 8, kk, g, t));
       }
     }
 
@@ -363,14 +375,16 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_mma(
       const FragA ap = acc_as_a(sacc[n]);
 #pragma unroll
       for (int j = 0; j < NO; ++j)
-        mma3(dvacc[j], ap, frag_b_perm_pre<D>(dperm, n * 8, j * 8, g, t));
+        mma3<false, EX>(dvacc[j], ap,
+                        frag_b_perm_pre<D>(dperm, n * 8, j * 8, g, t));
     }
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       const FragA as = acc_as_a(pacc[n]);
 #pragma unroll
       for (int j = 0; j < NO; ++j)
-        mma3(dkacc[j], as, frag_b_perm_pre<D>(qperm, n * 8, j * 8, g, t));
+        mma3<false, EX>(dkacc[j], as,
+                        frag_b_perm_pre<D>(qperm, n * 8, j * 8, g, t));
     }
   }
   cp_async_wait<0>();  // no copy outlives the block
@@ -380,82 +394,100 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_mma(
   for (int j = 0; j < NO; ++j) {
     if (kA < S) {
       const size_t i = koff + (size_t)kA * D + j * 8 + cc;
-      *reinterpret_cast<float2*>(dk + i) =
-          make_float2(dkacc[j][0] * scale, dkacc[j][1] * scale);
-      *reinterpret_cast<float2*>(dv + i) = make_float2(dvacc[j][0], dvacc[j][1]);
+      store2(dk + i, dkacc[j][0] * scale, dkacc[j][1] * scale);
+      store2(dv + i, dvacc[j][0], dvacc[j][1]);
     }
     if (kB < S) {
       const size_t i = koff + (size_t)kB * D + j * 8 + cc;
-      *reinterpret_cast<float2*>(dk + i) =
-          make_float2(dkacc[j][2] * scale, dkacc[j][3] * scale);
-      *reinterpret_cast<float2*>(dv + i) = make_float2(dvacc[j][2], dvacc[j][3]);
+      store2(dk + i, dkacc[j][2] * scale, dkacc[j][3] * scale);
+      store2(dv + i, dvacc[j][2], dvacc[j][3]);
     }
   }
 }
 
-template <int D>
-int launch_dq(const float* q, const float* k, const float* v,
-              const float* mask, const float* dout, const float* lse,
-              const float* delta, float* dq, int BH, int T, int S, int mode,
-              int mask_bh, int causal, float scale, cudaStream_t stream) {
-  using C = DqCfg<D>;
+template <int D, typename E>
+int launch_dq(const void* q, const void* k, const void* v, const float* mask,
+              const void* dout, const float* lse, const float* delta,
+              void* dq, int BH, int T, int S, int mode, int mask_bh,
+              int causal, float scale, cudaStream_t stream) {
+  using C = DqCfg<D, E>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_mma<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(BH, (T + BM - 1) / BM);
-  flash_bwd_dq_mma<D><<<grid, NT, C::SMEM, stream>>>(
-      q, k, v, mask, dout, lse, delta, dq, T, S, mode, mask_bh, causal, scale);
+  flash_bwd_dq_mma<D, E><<<grid, NT, C::SMEM, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), mask, static_cast<const E*>(dout), lse, delta,
+      static_cast<E*>(dq), T, S, mode, mask_bh, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const float* mask, const float* dout, const float* lse,
-               const float* delta, float* dk, float* dv, int BH, int T, int S,
+template <int D, typename E>
+int launch_dkv(const void* q, const void* k, const void* v,
+               const float* mask, const void* dout, const float* lse,
+               const float* delta, void* dk, void* dv, int BH, int T, int S,
                int mode, int mask_bh, int causal, float scale,
                cudaStream_t stream) {
-  using C = DkvCfg<D>;
+  using C = DkvCfg<D, E>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_mma<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(BH, (S + BM - 1) / BM);
-  flash_bwd_dkv_mma<D><<<grid, NT, C::SMEM, stream>>>(
-      q, k, v, mask, dout, lse, delta, dk, dv, T, S, mode, mask_bh, causal,
+  flash_bwd_dkv_mma<D, E><<<grid, NT, C::SMEM, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), mask, static_cast<const E*>(dout), lse, delta,
+      static_cast<E*>(dk), static_cast<E*>(dv), T, S, mode, mask_bh, causal,
       scale);
   return (int)cudaGetLastError();
 }
 
+// The launches by head dim and operand type (0 float32, 1 bfloat16,
+// 2 float16).
+#define SINGA_FLASH_BWD_DISPATCH(CALL)                                     \
+  switch (dtype * 1000 + D) {                                              \
+    case 16: return CALL(16, float);                                       \
+    case 32: return CALL(32, float);                                       \
+    case 64: return CALL(64, float);                                       \
+    case 128: return CALL(128, float);                                     \
+    case 1016: return CALL(16, __nv_bfloat16);                             \
+    case 1032: return CALL(32, __nv_bfloat16);                             \
+    case 1064: return CALL(64, __nv_bfloat16);                             \
+    case 1128: return CALL(128, __nv_bfloat16);                            \
+    case 2016: return CALL(16, __half);                                    \
+    case 2032: return CALL(32, __half);                                    \
+    case 2064: return CALL(64, __half);                                    \
+    case 2128: return CALL(128, __half);                                   \
+    default: return (int)cudaErrorInvalidValue;                            \
+  }
+
 }  // namespace
 
-// Each returns the cudaError_t of its launch (0 on success).
+// Each returns the cudaError_t of its launch (0 on success).  `dtype` is the
+// type of q, k, v, dO and the gradients: 0 float32, 1 bfloat16, 2 float16.
 extern "C" int singa_flash_attention_bwd_dq(
-    const float* q, const float* k, const float* v, const float* mask,
-    const float* dout, const float* lse, const float* delta, float* dq,
-    int BH, int T, int S, int D, int mode, int mask_bh, int causal,
+    const void* q, const void* k, const void* v, const float* mask,
+    const void* dout, const float* lse, const float* delta, void* dq, int BH,
+    int T, int S, int D, int mode, int mask_bh, int causal, int dtype,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dq<16>(q, k, v, mask, dout, lse, delta, dq, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 32: return launch_dq<32>(q, k, v, mask, dout, lse, delta, dq, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 64: return launch_dq<64>(q, k, v, mask, dout, lse, delta, dq, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 128: return launch_dq<128>(q, k, v, mask, dout, lse, delta, dq, BH, T, S, mode, mask_bh, causal, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define SINGA_DQ(DD, EE)                                                    \
+  launch_dq<DD, EE>(q, k, v, mask, dout, lse, delta, dq, BH, T, S, mode,  \
+                    mask_bh, causal, scale, st)
+  SINGA_FLASH_BWD_DISPATCH(SINGA_DQ)
+#undef SINGA_DQ
 }
 
 extern "C" int singa_flash_attention_bwd_dkv(
-    const float* q, const float* k, const float* v, const float* mask,
-    const float* dout, const float* lse, const float* delta, float* dk,
-    float* dv, int BH, int T, int S, int D, int mode, int mask_bh,
-    int causal, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const float* mask,
+    const void* dout, const float* lse, const float* delta, void* dk,
+    void* dv, int BH, int T, int S, int D, int mode, int mask_bh, int causal,
+    int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dkv<16>(q, k, v, mask, dout, lse, delta, dk, dv, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 32: return launch_dkv<32>(q, k, v, mask, dout, lse, delta, dk, dv, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 64: return launch_dkv<64>(q, k, v, mask, dout, lse, delta, dk, dv, BH, T, S, mode, mask_bh, causal, scale, st);
-    case 128: return launch_dkv<128>(q, k, v, mask, dout, lse, delta, dk, dv, BH, T, S, mode, mask_bh, causal, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define SINGA_DKV(DD, EE)                                                    \
+  launch_dkv<DD, EE>(q, k, v, mask, dout, lse, delta, dk, dv, BH, T, S,    \
+                     mode, mask_bh, causal, scale, st)
+  SINGA_FLASH_BWD_DISPATCH(SINGA_DKV)
+#undef SINGA_DKV
 }

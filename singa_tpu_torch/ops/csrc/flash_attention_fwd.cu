@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), float32, on 3xTF32 tensor-core
-// tiles (flash_mma.cuh).
+// Flash-attention forward for Hopper (sm_90a), on 3xTF32 tensor-core tiles
+// (flash_mma.cuh): float32, bfloat16 or float16 operands, float32 arithmetic.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (singa_tpu/ops/pallas_kernels.py,
 // launched by `_flash_fwd_call`).  Same contract: q (BH, T, D), k/v (BH, S, D),
@@ -8,6 +8,12 @@
 // causal masking computed from indices; masked scores set to -1e9 (never
 // -inf); the online-softmax recurrence started at m = -1e9; l clamped to
 // 1e-30; a per-row logsumexp written beside the output for the backward pass.
+// q, k and v share one type E (float32, bfloat16 or float16); the kernel
+// computes the float32 function of the upcast values, as the reference's
+// `_fwd_kernel` does, and writes o in E (rounded once, to nearest even) and
+// lse, the split partials and the mask in float32.  With 16-bit operands
+// QK^T takes one TF32 product instead of three (both operands exact in
+// TF32) and PV two (V exact, P not): P is never rounded to 16 bits.
 // The reference pads the key axis to its 128-column block with zero K/V and
 // a -1e9 score.  Those columns weigh nothing unless a whole row is masked,
 // where they join the uniform average; this kernel does not read them and
@@ -52,32 +58,34 @@ namespace {
 
 using namespace flash;
 
-template <int D>
+template <int D, typename E>
 struct FwdCfg {
   static constexpr bool QREG = D <= 64;  // Q fragments in registers
   static constexpr int BNF = 32;         // keys a streamed tile
-  static constexpr int LD = D + 4;
-  static constexpr int TILE = BNF * LD;  // floats of one K or V tile
-  static constexpr int SMEM = (4 * TILE + (QREG ? 0 : BM * LD)) * 4;
+  static constexpr int LD = kLd<D, E>;
+  static constexpr int TILE = BNF * LD;  // values of one K or V tile
+  static constexpr int SMEM =
+      (4 * TILE + (QREG ? 0 : BM * LD)) * (int)sizeof(E);
 };
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ mask,
-    float* __restrict__ o, float* __restrict__ lse,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ mask,
+    E* __restrict__ o, float* __restrict__ lse,
     float* __restrict__ o_part, float* __restrict__ m_part,
     float* __restrict__ l_part, int BH, int T, int S, int mode, int mask_bh,
     int causal, float scale, int per) {
-  using C = FwdCfg<D>;
+  using C = FwdCfg<D, E>;
   constexpr int LD = C::LD;
+  constexpr bool EX = kExact<E>;
   constexpr int KT = D / 8;   // k-steps of Q K^T
   constexpr int BNF = C::BNF;
   constexpr int NS = BNF / 8;  // n-tiles of a score tile
   constexpr int NO = D / 8;   // n-tiles of the output
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);  // [stage][K, V], then Q
-  float* qs = smem + 4 * C::TILE;
+  E* smem = reinterpret_cast<E*>(smem4);  // [stage][K, V], then Q
+  E* qs = smem + 4 * C::TILE;
 
   // heavy causal tiles first: blocks are dispatched in x-fastest order
   const int bh = blockIdx.x;
@@ -98,9 +106,9 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
   const int k_stop = min(kend, k_begin + per * PLAN_BN);
   if (k_begin >= k_stop) return;  // an empty range: the combine skips it
 
-  const float* qb = q + (size_t)bh * T * D;
-  const float* kb = k + (size_t)bh * S * D;
-  const float* vb = v + (size_t)bh * S * D;
+  const E* qb = q + (size_t)bh * T * D;
+  const E* kb = k + (size_t)bh * S * D;
+  const E* vb = v + (size_t)bh * S * D;
   const float* mb = mask_base(mask, mode, mask_bh, bh, T, S);
 
   load_rows<BNF, D>(smem, kb, k_begin, kend, tid);
@@ -113,10 +121,10 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
       const int c = kk * 8 + t;
-      const float a0 = rA < T ? qb[(size_t)rA * D + c] : 0.f;
-      const float a1 = rB < T ? qb[(size_t)rB * D + c] : 0.f;
-      const float a2 = rA < T ? qb[(size_t)rA * D + c + 4] : 0.f;
-      const float a3 = rB < T ? qb[(size_t)rB * D + c + 4] : 0.f;
+      const float a0 = rA < T ? to_f(qb[(size_t)rA * D + c]) : 0.f;
+      const float a1 = rB < T ? to_f(qb[(size_t)rB * D + c]) : 0.f;
+      const float a2 = rA < T ? to_f(qb[(size_t)rA * D + c + 4]) : 0.f;
+      const float a3 = rB < T ? to_f(qb[(size_t)rB * D + c + 4]) : 0.f;
       qf[kk] = split_a(a0, a1, a2, a3);
     }
   }
@@ -130,7 +138,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
 
   for (int j0 = k_begin, st = 0; j0 < k_stop; j0 += BNF, st ^= 1) {
     if (j0 + BNF < k_stop) {
-      float* nxt = smem + (st ^ 1) * 2 * C::TILE;
+      E* nxt = smem + (st ^ 1) * 2 * C::TILE;
       load_rows<BNF, D>(nxt, kb, j0 + BNF, kend, tid);
       load_rows<BNF, D>(nxt + C::TILE, vb, j0 + BNF, kend, tid);
       cp_async_commit();
@@ -139,8 +147,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* Ks = smem + st * 2 * C::TILE;
-    const float* Vs = Ks + C::TILE;
+    const E* Ks = smem + st * 2 * C::TILE;
+    const E* Vs = Ks + C::TILE;
 
     float sacc[NS][4];
 #pragma unroll
@@ -155,7 +163,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
         a = frag_a(qs, LD, warp * 16, kk * 8, g, t);
 #pragma unroll
       for (int n = 0; n < NS; ++n)
-        mma3(sacc[n], a, frag_b_nk(Ks, LD, n * 8, kk * 8, g, t));
+        mma3<EX, EX>(sacc[n], a, frag_b_nk(Ks, LD, n * 8, kk * 8, g, t));
     }
 
     // scale, mask, the causal rule and the sweep's edge
@@ -215,7 +223,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
       const FragA a = acc_as_a(sacc[n]);
 #pragma unroll
       for (int j = 0; j < NO; ++j)
-        mma3(oacc[j], a, frag_b_kn_perm(Vs, LD, n * 8, j * 8, g, t));
+        mma3<false, EX>(oacc[j], a, frag_b_kn_perm(Vs, LD, n * 8, j * 8, g, t));
     }
     __syncthreads();  // the stage is refilled two tiles on
   }
@@ -235,13 +243,11 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       if (rA < T)
-        *reinterpret_cast<float2*>(o + ((size_t)bh * T + rA) * D + j * 8 +
-                                   c0) =
-            make_float2(oacc[j][0] / lA, oacc[j][1] / lA);
+        store2(o + ((size_t)bh * T + rA) * D + j * 8 + c0, oacc[j][0] / lA,
+               oacc[j][1] / lA);
       if (rB < T)
-        *reinterpret_cast<float2*>(o + ((size_t)bh * T + rB) * D + j * 8 +
-                                   c0) =
-            make_float2(oacc[j][2] / lB, oacc[j][3] / lB);
+        store2(o + ((size_t)bh * T + rB) * D + j * 8 + c0, oacc[j][2] / lB,
+               oacc[j][3] / lB);
     }
     if (t == 0) {
       if (rA < T) lse[(size_t)bh * T + rA] = mA + logf(lA);
@@ -271,10 +277,12 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_mma(
   }
 }
 
-// One thread per output element: merges the row's non-empty ranges.
+// One thread per output element: merges the row's non-empty ranges and
+// writes o in E.
+template <typename E>
 __global__ void __launch_bounds__(256) flash_fwd_combine(
     const float* __restrict__ o_part, const float* __restrict__ m_part,
-    const float* __restrict__ l_part, float* __restrict__ o,
+    const float* __restrict__ l_part, E* __restrict__ o,
     float* __restrict__ lse, int BH, int T, int S, int D, int causal,
     int per) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -298,29 +306,48 @@ __global__ void __launch_bounds__(256) flash_fwd_combine(
   const int n_pad = hi - kend;
   if (n_pad > 0) l += (float)n_pad * fexp(NEG - M);
   l = fmaxf(l, 1e-30f);
-  o[idx] = acc / l;
+  store1(o + idx, acc / l);
   if (c == 0) lse[rowg] = M + logf(l);
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* mask,
-           float* o, float* lse, float* o_part, float* m_part, float* l_part,
+template <int D, typename E>
+int launch(const void* q, const void* k, const void* v, const float* mask,
+           void* o, float* lse, float* o_part, float* m_part, float* l_part,
            int BH, int T, int S, int mode, int mask_bh, int causal,
            float scale, int n_split, int per, cudaStream_t stream) {
-  using C = FwdCfg<D>;
+  using C = FwdCfg<D, E>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      flash_fwd_mma<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(BH, (T + BM - 1) / BM, n_split);
-  flash_fwd_mma<D><<<grid, NT, C::SMEM, stream>>>(
-      q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh,
-      causal, scale, per);
+  flash_fwd_mma<D, E><<<grid, NT, C::SMEM, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), mask, static_cast<E*>(o), lse, o_part, m_part,
+      l_part, BH, T, S, mode, mask_bh, causal, scale, per);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch_d(const void* q, const void* k, const void* v, const float* mask,
+             void* o, float* lse, float* o_part, float* m_part,
+             float* l_part, int BH, int T, int S, int D, int mode,
+             int mask_bh, int causal, float scale, int n_split, int per,
+             cudaStream_t st) {
+  switch (D) {
+    case 16: return launch<16, E>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
+    case 32: return launch<32, E>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
+    case 64: return launch<64, E>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
+    case 128: return launch<128, E>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Each returns the cudaError_t of its launch (0 on success).
+// Each returns the cudaError_t of its launch (0 on success).  `dtype` is the
+// type of q, k, v and o: 0 float32, 1 bfloat16, 2 float16; lse, the mask and
+// the partials are float32.
 //
 // n_split == 1: o and lse are written; o_part, m_part and l_part are unused
 // (pass per >= the number of swept key tiles).  n_split > 1: range r of a
@@ -328,31 +355,48 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
 // o_part (n_split, BH, T, D), m_part and l_part (n_split, BH, T); o and lse
 // are unused until singa_flash_attention_fwd_combine.
 extern "C" int singa_flash_attention_fwd(
-    const float* q, const float* k, const float* v, const float* mask,
-    float* o, float* lse, float* o_part, float* m_part, float* l_part, int BH,
-    int T, int S, int D, int mode, int mask_bh, int causal, int n_split,
-    int per, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const float* mask, void* o,
+    float* lse, float* o_part, float* m_part, float* l_part, int BH, int T,
+    int S, int D, int mode, int mask_bh, int causal, int n_split, int per,
+    int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_split < 1 || per < 1 || (n_split > 1 && o_part == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_split == 1) o_part = m_part = l_part = nullptr;
-  switch (D) {
-    case 16: return launch<16>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
-    case 32: return launch<32>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
-    case 64: return launch<64>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
-    case 128: return launch<128>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, mode, mask_bh, causal, scale, n_split, per, st);
+  switch (dtype) {
+    case 0: return launch_d<float>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, D, mode, mask_bh, causal, scale, n_split, per, st);
+    case 1: return launch_d<__nv_bfloat16>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, D, mode, mask_bh, causal, scale, n_split, per, st);
+    case 2: return launch_d<__half>(q, k, v, mask, o, lse, o_part, m_part, l_part, BH, T, S, D, mode, mask_bh, causal, scale, n_split, per, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// `dtype` is o's type, coded as above.
 extern "C" int singa_flash_attention_fwd_combine(
-    const float* o_part, const float* m_part, const float* l_part, float* o,
-    float* lse, int BH, int T, int S, int D, int causal, int per,
+    const float* o_part, const float* m_part, const float* l_part, void* o,
+    float* lse, int BH, int T, int S, int D, int causal, int per, int dtype,
     void* stream) {
   if (per < 1) return (int)cudaErrorInvalidValue;
   const size_t total = (size_t)BH * T * D;
   const unsigned blocks = (unsigned)((total + 255) / 256);
-  flash_fwd_combine<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      o_part, m_part, l_part, o, lse, BH, T, S, D, causal, per);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      flash_fwd_combine<<<blocks, 256, 0, st>>>(
+          o_part, m_part, l_part, static_cast<float*>(o), lse, BH, T, S, D,
+          causal, per);
+      break;
+    case 1:
+      flash_fwd_combine<<<blocks, 256, 0, st>>>(
+          o_part, m_part, l_part, static_cast<__nv_bfloat16*>(o), lse, BH, T,
+          S, D, causal, per);
+      break;
+    case 2:
+      flash_fwd_combine<<<blocks, 256, 0, st>>>(
+          o_part, m_part, l_part, static_cast<__half*>(o), lse, BH, T, S, D,
+          causal, per);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -3,6 +3,15 @@
 // cores as 3xTF32 `mma.sync` m16n8k8 tiles, `cp.async` staging, and the
 // reference's sweep rules.
 //
+// Operands.  q, k, v and dO arrive as float32, bfloat16 or float16 (one type
+// E for all of them); every product and every softmax step is float32, as
+// the reference computes on the upcast operands.  A tile is staged raw (E
+// rows, so a 16-bit row is half the bytes) and converted to float32 where it
+// is read or pre-split.  A 16-bit value is exact in TF32 (bfloat16 has 7
+// mantissa bits, float16 10, TF32 10), so its small part is zero: `mma3`
+// drops the products of a zero small part (`AX`/`BX`), which adds exactly
+// zero to the accumulator, so the result is the one of all three products.
+//
 // 3xTF32.  A float32 x is split into big = tf32(x) (`cvt.rna`) and
 // small = tf32(x - big); a product adds small*big + big*small + big*big with
 // float32 accumulation, dropping only small*small (about 2^-22 of the
@@ -20,9 +29,10 @@
 // from shared memory in the same permuted row order (b0 row 2t, b1 row 2t+1;
 // `frag_b_kn_perm`).
 //
-// Shared-memory tiles are rows of D floats padded to D+4: both fragment read
-// patterns, [g][t] and [2t][g], then fall on 32 distinct banks, and every row
-// stays 16-byte aligned for `cp.async`.
+// Shared-memory tiles are rows of D elements padded by 16 bytes (D+4 floats,
+// D+8 16-bit values): both fragment read patterns, [g][t] and [2t][g], then
+// fall on distinct banks (a 16-bit pair shares a word, a broadcast), and
+// every row stays 16-byte aligned for `cp.async`.
 //
 // Sweep rules of the reference kernels (singa_tpu/ops/pallas_kernels.py
 // `_fwd_kernel`, `_dq_kernel`, `_dkv_kernel`): masked scores are -1e9, never
@@ -33,11 +43,51 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace flash {
+
+// ---- operand types ---------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+// Two float32 results rounded to E (nearest even) and stored at p (p is
+// 8-byte aligned for float32, 4-byte for the 16-bit types).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
+__device__ __forceinline__ void store1(__half* p, float a) {
+  *p = __float2half_rn(a);
+}
+
+// Whether every value of E is exact in TF32 (its 3xTF32 small part is 0).
+template <typename E>
+constexpr bool kExact = !std::is_same<E, float>::value;
+
+// Row pitch in elements of a staged tile of D-element rows: 16 bytes of pad.
+template <int D, typename E>
+constexpr int kLd = D + 16 / (int)sizeof(E);
 
 // e^x as 2^(x log2 e): a multiply and the MUFU ex2, shorter than expf.
 __device__ __forceinline__ float fexp(float x) {
@@ -107,11 +157,14 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a * b in 3xTF32: small*big, big*small, then big*big.
+// c += a * b in 3xTF32: small*big, big*small, then big*big.  AX (BX): a's
+// (b's) values are exact in TF32, so its small part is zero and the product
+// with it is dropped.
+template <bool AX = false, bool BX = false>
 __device__ __forceinline__ void mma3(float c[4], const FragA& a,
                                      const FragB& b) {
-  mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.small);
+  if constexpr (!AX) mma_tf32(c, a.small, b.big);
+  if constexpr (!BX) mma_tf32(c, a.big, b.small);
   mma_tf32(c, a.big, b.big);
 }
 
@@ -132,32 +185,35 @@ __device__ __forceinline__ FragA acc_as_a(const float c[4]) {
 
 // A from a row-major tile s[m][k] (leading dimension ld): rows m0..m0+15,
 // columns k0..k0+7.
-__device__ __forceinline__ FragA frag_a(const float* s, int ld, int m0,
-                                        int k0, int g, int t) {
-  const float* p = s + (m0 + g) * ld + k0 + t;
-  return split_a(p[0], p[8 * ld], p[4], p[8 * ld + 4]);
+template <typename E>
+__device__ __forceinline__ FragA frag_a(const E* s, int ld, int m0, int k0,
+                                        int g, int t) {
+  const E* p = s + (m0 + g) * ld + k0 + t;
+  return split_a(to_f(p[0]), to_f(p[8 * ld]), to_f(p[4]),
+                 to_f(p[8 * ld + 4]));
 }
 
 // B(k, n) = s[n][k] from a row-major tile s[n][k]: rows n0..n0+7, columns
 // k0..k0+7 (the K or V tile of a product with its transpose).
-__device__ __forceinline__ FragB frag_b_nk(const float* s, int ld, int n0,
-                                           int k0, int g, int t) {
-  const float* p = s + (n0 + g) * ld + k0 + t;
+template <typename E>
+__device__ __forceinline__ FragB frag_b_nk(const E* s, int ld, int n0, int k0,
+                                           int g, int t) {
+  const E* p = s + (n0 + g) * ld + k0 + t;
   FragB f;
-  split(p[0], f.big[0], f.small[0]);
-  split(p[4], f.big[1], f.small[1]);
+  split(to_f(p[0]), f.big[0], f.small[0]);
+  split(to_f(p[4]), f.big[1], f.small[1]);
   return f;
 }
 
 // B(k, n) = s[k][n] from a row-major tile s[k][n] in the permuted row order
 // of an accumulator-fed A: b0 row k0+2t, b1 row k0+2t+1, column n0+g.
-__device__ __forceinline__ FragB frag_b_kn_perm(const float* s, int ld,
-                                                int k0, int n0, int g,
-                                                int t) {
-  const float* p = s + (k0 + 2 * t) * ld + n0 + g;
+template <typename E>
+__device__ __forceinline__ FragB frag_b_kn_perm(const E* s, int ld, int k0,
+                                                int n0, int g, int t) {
+  const E* p = s + (k0 + 2 * t) * ld + n0 + g;
   FragB f;
-  split(p[0], f.big[0], f.small[0]);
-  split(p[ld], f.big[1], f.small[1]);
+  split(to_f(p[0]), f.big[0], f.small[0]);
+  split(to_f(p[ld]), f.big[1], f.small[1]);
   return f;
 }
 
@@ -188,34 +244,37 @@ __device__ __forceinline__ float4 split4(float x0, float x1) {
                      __uint_as_float(s0), __uint_as_float(s1));
 }
 
-// raw: ROWS rows of D floats with leading dimension D + 4.
-template <int ROWS, int D>
-__device__ __forceinline__ void presplit_nk(float4* dst, const float* raw,
+// raw: ROWS rows of D values of E with leading dimension kLd<D, E>; the
+// values become float32 here.
+template <int ROWS, int D, typename E>
+__device__ __forceinline__ void presplit_nk(float4* dst, const E* raw,
                                             int tid) {
   constexpr int PER = ROWS * D / 2;
+  constexpr int LD = kLd<D, E>;
 #pragma unroll
   for (int it = 0; it < (PER + NT - 1) / NT; ++it) {
     const int i = tid + it * NT;
     if (PER % NT != 0 && i >= PER) break;
     const int n = i / (D / 2);
     const int r = i % (D / 2);  // kk * 4 + t
-    const float* p = raw + n * (D + 4) + (r / 4) * 8 + r % 4;
-    dst[n * PreSplit<D>::NK4 + r] = split4(p[0], p[4]);
+    const E* p = raw + n * LD + (r / 4) * 8 + r % 4;
+    dst[n * PreSplit<D>::NK4 + r] = split4(to_f(p[0]), to_f(p[4]));
   }
 }
 
-template <int ROWS, int D>
-__device__ __forceinline__ void presplit_perm(float4* dst, const float* raw,
+template <int ROWS, int D, typename E>
+__device__ __forceinline__ void presplit_perm(float4* dst, const E* raw,
                                               int tid) {
   constexpr int PER = ROWS / 2 * D;
+  constexpr int LD = kLd<D, E>;
 #pragma unroll
   for (int it = 0; it < (PER + NT - 1) / NT; ++it) {
     const int i = tid + it * NT;
     if (PER % NT != 0 && i >= PER) break;
     const int pr = i / D;
     const int c = i % D;
-    const float* p = raw + 2 * pr * (D + 4) + c;
-    dst[pr * PreSplit<D>::PERM4 + c] = split4(p[0], p[D + 4]);
+    const E* p = raw + 2 * pr * LD + c;
+    dst[pr * PreSplit<D>::PERM4 + c] = split4(to_f(p[0]), to_f(p[LD]));
   }
 }
 
@@ -245,7 +304,7 @@ __device__ __forceinline__ FragB frag_b_perm_pre(const float4* s, int k0,
 
 // ---- cp.async staging -----------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   const int n = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
@@ -262,21 +321,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage rows row0..row0+ROWS-1 of a (n, D) matrix into s[ROWS][D+4]; rows at
-// or past `nvalid` are zero-filled.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_rows(float* s, const float* g, int row0,
+// Stage rows row0..row0+ROWS-1 of a (n, D) matrix of E into
+// s[ROWS][kLd<D, E>]; rows at or past `nvalid` are zero-filled.
+template <int ROWS, int D, typename E>
+__device__ __forceinline__ void load_rows(E* s, const E* g, int row0,
                                           int nvalid, int tid) {
-  constexpr int CH = D / 4;  // 16-byte chunks a row
+  constexpr int W = 16 / (int)sizeof(E);  // values a 16-byte chunk
+  constexpr int CH = D / W;               // chunks a row
+  static_assert(D % W == 0, "a row must be whole 16-byte chunks");
 #pragma unroll
   for (int it = 0; it < (ROWS * CH + NT - 1) / NT; ++it) {
     const int i = tid + it * NT;
     if ((ROWS * CH) % NT != 0 && i >= ROWS * CH) break;
     const int r = i / CH;
-    const int c = (i % CH) * 4;
+    const int c = (i % CH) * W;
     const int gr = row0 + r;
     const bool ok = gr < nvalid;
-    cp_async16(s + r * (D + 4) + c, g + (size_t)(ok ? gr : 0) * D + c, ok);
+    cp_async16(s + r * kLd<D, E> + c, g + (size_t)(ok ? gr : 0) * D + c, ok);
   }
 }
 

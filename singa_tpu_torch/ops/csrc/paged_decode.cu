@@ -1,10 +1,13 @@
-// Paged decode attention for Hopper (sm_90a): float32, bfloat16 and int8
-// page pools; the int8 pools carry bfloat16 or float32 dequant scales.
+// Paged decode attention for Hopper (sm_90a): a float32, bfloat16 or float16
+// query over float32, bfloat16, float16 or int8 page pools (the int8 pools
+// carry bfloat16 or float32 dequant scales), the page type independent of
+// the query's.
 //
 // Replaces the Pallas TPU kernel `_decode_kernel`
 // (singa_tpu/ops/paged_attention.py, launched by `paged_decode_attention`),
 // its float path and its quantized branch.  What the reference computes:
-// one float32 query per slot, q (S, H, D); page pools (N, H, P, D); block
+// one query per slot, q (S, H, D), upcast to float32 as the pages are; page
+// pools (N, H, P, D); block
 // table (S, Ps) int32 of physical page ids (NULL and stale entries are
 // valid ids); pos (S,) int32.  Every column t of a slot's Ps * P table row
 // is scored dot(q, k_t) * scale (times ks[t] for int8 pools), a column
@@ -16,7 +19,9 @@
 // softmax is uniform and its output is sum_t vs_t * v_t / (Ps * P) over
 // the whole table row (vs_t = 1 for float pools).  pos >= Ps * P - 1 makes
 // every column live.  No dequantised page is written anywhere: each int8
-// channel becomes a float in a register.
+// or 16-bit channel becomes a float in a register.  The output is written
+// in the query's type, rounded once from the float32 result; the partials
+// of the split stay float32.
 //
 // On the TPU the table was scalar-prefetched and the page loop was the
 // sequential minor grid axis, carrying (m, l, acc) in VMEM from one grid
@@ -35,7 +40,7 @@
 //
 // Inside a block.  A row of D channels is read by a group of LPR lanes
 // (the next power of two >= D / VEC), each lane one 16-byte vector of VEC
-// channels (4 float32, 8 bfloat16, 16 int8).  Each group takes U rows at a
+// channels (4 float32, 8 bfloat16 or float16, 16 int8).  Each group takes U rows at a
 // time and issues all 2U K and V loads (and the U rows' scales, one load a
 // row by one lane, shuffled to the others) before it reduces anything: V
 // does not depend on the scores.  A row's dot is summed over its group in
@@ -61,6 +66,7 @@
 // in flight per lane.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -85,6 +91,15 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void from_f(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
 
 __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : (i == 1 ? r.y : (i == 2 ? r.z : r.w));
@@ -98,6 +113,10 @@ __device__ __forceinline__ float elem(const uint4& r, int k) {
   } else if constexpr (std::is_same<E, __nv_bfloat16>::value) {
     const uint32_t w = word(r, k >> 1);
     return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+  } else if constexpr (std::is_same<E, __half>::value) {
+    const uint32_t w = word(r, k >> 1);
+    return __half2float(__ushort_as_half(
+        static_cast<unsigned short>((k & 1) ? (w >> 16) : (w & 0xffffu))));
   } else {                                              // int8
     const uint32_t w = word(r, k >> 2);
     return static_cast<float>(
@@ -135,12 +154,12 @@ __device__ __forceinline__ int live_rows(int ps, int r, int ppr, int P,
   return max(0, min(range_rows, last + 1 - r * ppr * P));
 }
 
-template <typename E, typename SC>
+template <typename QE, typename E, typename SC>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
-    const float* __restrict__ q, const E* __restrict__ kp,
+    const QE* __restrict__ q, const E* __restrict__ kp,
     const E* __restrict__ vp, const SC* __restrict__ ks,
     const SC* __restrict__ vs, const int* __restrict__ table,
-    const int* __restrict__ pos, float* __restrict__ o,
+    const int* __restrict__ pos, QE* __restrict__ o,
     float* __restrict__ parts, int H, int P, int Ps, int D, int ppr, int lpr,
     float scale) {
   constexpr bool QUANT = !std::is_same<SC, NoScale>::value;
@@ -173,9 +192,10 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   for (int i = tid; i < live_pages; i += NT)
     tbl[i] = table[(size_t)s * Ps + r * ppr + i];
   float qf[VEC];
-  const float* qs = q + ((size_t)s * H + h) * D + c0;
+  const QE* qs = q + ((size_t)s * H + h) * D + c0;
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) qf[k] = (scored && k < valid) ? qs[k] : 0.f;
+  for (int k = 0; k < VEC; ++k)
+    qf[k] = (scored && k < valid) ? to_f(qs[k]) : 0.f;
   __syncthreads();
 
   float m = NEG, l = 0.f;
@@ -275,7 +295,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   const size_t sh = (size_t)s * gridDim.y + h;
   const int n_live = ps < 0 ? R : min(ps, Ps * P - 1) / (P * ppr) + 1;
   if (n_live == 1) {                    // the slot's only live range
-    if (tid < D) o[sh * D + tid] = aa / fmaxf(ll, 1e-30f);
+    if (tid < D) from_f(o + sh * D + tid, aa / fmaxf(ll, 1e-30f));
     return;
   }
 
@@ -290,10 +310,12 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 
 // One block per (head, slot): the slot's live ranges merged in range
 // order, o = sum_r acc_r e^(m_r - M) / max(sum_r l_r e^(m_r - M), 1e-30).
-// A slot with one live range was written by the launch before.
+// A slot with one live range was written by the launch before.  o is in
+// the query's type.
+template <typename QE>
 __global__ void __launch_bounds__(NT) paged_merge_kernel(
     const float* __restrict__ parts, const int* __restrict__ pos,
-    float* __restrict__ o, int P, int Ps, int D, int R, int ppr) {
+    QE* __restrict__ o, int P, int Ps, int D, int R, int ppr) {
   const int h = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
   const int ps = pos[s];
   const int n_live = ps < 0 ? R : min(ps, Ps * P - 1) / (P * ppr) + 1;
@@ -309,41 +331,74 @@ __global__ void __launch_bounds__(NT) paged_merge_kernel(
     lt = fmaf(pi[1], f, lt);
     at = fmaf(pi[2 + tid], f, at);
   }
-  o[sh * D + tid] = at / fmaxf(lt, 1e-30f);
+  from_f(o + sh * D + tid, at / fmaxf(lt, 1e-30f));
 }
 
-cudaError_t launch_merge(const float* parts, const int* pos, float* o, int S,
+template <typename QE>
+cudaError_t launch_merge(const float* parts, const int* pos, void* o, int S,
                          int H, int P, int Ps, int D, int R, int ppr,
                          cudaStream_t st) {
-  paged_merge_kernel<<<dim3(H, S), NT, 0, st>>>(parts, pos, o, P, Ps, D, R,
-                                                ppr);
+  paged_merge_kernel<QE><<<dim3(H, S), NT, 0, st>>>(
+      parts, pos, static_cast<QE*>(o), P, Ps, D, R, ppr);
   return cudaGetLastError();
 }
 
-template <typename E, typename SC>
+template <typename QE, typename E, typename SC>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* ks, const void* vs, const int* table,
-                   const int* pos, float* o, float* parts, int S, int H,
+                   const int* pos, void* o, float* parts, int S, int H,
                    int P, int Ps, int D, int R, int ppr, float scale,
                    cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(E);
   int lpr = 1;
   while (lpr * VEC < D) lpr <<= 1;
-  paged_decode_kernel<E, SC><<<dim3(R, H, S), NT, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const E*>(kp),
+  paged_decode_kernel<QE, E, SC><<<dim3(R, H, S), NT, 0, st>>>(
+      static_cast<const QE*>(q), static_cast<const E*>(kp),
       static_cast<const E*>(vp), static_cast<const SC*>(ks),
-      static_cast<const SC*>(vs), table, pos, o, parts, H, P, Ps, D, ppr, lpr,
-      scale);
+      static_cast<const SC*>(vs), table, pos, static_cast<QE*>(o), parts, H,
+      P, Ps, D, ppr, lpr, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || R == 1) return err;
-  return launch_merge(parts, pos, o, S, H, P, Ps, D, R, ppr, st);
+  return launch_merge<QE>(parts, pos, o, S, H, P, Ps, D, R, ppr, st);
+}
+
+// The page variants for one query type: float32, bfloat16 and float16 pages
+// without scales, int8 pages with either scale type.
+template <typename QE>
+cudaError_t launch_pages(const void* q, const void* kp, const void* vp,
+                         const void* ks, const void* vs, const int* table,
+                         const int* pos, void* o, float* parts, int S, int H,
+                         int P, int Ps, int D, int R, int ppr, float scale,
+                         int elem, int scale_kind, cudaStream_t st) {
+  if (elem == 0 && scale_kind == 0)
+    return launch<QE, float, NoScale>(q, kp, vp, ks, vs, table, pos, o,
+                                      parts, S, H, P, Ps, D, R, ppr, scale,
+                                      st);
+  if (elem == 1 && scale_kind == 0)
+    return launch<QE, __nv_bfloat16, NoScale>(q, kp, vp, ks, vs, table, pos,
+                                              o, parts, S, H, P, Ps, D, R,
+                                              ppr, scale, st);
+  if (elem == 3 && scale_kind == 0)
+    return launch<QE, __half, NoScale>(q, kp, vp, ks, vs, table, pos, o,
+                                       parts, S, H, P, Ps, D, R, ppr, scale,
+                                       st);
+  if (elem == 2 && scale_kind == 1)
+    return launch<QE, int8_t, __nv_bfloat16>(q, kp, vp, ks, vs, table, pos,
+                                             o, parts, S, H, P, Ps, D, R, ppr,
+                                             scale, st);
+  if (elem == 2 && scale_kind == 2)
+    return launch<QE, int8_t, float>(q, kp, vp, ks, vs, table, pos, o, parts,
+                                     S, H, P, Ps, D, R, ppr, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Page element codes: 0 float32, 1 bfloat16, 2 int8.  Scale codes: 0 none,
-// 1 bfloat16, 2 float32.  The variants built: float32 and bfloat16 pages
-// without scales, int8 pages with either scale type.  The plan: R ranges
+// Query (and output) codes: 0 float32, 1 bfloat16, 2 float16.  Page element
+// codes: 0 float32, 1 bfloat16, 2 int8, 3 float16.  Scale codes: 0 none,
+// 1 bfloat16, 2 float32.  The variants built, for each query type: float32,
+// bfloat16 and float16 pages without scales, int8 pages with either scale
+// type.  The plan: R ranges
 // of ppr table entries (R = ceil(Ps / ppr)).  R > 1 launches the merge
 // after the ranges and needs `parts`, S * H * R * (D + 2) floats of
 // scratch, which both launches use in stream order.  Returns the
@@ -351,9 +406,9 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 extern "C" int singa_paged_decode(const void* q, const void* k_pages,
                                   const void* v_pages, const void* k_scales,
                                   const void* v_scales, const int* table,
-                                  const int* pos, float* o, float* parts,
+                                  const int* pos, void* o, float* parts,
                                   int S, int H, int P, int Ps, int D, int R,
-                                  int ppr, float scale, int elem,
+                                  int ppr, float scale, int q_elem, int elem,
                                   int scale_kind, void* stream) {
   if (D < 1 || D > MAX_D || P < 1 || P > MAX_P || ppr < 1 ||
       ppr > MAX_STAGED_PAGES || R != (Ps + ppr - 1) / ppr ||
@@ -361,34 +416,41 @@ extern "C" int singa_paged_decode(const void* q, const void* k_pages,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (elem == 0 && scale_kind == 0)
-    err = launch<float, NoScale>(q, k_pages, v_pages, k_scales, v_scales,
-                                 table, pos, o, parts, S, H, P, Ps, D, R, ppr,
-                                 scale, st);
-  else if (elem == 1 && scale_kind == 0)
-    err = launch<__nv_bfloat16, NoScale>(q, k_pages, v_pages, k_scales,
-                                         v_scales, table, pos, o, parts, S, H,
-                                         P, Ps, D, R, ppr, scale, st);
-  else if (elem == 2 && scale_kind == 1)
-    err = launch<int8_t, __nv_bfloat16>(q, k_pages, v_pages, k_scales,
-                                        v_scales, table, pos, o, parts, S, H,
-                                        P, Ps, D, R, ppr, scale, st);
-  else if (elem == 2 && scale_kind == 2)
-    err = launch<int8_t, float>(q, k_pages, v_pages, k_scales, v_scales,
-                                table, pos, o, parts, S, H, P, Ps, D, R, ppr,
-                                scale, st);
+  if (q_elem == 0)
+    err = launch_pages<float>(q, k_pages, v_pages, k_scales, v_scales, table,
+                              pos, o, parts, S, H, P, Ps, D, R, ppr, scale,
+                              elem, scale_kind, st);
+  else if (q_elem == 1)
+    err = launch_pages<__nv_bfloat16>(q, k_pages, v_pages, k_scales,
+                                      v_scales, table, pos, o, parts, S, H, P,
+                                      Ps, D, R, ppr, scale, elem, scale_kind,
+                                      st);
+  else if (q_elem == 2)
+    err = launch_pages<__half>(q, k_pages, v_pages, k_scales, v_scales,
+                               table, pos, o, parts, S, H, P, Ps, D, R, ppr,
+                               scale, elem, scale_kind, st);
   return (int)err;
 }
 
 // The merge launch alone, on partials a split launch left in `parts`
-// under the same plan (R > 1): for checking and timing it by itself.
+// under the same plan (R > 1): for checking and timing it by itself.  o is
+// of the query's type (`q_elem`, coded as above).
 extern "C" int singa_paged_decode_merge(const float* parts, const int* pos,
-                                        float* o, int S, int H, int P,
-                                        int Ps, int D, int R, int ppr,
+                                        void* o, int S, int H, int P, int Ps,
+                                        int D, int R, int ppr, int q_elem,
                                         void* stream) {
   if (D < 1 || D > MAX_D || P < 1 || ppr < 1 || R < 2 ||
       R != (Ps + ppr - 1) / ppr)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_merge(parts, pos, o, S, H, P, Ps, D, R, ppr,
-                           static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_elem == 0)
+    return (int)launch_merge<float>(parts, pos, o, S, H, P, Ps, D, R, ppr,
+                                    st);
+  if (q_elem == 1)
+    return (int)launch_merge<__nv_bfloat16>(parts, pos, o, S, H, P, Ps, D,
+                                            R, ppr, st);
+  if (q_elem == 2)
+    return (int)launch_merge<__half>(parts, pos, o, S, H, P, Ps, D, R, ppr,
+                                     st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,13 @@ and small part, three products summed), which keeps float32-level
 accuracy; :func:`matmul_3xtf32` emulates that product here and
 :func:`matmul_1xtf32` the single TF32 product it avoids.
 
+Operands: q, k, v (and the backward's dO) in float32, bfloat16 or
+float16, all of one dtype (a mixed call raises ``TypeError``).  Every
+version computes the float32 function of the upcast operands, as the
+reference's kernels do (pallas_kernels.py:108-203), and returns ``o``
+and ``dq`` in q's dtype and ``dk``/``dv`` in k's and v's; the mask,
+``lse``, ``delta`` and the split route's partials are float32.
+
 Contract, as in the reference: ``(B, H, T, d)`` inputs; an additive
 float mask broadcastable to ``(B, H, T, S)`` carried at its natural
 rank (``none``; ``vec`` for a per-key ``(.., 1, S)`` mask; ``dense``
@@ -75,16 +82,24 @@ _NEG_INF = -1e9
 _REF_BLOCK = 128          # the reference kernel's key/query block
 _MODES = {"none": 0, "vec": 1, "dense": 2}
 _KERNEL_D = (16, 32, 64, 128)
+# the kernels' operand type codes (csrc/flash_attention_*.cu)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BM = 64                  # query rows a kernel block owns (flash_mma.cuh)
 _BN = 64                  # keys in a streamed tile
 
 # kernel launches: the forward kernel (launches, one a flash_attention_fwd
 # call on either route), the split route's combine (launches_combine), the
-# backward's dq and dk/dv kernels; plain-version and CPU calls do not count
+# backward's dq and dk/dv kernels; plain-version and CPU calls do not count.
+# The *_lowp counters count the launches of each on 16-bit operands (also
+# counted in the counter without the suffix).
 launches = 0
 launches_combine = 0
 launches_dq = 0
 launches_dkv = 0
+launches_lowp = 0
+launches_combine_lowp = 0
+launches_dq_lowp = 0
+launches_dkv_lowp = 0
 
 
 def tf32_round(x):
@@ -275,11 +290,12 @@ def _valid_ranges(R, T, S, causal, per, device):
 
 
 def flash_attention_fwd_combine_reference(o_part, m_part, l_part, T, S,
-                                          causal, per):
+                                          causal, per,
+                                          out_dtype=torch.float32):
     """Plain version of the combine kernel: merges each row's non-empty
     ranges (``M = max m``, ``l = sum l_i e^(m_i - M)``,
     ``o = sum o_i e^(m_i - M) / l``) with the padding term and the
-    clamp.  Returns ``(o (BH, T, d), lse (BH, T))``."""
+    clamp.  Returns ``(o (BH, T, d) in out_dtype, lse (BH, T))``."""
     R = o_part.shape[0]
     valid = _valid_ranges(R, T, S, causal, per, o_part.device)
     m = torch.where(valid, m_part, torch.full_like(m_part, -math.inf))
@@ -291,7 +307,7 @@ def flash_attention_fwd_combine_reference(o_part, m_part, l_part, T, S,
     hi, kend = _sweep(T, S, causal, o_part.device)
     l = l + (hi - kend)[:, 0].to(torch.float32) * torch.exp(_NEG_INF - M)
     l = torch.clamp(l, min=1e-30)
-    return o / l[..., None], M + torch.log(l)
+    return (o / l[..., None]).to(out_dtype), M + torch.log(l)
 
 
 @functools.lru_cache(maxsize=None)
@@ -312,15 +328,24 @@ def _fn(lib_name, sym, n_ptr, n_int=7, tail=(ctypes.c_float,)):
 
 
 def _kernel_operands(name, q3, k3, v3, mask3, mode, extra=()):
-    """Check the operands a kernel takes (device, shapes, float32,
-    contiguous); returns ``(dev, mask_bh)``, ``dev`` None for CPU
-    tensors (which take the plain version)."""
+    """Check the operands a kernel takes (device, shapes, dtypes,
+    contiguous): q, k, v and the 3-d ``extra`` (dO) of one dtype in
+    float32, bfloat16 or float16 (checked on CPU tensors too), the mask
+    and the 2-d ``extra`` (lse, delta) float32.  Returns ``(dev,
+    mask_bh)``, ``dev`` None for CPU tensors (which take the plain
+    version)."""
     if mode not in _MODES:
         raise ValueError(f"unknown mask mode {mode!r}")
     ops = [q3, k3, v3] + ([mask3] if mode != "none" else []) + list(extra)
     dev = q3.device
     if any(t.device != dev for t in ops):
         raise ValueError(f"{name}: operands on different devices")
+    rows = [q3, k3, v3] + [x for x in extra if x.dim() == 3]
+    if rows[0].dtype not in _DTYPES or any(t.dtype != rows[0].dtype
+                                           for t in rows):
+        raise TypeError(f"{name} takes q, k, v and dO of one dtype in "
+                        f"float32, bfloat16 or float16, got "
+                        f"{[str(t.dtype) for t in rows]}")
     if dev.type == "cpu":
         return None, 0
     if dev.type != "cuda":
@@ -343,11 +368,12 @@ def _kernel_operands(name, q3, k3, v3, mask3, mode, extra=()):
                              f"{want_t}, {S})")
         mask_bh = int(mask3.shape[0] == BH and BH > 1)
     for t in ops:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
+        if all(t is not r for r in rows) and t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes a float32 mask, lse and "
+                            f"delta, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous operands")
-    for t in [q3, k3, v3] + [x for x in extra if x.dim() == 3]:
+    for t in rows:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} kernel stages rows with 16-byte "
                              f"cp.async: operands must be 16-byte aligned")
@@ -358,16 +384,17 @@ def _launch_fwd(q3, k3, v3, mask3, scale, mode, mask_bh, causal, outs,
                 parts, plan):
     BH, T, d = q3.shape
     dev = q3.device
-    fn = _fn("flash_attention_fwd", "singa_flash_attention_fwd", 9, 9)
+    fn = _fn("flash_attention_fwd", "singa_flash_attention_fwd", 9, 10)
     ptrs = [t.data_ptr() if t is not None else None for t in outs + parts]
     err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
              mask3.data_ptr() if mode != "none" else None, *ptrs, BH, T,
              k3.shape[1], d, _MODES[mode], mask_bh, int(bool(causal)),
-             plan.n_split, plan.per, float(scale),
+             plan.n_split, plan.per, _DTYPES[q3.dtype], float(scale),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(cudaError {err})")
+    _count("launches", q3.dtype)
 
 
 def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal):
@@ -375,7 +402,8 @@ def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal):
     ``(o, lse)``.  CPU tensors run the plain version; CUDA tensors
     launch ``csrc/flash_attention_fwd.cu`` or raise: one launch where
     the blocks fill the card, else the key split (a partial launch and a
-    combine, :func:`_fwd_split_plan`)."""
+    combine, :func:`_fwd_split_plan`).  ``o`` is in q's dtype on either
+    route."""
     dev, mask_bh = _kernel_operands("flash_attention", q3, k3, v3, mask3,
                                     mode)
     if dev is None:
@@ -387,22 +415,37 @@ def flash_attention_fwd(q3, k3, v3, mask3, scale, mode, causal):
                            _sm_count(dev.index if dev.index is not None
                                      else torch.cuda.current_device()))
     if plan.n_split > 1:
-        parts = flash_attention_fwd_partial(q3, k3, v3, mask3, scale, mode,
-                                            causal, plan)
-        return flash_attention_fwd_combine(*parts, T, S, causal, plan.per)
+        return _fwd_split(q3, k3, v3, mask3, scale, mode, causal, plan)
     return _fwd_unsplit(q3, k3, v3, mask3, scale, mode, mask_bh, causal,
                         plan)
+
+
+def _fwd_split(q3, k3, v3, mask3, scale, mode, causal, plan):
+    """The split route under ``plan``: the partial launch, then the
+    combine writing ``o`` in q's dtype (each the plain version on CPU
+    tensors)."""
+    parts = flash_attention_fwd_partial(q3, k3, v3, mask3, scale, mode,
+                                        causal, plan)
+    return flash_attention_fwd_combine(*parts, q3.shape[1], k3.shape[1],
+                                       causal, plan.per, q3.dtype)
+
+
+def _count(name, dtype):
+    """One launch on the counter ``name``, and on its ``_lowp`` twin
+    when the operands are 16-bit."""
+    g = globals()
+    g[name] += 1
+    if dtype != torch.float32:
+        g[name + "_lowp"] += 1
 
 
 def _fwd_unsplit(q3, k3, v3, mask3, scale, mode, mask_bh, causal, plan):
     """The unsplit route's launch (``plan.n_split == 1``) on CUDA
     operands that :func:`_kernel_operands` has checked."""
-    global launches
     o = torch.empty_like(q3)
     lse = torch.empty(q3.shape[:2], dtype=torch.float32, device=q3.device)
     _launch_fwd(q3, k3, v3, mask3, scale, mode, mask_bh, causal, [o, lse],
                 [None] * 3, plan)
-    launches += 1
     return o, lse
 
 
@@ -413,7 +456,6 @@ def flash_attention_fwd_partial(q3, k3, v3, mask3, scale, mode, causal,
     :func:`flash_attention_fwd_partial_reference` does, except that an
     empty range is left unwritten.  CPU tensors run that plain version;
     CUDA tensors launch or raise."""
-    global launches
     dev, mask_bh = _kernel_operands("flash_attention", q3, k3, v3, mask3,
                                     mode)
     if dev is None:
@@ -429,25 +471,29 @@ def flash_attention_fwd_partial(q3, k3, v3, mask3, scale, mode, causal,
     l_part = torch.empty_like(m_part)
     _launch_fwd(q3, k3, v3, mask3, scale, mode, mask_bh, causal, [None] * 2,
                 [o_part, m_part, l_part], plan)
-    launches += 1
     return o_part, m_part, l_part
 
 
-def flash_attention_fwd_combine(o_part, m_part, l_part, T, S, causal, per):
+def flash_attention_fwd_combine(o_part, m_part, l_part, T, S, causal, per,
+                                out_dtype=torch.float32):
     """The combine kernel's wrapper (``csrc/flash_attention_fwd.cu``):
     merges the ranges of :func:`flash_attention_fwd_partial` into
-    ``(o, lse)``.  CPU tensors run
+    ``(o, lse)``, ``o`` in ``out_dtype`` (float32, bfloat16 or float16;
+    :func:`flash_attention_fwd` passes q's).  CPU tensors run
     :func:`flash_attention_fwd_combine_reference`; CUDA tensors launch
     or raise."""
-    global launches_combine
     R, BH, T_, d = o_part.shape
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_fwd_combine writes float32, "
+                        f"bfloat16 or float16, got {out_dtype}")
     dev = o_part.device
     if any(t.device != dev for t in (m_part, l_part)):
         raise ValueError("flash_attention_fwd_combine: operands on "
                          "different devices")
     if dev.type == "cpu":
         return flash_attention_fwd_combine_reference(o_part, m_part, l_part,
-                                                     T, S, causal, per)
+                                                     T, S, causal, per,
+                                                     out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_fwd_combine: unsupported device "
                          f"{dev}")
@@ -459,17 +505,18 @@ def flash_attention_fwd_combine(o_part, m_part, l_part, T, S, causal, per):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("flash_attention_fwd_combine takes contiguous "
                              "float32 operands")
-    o = torch.empty((BH, T, d), dtype=torch.float32, device=dev)
+    o = torch.empty((BH, T, d), dtype=out_dtype, device=dev)
     lse = torch.empty((BH, T), dtype=torch.float32, device=dev)
     fn = _fn("flash_attention_fwd", "singa_flash_attention_fwd_combine", 5,
-             6, ())
+             7, ())
     err = fn(o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
              o.data_ptr(), lse.data_ptr(), BH, T, S, d, int(bool(causal)),
-             int(per), torch.cuda.current_stream(dev).cuda_stream)
+             int(per), _DTYPES[out_dtype],
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention combine kernel launch failed "
                            f"(cudaError {err})")
-    launches_combine += 1
+    _count("launches_combine", out_dtype)
     return o, lse
 
 
@@ -545,7 +592,6 @@ def flash_attention_bwd_dq(q3, k3, v3, mask3, lse, delta, do3, scale, mode,
     """The dq kernel's wrapper (``csrc/flash_attention_bwd.cu``) on
     ``(BH, T, d)`` operands with ``lse`` and ``delta`` ``(BH, T)``.  CPU
     tensors run the plain version; CUDA tensors launch or raise."""
-    global launches_dq
     dev, mask_bh = _bwd_operands("flash_attention_bwd", q3, k3, v3, mask3,
                                  lse, delta, do3, mode)
     if dev is None:
@@ -553,16 +599,17 @@ def flash_attention_bwd_dq(q3, k3, v3, mask3, lse, delta, do3, scale, mode,
                                                 do3, scale, mode, causal)
     BH, T, d = q3.shape
     dq = torch.empty_like(q3)
-    fn = _fn("flash_attention_bwd", "singa_flash_attention_bwd_dq", 8)
+    fn = _fn("flash_attention_bwd", "singa_flash_attention_bwd_dq", 8, 8)
     err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
              mask3.data_ptr() if mode != "none" else None, do3.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, T,
              k3.shape[1], d, _MODES[mode], mask_bh, int(bool(causal)),
-             float(scale), torch.cuda.current_stream(dev).cuda_stream)
+             _DTYPES[q3.dtype], float(scale),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention dq kernel launch failed "
                            f"(cudaError {err})")
-    launches_dq += 1
+    _count("launches_dq", q3.dtype)
     return dq
 
 
@@ -571,7 +618,6 @@ def flash_attention_bwd_dkv(q3, k3, v3, mask3, lse, delta, do3, scale, mode,
     """The dk/dv kernel's wrapper (``csrc/flash_attention_bwd.cu``):
     returns ``(dk, dv)``.  CPU tensors run the plain version; CUDA
     tensors launch or raise."""
-    global launches_dkv
     dev, mask_bh = _bwd_operands("flash_attention_bwd", q3, k3, v3, mask3,
                                  lse, delta, do3, mode)
     if dev is None:
@@ -581,17 +627,17 @@ def flash_attention_bwd_dkv(q3, k3, v3, mask3, lse, delta, do3, scale, mode,
     BH, T, d = q3.shape
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    fn = _fn("flash_attention_bwd", "singa_flash_attention_bwd_dkv", 9)
+    fn = _fn("flash_attention_bwd", "singa_flash_attention_bwd_dkv", 9, 8)
     err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
              mask3.data_ptr() if mode != "none" else None, do3.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              BH, T, k3.shape[1], d, _MODES[mode], mask_bh,
-             int(bool(causal)), float(scale),
+             int(bool(causal)), _DTYPES[q3.dtype], float(scale),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention dk/dv kernel launch failed "
                            f"(cudaError {err})")
-    launches_dkv += 1
+    _count("launches_dkv", q3.dtype)
     return dk, dv
 
 
@@ -600,12 +646,13 @@ def flash_attention_bwd(q3, k3, v3, mask3, o3, lse, do3, scale, mode,
     """Flash-attention backward on ``(BH, T, d)`` operands (``o3`` and
     ``lse`` from :func:`flash_attention_fwd`, ``do3`` the output's
     cotangent): returns ``(dq, dk, dv)``.  ``delta = rowsum(dO * O)`` is
-    one PyTorch op, as in the reference; then the dq and the dk/dv
-    kernels run (their plain versions for CPU tensors)."""
+    one PyTorch op on the float32-upcast operands, as in the reference
+    (pallas_kernels.py:290); then the dq and the dk/dv kernels run (their
+    plain versions for CPU tensors)."""
     if o3.shape != q3.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o3.shape)} does "
                          f"not match q {tuple(q3.shape)}")
-    delta = (do3 * o3).sum(dim=-1)
+    delta = (do3.float() * o3.float()).sum(dim=-1)
     dq = flash_attention_bwd_dq(q3, k3, v3, mask3, lse, delta, do3, scale,
                                 mode, causal)
     dk, dv = flash_attention_bwd_dkv(q3, k3, v3, mask3, lse, delta, do3,

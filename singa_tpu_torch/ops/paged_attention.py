@@ -10,7 +10,9 @@ Contract, as in the reference: one query per slot, ``q (S, H, d)``;
 page pools ``(N, H, P, d)``; block table ``(S, Ps)`` int32 of physical
 page ids (NULL/stale entries are valid ids); ``pos (S,)`` int32, the
 last logical position each slot attends.  Returns ``(S, H, d)`` in q's
-dtype.  Quantized pools pass ``k_scales``/``v_scales`` ``(N, H, P)``
+dtype (float32, bfloat16 or float16; the query is upcast to float32 as
+the pages are, as the reference's ``.astype(f32)`` does).  Quantized
+pools pass ``k_scales``/``v_scales`` ``(N, H, P)``
 (pass both or neither): the K scale multiplies the score column, the
 softmax denominator sums the unscaled weights, and the V scale folds
 into each weight before the V product.
@@ -23,8 +25,11 @@ every column at ``-1e9``: a uniform softmax, whose output is the mean of
 ``v_scale * v`` over the slot's whole table row (stale and NULL entries
 included).  ``pos >= Ps * P - 1`` makes every column live.
 
-The kernel takes float32 queries against float32 or bfloat16 pages
-(the storage override), or int8 pages with bfloat16 or float32 scales.
+The kernel takes a float32, bfloat16 or float16 query against float32,
+bfloat16 or float16 pages, or int8 pages with bfloat16 or float32
+scales, the page dtype independent of the query's (a bfloat16 engine
+runs a bfloat16 query over bfloat16 pages, or over int8 or float32
+pages with ``kv_dtype``); it writes the query's dtype.
 It splits each slot's page walk: ``_split_plan`` cuts the ``Ps`` table
 entries into ``R`` ranges of ``ppr`` pages from the shapes alone (never
 from ``pos``, which stays on the device), at least two blocks a
@@ -66,16 +71,20 @@ _MAX_P = 256
 _MAX_PPR = 8
 
 # the kernel's type codes (csrc/paged_decode.cu)
-_ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_QELEM = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+         torch.float16: 3}
 _SCALE = {torch.bfloat16: 1, torch.float32: 2}
 
 # kernel launches made by paged_decode_attention (plain-version calls
-# and CPU calls do not count): ``launches`` over float32 / bfloat16
-# pages, ``launches_q8`` over int8 pages; ``launches_merge`` counts the
-# merge launches of either (the split route, R > 1)
+# and CPU calls do not count): ``launches`` over float pages,
+# ``launches_q8`` over int8 pages; ``launches_merge`` counts the merge
+# launches of either (the split route, R > 1); ``launches_lowp`` counts
+# the launches of either on a 16-bit query
 launches = 0
 launches_q8 = 0
 launches_merge = 0
+launches_lowp = 0
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, table, pos,
@@ -202,7 +211,7 @@ def _fn():
     if _FN is None:
         fn = _build.load("paged_decode").singa_paged_decode
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
@@ -242,16 +251,16 @@ def _check_kernel_operands(q, k_pages, v_pages, table, pos, k_scales,
         raise ValueError(f"paged_decode_attention kernel takes d <= "
                          f"{_MAX_D} and page_tokens <= {_MAX_P}, got d={d},"
                          f" P={P}")
-    if q.dtype != torch.float32:
-        raise TypeError(f"paged_decode_attention kernel takes a float32 "
-                        f"query, got {q.dtype}")
+    if q.dtype not in _QELEM:
+        raise TypeError(f"paged_decode_attention kernel takes a float32, "
+                        f"bfloat16 or float16 query, got {q.dtype}")
     if v_pages.dtype != k_pages.dtype:
         raise TypeError(f"paged_decode_attention: K pages {k_pages.dtype}, "
                         f"V pages {v_pages.dtype}")
     if k_scales is None:
-        if k_pages.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"paged_decode_attention kernel takes float32 "
-                            f"or bfloat16 pages without scales, got "
+        if k_pages.dtype not in _QELEM:
+            raise TypeError(f"paged_decode_attention kernel takes float32, "
+                            f"bfloat16 or float16 pages without scales, got "
                             f"{k_pages.dtype}")
     else:
         if k_pages.dtype != torch.int8:
@@ -319,7 +328,7 @@ def _launch(q, k_pages, v_pages, table, pos, scale, k_scales, v_scales,
             plan):
     """The kernel's launches under ``plan = (R, ppr)``: the ranges, and
     their merge when ``R > 1``."""
-    global launches, launches_q8, launches_merge
+    global launches, launches_q8, launches_merge, launches_lowp
     S, H, d = q.shape
     R, ppr = plan
     index = q.device.index
@@ -332,8 +341,8 @@ def _launch(q, k_pages, v_pages, table, pos, scale, k_scales, v_scales,
                 v_scales.data_ptr() if quant else None,
                 table.data_ptr(), pos.data_ptr(), out.data_ptr(), parts, S, H,
                 k_pages.shape[2], table.shape[1], d, R, ppr, scale,
-                _ELEM[k_pages.dtype], _SCALE[k_scales.dtype] if quant else 0,
-                stream)
+                _QELEM[q.dtype], _ELEM[k_pages.dtype],
+                _SCALE[k_scales.dtype] if quant else 0, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
                            f"(cudaError {err})")
@@ -343,21 +352,24 @@ def _launch(q, k_pages, v_pages, table, pos, scale, k_scales, v_scales,
         launches += 1
     if R > 1:
         launches_merge += 1
+    if q.dtype != torch.float32:
+        launches_lowp += 1
     return out
 
 
 def _merge_launch(parts, pos, out, page_tokens, pages_per_slot, plan):
     """The merge launch alone, on the partials ``parts`` (S, H, R, d + 2)
     float32 that a split launch under ``plan`` left, into ``out`` (S, H,
-    d): for checking and timing it by itself (not counted)."""
+    d) of the query's dtype: for checking and timing it by itself (not
+    counted)."""
     S, H, R, d2 = parts.shape
     fn = _build.load("paged_decode").singa_paged_decode_merge
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(parts.data_ptr(), pos.data_ptr(), out.data_ptr(), S, H,
              page_tokens, pages_per_slot, d2 - 2, R, plan[1],
-             _stream(out.device.index))
+             _QELEM[out.dtype], _stream(out.device.index))
     if err != 0:
         raise RuntimeError(f"paged_decode merge launch failed (cudaError "
                            f"{err})")

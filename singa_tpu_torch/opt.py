@@ -16,8 +16,21 @@ schedules advance inside a compiled step; the port runs eagerly and
 keeps it as a host integer, and evaluates the schedules and the bias
 corrections in float32 as the reference does.  Updates happen in place,
 under ``torch.no_grad()``, on the parameter's own ``torch`` leaf and on
-its state tensors.  ``RMSProp``, ``AdaGrad`` and ``DistOpt`` belong to
-later slices (``ROADMAP.md`` queue 1, items 4 and 12).
+its state tensors.
+
+Mixed precision (:mod:`singa_tpu_torch.precision`, reference opt.py:210-299):
+``attach_precision_policy`` installs a ``Policy``.  ``apply`` then puts
+the parameter's float32 master leaf back (stashed by
+``Policy.begin_step``), casts the gradient to float32, and under a loss
+scale unscales it and, when any gradient of the round is non-finite
+(``_backward``'s one verdict for the whole round), makes the update an
+exact no-op: a zero gradient is fed, then the parameter and its
+existing state are restored by ``torch.where`` on the device, so the
+scale adds no host sync to a step.  ``step`` advances the scale's
+schedule, and its three scalars are optimizer states (``loss_scale``,
+``loss_scale_good_steps``, ``loss_scale_found_inf``).  ``RMSProp``,
+``AdaGrad`` and ``DistOpt`` belong to later slices (``ROADMAP.md``
+queue 1, items 4 and 12).
 """
 
 from __future__ import annotations
@@ -102,6 +115,12 @@ class Optimizer:
         # restored entries whose (lazily created) state does not exist
         # yet: applied by _state_for when it is created
         self._pending_states: dict[str, object] = {}
+        # mixed precision: Policy.begin_step stashes the float32 master
+        # leaves here by param id; apply() puts each back before its
+        # update
+        self._masters: dict[int, torch.Tensor] = {}
+        self._precision_policy = None
+        self._round_finite = None  # the round's overflow verdict (device)
 
     # -- state management ------------------------------------------------
     def _state_name(self, kind: str, param: Tensor) -> str:
@@ -134,6 +153,8 @@ class Optimizer:
 
     def state_tensors(self):
         out = []
+        if self._precision_policy is not None:
+            out.extend(self._precision_policy.state_tensors())
         for st in self._states.values():
             out.extend(st.values())
         return out
@@ -157,23 +178,79 @@ class Optimizer:
             else:
                 self._pending_states[name] = np.asarray(arr)
 
+    # -- mixed precision ---------------------------------------------------
+    def attach_precision_policy(self, policy):
+        """Install a :class:`~singa_tpu_torch.precision.Policy` (see the
+        module docstring)."""
+        self._precision_policy = policy
+
+    def _backward(self, loss: Tensor):
+        """``autograd.backward`` with the policy's loss-scaled initial
+        cotangent, and the round's global finite verdict: any non-finite
+        gradient skips every update of the round (a per-param guard would
+        not be a no-op: a NaN upstream can give a parameter below a zero
+        gradient whose momentum update would still apply)."""
+        pol = self._precision_policy
+        self._round_finite = None
+        if pol is None or pol.loss_scale is None:
+            return autograd.backward(loss)
+        ls = pol.loss_scale.to_device(loss.device)
+        dy = ls.scale.data.to(loss.dtype).expand(loss.shape)
+        pairs = list(autograd.backward(loss, dy))
+        fin = torch.ones((), dtype=torch.bool, device=loss.data.device)
+        for _, g in pairs:
+            fin = fin & torch.isfinite(g.data).all()
+        self._round_finite = fin
+        return pairs
+
     # -- API --------------------------------------------------------------
     def apply(self, param: Tensor, grad: Tensor) -> None:
         """Update ``param`` in place from ``grad`` (under
-        ``torch.no_grad()``)."""
+        ``torch.no_grad()``); policy-aware (see the module docstring)."""
         with torch.no_grad():
-            self._apply(param, grad.data)
+            pol = self._precision_policy
+            if pol is None or not pol.active:
+                return self._apply(param, grad.data)
+            master = self._masters.pop(id(param), None)
+            if master is not None:
+                param.data = master     # the same float32 leaf as before
+            g = grad.data
+            if g.dtype != param.data.dtype:
+                g = g.to(param.data.dtype)
+            ls = pol.loss_scale
+            if ls is None:
+                return self._apply(param, g)
+            g = g * (1.0 / ls.scale.data)
+            finite = (self._round_finite if self._round_finite is not None
+                      else torch.isfinite(g).all())
+            ls.record(~finite)
+            # an exact no-op on overflow: a zero gradient keeps fresh state
+            # finite, then the param and its existing state come back
+            g = torch.where(finite, g, torch.zeros_like(g))
+            p = param.data
+            old_p = p.clone()
+            old_st = [(t.data, t.data.clone())
+                      for t in self._states.get(id(param), {}).values()]
+            self._apply(param, g)
+            p.copy_(torch.where(finite, p, old_p))
+            for cur, old in old_st:
+                cur.copy_(torch.where(finite, cur, old))
 
     def _apply(self, param: Tensor, g: torch.Tensor) -> None:
         raise NotImplementedError
 
     def step(self):
-        """Advance the step counter (once per iteration)."""
+        """Advance the step counter (once per iteration) and the loss
+        scale's schedule."""
+        self._round_finite = None  # the round is over
         self.step_counter += 1
+        pol = self._precision_policy
+        if pol is not None and pol.loss_scale is not None:
+            pol.loss_scale.update()
 
     def __call__(self, loss: Tensor):
         """Backprop + update every param (reference: ``opt(loss)``)."""
-        for p, g in autograd.backward(loss):
+        for p, g in self._backward(loss):
             self.apply(p, g)
         self.step()
 

@@ -7,7 +7,9 @@ draws from per-slot ``torch.Generator`` objects (Gumbel-max over the
 filtered logits, the same distribution as ``jax.random.categorical``).
 The two never produce the same bits from one seed; a request's draws
 here depend only on its own seed and token index, not on the batch it
-shares the engine with.
+shares the engine with.  16-bit logits (a bf16 policy) are divided by
+the temperature in float32, as the reference's float32 temperature
+promotes them; the float32 noise is added to that.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def sample_logits(logits, temperature: float, top_k: int, gen):
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if temperature <= 0:
         return greedy
-    lg = _topk_filter(logits / float(temperature), top_k)
+    # float32 as the reference's traced float32 temperature promotes it
+    lg = _topk_filter(logits.float() / float(temperature), top_k)
     noise = torch.stack([_gumbel(gen, lg.shape[-1], lg.device)
                          for _ in range(lg.shape[0])])
     return torch.argmax(lg + noise, dim=-1).to(torch.int32)

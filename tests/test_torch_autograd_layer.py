@@ -242,10 +242,13 @@ def test_model_compile_names_and_places_the_state():
     assert all(t.name == k and t.data.device.type == "cpu"
                for k, t in states.items())
     assert not tag.training
-    for bad in (dict(precision="bfloat16"), dict(communicator=object()),
-                dict(mesh=object())):
+    for bad in (dict(communicator=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m.compile([_tt(np.zeros((2, 5), np.float32))], **bad)
+    # a precision policy is installed (the mixed-precision slice)
+    m.compile([_tt(np.zeros((2, 5), np.float32))], precision="bfloat16")
+    assert m.precision_policy.compute_dtype == torch.bfloat16
+    assert all(t.data.dtype == torch.float32 for t in states.values())
 
 
 class _Carry(Model):

@@ -246,3 +246,33 @@ def test_1xtf32_forward_misses_the_float32_tolerance(name):
     print(f"{name}: 1xTF32 forward max abs error {err:.3e} against the JAX "
           f"kernel (CPU tolerance 1e-5; the card's FLASH_TOL 1e-4)")
     assert err > 1e-5
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float16, torch.float16, torch.bfloat16),
+    (torch.float64, torch.float64, torch.float64)])
+def test_operands_of_mixed_or_other_dtypes_raise(dtypes):
+    """q, k and v of one dtype in float32, bfloat16 or float16: anything
+    else raises TypeError naming the dtypes, on CPU tensors as on the
+    card."""
+    q, k, v = (torch.zeros(1, 1, 8, 16, dtype=dt) for dt in dtypes)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_combine_writes_the_requested_dtype(dtype):
+    """The plain combine rounds its float32 merge once to ``out_dtype``;
+    lse stays float32."""
+    g = torch.Generator().manual_seed(0)
+    q3, k3, v3 = (torch.randn(2, n, 16, generator=g) for n in (32, 200, 200))
+    plan = fa_mod._fwd_split_plan(2, 32, 200, False, n_sm=1 << 20)
+    parts = fa_mod.flash_attention_fwd_partial(q3, k3, v3, None, 0.25, "none",
+                                               False, plan)
+    o32, lse32 = fa_mod.flash_attention_fwd_combine(*parts, 32, 200, False,
+                                                    plan.per)
+    o, lse = fa_mod.flash_attention_fwd_combine(*parts, 32, 200, False,
+                                                plan.per, dtype)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert torch.equal(o, o32.to(dtype)) and torch.equal(lse, lse32)

@@ -274,3 +274,36 @@ def test_pos_below_zero_is_the_mean_of_v_over_the_row(variant):
     assert np.abs(ref).max() > 1e-3
     got = paged_decode_attention(q, kp, vp, table, pos, **kw)[0]
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype,codes", [
+    (torch.float32, torch.float32, (0, 0)),
+    (torch.bfloat16, torch.bfloat16, (1, 1)),
+    (torch.float16, torch.float16, (2, 3)),
+    (torch.bfloat16, torch.float32, (1, 0))])
+def test_launch_passes_the_query_and_page_type_codes(monkeypatch, q_dtype,
+                                                     page_dtype, codes):
+    """The C entry gets the query's type code before the pages' (the
+    page type independent of the query's); a 16-bit query counts on
+    ``launches_lowp`` as well as on ``launches``."""
+    rec = _Recorder()
+    q, kp, table, _ = _stub_launch_path(monkeypatch, rec)
+    before = (pa_mod.launches, pa_mod.launches_lowp)
+    out = pa_mod._kernel_call(q.to(q_dtype), kp.to(page_dtype),
+                              kp.to(page_dtype), table,
+                              torch.zeros(8, dtype=torch.int32), None, None,
+                              None)
+    assert out.dtype == q_dtype
+    assert rec.calls[0][17:20] == codes + (0,)
+    lowp = int(q_dtype != torch.float32)
+    assert (pa_mod.launches, pa_mod.launches_lowp) == (before[0] + 1,
+                                                       before[1] + lowp)
+
+
+def test_mixed_query_types_the_kernel_does_not_take_raise():
+    q = torch.zeros(2, 2, 8, dtype=torch.float64)
+    kp = torch.zeros(3, 2, 4, 8)
+    table = torch.zeros(2, 2, dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="query"):
+        pa_mod._check_kernel_operands(q, kp, kp, table, pos, None, None)

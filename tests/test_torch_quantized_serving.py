@@ -647,7 +647,10 @@ def test_precision_policy_matches_reference_fields():
     assert pol.quantized and ref.quantized
     assert tprecision.dtype_name(pol.scale_dtype) == ref.scale_dtype.name
     assert not tprecision.Policy().quantized
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tprecision.Policy(torch.bfloat16)
+    # mixed compute is the mixed-precision slice's: the fields as JAX's
+    mixed = tprecision.Policy(torch.bfloat16, kv_dtype="int8")
+    jmixed = jprecision.Policy(jnp.bfloat16, kv_dtype="int8")
+    assert (mixed.mixed, mixed.quantized, repr(mixed)) == \
+        (jmixed.mixed, jmixed.quantized, repr(jmixed))
     with pytest.raises(ValueError, match="scale_dtype"):
         tprecision.Policy(kv_dtype="int8", scale_dtype=torch.float16)
