@@ -58,8 +58,9 @@ Phases (any failure exits non-zero before the result lines print):
    ragged cases, each against its plain version on the same 16-bit
    operands (outputs within one unit in the last place of their dtype,
    taken at max(|x|, 2^-6); lse and partials within 1e-4); times beside
-   the float32 ones, the bound at 2 bytes an element and the 3xTF32
-   rate, and ``scaled_dot_product_attention`` in the same dtype (pinned
+   the float32 ones, the bound at 2 bytes an element and the TF32 rate
+   for the kernels' own products (below; the 3xTF32 bound beside it),
+   and ``scaled_dot_product_attention`` in the same dtype (pinned
    as above; a yardstick that rounds P to 16 bits, so another function);
 5c. paged decode on a 16-bit query: bf16 over bf16 pages, fp16 over fp16,
    bf16 over int8 (bf16 scales), bf16 over float32, fp16 over int8
@@ -129,7 +130,12 @@ Phases (any failure exits non-zero before the result lines print):
    ``LOWP_MARGIN_ULPS`` units of the top logit; a tie is within it);
 7f. path ``generate_bf16``: phase 7a's batch under bf16: exactly 12 flash
    launches on bf16 operands a call and nothing else; rows against the
-   bf16 paged engine and two against the CPU, under the margin rule;
+   bf16 paged engine and the CPU, under the margin rule; the rows'
+   logits against the CPU's on the same tokens, within
+   ``LOWP_LOGIT_ULPS`` units of the top logit; two controls with a
+   planted fault in the prefill attention (P rounded to bf16, each
+   query's own key dropped) print their readings, and the logit check
+   must fail the dropped key;
 8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
    of ``train_one_batch`` with Adam at B 8, T 1024 (loss, step time,
    tokens/s, peak memory; the loss must fall; exactly 12 launches of
@@ -199,9 +205,13 @@ bytes moved (each input read once, each output written once) over
 product; H100 SXM data sheet).  The flash rows also print the bound at
 the SIMT float32 rate of 67 TFLOP/s, the bound of PR 6 and before.  The
 16-bit rows count 2 bytes an element of q, k, v, dO and the outputs, and
-their operations at the same 3xTF32 rate: the kernels compute in
-float32 on the upcast operands (fewer TF32 products a product, but the
-same operations of the function).
+their operations as the TF32 products the card needs for them at 495
+TFLOP/s: a 16-bit value is exact in TF32, so a product of two 16-bit
+operands (QK^T, dO V^T) is one TF32 product and a product of a 16-bit
+operand with float32 P or dS (P V, dS K, dS^T Q, P^T dO) is two.  That
+is 6 d TF32 operations a (query, key) pair for the forward, 8 d for dq
+and 12 d for dk/dv, against 12 d, 18 d and 24 d at 3xTF32; the 3xTF32
+bound of the same rows prints beside it.
 """
 
 from __future__ import annotations
@@ -240,7 +250,13 @@ HBM_BYTES_PER_S = 3.35e12
 # float32 products: on the tensor cores as 3xTF32 (three TF32 products at
 # 495 TFLOP/s each), the bound of every row; the SIMT float32 rate, PR 6's
 # bound, is printed beside it
-FP32_TC_FLOP_PER_S = 495e12 / 3
+TF32_FLOP_PER_S = 495e12
+FP32_TC_FLOP_PER_S = TF32_FLOP_PER_S / 3
+# TF32 operations a (query, key) pair, in units of d, of the flash
+# kernels on 16-bit operands: one TF32 product for a product of two
+# 16-bit operands, two where P or dS (float32) is one operand
+LOWP_TF32_PAIR = {"fwd": 2 + 2 * 2, "dq": 2 + 2 + 2 * 2,
+                  "dkv": 2 + 2 + 2 * 2 + 2 * 2}
 FP32_FLOP_PER_S = 67e12
 # n_sm that makes the forward's plan split wherever a head has 2+ key tiles
 SPLIT_SM = 1 << 20
@@ -250,10 +266,20 @@ MARGIN_TOL = 1e-3
 # the margin a first difference may have when the logits are 16-bit, in
 # units in the last place of the top logit: both sides round every op to
 # 16 bits, the card in cuBLAS's and the kernels' summation order, the CPU
-# in its own, so near-ties flip.  A tie (margin 0) is always within it:
-# both sides take the first index of the largest logit, and which index
-# that is depends on the last bit
+# in its own, so near-ties flip.  The card's bf16 logits differ from the
+# CPU's by up to 4 such units on the same tokens (the logit check's
+# reading on an H100), so the difference of two logits moves by up to 8
+# and a flip at a margin under 8 is within rounding.  A tie (margin 0)
+# is always within it: both sides take the first index of the largest
+# logit, and which index that is depends on the last bit.  The rule has
+# little power on these flat random-weight logits (a planted fault's
+# first differences land at 1-2 units); the logit check has it
 LOWP_MARGIN_ULPS = 8
+# the largest difference the card's bf16 logits may have from the CPU's
+# on the same tokens, in units in the last place of each position's top
+# logit: sound runs read 4 on an H100, prefill attention with each
+# query's own key dropped reads 91
+LOWP_LOGIT_ULPS = 16
 REPS = 30
 # the reference's committed drift tolerances for int8 serving
 # (tests/test_quantized_serving.py), over a DRIFT_T-token prompt
@@ -1159,8 +1185,9 @@ def phase_flash_lowp(rows):
     kernels at the training shape and on ragged cases; each against its
     plain version on the same 16-bit operands (outputs within one ulp,
     lse and partials within 1e-4).  Times beside the float32 rows of
-    ``rows`` (phases 3-4), the bound at 2 bytes an element and the
-    3xTF32 rate, and ``scaled_dot_product_attention`` pinned to its
+    ``rows`` (phases 3-4), the bound at 2 bytes an element and the TF32
+    products the kernels need (``LOWP_TF32_PAIR``; the 3xTF32 bound
+    beside it), and ``scaled_dot_product_attention`` pinned to its
     memory-efficient backend in the same dtype (a yardstick that rounds
     P to 16 bits, so another function).  Returns the 16-bit rows of the
     kernels line (numbers of the bf16 cases; fp16's under
@@ -1237,7 +1264,9 @@ def phase_flash_lowp(rows):
         lib = _time_ms(lambda: _sdpa(q, k, v, attn_mask=mask.to(dt),
                                      scale=scale))
         nbytes = _lowp_bytes(q, k, v, mask, q, extra=4 * H * C)
-        bound, by = _bound(nbytes, 4 * H * C * L * d)
+        bound, by = _bound(nbytes, LOWP_TF32_PAIR["fwd"] * H * C * L * d,
+                           TF32_FLOP_PER_S)
+        bound3 = _bound(nbytes, 4 * H * C * L * d)[0]
         c_ms = _time_ms(lambda: fa.flash_attention_fwd_combine(
             *parts, C, L, False, plan.per, dt))
         c_plain = _time_ms(lambda: fa.flash_attention_fwd_combine_reference(
@@ -1249,13 +1278,15 @@ def phase_flash_lowp(rows):
              f"(float32 {f32['flash_attention_fwd']['ms']:.4f}), plain "
              f"{plain:.4f} ms, {SDPA_NAME} {tag} {lib:.4f} ms (rounds P to "
              f"16 bits: another function), bound {bound:.4f} ms ({by}: "
-             f"{nbytes / 1e6:.2f} MB); combine {c_ms:.4f} ms (float32 "
+             f"{nbytes / 1e6:.2f} MB; at 3xTF32 {bound3:.4f} ms); combine "
+             f"{c_ms:.4f} ms (float32 "
              f"{f32['flash_attention_fwd_combine']['ms']:.4f}), plain "
              f"{c_plain:.4f} ms, bound {c_bound:.6f} ms ({c_by})")
         out["fwd"][tag] = {"max_abs_err": err_serving[1],
                            "max_ulp_err": err_serving[0], "ms": ms,
                            "plain_ms": plain, "bound_ms": bound,
                            "bound_by": by, "library_ms": lib,
+                           "bound_3xtf32_ms": bound3,
                            "float32_ms": f32["flash_attention_fwd"]["ms"]}
         out["combine"][tag] = {"max_abs_err": e_comb[2],
                                "max_ulp_err": e_comb[0], "ms": c_ms,
@@ -1318,30 +1349,37 @@ def phase_flash_lowp(rows):
                      "flash_attention_bwd_dkv")):
                 k_ms = _time_ms(lambda: fn(*args))
                 p_ms = _time_ms(lambda: plain_fn(*args))
-                bnd, bby = _bound(ins + outs * qkv, pairs * flop_pair)
+                bnd, bby = _bound(ins + outs * qkv,
+                                  pairs * LOWP_TF32_PAIR[key] * d,
+                                  TF32_FLOP_PER_S)
+                bnd3 = _bound(ins + outs * qkv, pairs * flop_pair)[0]
                 _log(f"{f32name} {tag} training shape: kernel {k_ms:.4f} ms "
                      f"(float32 {f32[f32name]['ms']:.4f}), plain {p_ms:.4f} "
                      f"ms, {SDPA_NAME} {tag} backward {sdpa_bwd:.4f} ms, "
-                     f"bound {bnd:.4f} ms ({bby})")
+                     f"bound {bnd:.4f} ms ({bby}; at 3xTF32 {bnd3:.4f} ms)")
                 out[key][tag] = {"max_abs_err": a_dq if outs == 1 else a_dkv,
                                  "max_ulp_err": e_dq if outs == 1 else e_dkv,
                                  "ms": k_ms, "plain_ms": p_ms,
                                  "bound_ms": bnd, "bound_by": bby,
+                                 "bound_3xtf32_ms": bnd3,
                                  "library_ms": sdpa_bwd,
                                  "float32_ms": f32[f32name]["ms"]}
             f_ms = _time_ms(lambda: fa.flash_attention_fwd(
                 q3, k3, v3, None, args[7], "none", True))
             f_sdpa = _time_ms(lambda: _sdpa(q_, k_, v_, is_causal=True))
-            f_bound, f_by = _bound(4 * qkv + 4 * BH * T, pairs * 4 * d)
+            f_bound, f_by = _bound(4 * qkv + 4 * BH * T,
+                                   pairs * LOWP_TF32_PAIR["fwd"] * d,
+                                   TF32_FLOP_PER_S)
+            f_bound3 = _bound(4 * qkv + 4 * BH * T, pairs * 4 * d)[0]
             out["fwd"][tag]["train_shape"] = {
                 "ms": f_ms, "library_ms": f_sdpa, "bound_ms": f_bound,
-                "bound_by": f_by,
+                "bound_by": f_by, "bound_3xtf32_ms": f_bound3,
                 "float32_ms": f32["flash_attention_fwd"]["train_shape"]["ms"]}
             _log(f"flash_attention_fwd {tag} training shape: kernel "
                  f"{f_ms:.4f} ms (float32 "
                  f"{f32['flash_attention_fwd']['train_shape']['ms']:.4f}), "
                  f"{SDPA_NAME} {tag} {f_sdpa:.4f} ms, bound {f_bound:.4f} ms "
-                 f"({f_by})")
+                 f"({f_by}; at 3xTF32 {f_bound3:.4f} ms)")
     result = []
     for key, name, replaces in (
             ("fwd", "flash_attention_fwd_lowp",
@@ -1936,22 +1974,34 @@ def _prefill_logits(params, cfg, tokens, quant, device):
         return tgpt._logits(params, h)[0]
 
 
+def _top2_ulps(lg):
+    """Top-2 margins of logit rows ``lg`` (..., V) and the unit in the
+    last place of each top logit (None for float32 logits)."""
+    top = torch.topk(lg, 2, dim=-1).values.float()
+    margin = top[..., 0] - top[..., 1]
+    if lg.dtype not in LOWP:
+        return margin, None
+    _, e = torch.frexp(top[..., 0].abs())
+    bits = 8 if lg.dtype == torch.bfloat16 else 11
+    return margin, torch.pow(2.0, (e - bits).float())
+
+
 def _cpu_margin(cpu_model, tokens, weight_dtype=None):
     """Top-2 logit margin at the end of ``tokens``, from the port's
     plain path on the CPU (float, or int8 weights and pages; in the
-    model's compute dtype), and the margin a first difference may have:
-    ``MARGIN_TOL``, or for 16-bit logits ``LOWP_MARGIN_ULPS`` units in the
-    last place of the top logit if that is more."""
+    model's compute dtype), the margin a first difference may have
+    (``MARGIN_TOL``, or for 16-bit logits ``LOWP_MARGIN_ULPS`` units in
+    the last place of the top logit if that is more), and that unit
+    (None for float32 logits)."""
     params = cpu_model.decode_params(weight_dtype)
     lg = _prefill_logits(params, cpu_model.config, tokens,
                          weight_dtype is not None, "cpu")[-1]
-    top = torch.topk(lg, 2).values
+    margin, ulp = _top2_ulps(lg)
     tol = MARGIN_TOL
-    if lg.dtype in LOWP:
-        _, e = torch.frexp(top[0].abs().float())
-        bits = 8 if lg.dtype == torch.bfloat16 else 11
-        tol = max(tol, LOWP_MARGIN_ULPS * 2.0 ** (int(e) - bits))
-    return float(top[0].float() - top[1].float()), tol
+    if ulp is not None:
+        ulp = float(ulp)
+        tol = max(tol, LOWP_MARGIN_ULPS * ulp)
+    return float(margin), tol, ulp
 
 
 def _serve(eng, prompts):
@@ -2049,10 +2099,12 @@ def _margin_check(label, cpu_model, prompt, a, b, weight_dtype=None):
         _log(f"{label}: {len(a)} greedy tokens identical")
         return
     j = int(np.flatnonzero(a != b)[0])
-    margin, tol = _cpu_margin(cpu_model, np.concatenate([prompt, a[:j]]),
-                              weight_dtype)
+    margin, tol, ulp = _cpu_margin(cpu_model,
+                                   np.concatenate([prompt, a[:j]]),
+                                   weight_dtype)
+    in_ulps = "" if ulp is None else f" = {margin / ulp:g} ulp"
     _log(f"{label}: first difference at token {j}, CPU top-2 logit margin "
-         f"{margin:.3e} (limit {tol:.3e})")
+         f"{margin:.3e}{in_ulps} (limit {tol:.3e})")
     if margin >= tol and margin > 0:
         raise AssertionError(f"{label} differs at token {j} with margin "
                              f"{margin}")
@@ -2526,9 +2578,9 @@ def phase_generate_bf16(setup):
     """Path ``generate_bf16``: ``GPT.generate`` on the card under
     ``precision="bfloat16"``, phase 7a's batch: exactly 12 flash forward
     launches a call, all on bfloat16 operands, no combine, nothing else;
-    each row against the bf16 paged engine's tokens for its prompt, and
-    two rows against the port's bf16 ``generate`` on the CPU, under the
-    margin rule."""
+    each row against the bf16 paged engine's tokens for its prompt and
+    against the port's bf16 ``generate`` on the CPU, under the margin
+    rule; then :func:`_lowp_logit_check`."""
     cfg16, model, cpu_model = _bf16_models(setup)
     rows = _generate_rows(setup["prompts"])
     batch = np.stack(rows)
@@ -2562,13 +2614,129 @@ def phase_generate_bf16(setup):
                       cpu_model, r, toks[i], res[rid])
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
-    cpu = cpu_model.generate(batch[:2], NEW)
-    _log(f"generate_bf16: 2 rows on the CPU in "
+    cpu = cpu_model.generate(batch, NEW)
+    _log(f"generate_bf16: {GEN_B} rows on the CPU in "
          f"{time.perf_counter() - t0:.1f}s")
-    for i in range(2):
+    for i in range(GEN_B):
         _margin_check(f"generate_bf16 row {i} against the CPU run",
                       cpu_model, rows[i], toks[i], cpu[i])
+    _lowp_logit_check(model, cfg16, cpu_model, rows, batch, toks, cpu)
     return launches, stats
+
+
+def _faulty_prefill_attention(kind):
+    """A planted fault in ``generate``'s prefill attention, a control of
+    the 16-bit checks: ``"p16"`` rounds the softmax weights P to
+    the operands' dtype before P V (what a 16-bit tensor-core kernel
+    or ``scaled_dot_product_attention`` does: another function than the
+    reference's); ``"diag"`` drops each query's own key (an off-by-one
+    causal mask; row 0 keeps its one key)."""
+    def attention(q, k, v, mask=None, sm_scale=1.0, causal=False):
+        if mask is not None or not causal:
+            raise AssertionError("the control expects generate's prefill")
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+        r = torch.arange(q.shape[2], device=q.device)
+        keep = r[None] <= r[:, None]
+        if kind == "diag":
+            keep = (r[None] < r[:, None]) | ((r[None] == 0)
+                                             & (r[:, None] == 0))
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+        if kind == "p16":
+            return torch.matmul(p.to(q.dtype), v)
+        return torch.matmul(p, v.float()).to(q.dtype)
+    return attention
+
+
+def _causal_logits(params, cfg, tokens, device):
+    """Logits at every position of ``tokens`` through ``generate``'s
+    prefill blocks (causal flash attention, no cache) on ``device``."""
+    H = cfg.n_heads
+    scale = 1.0 / np.sqrt(cfg.d_model // H)
+    ids = torch.from_numpy(np.asarray(tokens, np.int64)).to(device)[None]
+    with torch.no_grad():
+        h = tgpt._embed(params, ids, torch.arange(ids.shape[1],
+                                                  device=device),
+                        cfg.use_rope)
+        for bp in params["blocks"]:
+            h = tgpt._block_prefill(bp, h, H, scale, cfg.use_rope,
+                                    cfg.rope_base)[0]
+        return tgpt._logits(params, h)[0]
+
+
+def _logit_err_ulps(got, want):
+    """Largest ``|got - want|`` of a position's logits, in units of the
+    last place of that position's top logit in ``want``; the largest
+    over positions."""
+    _, ulp = _top2_ulps(want)
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    return float((err / ulp).max())
+
+
+def _lowp_logit_check(model, cfg16, cpu_model, rows, batch, toks, cpu):
+    """The bf16 logits, and the readings behind the two 16-bit limits.
+    Logits of the card's rows (prompt and generated tokens, one causal
+    prefill) against the port's on the CPU on the same tokens: the
+    largest difference in ulps of the top logit must stay under
+    ``LOWP_LOGIT_ULPS``.  The top-2 margins at the generated positions
+    (the share below 1, 2, 4 and 8 ulps is the share at which a flipped
+    token passes a margin limit that large).  Two controls, ``generate``
+    with a planted fault in its prefill attention
+    (:func:`_faulty_prefill_attention`): the margin at each row's first
+    difference from the CPU's tokens, and the logit difference, which
+    must reach ``LOWP_LOGIT_ULPS`` for the dropped key."""
+    params, cpu_params = model.decode_params(), cpu_model.decode_params()
+    seqs = [np.concatenate([r, toks[i][:-1]]) for i, r in enumerate(rows)]
+    want = [_causal_logits(cpu_params, cfg16, q, "cpu") for q in seqs]
+    errs, ulps = [], []
+    for q, w in zip(seqs, want):
+        got = _causal_logits(params, cfg16, q, "cuda").cpu()
+        errs.append(_logit_err_ulps(got, w))
+        margin, ulp = _top2_ulps(got[-NEW:])
+        ulps.append(margin / ulp)
+    ulps = torch.cat(ulps)
+    _log(f"generate_bf16 logits against the CPU's over {len(seqs)} rows: "
+         f"largest difference {max(errs):g} ulp of the top logit (rows "
+         f"{', '.join(f'{e:g}' for e in errs)}; limit {LOWP_LOGIT_ULPS})")
+    _log(f"generate_bf16 margins over {ulps.numel()} generated positions "
+         f"(ulps of the top logit): min {float(ulps.min()):g}, median "
+         f"{float(ulps.median()):g}; share below 1, 2, 4, 8 ulps: "
+         + ", ".join(f"{float((ulps < u).float().mean()):.4f}"
+                     for u in (1, 2, 4, 8)))
+    if max(errs) >= LOWP_LOGIT_ULPS:
+        raise AssertionError(f"generate_bf16 logits differ from the CPU's "
+                             f"by {max(errs)} ulp")
+    caught = {}
+    for kind in ("p16", "diag"):
+        saved = tgpt.flash_attention
+        tgpt.flash_attention = _faulty_prefill_attention(kind)
+        try:
+            bad = model.generate(batch, NEW)
+            bad_err = max(_logit_err_ulps(
+                _causal_logits(params, cfg16, q, "cuda").cpu(), w)
+                for q, w in zip(seqs, want))
+        finally:
+            tgpt.flash_attention = saved
+        caught[kind] = bad_err >= LOWP_LOGIT_ULPS
+        for i, r in enumerate(rows):
+            if np.array_equal(bad[i], cpu[i]):
+                _log(f"margin control {kind} row {i}: {NEW} greedy tokens "
+                     f"identical to the CPU run")
+                continue
+            j = int(np.flatnonzero(bad[i] != cpu[i])[0])
+            margin, tol, ulp = _cpu_margin(
+                cpu_model, np.concatenate([r, cpu[i][:j]]))
+            fails = margin >= tol and margin > 0
+            _log(f"margin control {kind} row {i}: first difference at token "
+                 f"{j}, CPU top-2 logit margin {margin:.3e} = "
+                 f"{margin / ulp:g} ulp (limit {tol:.3e}): the margin rule "
+                 f"{'fails' if fails else 'passes'} it")
+        _log(f"logit control {kind}: largest difference from the CPU's "
+             f"logits {bad_err:g} ulp of the top logit (limit "
+             f"{LOWP_LOGIT_ULPS}): the logit check "
+             f"{'fails' if caught[kind] else 'passes'} it")
+    if not caught["diag"]:
+        raise AssertionError("the logit check passed generate with the "
+                             "diagonal key dropped")
 
 
 def phase_train_lowp(precision, f32_stats):
@@ -3297,6 +3465,7 @@ def main(argv):
         | {k: r[k] for k in ("train_shape", "serving_split",
                              "causal_serving", "blocks",
                              "by_op", "by_dtype", "by_combination",
+                             "bound_3xtf32_ms",
                              "max_ulp_err",
                              "low_precision", "flush_floor_ms", "plan",
                              "unsplit_ms", "host_us",

@@ -23,11 +23,13 @@ Mixed precision (:mod:`singa_tpu_torch.precision`, reference opt.py:210-299):
 the parameter's float32 master leaf back (stashed by
 ``Policy.begin_step``), casts the gradient to float32, and under a loss
 scale unscales it and, when any gradient of the round is non-finite
-(``_backward``'s one verdict for the whole round), makes the update an
-exact no-op: a zero gradient is fed, then the parameter and its
-existing state are restored by ``torch.where`` on the device, so the
-scale adds no host sync to a step.  ``step`` advances the scale's
-schedule, and its three scalars are optimizer states (``loss_scale``,
+(``_backward``'s one verdict for the whole round, recorded into the
+scale once), makes the update an exact no-op: a zero gradient is fed,
+then the parameter and its existing state are restored by
+``torch.where`` on the device, so the scale adds no host sync to a
+step.  ``apply`` alone under a loss scale raises: the verdict comes
+from ``_backward``.  ``step`` advances the scale's schedule, and its
+three scalars are optimizer states (``loss_scale``,
 ``loss_scale_good_steps``, ``loss_scale_found_inf``).  ``RMSProp``,
 ``AdaGrad`` and ``DistOpt`` belong to later slices (``ROADMAP.md``
 queue 1, items 4 and 12).
@@ -201,6 +203,7 @@ class Optimizer:
         for _, g in pairs:
             fin = fin & torch.isfinite(g.data).all()
         self._round_finite = fin
+        ls.record(~fin)
         return pairs
 
     # -- API --------------------------------------------------------------
@@ -211,19 +214,21 @@ class Optimizer:
             pol = self._precision_policy
             if pol is None or not pol.active:
                 return self._apply(param, grad.data)
+            ls, finite = pol.loss_scale, self._round_finite
+            if ls is not None and finite is None:
+                raise RuntimeError(
+                    "a loss-scaled update needs the round's overflow verdict: "
+                    "call the optimizer on the loss (opt(loss)), which runs "
+                    "the scaled backward, not apply() alone")
             master = self._masters.pop(id(param), None)
             if master is not None:
                 param.data = master     # the same float32 leaf as before
             g = grad.data
             if g.dtype != param.data.dtype:
                 g = g.to(param.data.dtype)
-            ls = pol.loss_scale
             if ls is None:
                 return self._apply(param, g)
             g = g * (1.0 / ls.scale.data)
-            finite = (self._round_finite if self._round_finite is not None
-                      else torch.isfinite(g).all())
-            ls.record(~finite)
             # an exact no-op on overflow: a zero gradient keeps fresh state
             # finite, then the param and its existing state come back
             g = torch.where(finite, g, torch.zeros_like(g))

@@ -22,9 +22,10 @@ Tolerances, with the reason for each:
   of JAX's and 97 % of them within 1e-4 (Adam's normalised step turns a
   bf16-noise gradient into a move of up to lr either way; see the test);
   ``decode_params()`` leaf for leaf: bf16, bit-equal to JAX's;
-* bf16 greedy tokens of ``generate`` and the paged, slot and monolithic
-  engines: identical to JAX's bf16 ``generate``; ``kv_dtype="int8"``
-  under bf16: identical to the JAX engine's tokens;
+* bf16 and fp16 greedy tokens of ``generate`` and the paged, slot and
+  monolithic engines: identical to JAX's ``generate`` under the same
+  policy; ``kv_dtype="int8"`` under bf16 and fp16: identical to the JAX
+  engine's tokens;
 * the flash and paged-decode plain versions on 16-bit operands against
   the JAX kernels in interpret mode: within one unit in the last place
   of the output dtype at ``max(|x|, 2^-6)`` (both compute in float32 and
@@ -306,6 +307,29 @@ def test_fp16_overflow_step_is_an_exact_noop_and_scale_grows():
     assert float(states["loss_scale"]) == 2.0 ** 16
 
 
+def test_loss_scaled_apply_needs_the_rounds_verdict():
+    """Under a loss scale the overflow verdict is ``_backward``'s, one for
+    the round and recorded into the scale once: ``apply`` alone raises,
+    and an overflowed round sets ``found_inf`` before any update runs."""
+    o = topt.SGD(lr=0.1)
+    pol = tprecision.get_policy("float16")
+    o.attach_precision_policy(pol)
+    p = Tensor(data=np.ones((2, 2), np.float32), device="cpu",
+               requires_grad=True, stores_grad=True)
+    with pytest.raises(RuntimeError, match="overflow verdict"):
+        o.apply(p, Tensor(data=np.ones((2, 2), np.float16), device="cpu"))
+    tautograd.training = True
+    try:
+        x = Tensor(data=np.full((1, 2), 6e4, np.float16), device="cpu")
+        loss = tautograd.reduce_mean(
+            tautograd.matmul(x, tautograd.cast(p, torch.float16)))
+        pairs = o._backward(loss)
+    finally:
+        tautograd.training = False
+    assert pairs and not bool(o._round_finite)
+    assert bool(pol.loss_scale.found_inf.data)
+
+
 # ---- GPT tiny under bf16 ------------------------------------------------
 
 GPT_LR, GPT_STEPS, B, T = 1e-3, 3, 2, 16
@@ -475,28 +499,39 @@ def test_bf16_int8_kv_engine_matches_jax_engine(served_bf16):
 
 
 def test_fp16_engines_on_every_layout_match_fp16_generate(served_bf16):
-    """The same weights under the float16 policy (no JAX counterpart
-    runs fp16 serving on the CPU): float16 pools and slots on every
-    layout, and int8 pages with bf16 scales under it; greedy tokens of
-    every float layout equal the port's fp16 ``generate``."""
+    """The same weights under the float16 policy on both sides: float16
+    pools and slots on every layout, greedy tokens of the port's
+    ``generate`` and of its paged, slot and monolithic engines identical
+    to JAX's fp16 ``generate``; int8 pages under fp16 identical to the
+    JAX int8 engine's tokens."""
     m, _, prompts = served_bf16
     states = jax.tree.map(np.asarray, m.get_states())
     tm = tgpt.GPT.from_jax_states(
         states, tgpt.GPTConfig.tiny(precision="float16"), device="cpu")
     assert tm.decode_params()["tok"].dtype == torch.float16
-    want = [tm.generate(p, N_NEW)[0] for p in prompts]
-    for kw in (dict(paged=True, page_tokens=8), dict(paged=False),
-               dict(paged=False, chunked=False),
-               dict(paged=True, page_tokens=8, kv_dtype="int8")):
-        eng = ServingEngine(tm, n_slots=2, device="cpu", **kw)
+    m.set_precision_policy("float16")
+    try:
+        assert m.decode_params()["tok"].dtype == jnp.float16
+        want = [np.asarray(m.generate(p, N_NEW)[0]) for p in prompts]
+        q8 = dict(n_slots=2, paged=True, page_tokens=8, kv_dtype="int8")
+        jeng = JEngine(m, **q8)
+        jr = [jeng.submit(p, N_NEW) for p in prompts]
+        jres = jeng.run()
+        want8 = [np.asarray(jres[r]) for r in jr]
+    finally:
+        m.set_precision_policy("bfloat16")
+    for p, w in zip(prompts, want):
+        np.testing.assert_array_equal(tm.generate(p, N_NEW)[0], w)
+    for kw, wants in ((dict(paged=True, page_tokens=8), want),
+                      (dict(paged=False), want),
+                      (dict(paged=False, chunked=False), want),
+                      (q8, want8)):
+        eng = ServingEngine(tm, device="cpu", **dict(dict(n_slots=2), **kw))
         assert eng.kv.caches[0][0].dtype == (
             torch.int8 if "kv_dtype" in kw else torch.float16), kw
         rids = [eng.submit(p, N_NEW) for p in prompts]
         res = eng.run()
-        if "kv_dtype" in kw:
-            assert all(res[r].shape == (N_NEW,) for r in rids)
-            continue
-        for rid, w in zip(rids, want):
+        for rid, w in zip(rids, wants):
             np.testing.assert_array_equal(res[rid], w, err_msg=str(kw))
 
 
