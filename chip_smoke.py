@@ -137,26 +137,43 @@ Phases (any failure exits non-zero before the result lines print):
    query's own key dropped) print their readings, and the logit check
    must fail the dropped key;
 8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
-   of ``train_one_batch`` with Adam at B 8, T 1024 (loss, step time,
-   tokens/s, peak memory; the loss must fall; exactly 12 launches of
-   each flash kernel a step, none of the combine);
+   of ``train_one_batch`` with Adam at B 8, T 1024, first eagerly
+   (``use_graph=False``), then captured as a CUDA graph
+   (``use_graph=True``: step 1 eager, step 2 captures and replays, steps
+   3-5 replay) from the same weights and batches (loss, steady step
+   time over steps 3-5, tokens/s, peak memory of each; the loss must
+   fall; exactly 12 launches of each flash kernel a step, none of the
+   combine, the captured run's credited counts equal to the eager
+   run's; the two runs' losses and every parameter and Adam moment
+   bit for bit; 1 capture and 4 replays; the graph's debug dump names
+   ``flash_fwd_mma``, ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma``);
+8a. the rest of the Model API there: the checkpoint saved after step 2
+   (``save_states``, the zip of npz members) loads into a fresh captured
+   model, whose steps 3-5 equal the uninterrupted run's bit for bit;
+   ``run_k_steps(4)`` (four replays) equals four ``train_one_batch``
+   calls from the same state, restored in place; the captured
+   ``predict`` equals its eager first call bit for bit;
 9. one full-width training step (B 1, T 128) from the trained weights on
    the card and in the port on the CPU: loss and every gradient compared;
 10. the trained model serves 2 requests through the ``ServingEngine``;
-8b, 8c. paths ``train_bf16`` and ``train_fp16``: phase 8 under
+8b, 8c. paths ``train_bf16`` and ``train_fp16``: phase 8 (eager twin,
+   then captured, held together the same way) under
    ``precision="bfloat16"`` / ``"float16"`` from the same weights and
    batches: the loss falls and ends within 2 % of phase 8's; 12 launches
    of each flash kernel a step, all on 16-bit operands; every parameter
    and optimizer state float32 after the steps; step time and peak
-   memory beside float32's; fp16 then takes one step with its loss
-   scale forced to 2^40: nothing moves and the scale halves;
+   memory beside float32's; bf16: the captured ``predict`` against its
+   eager first call; fp16 then replays one step with its loss scale
+   forced to 2^40: nothing moves and the scale halves;
 11. path ``rnn_train``: the char-LSTM of ``bench_rnn.py`` (V 86, H 256,
    T 100, B 64, ``LSTM(use_fused_cell=True)``, SGD 0.1 with momentum
-   0.9) takes 10 graph-mode steps on a seeded batch, then the same model
+   0.9) takes 10 steps on a seeded batch eagerly and captured from the
+   same weights (held together as in phase 8: bit for bit, 1 capture
+   and 9 replays, ``lstm_cell_kernel`` in the graph), then captured
    through the plain cell from the same weights (step time, tokens/s,
    loss, peak memory of each; the loss must fall; exactly 100 launches
    of each cell kernel, forward and backward, a fused step, none on the
-   plain path; losses agree);
+   plain path; fused and plain losses agree);
 12. one full-width fused char-LSTM step on the card and in the port on
    the CPU: loss and every gradient compared;
 13. path ``rnn_sample``: the port's char-RNN example with the fused cell
@@ -165,23 +182,31 @@ Phases (any failure exits non-zero before the result lines print):
    each, no backward one); the
    epoch loss must fall and the characters must equal the port's on the
    CPU from the same weights and generator;
-14. one ``kernels`` JSON line, then the result line.
+14. one line comparing each captured path with its eager twin (steady
+   step, tokens/s, peak memory, replays; the predict errors), one
+   ``kernels`` JSON line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
 7, 7a-7f, 8, 8b, 8c, 11 and 13) and read just after it; a kernel's
-``launches`` is the sum over them, ``launches_by_path`` splits it.  The
+``launches`` is the sum over them, ``launches_by_path`` splits it.  On
+a captured path a replay adds the launches its capture recorded (the
+capture itself launches nothing), so the counts are the kernels the
+card ran; the eager twins' runs are not in the sums.  The
 ``*_lowp`` rows count the launches on 16-bit operands (also counted in
 the row without the suffix) and carry the bf16 figures (fp16's and the
 other paged combinations under ``by_dtype`` / ``by_combination``).
 
     python3 chip_smoke.py --profile [serve|serve_int8|serve_slot|generate|
-                                     train|train_bf16|rnn_train|
+                                     train[_eager]|train_bf16[_eager]|
+                                     train_fp16[_eager]|rnn_train[_eager]|
                                      rnn_train_plain]
 
 runs phases 1-2 and then the serving stream (float or int8 pages, or
 float slots), one ``GPT.generate`` call of path 7a, or two training
-steps (GPT in float32 or under the bf16 policy, the fused char-LSTM or
-the char-LSTM through the plain cell) after a warm-up, once under ``torch.profiler`` (CPU and CUDA activity),
+steps (GPT in float32 or under the bf16 or fp16 policy, the fused
+char-LSTM or the char-LSTM through the plain cell; captured, or with
+``_eager`` the eager twin) after two warm-up steps (on the captured
+path: the eager first step and the capture), once under ``torch.profiler`` (CPU and CUDA activity),
 and prints the device's busy and idle share over the run, device time by
 kernel group and the costliest kernels.
 
@@ -228,7 +253,8 @@ import traceback
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
 
 from singa_tpu_torch import autograd as tautograd  # noqa: E402
 from singa_tpu_torch import device as tdevice  # noqa: E402
@@ -1366,18 +1392,22 @@ def phase_flash_lowp(rows):
                                  "float32_ms": f32[f32name]["ms"]}
             f_ms = _time_ms(lambda: fa.flash_attention_fwd(
                 q3, k3, v3, None, args[7], "none", True))
+            f_plain = _time_ms(lambda: fa.flash_attention_fwd_reference(
+                q3, k3, v3, None, args[7], "none", True))
             f_sdpa = _time_ms(lambda: _sdpa(q_, k_, v_, is_causal=True))
             f_bound, f_by = _bound(4 * qkv + 4 * BH * T,
                                    pairs * LOWP_TF32_PAIR["fwd"] * d,
                                    TF32_FLOP_PER_S)
             f_bound3 = _bound(4 * qkv + 4 * BH * T, pairs * 4 * d)[0]
             out["fwd"][tag]["train_shape"] = {
-                "ms": f_ms, "library_ms": f_sdpa, "bound_ms": f_bound,
+                "ms": f_ms, "plain_ms": f_plain, "library_ms": f_sdpa,
+                "bound_ms": f_bound,
                 "bound_by": f_by, "bound_3xtf32_ms": f_bound3,
                 "float32_ms": f32["flash_attention_fwd"]["train_shape"]["ms"]}
             _log(f"flash_attention_fwd {tag} training shape: kernel "
                  f"{f_ms:.4f} ms (float32 "
                  f"{f32['flash_attention_fwd']['train_shape']['ms']:.4f}), "
+                 f"plain {f_plain:.4f} ms, "
                  f"{SDPA_NAME} {tag} {f_sdpa:.4f} ms, bound {f_bound:.4f} ms "
                  f"({f_by}; at 3xTF32 {f_bound3:.4f} ms)")
     result = []
@@ -2421,11 +2451,12 @@ def synthetic_stream(vocab, n, seed=0):
     return x
 
 
-def _train_setup(precision=None):
+def _train_setup(precision=None, use_graph=True):
     """GPT-2-small (``use_flash=True``, under ``precision``) with weights
     from a seeded card generator (the same for every precision),
-    Adam(lr 3e-4), compiled on the first batch; the batches of the
-    seeded stream."""
+    Adam(lr 3e-4), compiled on the first batch (``use_graph=True``: the
+    captured step; False: its eager twin); the batches of the seeded
+    stream."""
     cfg = tgpt.GPTConfig.small(use_flash=True, precision=precision)
     dev = tdevice.create_cuda_gpu(seed=0)
     data = synthetic_stream(cfg.vocab_size,
@@ -2439,7 +2470,7 @@ def _train_setup(precision=None):
     model.set_optimizer(topt.Adam(lr=TRAIN_LR))
     model.compile([TTensor(data=batches[0][0], device=dev,
                            requires_grad=False)], is_train=True,
-                  use_graph=True)
+                  use_graph=use_graph)
     torch.cuda.synchronize()
     return cfg, model, batches
 
@@ -2471,13 +2502,51 @@ def _read_launches():
             "paged_decode_attention_lowp": pa.launches_lowp}
 
 
-def phase_train():
-    """The training slice: GPT-2-small, fp32, B 8, T 1024, Adam, 5 steps
-    through ``train_one_batch``; launch counters zeroed just before the
-    steps and read just after.  Returns ``(model, launches, stats)``."""
-    _log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
-         f"{torch.backends.cudnn.allow_tf32}")
-    cfg, model, batches = _train_setup()
+def _host_states(model):
+    """Every parameter, buffer and optimizer state, copied to the host
+    (optimizer entries under ``opt.``)."""
+    out = {n: t.data.detach().cpu() for n, t in model.get_states().items()}
+    out.update({f"opt.{t.name}": t.data.detach().cpu()
+                for t in model.optimizer.state_tensors()})
+    return out
+
+
+def _device_states(model):
+    """The same, cloned on the card (for an in-place restore)."""
+    model_states = {n: t.data.detach().clone()
+                    for n, t in model.get_states().items()}
+    opt_states = {t.name: t.data.detach().clone()
+                  for t in model.optimizer.state_tensors()}
+    return model_states, opt_states
+
+
+def _restore(model, saved):
+    model.set_states(saved[0])
+    model.optimizer.set_states(saved[1])
+
+
+def _same_states(label, a, b):
+    """``a`` and ``b`` bit for bit, by name; the differing names (and
+    their largest difference) print before the check fails."""
+    if set(a) != set(b):
+        raise AssertionError(f"{label}: state names differ: "
+                             f"{sorted(set(a) ^ set(b))[:6]}")
+    bad = [(n, float((a[n].double() - b[n].double()).abs().max()))
+           for n in sorted(a) if not torch.equal(a[n], b[n])]
+    _log(f"{label}: {len(a) - len(bad)} of {len(a)} states bit-equal"
+         + (f"; differing {bad[:6]}" if bad else ""))
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} states differ")
+
+
+def _train_run(model, batches, label, after_step=None):
+    """One ``train_one_batch`` a batch, each ending in ``loss.item()``;
+    launch counters zeroed just before the steps and read just after;
+    ``after_step(s)`` runs between steps, outside the timed window.
+    The steady step is steps 2 and on: on the captured path step 0 runs
+    eagerly and step 1 captures, then replays."""
+    gc.collect()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     losses, walls = [], []
@@ -2487,20 +2556,125 @@ def phase_train():
         lv = loss.item()                      # synchronises
         walls.append(time.perf_counter() - t0)
         losses.append(lv)
-        _log(f"train step {s}: loss {lv:.6f}, {walls[-1] * 1e3:.1f} ms, "
-             f"{TRAIN_B * TRAIN_T / walls[-1]:.0f} tokens/s")
+        _log(f"{label} step {s}: loss {lv:.6f}, {walls[-1] * 1e3:.1f} ms")
+        if after_step is not None:
+            after_step(s)
     torch.cuda.synchronize()
     launches = _read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    steady = walls[1:]
+    steady = walls[2:]
+    tokens = batches[0][0].size
     stats = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
              "steady_step_ms": float(np.mean(steady)) * 1e3,
-             "tokens_per_s": TRAIN_B * TRAIN_T * len(steady) / sum(steady),
-             "peak_memory_bytes": peak}
-    _log("train launches " + json.dumps(launches))
-    _log(f"train: steady step {stats['steady_step_ms']:.1f} ms (steps 1-"
-         f"{TRAIN_STEPS - 1}), {stats['tokens_per_s']:.0f} tokens/s, peak "
-         f"memory {peak / 2**30:.2f} GiB")
+             "tokens_per_s": tokens * len(steady) / sum(steady),
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "graph_replays": dict(model.graph_replays),
+             "graph_captures": dict(model.graph_captures)}
+    _log(f"{label}: steady step {stats['steady_step_ms']:.2f} ms (steps 2-"
+         f"{len(batches) - 1}; steps 0, 1: {stats['step_ms'][0]:.1f}, "
+         f"{stats['step_ms'][1]:.1f} ms), {stats['tokens_per_s']:.0f} "
+         f"tokens/s, peak memory {stats['peak_memory_bytes']} bytes "
+         f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); graph captures "
+         f"{stats['graph_captures']}, replays {stats['graph_replays']}; "
+         f"launches " + json.dumps({k: v for k, v in launches.items() if v}))
+    return launches, stats
+
+
+def _graph_against_eager(label, g_launch, g_stats, e_launch, e_stats,
+                         g_states, e_states):
+    """The captured run against its eager twin (the same seeded weights
+    and batches): every loss and every state bit for bit (the same
+    kernels on the same operands in the same order); the launch counts
+    the replays were credited equal the eager run's; one capture and
+    steps - 1 replays, so no eager step ran after the first."""
+    steps = len(g_stats["losses"])
+    _log(f"{label} captured against eager: losses {g_stats['losses']} / "
+         f"{e_stats['losses']}; steady step {g_stats['steady_step_ms']:.2f}"
+         f" / {e_stats['steady_step_ms']:.2f} ms "
+         f"({e_stats['steady_step_ms'] / g_stats['steady_step_ms']:.3f}x), "
+         f"tokens/s {g_stats['tokens_per_s']:.0f} / "
+         f"{e_stats['tokens_per_s']:.0f}, peak memory "
+         f"{g_stats['peak_memory_bytes'] / 2**30:.2f} / "
+         f"{e_stats['peak_memory_bytes'] / 2**30:.2f} GiB")
+    if g_stats["losses"] != e_stats["losses"]:
+        raise AssertionError(f"{label}: captured losses differ from eager")
+    _same_states(f"{label} captured against eager", g_states, e_states)
+    if g_launch != e_launch:
+        raise AssertionError(f"{label}: credited launches {g_launch} differ "
+                             f"from the eager run's {e_launch}")
+    if g_stats["graph_captures"] != {"train": 1} \
+            or g_stats["graph_replays"] != {"train": steps - 1} \
+            or e_stats["graph_replays"]:
+        raise AssertionError(f"{label}: captures {g_stats['graph_captures']}"
+                             f", replays {g_stats['graph_replays']} (want 1 "
+                             f"and {steps - 1}); eager twin "
+                             f"{e_stats['graph_replays']}")
+
+
+def _graph_kernels(model, label, names):
+    """The kernels' names in the captured step's graph
+    (``CUDAGraph.debug_dump`` of the graph the model kept with
+    ``graph_debug``): each of ``names`` must be a node of it."""
+    path = os.path.join(REPO, "build", f"graph_{label}.dot")
+    found = {}
+    for key, entry in model._graphs.items():
+        if key[0] != "train":
+            continue
+        entry.graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+        os.remove(path)
+        found = {n: dot.count(n) for n in names}
+        found["kernel nodes"] = dot.count("KERNEL")
+    _log(f"{label} graph holds: " + json.dumps(found))
+    if not found or not all(found[n] > 0 for n in names):
+        raise AssertionError(f"{label}: the captured graph lacks {names}")
+    return found
+
+
+def _predict_check(model, x, label):
+    """``predict`` three times on one batch: the first call is the eager
+    forward (on the capture stream), the second captures and replays,
+    the third replays; both replays must give the eager logits bit for
+    bit."""
+    model.eval()
+    p = [model.predict(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    err = max(float((q.data.float() - p[0].data.float()).abs().max())
+              for q in p[1:])
+    _log(f"{label} predict: logits {tuple(p[0].shape)} {p[0].dtype}; "
+         f"captured against eager max |delta| {err}; captures "
+         f"{model.graph_captures}, replays {model.graph_replays}")
+    if not all(torch.equal(q.data, p[0].data) for q in p[1:]) \
+            or model.graph_replays.get("predict") != 2 \
+            or not torch.isfinite(p[0].data).all():
+        raise AssertionError(f"{label}: captured predict differs from eager")
+    model.train(True)
+    return err
+
+
+def phase_train():
+    """The training slice: GPT-2-small, fp32, B 8, T 1024, Adam, 5 steps
+    through ``train_one_batch``, first eagerly (``use_graph=False``),
+    then captured (``use_graph=True``) from the same weights; launch
+    counters zeroed just before each run and read just after; the
+    checkpoint of step 2 is saved on the way.  Returns ``(model,
+    launches, stats, batches, checkpoint)``."""
+    _log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+         f"{torch.backends.cudnn.allow_tf32}")
+    cfg, eager, batches = _train_setup(use_graph=False)
+    e_launch, e_stats = _train_run(eager, batches, "train_eager")
+    e_states = _host_states(eager)
+    del eager
+    cfg, model, batches = _train_setup()
+    model.graph_debug = True
+    ckpt = os.path.join(REPO, "build", "train_step2.zip")
+
+    def save(s):
+        if s == 1:
+            model.save_states(ckpt)
+
+    launches, stats = _train_run(model, batches, "train", save)
+    losses = stats["losses"]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -2513,7 +2687,67 @@ def phase_train():
                                  f"training path, expected {want}")
     if launches["flash_attention_fwd_combine"] != 0:
         raise AssertionError("the training shape took the split route")
-    return model, launches, stats
+    _graph_against_eager("train", launches, stats, e_launch, e_stats,
+                         _host_states(model), e_states)
+    stats["graph_kernels"] = _graph_kernels(
+        model, "train", ("flash_fwd_mma", "flash_bwd_dq_mma",
+                         "flash_bwd_dkv_mma"))
+    # what handing the logits out of the graph costs a step: one clone
+    logits = next(e.outputs[0].data for k, e in model._graphs.items()
+                  if k[0] == "train")
+    clone_ms = _time_ms(logits.clone, reps=5)
+    clone_bound = 2 * logits.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    del logits
+    _log(f"train: the step's logits {TRAIN_B}x{TRAIN_T}x{cfg.vocab_size} "
+         f"cloned out of the graph in {clone_ms:.3f} ms a step (bound "
+         f"{clone_bound:.3f} ms: read and write at 3.35 TB/s)")
+    stats["output_clone_ms"] = clone_ms
+    stats["eager"] = e_stats
+    return model, launches, stats, batches, ckpt
+
+
+def phase_graph_api(model, stats, batches, ckpt):
+    """The rest of the Model API on the fp32 training path: the step-2
+    checkpoint loads into a fresh captured model, which takes steps 3-5
+    as the uninterrupted run did (losses and every state bit for bit);
+    ``run_k_steps(4)`` (four replays) against four ``train_one_batch``
+    calls from the same state, restored in place (the graph reads the
+    restored storage); ``predict`` captured against its eager first
+    call."""
+    cfg, fresh, _ = _train_setup()
+    t0 = time.perf_counter()
+    aux = fresh.load_states(ckpt)
+    load_s = time.perf_counter() - t0
+    size = os.path.getsize(ckpt)
+    os.remove(ckpt)
+    resumed = [fresh.train_one_batch(x, y)[1].item() for x, y in batches[2:]]
+    _log(f"checkpoint: {size} bytes, loaded in {load_s:.2f}s (aux {aux}); "
+         f"steps 3-5 resumed {resumed} against {stats['losses'][2:]}")
+    if resumed != stats["losses"][2:]:
+        raise AssertionError("the resumed run's losses differ")
+    _same_states("checkpoint resumed against uninterrupted",
+                 _host_states(fresh), _host_states(model))
+    x, y = batches[0]
+    saved = _device_states(fresh)
+    replays = fresh.graph_replays.get("train", 0)
+    _, loss_k = fresh.run_k_steps(4, x, y)
+    after_k = _host_states(fresh)
+    replays_k = fresh.graph_replays.get("train", 0) - replays
+    _restore(fresh, saved)
+    del saved
+    for _ in range(4):
+        _, loss_c = fresh.train_one_batch(x, y)
+    _log(f"run_k_steps(4): loss {loss_k.item()} against four calls' "
+         f"{loss_c.item()}; {replays_k} replays; captures "
+         f"{fresh.graph_captures}")
+    if loss_k.item() != loss_c.item() or replays_k != 4 \
+            or fresh.graph_captures != {"train": 1}:
+        raise AssertionError("run_k_steps(4) differs from four calls")
+    _same_states("run_k_steps(4) against four calls", after_k,
+                 _host_states(fresh))
+    del after_k, fresh
+    gc.collect()
+    return {"predict_err": _predict_check(model, x, "train")}
 
 
 # ---- the 16-bit paths (phases 7e, 7f, 8b, 8c) ------------------------------
@@ -2740,39 +2974,30 @@ def _lowp_logit_check(model, cfg16, cpu_model, rows, batch, toks, cpu):
 
 
 def phase_train_lowp(precision, f32_stats):
-    """Paths ``train_bf16`` and ``train_fp16``: phase 8's run under
-    ``precision`` (the same seeded weights and batches).  Checks: the
-    loss falls, stays finite and ends within 2 % of phase 8's float32
-    loss at step 5 (the bound of the reference's
-    ``test_bf16_tracks_fp32_mlp``); exactly 12 launches a step of each
-    flash kernel, all on 16-bit operands, no combine; every parameter
-    and optimizer state float32 after the steps.  Step time and peak
-    memory print beside float32's.  ``float16`` then takes one step
-    with its loss scale forced to 2^40, so that the 16-bit gradients
-    overflow: every parameter and optimizer state must come back
-    bit-unchanged and the scale must halve."""
+    """Paths ``train_bf16`` and ``train_fp16``: phase 8's runs, eager
+    twin and captured, under ``precision`` (the same seeded weights and
+    batches), held together as phase 8's are.  Checks: the loss falls,
+    stays finite and ends within 2 % of phase 8's float32 loss at step 5
+    (the bound of the reference's ``test_bf16_tracks_fp32_mlp``);
+    exactly 12 launches a step of each flash kernel, all on 16-bit
+    operands, no combine; every parameter and optimizer state float32
+    after the steps.  Step time and peak memory print beside float32's.
+    ``bfloat16``: the captured ``predict`` against its eager first call.
+    ``float16`` then takes one captured step with its loss scale forced
+    to 2^40 (in place: the replay reads it), so that the 16-bit
+    gradients overflow: every parameter and optimizer state must come
+    back bit-unchanged and the scale must halve."""
     label = {"bfloat16": "train_bf16", "float16": "train_fp16"}[precision]
     gc.collect()
+    cfg, eager, batches = _train_setup(precision, use_graph=False)
+    e_launch, e_stats = _train_run(eager, batches, f"{label}_eager")
+    e_states = _host_states(eager)
+    del eager
+    gc.collect()
     cfg, model, batches = _train_setup(precision)
-    torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
-    losses, walls = [], []
-    for s, (x, y) in enumerate(batches):
-        t0 = time.perf_counter()
-        _, loss = model.train_one_batch(x, y)
-        lv = loss.item()                      # synchronises
-        walls.append(time.perf_counter() - t0)
-        losses.append(lv)
-        _log(f"{label} step {s}: loss {lv:.6f}, {walls[-1] * 1e3:.1f} ms")
-    torch.cuda.synchronize()
-    launches = _read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    steady = walls[1:]
-    stats = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
-             "steady_step_ms": float(np.mean(steady)) * 1e3,
-             "tokens_per_s": TRAIN_B * TRAIN_T * len(steady) / sum(steady),
-             "peak_memory_bytes": peak}
-    _log(f"{label} launches " + json.dumps(launches))
+    launches, stats = _train_run(model, batches, label)
+    losses = stats["losses"]
+    peak = stats["peak_memory_bytes"]
     rel = abs(losses[-1] - f32_stats["losses"][-1]) / f32_stats["losses"][-1]
     _log(f"{label}: steady step {stats['steady_step_ms']:.1f} ms (float32 "
          f"{f32_stats['steady_step_ms']:.1f}), {stats['tokens_per_s']:.0f} "
@@ -2796,6 +3021,10 @@ def phase_train_lowp(precision, f32_stats):
     if launches["flash_attention_fwd_combine"] != 0:
         raise AssertionError(f"{label}: the training shape took the split "
                              f"route")
+    _graph_against_eager(label, launches, stats, e_launch, e_stats,
+                         _host_states(model), e_states)
+    del e_states
+    stats["eager"] = e_stats
     opt = model.optimizer
     states = list(model.get_states().items()) + [
         (t.name, t) for t in opt.state_tensors()
@@ -2805,6 +3034,8 @@ def phase_train_lowp(precision, f32_stats):
         raise AssertionError(f"{label}: not float32 after the steps: {bad}")
     _log(f"{label}: all {len(states)} parameters and optimizer states are "
          f"float32 after {TRAIN_STEPS} steps")
+    if precision == "bfloat16":
+        stats["predict_err"] = _predict_check(model, batches[0][0], label)
     if precision == "float16":
         ls = model.precision_policy.loss_scale
         _log(f"{label}: loss scale {float(ls.scale.data)} after "
@@ -2812,14 +3043,16 @@ def phase_train_lowp(precision, f32_stats):
         before = {n: t.data.detach().clone() for n, t in states}
         ls.scale.data.fill_(2.0 ** 40)
         x, y = batches[0]
+        replays = model.graph_replays["train"]
         _, loss = model.train_one_batch(x, y)
         torch.cuda.synchronize()
         moved = [n for n, t in states if not torch.equal(t.data, before[n])]
         new_scale = float(ls.scale.data)
-        _log(f"{label} forced overflow (loss scale 2^40): loss "
+        _log(f"{label} forced overflow (loss scale 2^40), a replay: loss "
              f"{loss.item():.6f}, {len(moved)} of {len(states)} tensors "
              f"moved, scale now {new_scale} (want {2.0 ** 39})")
-        if moved or new_scale != 2.0 ** 39 or bool(ls.found_inf.data):
+        if moved or new_scale != 2.0 ** 39 or bool(ls.found_inf.data) \
+                or model.graph_replays["train"] != replays + 1:
             raise AssertionError(f"{label}: the overflowed step was not a "
                                  f"no-op: moved {moved[:5]}, scale "
                                  f"{new_scale}")
@@ -2937,47 +3170,26 @@ def _rnn_batch():
     return x, t
 
 
-def _rnn_model(fused, device, states=None):
-    """The char-LSTM compiled with ``use_graph=True`` on ``device``
-    (weights from the device's generator seeded 0, or ``states``)."""
+def _rnn_model(fused, device, states=None, use_graph=True):
+    """The char-LSTM compiled with ``use_graph`` on ``device`` (weights
+    from the device's generator seeded 0, or ``states``)."""
     dev = tdevice.get_device(device)
     dev.set_rand_seed(0)
     m = CharLSTM(RNN_V, RNN_H, fused)
     m.set_optimizer(topt.SGD(lr=RNN_LR, momentum=RNN_MOMENTUM))
     x, _ = _rnn_batch()
     m.compile([TTensor(data=x, device=dev, requires_grad=False)],
-              is_train=True, use_graph=True)
+              is_train=True, use_graph=use_graph)
     if states is not None:
         m.set_states(states)
     return m
 
 
 def _rnn_run(model, label):
-    """``RNN_STEPS`` steps on the seeded batch; launch counters zeroed
-    just before and read just after."""
-    x, t = _rnn_batch()
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
-    losses, walls = [], []
-    for _ in range(RNN_STEPS):
-        t0 = time.perf_counter()
-        _, loss = model.train_one_batch(x, t)
-        losses.append(loss.item())                # synchronises
-        walls.append(time.perf_counter() - t0)
-    launches = _read_launches()
-    steady = walls[1:]
-    stats = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
-             "steady_step_ms": float(np.mean(steady)) * 1e3,
-             "tokens_per_s": RNN_T * RNN_B * len(steady) / sum(steady),
-             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    _log(f"{label}: losses {[round(v, 6) for v in losses]}")
-    _log(f"{label}: steady step {stats['steady_step_ms']:.2f} ms (steps 1-"
-         f"{RNN_STEPS - 1}; step 0 {stats['step_ms'][0]:.1f} ms), "
-         f"{stats['tokens_per_s']:.0f} tokens/s, peak memory "
-         f"{stats['peak_memory_bytes']} bytes; launches "
-         + json.dumps(launches))
+    """``RNN_STEPS`` steps on the seeded batch through ``_train_run``;
+    the loss must fall."""
+    launches, stats = _train_run(model, [_rnn_batch()] * RNN_STEPS, label)
+    losses = stats["losses"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: the loss did not fall: {losses}")
     return launches, stats
@@ -2986,17 +3198,30 @@ def _rnn_run(model, label):
 def phase_rnn_train():
     """The char-LSTM of ``bench_rnn.py`` at the reference char-RNN shape
     (V 86, H 256, T 100, B 64), fp32 with TF32 off, SGD(0.1, momentum
-    0.9), 10 graph-mode steps through the fused cell, then the same from
-    the same weights through the plain cell (the scan-path yardstick).
-    Checks: the loss falls on both; exactly T launches of the cell's
-    forward and T of its backward kernel a fused step, none on the scan
-    path; the two agree to a relative
-    1e-4 at every step (fp32 on both; the plain cell's product and the
-    kernel's sum in other orders).  Returns ``(fused model, launches,
-    stats)``."""
+    0.9), 10 steps through the fused cell: captured (``use_graph=True``)
+    and its eager twin from the same weights, held together as phase 8's
+    runs are (losses and every state bit for bit, the credited launches
+    equal the eager ones, 1 capture and 9 replays, ``lstm_cell_kernel``
+    a node of the graph); then the same captured from the same weights
+    through the plain cell (the scan-path yardstick).  Checks: the loss
+    falls on each; exactly T launches of the cell's forward and T of its
+    backward kernel a fused step, none on the scan path; fused and scan
+    agree to a relative 1e-4 at every step (fp32 on both; the plain
+    cell's product and the kernel's sum in other orders).  Returns
+    ``(fused model, launches, stats)``."""
     fused = _rnn_model(True, "cuda")
-    start = {k: t.data.clone() for k, t in fused.get_states().items()}
+    fused.graph_debug = True
+    start = {k: t.data.detach().clone()
+             for k, t in fused.get_states().items()}
+    eager = _rnn_model(True, "cuda", states=start, use_graph=False)
+    e_launch, e_stats = _rnn_run(eager, "rnn_train eager")
+    e_states = _host_states(eager)
+    del eager
     f_launch, f_stats = _rnn_run(fused, "rnn_train fused")
+    _graph_against_eager("rnn_train", f_launch, f_stats, e_launch, e_stats,
+                         _host_states(fused), e_states)
+    f_stats["graph_kernels"] = _graph_kernels(fused, "rnn_train",
+                                              ("lstm_cell_kernel",))
     scan = _rnn_model(False, "cuda", states=start)
     s_launch, s_stats = _rnn_run(scan, "rnn_train scan")
     del scan, start
@@ -3018,7 +3243,7 @@ def phase_rnn_train():
     if not rel <= 1e-4:
         raise AssertionError(f"fused and scan losses differ by {rel}")
     return fused, f_launch, {"fused": f_stats, "scan": s_stats,
-                             "loss_rel": rel}
+                             "eager": e_stats, "loss_rel": rel}
 
 
 def _rnn_loss_and_grads(model, x, t):
@@ -3279,9 +3504,12 @@ def phase_profile(path):
     stream on the quantized engine; ``serve_slot``, the same stream on
     the slot chunked engine (after a warm-up run); ``generate``, one
     ``GPT.generate`` call of the generate path after a warm-up call;
-    ``train``, two training steps after one unprofiled warm-up step;
-    ``rnn_train``, two steps of the fused char-LSTM after one warm-up
-    step; ``rnn_train_plain``, the same through the plain cell.  Prints
+    ``train``, ``train_bf16``, ``train_fp16``, two captured training
+    steps (replays) after two unprofiled ones (the eager first step and
+    the capture), and each with ``_eager``, the same steps of the eager
+    twin; ``rnn_train`` and ``rnn_train_eager``, the same for the fused
+    char-LSTM; ``rnn_train_plain``, the captured steps through the plain
+    cell.  Prints
     the device busy and idle share over the window, device time by
     kernel group and by kernel.  Times under the profiler include its
     own host overhead."""
@@ -3308,18 +3536,23 @@ def phase_profile(path):
 
         def run():
             model.generate(batch, NEW)
-    elif path in ("train", "train_bf16"):
+    elif path.startswith("train"):
+        base = path.replace("_eager", "")
         cfg, model, batches = _train_setup(
-            "bfloat16" if path == "train_bf16" else None)
-        model.train_one_batch(*batches[0])[1].item()
+            {"train": None, "train_bf16": "bfloat16",
+             "train_fp16": "float16"}[base], use_graph=path == base)
+        for x, y in batches[:2]:     # eager first step; capture
+            model.train_one_batch(x, y)[1].item()
 
         def run():
-            for x, y in batches[1:3]:
+            for x, y in batches[2:4]:
                 model.train_one_batch(x, y)
     else:
-        model = _rnn_model(path == "rnn_train", "cuda")
+        model = _rnn_model(path != "rnn_train_plain", "cuda",
+                           use_graph=path != "rnn_train_eager")
         batch = _rnn_batch()
-        model.train_one_batch(*batch)[1].item()
+        for _ in range(2):
+            model.train_one_batch(*batch)[1].item()
 
         def run():
             for _ in range(2):
@@ -3368,7 +3601,9 @@ def phase_profile(path):
 
 
 PROFILE_PATHS = ("serve", "serve_int8", "serve_slot", "generate", "train",
-                 "train_bf16", "rnn_train", "rnn_train_plain")
+                 "train_eager", "train_bf16", "train_bf16_eager",
+                 "train_fp16", "train_fp16_eager", "rnn_train",
+                 "rnn_train_eager", "rnn_train_plain")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -3428,16 +3663,19 @@ def main(argv):
     gen16_launches, _ = phase_generate_bf16(setup)
     _log(f"bf16 serving phases (7e-7f): {time.perf_counter() - t_s:.1f}s")
     del setup
-    model, train_launches, train_stats = phase_train()
+    t_s = time.perf_counter()
+    model, train_launches, train_stats, batches, ckpt = phase_train()
+    api = phase_graph_api(model, train_stats, batches, ckpt)
+    _log(f"training phases (8, 8a): {time.perf_counter() - t_s:.1f}s")
     phase_card_vs_cpu(model)
     phase_serve_trained(model)
     del model
     t_s = time.perf_counter()
-    train16_launches, _ = phase_train_lowp("bfloat16", train_stats)
-    trainf16_launches, _ = phase_train_lowp("float16", train_stats)
+    train16_launches, bf16_stats = phase_train_lowp("bfloat16", train_stats)
+    trainf16_launches, fp16_stats = phase_train_lowp("float16", train_stats)
     _log(f"16-bit training phases (8b-8c): {time.perf_counter() - t_s:.1f}s")
     t_rnn = time.perf_counter()
-    rnn_model, rnn_train_launches, _ = phase_rnn_train()
+    rnn_model, rnn_train_launches, rnn_stats = phase_rnn_train()
     phase_rnn_card_vs_cpu(rnn_model)
     del rnn_model
     rnn_sample_launches, _ = phase_rnn_sample()
@@ -3459,6 +3697,18 @@ def main(argv):
                    "ew": ew_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+    _log("captured against eager: " + json.dumps({
+        label: {k: st[k] for k in ("steady_step_ms", "tokens_per_s",
+                                   "peak_memory_bytes", "graph_replays")}
+        | {"eager": {k: st["eager"][k] for k in ("steady_step_ms",
+                                                 "tokens_per_s",
+                                                 "peak_memory_bytes")}}
+        for label, st in (("train", train_stats), ("train_bf16", bf16_stats),
+                          ("train_fp16", fp16_stats),
+                          ("rnn_train", rnn_stats["fused"]
+                           | {"eager": rnn_stats["eager"]}))}
+        | {"predict_max_abs_err": {"train": api["predict_err"],
+                                   "train_bf16": bf16_stats["predict_err"]}}))
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
     _log(json.dumps({"kernels": [
         {k: r[k] for k in KEYS + ("launches_by_path",)}

@@ -13,7 +13,10 @@ decode serving through the chunked, paged continuous-batching engine
 (:mod:`singa_tpu_torch.serving`), float or quantized (int8 KV pages and
 per-channel int8 weights, :mod:`~singa_tpu_torch.precision`), and the
 char-LSTM trained and sampled through the RNN layers
-(:mod:`singa_tpu_torch.examples.char_rnn`), with hand-written CUDA
+(:mod:`singa_tpu_torch.examples.char_rnn`), the training step captured
+as a CUDA graph under ``Model.compile(use_graph=True)`` with
+``run_k_steps``, ``predict`` and zip checkpoints that cross to the JAX
+package (:mod:`~singa_tpu_torch.model`), with hand-written CUDA
 kernels for flash-attention forward and backward, paged decode
 attention, the fused LSTM cell and the elementwise catalogue
 (:mod:`singa_tpu_torch.ops`).

@@ -159,6 +159,30 @@ def transpose(x, axes=None):
     return op("Transpose", fn, x)
 
 
+class _Take(torch.autograd.Function):
+    """``index_select`` along ``ax`` whose backward adds repeated ids with
+    ``index_put_(accumulate=True)``, which on CUDA sorts the ids and sums
+    each id's rows in one order: ``index_select``'s own backward
+    (``index_add_``) adds them with atomics in whatever order the threads
+    arrive, so the embedding gradient, and everything a step computes
+    after it, would differ in the last bits from run to run.  No host
+    sync either way."""
+
+    @staticmethod
+    def forward(ctx, v, ax, idx):
+        ctx.save_for_backward(idx)
+        ctx.ax, ctx.shape = ax, v.shape
+        return torch.index_select(v, ax, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        rows = g.movedim(ctx.ax, 0)
+        out = rows.new_zeros((ctx.shape[ctx.ax],) + rows.shape[1:])
+        out.index_put_((idx,), rows, accumulate=True)
+        return out.movedim(0, ctx.ax), None, None
+
+
 def gather(x, indices, axis=0):
     """``take`` along ``axis`` (the embedding lookup): the output has
     ``indices``' shape in place of that axis; repeated ids scatter-add
@@ -172,14 +196,19 @@ def gather(x, indices, axis=0):
     of ``x``.  All of it on the tensor's device, with no host sync: the
     negatives are wrapped, the ids clamped for ``index_select`` and the
     invalid rows replaced by ``torch.where`` against the validity mask,
-    so no id ever reaches a bound check."""
+    so no id ever reaches a bound check.  On the card the gradient sums
+    repeated ids in a fixed order (:class:`_Take`), so a training step
+    gives the same result run after run."""
     def fn(v, i):
         i = torch.as_tensor(i, device=v.device).long()
         ax = axis if axis >= 0 else v.dim() + axis
         n = v.shape[ax]
         valid = (i >= -n) & (i < n)
         safe = torch.where(i < 0, i + n, i).clamp(0, max(n - 1, 0))
-        out = torch.index_select(v, ax, safe.reshape(-1))
+        if v.is_cuda:
+            out = _Take.apply(v, ax, safe.reshape(-1))
+        else:
+            out = torch.index_select(v, ax, safe.reshape(-1))
         out = out.reshape(v.shape[:ax] + i.shape + v.shape[ax + 1:])
         mask = valid.reshape((1,) * ax + i.shape + (1,) * (v.dim() - ax - 1))
         return torch.where(mask, out, _fill_value(v.dtype))

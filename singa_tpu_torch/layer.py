@@ -381,16 +381,19 @@ class MultiHeadAttention(Layer):
                 q, k, v, mask)
         else:
             scores = autograd.matmul(q, autograd.transpose(k, (0, 1, 3, 2)))
-            sdt = scores.dtype
+            sdt, tdev = scores.dtype, scores.data.device
+            # made on the device: a host-to-device copy would synchronise,
+            # which a captured step cannot
             scores = autograd.mul(scores, Tensor(
-                data=torch.tensor(1.0 / math.sqrt(self.d_head), dtype=sdt),
+                data=torch.full((), 1.0 / math.sqrt(self.d_head), dtype=sdt,
+                                device=tdev),
                 device=x.device, requires_grad=False))
             if self.causal:
                 ck = (T, S, sdt, id(x.device))
                 if getattr(self, "_causal_cache", None) is None \
                         or self._causal_cache[0] != ck:
-                    tri = torch.triu(torch.full((T, S), -1e9, dtype=sdt),
-                                     diagonal=1)
+                    tri = torch.triu(torch.full((T, S), -1e9, dtype=sdt,
+                                                device=tdev), diagonal=1)
                     self._causal_cache = (ck, Tensor(
                         data=tri, device=x.device, requires_grad=False))
                 scores = autograd.add(scores, self._causal_cache[1])

@@ -2,25 +2,72 @@
 (:78).
 
 A :class:`Model` is a :class:`~singa_tpu_torch.layer.Layer` with
-``set_optimizer``, ``train`` / ``eval``, ``get_states`` / ``set_states``
-and ``compile``.  ``compile(inputs, ...)`` runs one forward pass on the
+``set_optimizer``, ``train`` / ``eval``, ``get_states`` / ``set_states``,
+``compile``, ``run_k_steps``, ``predict`` and ``save_states`` /
+``load_states``.  ``compile(inputs, ...)`` runs one forward pass on the
 placeholder inputs under ``torch.no_grad()`` so the lazy parameters
 materialise, names every state by its dotted attribute path (model.py:226;
 optimizer state names derive from these), places the state on the
 inputs' device and wraps the subclass's ``train_one_batch`` so that
 numpy or torch batches arrive as :class:`Tensor` on that device.
 
-Graph mode: the reference traces the whole step into one XLA program
-under ``use_graph=True``.  PyTorch runs eagerly and needs no ``jit``, so
-``use_graph=True`` runs the same eager step, with the compiled step's
-boundary kept: every Tensor input enters as a fresh ``Tensor`` that
-requires no gradient (reference model.py:570-572) and every Tensor output
-leaves without a creator (:389), detached from this step's graph.  So an
-output fed back as the next step's input (an RNN's carried state, the
-char-RNN's truncated BPTT) cuts the gradient there, as a traced step's
-argument does.  Capturing the step in a CUDA graph is later work
-(``ROADMAP.md`` queue 1, item 4).  ``use_graph=False`` passes inputs and
-outputs through as they are.
+Graph mode (reference model.py:288-390, :613-704, where ``use_graph=True``
+traces the whole step into one XLA program with donated state).  Every
+Tensor input enters the step as a fresh ``Tensor`` that requires no
+gradient (:570-572) and every Tensor output leaves without a creator
+(:389), detached from the step's graph, so an output fed back as the next
+step's input (an RNN's carried state, the char-RNN's truncated BPTT)
+cuts the gradient there.
+
+* On the card, the step is a CUDA graph, one per input signature (the
+  Tensor arguments' shapes and dtypes, the other arguments' values and
+  the autograd training flag; reference ``_split_args``, :260).  The
+  first call of a signature runs the step eagerly on a side stream: it
+  is the warm-up a capture needs (lazy optimizer state, cuBLAS
+  workspaces, the kernels' libraries) and it is step 1, one real update
+  as in the reference.  The second call captures the step on that stream
+  and replays it once; every later call copies its inputs into the
+  graph's input buffers (a numpy batch is uploaded straight into them),
+  replays, and clones the outputs out of the graph's buffers, so a loss
+  or logits held from step s keep their values after step s + 1.  The
+  state (parameters, buffers, optimizer state, the loss scale, the step
+  counter, the norm) is updated in place, so the graph reads and writes
+  the model's own storage: ``set_states`` and ``load_states`` copy into
+  it and the next replay sees the new values.  The storage of every
+  state tensor is recorded at capture and checked before each replay; a
+  tensor rebound since (``Tensor.to_device``, a new ``.data``) makes the
+  step capture again, and a different set of state tensors (a new
+  optimizer, ``track_grad_norm`` switched on) makes the next call a new
+  first call.  A capture that fails raises: nothing falls back to the
+  eager step.  The kernel wrappers' launch counters tick while the step
+  is captured; the capture's own ticks are taken back (it launches
+  nothing) and every replay adds the counts the capture recorded, so
+  the counters still count the kernels the card ran.  The step must not
+  synchronise with the host or draw random numbers (no layer of the port
+  does either in training), and nothing outside it may hold an autograd
+  graph over the parameters (a clone of one that was not detached): its
+  backward would meet a gradient accumulator made on another stream, and
+  the capture fails.
+* On the CPU, ``use_graph=True`` runs the same step eagerly, with the
+  boundary kept: the plain path, as for the kernels.
+* ``use_graph=False`` runs the eager step and passes inputs and outputs
+  through as they are, on either device.
+
+``run_k_steps(k, *xs)`` (reference :392) takes k steps on one batch and
+returns the last step's outputs: k replays with no host sync between
+them on the card (the first call of a signature takes its first step
+eagerly, as above), k eager steps on the CPU; either way equal to k
+``train_one_batch`` calls.  ``predict(*xs)`` (:709) runs the forward in
+eval mode under ``torch.no_grad()`` (params of param precision in the
+compute dtype and outputs in the output dtype under a mixed policy),
+captured per input signature on the card in the same way, eagerly on
+the CPU; it leaves the training flag as it found it.
+``save_states`` / ``load_states`` (:790-903) write and read the
+reference's zip of ``tensor_dict.npz`` (the model's states and, under
+``opt.``, the optimizer's) and ``states_attr.npz`` (aux states), so a
+checkpoint crosses between the two packages by name; the write is
+staged, fsynced and renamed into place.  The snapshot and orbax formats
+raise ``NotImplementedError``.
 ``sequential`` is accepted and ignored, as in the reference, which stores
 it and reads it nowhere.
 
@@ -38,6 +85,10 @@ A ``communicator``, a ``mesh``, ``debug`` and ``lint`` raise
 
 from __future__ import annotations
 
+import io
+import os
+import zipfile
+
 import numpy as np
 import torch
 
@@ -45,9 +96,13 @@ from . import autograd
 from . import precision as _precision
 from .device import get_device
 from .layer import Layer
-from .tensor import Tensor
+from .ops import elementwise, flash_attention, lstm_cell, paged_attention
+from .tensor import _NARROW, Tensor
 
 __all__ = ["Model"]
+
+# the modules whose ``launches*`` counters a replay credits
+_KERNEL_MODULES = (flash_attention, paged_attention, lstm_cell, elementwise)
 
 
 def _not_ported(what: str, where: str):
@@ -55,7 +110,53 @@ def _not_ported(what: str, where: str):
                               f"port (ROADMAP.md queue 1, {where})")
 
 
+def _launch_counts() -> dict:
+    return {(m, n): v for m in _KERNEL_MODULES for n, v in vars(m).items()
+            if n.startswith("launches") and isinstance(v, int)}
+
+
+def _atomic_publish(tmp: str, final: str) -> None:
+    """Durably publish ``tmp`` as ``final``: fsync the staged bytes, then
+    rename over the previous version (the port's copy of
+    ``singa_tpu/snapshot.py`` ``atomic_publish``)."""
+    fd = os.open(tmp, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    os.replace(tmp, final)
+
+
+class _Graph:
+    """One captured step (or forward) of one input signature: the graph,
+    its input buffers and outputs, the storage of the state it was
+    captured against, and the kernel launches a replay credits."""
+
+    __slots__ = ("graph", "inputs", "outputs", "state", "launches")
+
+    def __init__(self, graph, inputs, outputs, state, launches):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.state = state
+        self.launches = launches
+
+    def load(self, raw):
+        with torch.no_grad():
+            for buf, r in zip(self.inputs, raw):
+                if isinstance(buf, torch.Tensor):
+                    buf.copy_(r)
+
+    def replay(self):
+        self.graph.replay()
+        for (mod, name), n in self.launches.items():
+            setattr(mod, name, getattr(mod, name) + n)
+
+
 class Model(Layer):
+    TENSOR_DICT = "tensor_dict.npz"
+    STATES_ATTR = "states_attr.npz"
+
     def __init__(self, name=None):
         super().__init__(name)
         self.training = True
@@ -64,6 +165,12 @@ class Model(Layer):
         self.graph_mode = False
         self._user_tob = None
         self.precision_policy = None   # a precision.Policy or None
+        self._graphs = {}      # (kind, signature) -> _Graph
+        self._warm = {}        # (kind, signature) -> state ids after call 1
+        self._stream = None    # the side stream of first calls and captures
+        self.graph_debug = False   # keep each graph for debug_dump()
+        self.graph_captures = {}   # kind ("train", "predict") -> count
+        self.graph_replays = {}
 
     # ------------------------------------------------------------------
     # configuration (reference-parity API)
@@ -77,10 +184,12 @@ class Model(Layer):
         """Install a mixed-precision policy (``"bfloat16"``,
         ``"float16"``, ``"float32"`` or a
         :class:`~singa_tpu_torch.precision.Policy`; see the module
-        docstring) and attach it to the optimizer."""
+        docstring) and attach it to the optimizer.  Drops the captured
+        steps: the step changes."""
         self.precision_policy = _precision.get_policy(policy)
         if self.optimizer is not None and self.precision_policy is not None:
             self.optimizer.attach_precision_policy(self.precision_policy)
+        self._drop_graphs()
 
     def train(self, mode: bool = True):
         self.training = mode
@@ -131,12 +240,12 @@ class Model(Layer):
         labels), name and place the state, and wrap ``train_one_batch``
         (reference: ``Model.compile``).  The state follows the first
         input's device; numpy or torch inputs go to the model's device
-        (the card when it has none).  ``use_graph=True`` runs the same
-        eager step, cut from the graph at its inputs and outputs, and
-        ``sequential`` is ignored (see the module docstring).
+        (the card when it has none).  ``use_graph=True`` captures the
+        step on the card and keeps the step's boundary on the CPU (see
+        the module docstring); ``sequential`` is ignored.
         ``precision``, when given, is installed by
-        :meth:`set_precision_policy`.  Returns the placeholder pass's
-        output."""
+        :meth:`set_precision_policy`.  Drops the captured steps.
+        Returns the placeholder pass's output."""
         if communicator is not None:
             _not_ported("a communicator (DistOpt)", "item 12")
         if mesh is not None:
@@ -164,23 +273,247 @@ class Model(Layer):
                     self.train_one_batch != self._dispatch_tob:
                 self._user_tob = self.train_one_batch
             object.__setattr__(self, "train_one_batch", self._dispatch_tob)
+        self._drop_graphs()
         return out
 
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+    def _on_card(self) -> bool:
+        return self.device is not None and self.device.lang == "cuda"
+
     def _dispatch_tob(self, *xs):
-        xs = [self._as_input(x) for x in xs]
+        if self.graph_mode and self._on_card():
+            return self._graph_call("train", self._graph_step,
+                                    _raw_inputs(xs), self._registry)
+        return self._step([self._as_input(x) for x in xs], self.graph_mode)
+
+    def _graph_step(self, xs):
+        return self._step(xs, True)
+
+    def _step(self, xs, cut: bool):
+        """The user's step on Tensor inputs, under the policy's master
+        swap and casts when one is active; ``cut``: inputs enter and
+        outputs leave as fresh Tensors (always so under a policy, as in
+        the reference)."""
         pol = self.precision_policy
         if pol is None or not pol.active:
-            if not self.graph_mode:
+            if not cut:
                 return self._user_tob(*xs)
             return _cut(self._user_tob(*[_cut(x) for x in xs]))
-        # the master swap around the user's step; inputs enter and outputs
-        # leave as fresh Tensors in either mode, as in the reference
         token = pol.begin_step(self.get_states().values(), self.optimizer)
         try:
             out = self._user_tob(*[_cut(x, pol.cast_input) for x in xs])
         finally:
             pol.end_step(token, self.optimizer)
         return _cut(out, pol.cast_output)
+
+    def run_k_steps(self, k: int, *xs):
+        """``k`` training steps on the same batch; returns the last
+        step's outputs (reference ``Model.run_k_steps``).  On the card, k
+        replays of the captured step with no host sync between them (the
+        graph of the input signature, whatever ``use_graph`` says, as the
+        reference compiles it); on the CPU, k eager steps.  Equal to k
+        ``train_one_batch`` calls."""
+        k = int(k)
+        if k <= 0:
+            raise ValueError(f"run_k_steps needs k > 0, got {k}")
+        if self._user_tob is None:
+            raise RuntimeError("run_k_steps needs a compiled model with a "
+                               "train_one_batch")
+        if self._on_card():
+            return self._graph_call("train", self._graph_step,
+                                    _raw_inputs(xs), self._registry, k)
+        for _ in range(k):
+            out = self._step([self._as_input(x) for x in xs], True)
+        return out
+
+    def _registry(self) -> list:
+        """Every state tensor of the step: params, buffers and the
+        optimizer's state (the loss scale, the counter, the norm)."""
+        tensors = list(self.get_states().values())
+        if self.optimizer is not None:
+            tensors.extend(self.optimizer.state_tensors())
+        seen, out = set(), []
+        for t in tensors:
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append(t)
+        return out
+
+    def _eval_registry(self) -> list:
+        return list(self.get_states().values())
+
+    # ------------------------------------------------------------------
+    # CUDA graphs
+    # ------------------------------------------------------------------
+    def _drop_graphs(self):
+        self._graphs = {}
+        self._warm = {}
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device.torch_device)
+        return self._stream
+
+    def _graph_call(self, kind, fn, raw, registry_fn, k=1):
+        """``fn`` on ``raw`` through the graph of its signature, ``k``
+        times (see the module docstring): the first call of a signature,
+        or of a new set of state tensors, runs eagerly on the side
+        stream; a graph whose state storage moved is captured again."""
+        key = (kind,) + _signature(raw)
+        reg = registry_fn()
+        entry = self._graphs.get(key)
+        if entry is None or entry.state != _addresses(reg):
+            self._graphs.pop(key, None)
+            if self._warm.get(key) != _ids(reg):
+                out = self._first_call(fn, raw)
+                reg = registry_fn()
+                self._warm[key] = _ids(reg)
+                k -= 1
+                if k == 0:
+                    return out
+            entry = self._capture(key, fn, raw, reg, registry_fn)
+        entry.load(raw)
+        for _ in range(k):
+            entry.replay()
+        self.graph_replays[kind] = self.graph_replays.get(kind, 0) + k
+        return _fresh(entry.outputs)
+
+    def _first_call(self, fn, raw):
+        side = self._side_stream()
+        cur = torch.cuda.current_stream(self.device.torch_device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = fn(_wrap(raw, self.device))
+        cur.wait_stream(side)
+        for t in _tensors(out):
+            t.data.record_stream(cur)
+        return out
+
+    def _capture(self, key, fn, raw, reg, registry_fn):
+        dev = self.device.torch_device
+        bufs = [torch.empty(r.shape, dtype=r.dtype, device=dev)
+                if isinstance(r, torch.Tensor) else r for r in raw]
+        state = _addresses(reg)
+        # graph_debug keeps the captured graph beside its executable, for
+        # debug_dump()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.graph_debug)
+        before = _launch_counts()
+        try:
+            with torch.cuda.graph(graph, stream=self._side_stream()):
+                out = fn(_wrap(bufs, self.device))
+        finally:
+            after = _launch_counts()
+            for (mod, name), n in before.items():   # nothing ran yet
+                setattr(mod, name, n)
+        if self.graph_debug:
+            graph.instantiate()
+        if _addresses(registry_fn()) != state:
+            raise RuntimeError(
+                "state was created or rebound while the step was captured: "
+                "the graph would hold storage the model does not")
+        entry = _Graph(graph, bufs, out, state,
+                       {c: after[c] - n for c, n in before.items()
+                        if after.get(c, n) != n})
+        self._graphs[key] = entry
+        kind = key[0]
+        self.graph_captures[kind] = self.graph_captures.get(kind, 0) + 1
+        return entry
+
+    # ------------------------------------------------------------------
+    # inference
+    # ------------------------------------------------------------------
+    def predict(self, *xs):
+        """The forward in eval mode under ``torch.no_grad()`` (reference
+        ``Model.predict``): captured per input signature on the card,
+        eager on the CPU (see the module docstring)."""
+        if self.device is None:
+            self.device = next((x.device for x in xs
+                                if isinstance(x, Tensor)), None) \
+                or get_device(None)
+        raw = _raw_inputs(xs)
+        if self._on_card():
+            return self._graph_call("predict", self._forward_eval, raw,
+                                    self._eval_registry)
+        return self._forward_eval(_wrap(raw, self.device))
+
+    def _forward_eval(self, xs):
+        pol = self.precision_policy
+        if pol is not None and not pol.mixed:
+            pol = None
+        prev = autograd.training
+        autograd.training = False
+        swapped = []
+        try:
+            with torch.no_grad():
+                if pol is not None:
+                    for t in self.get_states().values():
+                        if t.stores_grad and t.data.dtype == pol.param_dtype:
+                            swapped.append((t, t.data))
+                            t.data = t.data.to(pol.compute_dtype)
+                    xs = [_cut(x, pol.cast_input) for x in xs]
+                out = self.forward(*xs)
+        finally:
+            for t, data in swapped:
+                t.data = data
+            autograd.training = prev
+        return _cut(out, pol.cast_output if pol is not None else None)
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def _gather_states(self) -> dict:
+        states = {k: t.numpy() for k, t in self.get_states().items()}
+        if self.optimizer is not None:
+            for name, arr in self.optimizer.get_states().items():
+                states[f"opt{Layer.sep}{name}"] = np.asarray(arr)
+        return states
+
+    def save_states(self, fpath: str, aux_states: dict | None = None,
+                    format: str = "zip"):
+        """Checkpoint params, buffers and optimizer state as the
+        reference's zip of npz members (see the module docstring)."""
+        if format not in ("zip", "snapshot", "orbax"):
+            raise ValueError(f"unknown checkpoint format {format!r} "
+                             f"(zip | snapshot | orbax)")
+        if format != "zip":
+            _not_ported(f"the {format} checkpoint format",
+                        "item 12 (snapshot.py and its codec)")
+        states = self._gather_states()
+        aux = {k: v.numpy() if isinstance(v, Tensor) else np.asarray(v)
+               for k, v in (aux_states or {}).items()}
+        os.makedirs(os.path.dirname(fpath) or ".", exist_ok=True)
+        tmp = fpath + ".tmp"
+        with zipfile.ZipFile(tmp, "w") as zf:
+            for name, payload in ((self.TENSOR_DICT, states),
+                                  (self.STATES_ATTR, aux)):
+                buf = io.BytesIO()
+                np.savez(buf, **payload)
+                zf.writestr(name, buf.getvalue())
+        _atomic_publish(tmp, fpath)
+
+    def load_states(self, fpath: str) -> dict:
+        """Restore a zip checkpoint in place, by name (the port's or the
+        JAX package's); returns the aux states."""
+        if not os.path.exists(fpath) and not os.path.exists(fpath + ".bin"):
+            raise FileNotFoundError(fpath)
+        if os.path.isdir(fpath) or not zipfile.is_zipfile(fpath):
+            _not_ported(f"{fpath!r}: only the zip checkpoint format is "
+                        f"read; the snapshot and orbax formats",
+                        "item 12 (snapshot.py and its codec)")
+        with zipfile.ZipFile(fpath, "r") as zf:
+            states = dict(np.load(io.BytesIO(zf.read(self.TENSOR_DICT)),
+                                  allow_pickle=False))
+            aux = dict(np.load(io.BytesIO(zf.read(self.STATES_ATTR)),
+                               allow_pickle=False))
+        self.set_states(states)
+        if self.optimizer is not None:
+            prefix = f"opt{Layer.sep}"
+            self.optimizer.set_states({k[len(prefix):]: v
+                                       for k, v in states.items()
+                                       if k.startswith(prefix)})
+        return aux
 
 
 def _cut(x, cast=None):
@@ -195,3 +528,65 @@ def _cut(x, cast=None):
     if isinstance(x, (tuple, list)):
         return type(x)(_cut(v, cast) for v in x)
     return x
+
+
+def _fresh(x):
+    """Outputs cloned out of a graph's buffers."""
+    if isinstance(x, Tensor):
+        return Tensor(data=x.data.clone(), device=x.device,
+                      requires_grad=False)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_fresh(v) for v in x)
+    return x
+
+
+def _tensors(x):
+    if isinstance(x, Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def _raw_inputs(xs) -> list:
+    """Each argument as a step takes it: a Tensor's data, a torch tensor
+    as it is, a numpy array as a host tensor (64-bit types narrowed as
+    :class:`Tensor` narrows them), anything else as it is."""
+    out = []
+    for x in xs:
+        if isinstance(x, Tensor):
+            x = x.data
+        elif isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(
+                x.astype(_NARROW.get(x.dtype, x.dtype), copy=False)))
+        out.append(x)
+    return out
+
+
+def _wrap(raw, device) -> list:
+    return [Tensor(data=r, device=device, requires_grad=False)
+            if isinstance(r, torch.Tensor) else r for r in raw]
+
+
+def _signature(raw) -> tuple:
+    """A step's input signature (reference ``_split_args``): shapes and
+    dtypes of the tensors, values of the rest, and the training flag."""
+    key = [autograd.training]
+    for i, r in enumerate(raw):
+        if isinstance(r, torch.Tensor):
+            key.append((i, tuple(r.shape), r.dtype))
+        elif isinstance(r, (int, float, bool, str, bytes, type(None))):
+            key.append((i, type(r).__name__, r))
+        else:
+            raise TypeError(
+                f"step argument {r!r} is neither array data nor a hashable "
+                f"scalar or string: it cannot be captured")
+    return tuple(key)
+
+
+def _ids(reg) -> tuple:
+    return tuple(id(t) for t in reg)
+
+
+def _addresses(reg) -> tuple:
+    return tuple((id(t), t.data.data_ptr()) for t in reg)

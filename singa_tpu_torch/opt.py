@@ -1,22 +1,27 @@
 """Optimizers of the port.  Counterpart: ``singa_tpu/opt.py``.
 
 ``Optimizer`` (:67): a step counter (``opt_step``), named per-parameter
-state (``m:<param>``, ``v:<param>``, ``mom:<param>``, where ``<param>``
-is the parameter's dotted name from ``Model.compile``),
+state (``m:<param>``, ``v:<param>``, ``mom:<param>``, ``sq:<param>``,
+where ``<param>`` is the parameter's dotted name from ``Model.compile``),
 ``get_states`` / ``set_states`` by those names (state restored before
-it exists is applied when it is created), and ``__call__(loss)``, which
-runs backward, applies the update to every parameter and steps the
-counter.  ``SGD`` (:303), ``Adam`` (:357, bias correction with
+it exists is applied when it is created), ``track_grad_norm`` (:140),
+and ``__call__(loss)``, which runs backward, applies the update to every
+parameter and steps the counter.  ``SGD`` (:303), ``RMSProp`` (:328),
+``AdaGrad`` (:343), ``Adam`` (:357, bias correction with
 ``t = step + 1``), ``AdamW`` (:383, decoupled decay), and the schedules
-``Constant``, ``ExponentialDecay`` (:51) and ``WarmupCosine`` (:401),
-evaluated on the step counter.
+``Constant``, ``ExponentialDecay`` (:51) and ``WarmupCosine`` (:401).
 
-The reference keeps the counter as a traced device scalar so its
-schedules advance inside a compiled step; the port runs eagerly and
-keeps it as a host integer, and evaluates the schedules and the bias
-corrections in float32 as the reference does.  Updates happen in place,
-under ``torch.no_grad()``, on the parameter's own ``torch`` leaf and on
-its state tensors.
+As in the reference, the counter is a device int32 scalar (a
+:class:`Tensor` named ``opt_step``) and the schedules and Adam's bias
+corrections are float32 torch ops on it, so a step captured in a CUDA
+graph (``Model.compile(use_graph=True)``) advances them at every replay.
+Every state update happens in place, under ``torch.no_grad()``: the
+parameter's own ``torch`` leaf, its state tensors, the counter and the
+norm keep their storage from step to step, which a replayed graph needs.
+The counter and the norm start on the host and move to the parameters'
+device at their first use.  The learning rate and the bias corrections
+are computed once a round (``_backward`` .. ``step``) and shared by
+every parameter's update.
 
 Mixed precision (:mod:`singa_tpu_torch.precision`, reference opt.py:210-299):
 ``attach_precision_policy`` installs a ``Policy``.  ``apply`` then puts
@@ -30,12 +35,13 @@ then the parameter and its existing state are restored by
 step.  ``apply`` alone under a loss scale raises: the verdict comes
 from ``_backward``.  ``step`` advances the scale's schedule, and its
 three scalars are optimizer states (``loss_scale``,
-``loss_scale_good_steps``, ``loss_scale_found_inf``).  ``RMSProp``,
-``AdaGrad`` and ``DistOpt`` belong to later slices (``ROADMAP.md``
-queue 1, items 4 and 12).
+``loss_scale_good_steps``, ``loss_scale_found_inf``).  ``DistOpt``
+belongs to a later slice (``ROADMAP.md`` queue 1, item 12).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -44,13 +50,22 @@ from . import autograd
 from .tensor import Tensor
 
 __all__ = ["DecayScheduler", "Constant", "ExponentialDecay", "WarmupCosine",
-           "Optimizer", "SGD", "Adam", "AdamW"]
+           "Optimizer", "SGD", "RMSProp", "AdaGrad", "Adam", "AdamW"]
 
-_f32 = np.float32
+
+def _step_tensor(step) -> torch.Tensor:
+    """The step counter as a tensor (a host int becomes an int32 CPU
+    scalar)."""
+    if isinstance(step, Tensor):
+        return step.data
+    if isinstance(step, torch.Tensor):
+        return step
+    return torch.tensor(int(step), dtype=torch.int32)
 
 
 class DecayScheduler:
-    """Maps the step counter to a learning rate (a float32 value)."""
+    """Maps the step counter (a device int32 scalar, or a host int) to a
+    learning rate: a float32 scalar on the counter's device."""
 
     def __init__(self, init_value: float):
         self.init_value = float(init_value)
@@ -61,7 +76,9 @@ class DecayScheduler:
 
 class Constant(DecayScheduler):
     def __call__(self, step):
-        return _f32(self.init_value)
+        s = _step_tensor(step)
+        return torch.full((), self.init_value, dtype=torch.float32,
+                          device=s.device)
 
 
 class ExponentialDecay(DecayScheduler):
@@ -74,10 +91,10 @@ class ExponentialDecay(DecayScheduler):
         self.staircase = staircase
 
     def __call__(self, step):
-        p = _f32(step) / _f32(self.decay_steps)
+        p = _step_tensor(step).to(torch.float32) / self.decay_steps
         if self.staircase:
-            p = np.floor(p)
-        return _f32(self.init_value) * np.power(_f32(self.decay_rate), p)
+            p = torch.floor(p)
+        return self.init_value * torch.pow(self.decay_rate, p)
 
 
 class WarmupCosine(DecayScheduler):
@@ -92,15 +109,13 @@ class WarmupCosine(DecayScheduler):
         self.final_value = float(final_value)
 
     def __call__(self, step):
-        s = _f32(step)
-        if s < self.warmup_steps:
-            return _f32(self.init_value) * s / _f32(self.warmup_steps)
-        frac = np.clip((s - _f32(self.warmup_steps))
-                       / _f32(self.total_steps - self.warmup_steps),
-                       _f32(0.0), _f32(1.0))
-        return (_f32(self.final_value) + _f32(0.5) * _f32(
-            self.init_value - self.final_value)
-            * (_f32(1.0) + np.cos(_f32(np.pi) * frac)))
+        s = _step_tensor(step).to(torch.float32)
+        warm = self.init_value * s / self.warmup_steps
+        frac = torch.clamp((s - self.warmup_steps)
+                           / (self.total_steps - self.warmup_steps), 0.0, 1.0)
+        cos = (self.final_value + 0.5 * (self.init_value - self.final_value)
+               * (1.0 + torch.cos(math.pi * frac)))
+        return torch.where(s < self.warmup_steps, warm, cos)
 
 
 class Optimizer:
@@ -111,7 +126,8 @@ class Optimizer:
         if not isinstance(lr, DecayScheduler):
             lr = Constant(lr)
         self.lr = lr
-        self.step_counter = 0            # ``opt_step`` in the states
+        self.step_counter = Tensor(data=torch.zeros((), dtype=torch.int32),
+                                   requires_grad=False, name="opt_step")
         self._states: dict[int, dict[str, Tensor]] = {}
         self._used_state_names: set[str] = set()
         # restored entries whose (lazily created) state does not exist
@@ -123,6 +139,8 @@ class Optimizer:
         self._masters: dict[int, torch.Tensor] = {}
         self._precision_policy = None
         self._round_finite = None  # the round's overflow verdict (device)
+        self._grad_norm_sq: Tensor | None = None   # track_grad_norm
+        self._scalars = None       # the round's lr (and bias corrections)
 
     # -- state management ------------------------------------------------
     def _state_name(self, kind: str, param: Tensor) -> str:
@@ -153,8 +171,37 @@ class Optimizer:
             self._states[key] = group
         return self._states[key]
 
+    def _place(self, device) -> None:
+        """Move the counter and the norm to ``device`` (a no-op where
+        they are)."""
+        self.step_counter.to_device(device)
+        if self._grad_norm_sq is not None:
+            self._grad_norm_sq.to_device(device)
+
+    def track_grad_norm(self, enable: bool = True) -> None:
+        """Opt in to the squared global gradient norm as a float32 state
+        scalar (``grad_norm_sq``): ``_backward`` zeroes it and every
+        :meth:`apply` adds ``sum(g * g)`` of the (unscaled, float32)
+        gradient it consumes, so after a step it holds that step's
+        ``||g||^2``; reading it is the caller's host sync, after the
+        step.  Enable it before a captured step's first call: the
+        tensor must be in the state when the step is captured."""
+        if enable and self._grad_norm_sq is None:
+            self._grad_norm_sq = Tensor(
+                data=torch.zeros((), dtype=torch.float32),
+                requires_grad=False, name="grad_norm_sq")
+        elif not enable:
+            self._grad_norm_sq = None
+
+    def _track_grad(self, g: torch.Tensor) -> None:
+        if self._grad_norm_sq is not None:
+            g32 = g.to(torch.float32)
+            self._grad_norm_sq.data.add_(torch.sum(g32 * g32))
+
     def state_tensors(self):
-        out = []
+        out = [self.step_counter]
+        if self._grad_norm_sq is not None:
+            out.append(self._grad_norm_sq)
         if self._precision_policy is not None:
             out.extend(self._precision_policy.state_tensors())
         for st in self._states.values():
@@ -162,23 +209,30 @@ class Optimizer:
         return out
 
     def get_states(self) -> dict:
-        states = {"opt_step": np.asarray(self.step_counter, np.int32)}
-        states.update({t.name: t.numpy() for t in self.state_tensors()})
+        states = {t.name: t.numpy() for t in self.state_tensors()}
         for name, arr in self._pending_states.items():
             states.setdefault(name, np.asarray(arr))
         return states
 
     def set_states(self, states: dict):
-        """Restore by name: the step counter, existing state tensors, and
-        (buffered until created) state that does not exist yet."""
+        """Restore by name, in place, from numpy arrays, torch tensors or
+        Tensors: the step counter, existing state tensors, and (buffered
+        until created) state that does not exist yet."""
         by_name = {t.name: t for t in self.state_tensors()}
         for name, arr in states.items():
-            if name == "opt_step":
-                self.step_counter = int(np.asarray(arr))
-            elif name in by_name:
-                by_name[name].copy_from_numpy(arr)
+            if isinstance(arr, Tensor):
+                arr = arr.data
+            if name not in by_name:
+                self._pending_states[name] = (
+                    arr.detach().cpu().numpy()
+                    if isinstance(arr, torch.Tensor) else np.asarray(arr))
+            elif isinstance(arr, torch.Tensor):
+                t = by_name[name]
+                with torch.no_grad():
+                    t.data.copy_(arr.reshape(t.shape))
             else:
-                self._pending_states[name] = np.asarray(arr)
+                by_name[name].copy_from_numpy(arr)
+        self._scalars = None
 
     # -- mixed precision ---------------------------------------------------
     def attach_precision_policy(self, policy):
@@ -192,6 +246,10 @@ class Optimizer:
         gradient skips every update of the round (a per-param guard would
         not be a no-op: a NaN upstream can give a parameter below a zero
         gradient whose momentum update would still apply)."""
+        self._place(loss.device)
+        self._scalars = None
+        if self._grad_norm_sq is not None:   # a fresh sum each step
+            self._grad_norm_sq.data.zero_()
         pol = self._precision_policy
         self._round_finite = None
         if pol is None or pol.loss_scale is None:
@@ -211,8 +269,10 @@ class Optimizer:
         """Update ``param`` in place from ``grad`` (under
         ``torch.no_grad()``); policy-aware (see the module docstring)."""
         with torch.no_grad():
+            self._place(param.device)
             pol = self._precision_policy
             if pol is None or not pol.active:
+                self._track_grad(grad.data)
                 return self._apply(param, grad.data)
             ls, finite = pol.loss_scale, self._round_finite
             if ls is not None and finite is None:
@@ -227,8 +287,10 @@ class Optimizer:
             if g.dtype != param.data.dtype:
                 g = g.to(param.data.dtype)
             if ls is None:
+                self._track_grad(g)
                 return self._apply(param, g)
             g = g * (1.0 / ls.scale.data)
+            self._track_grad(g)   # unscaled; a non-finite round shows here
             # an exact no-op on overflow: a zero gradient keeps fresh state
             # finite, then the param and its existing state come back
             g = torch.where(finite, g, torch.zeros_like(g))
@@ -244,11 +306,22 @@ class Optimizer:
     def _apply(self, param: Tensor, g: torch.Tensor) -> None:
         raise NotImplementedError
 
+    def _round_scalars(self) -> dict:
+        """The round's schedule values on the counter's device, computed
+        at the first update of the round."""
+        if self._scalars is None:
+            self._scalars = self._scalars_at(self.step_counter.data)
+        return self._scalars
+
+    def _scalars_at(self, step: torch.Tensor) -> dict:
+        return {"lr": self.lr(step)}
+
     def step(self):
-        """Advance the step counter (once per iteration) and the loss
-        scale's schedule."""
+        """Advance the step counter in place (once per iteration) and the
+        loss scale's schedule."""
         self._round_finite = None  # the round is over
-        self.step_counter += 1
+        self._scalars = None
+        self.step_counter.data.add_(1)
         pol = self._precision_policy
         if pol is not None and pol.loss_scale is not None:
             pol.loss_scale.update()
@@ -273,7 +346,7 @@ class SGD(Optimizer):
         self.nesterov = nesterov
 
     def _apply(self, param, g):
-        lr = float(self.lr(self.step_counter))
+        lr = self._round_scalars()["lr"]
         p = param.data
         if self.weight_decay:
             g = g + self.weight_decay * p
@@ -282,6 +355,37 @@ class SGD(Optimizer):
             buf.mul_(self.momentum).add_((1 - self.dampening) * g)
             g = g + self.momentum * buf if self.nesterov else buf
         p.sub_(lr * g)
+
+
+class RMSProp(Optimizer):
+    """``sq = rho sq + (1 - rho) g^2``; ``p -= lr g / (sqrt(sq) + eps)``
+    (reference: ``opt.RMSProp``)."""
+
+    def __init__(self, lr=0.01, rho=0.9, epsilon=1e-8):
+        super().__init__(lr)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def _apply(self, param, g):
+        lr = self._round_scalars()["lr"]
+        sq = self._state_for(param, ("sq",))["sq"].data
+        sq.mul_(self.rho).add_((1 - self.rho) * (g * g))
+        param.data.sub_(lr * g / (torch.sqrt(sq) + self.epsilon))
+
+
+class AdaGrad(Optimizer):
+    """``sq += g^2``; ``p -= lr g / (sqrt(sq) + eps)`` (reference:
+    ``opt.AdaGrad``)."""
+
+    def __init__(self, lr=0.01, epsilon=1e-8):
+        super().__init__(lr)
+        self.epsilon = epsilon
+
+    def _apply(self, param, g):
+        lr = self._round_scalars()["lr"]
+        sq = self._state_for(param, ("sq",))["sq"].data
+        sq.add_(g * g)
+        param.data.sub_(lr * g / (torch.sqrt(sq) + self.epsilon))
 
 
 class Adam(Optimizer):
@@ -293,6 +397,12 @@ class Adam(Optimizer):
         self.epsilon = epsilon
         self.weight_decay = weight_decay
 
+    def _scalars_at(self, step):
+        t = step.to(torch.float32) + 1.0
+        return {"lr": self.lr(step),
+                "bc1": 1.0 - torch.pow(self.beta_1, t),
+                "bc2": 1.0 - torch.pow(self.beta_2, t)}
+
     def _apply(self, param, g):
         if self.weight_decay:
             g = g + self.weight_decay * param.data
@@ -300,15 +410,13 @@ class Adam(Optimizer):
 
     def _adam_update(self, param, g):
         """The moments and the bias-corrected step, on ``g`` as given."""
-        lr = float(self.lr(self.step_counter))
-        t = _f32(self.step_counter) + _f32(1.0)
-        bc1 = float(_f32(1.0) - np.power(_f32(self.beta_1), t))
-        bc2 = float(_f32(1.0) - np.power(_f32(self.beta_2), t))
+        sc = self._round_scalars()
         st = self._state_for(param, ("m", "v"))
         m, v = st["m"].data, st["v"].data
         m.mul_(self.beta_1).add_((1 - self.beta_1) * g)
         v.mul_(self.beta_2).add_((1 - self.beta_2) * (g * g))
-        param.data.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + self.epsilon))
+        param.data.sub_(sc["lr"] * (m / sc["bc1"])
+                        / (torch.sqrt(v / sc["bc2"]) + self.epsilon))
 
 
 class AdamW(Adam):
@@ -318,6 +426,6 @@ class AdamW(Adam):
 
     def _apply(self, param, g):
         if self.weight_decay:
-            lr = _f32(self.lr(self.step_counter))
-            param.data.mul_(float(_f32(1.0) - lr * _f32(self.weight_decay)))
+            lr = self._round_scalars()["lr"]
+            param.data.mul_(1.0 - lr * self.weight_decay)
         self._adam_update(param, g)

@@ -10,8 +10,10 @@ a fresh leaf in the compute dtype and stashes the float32 leaf on the
 optimizer; ``Optimizer.apply`` puts that same leaf back before the
 update (so momenta stay float32 and a parameter stays one ``torch`` leaf
 for its whole life), and :meth:`Policy.end_step` puts back any master
-the backward never reached.  The casts are real device copies: the port
-runs eagerly, where the reference folds them into its compiled step.
+the backward never reached.  The casts are real device copies; in a step
+captured as a CUDA graph (``Model.compile(use_graph=True)`` on the card)
+the compute-dtype leaves live in the graph's memory pool and every
+replay casts into them again, while the masters keep their storage.
 Softmax, the loss and the LayerNorm statistics pin float32 whatever the
 policy (``autograd.softmax`` / ``softmax_cross_entropy``,
 ``layer.LayerNorm``).
@@ -122,14 +124,15 @@ class DynamicLossScale:
         return [self.scale, self.good_steps, self.found_inf]
 
     def record(self, nonfinite):
-        """OR a device bool into the round's overflow flag."""
-        self.found_inf.data = torch.logical_or(self.found_inf.data,
-                                               nonfinite)
+        """OR a device bool into the round's overflow flag, in place."""
+        self.found_inf.data.logical_or_(nonfinite)
 
     def update(self, reducer=None):
-        """Advance the schedule once per optimizer step, on the device.
-        ``reducer`` (a mesh-wide vote) belongs to the ``DistOpt`` slice
-        and stays None here."""
+        """Advance the schedule once per optimizer step, on the device and
+        in place (the three scalars keep their storage, so a captured
+        step's next replay reads the new values).  ``reducer`` (a
+        mesh-wide vote) belongs to the ``DistOpt`` slice and stays None
+        here."""
         if reducer is not None:
             raise NotImplementedError(
                 "a mesh-wide overflow vote belongs to the DistOpt slice of "
@@ -137,12 +140,13 @@ class DynamicLossScale:
         inf = self.found_inf.data
         scale, good = self.scale.data, self.good_steps.data
         grown = good + 1 >= self.growth_interval
-        self.scale.data = torch.where(
+        new_scale = torch.where(
             inf, torch.clamp_min(scale * self.backoff_factor, 1.0),
             torch.where(grown, scale * self.growth_factor, scale))
-        self.good_steps.data = torch.where(inf | grown,
-                                           torch.zeros_like(good), good + 1)
-        self.found_inf.data = torch.zeros_like(inf)
+        new_good = torch.where(inf | grown, torch.zeros_like(good), good + 1)
+        scale.copy_(new_scale)
+        good.copy_(new_good)
+        inf.zero_()
 
 
 class Policy:

@@ -158,7 +158,7 @@ def test_losses_match_jax(trained):
 def test_graph_step_outputs_leave_the_graph(trained):
     """Under ``use_graph=True`` a step's outputs come back as a traced
     step's do: no creator and no torch graph (the losses above are those
-    of such steps).  The carried-state case is
+    of such steps), and they keep their values after the next step.  The carried-state case is
     ``test_torch_autograd_layer.py::test_graph_mode_cuts_the_step_at_inputs_and_outputs``
     and ``test_torch_char_rnn.py``."""
     cfg = trained["cfg"]
@@ -167,10 +167,17 @@ def test_graph_step_outputs_leave_the_graph(trained):
     tm.set_optimizer(topt.Adam(lr=LR))
     tm.compile([x], is_train=True, use_graph=True)
     logits, loss = tm.train_one_batch(x, y)
+    held = logits.data.clone()
+    # the next step leaves the held outputs as they were (a captured
+    # step clones them out of its buffers on the card)
+    x1, y1 = _batches(cfg.vocab_size)[1]
+    _, loss1 = tm.train_one_batch(x1, y1)
     tm.eval()
     assert logits.creator is None and loss.creator is None
     assert not logits.data.requires_grad and not loss.requires_grad
     assert loss.item() == trained["t_loss"][0]
+    assert loss1.item() == trained["t_loss"][1]
+    assert torch.equal(logits.data, held)
 
 
 def test_params_and_adam_state_match_jax(trained):
@@ -229,7 +236,7 @@ def test_optimizer_continues_from_jax_state(trained):
     tm.set_optimizer(topt.Adam(lr=LR))
     tm.optimizer.set_states(trained["j_opt"])   # before the state exists
     tm.compile([x], is_train=True)
-    assert tm.optimizer.step_counter == STEPS
+    assert tm.optimizer.step_counter.item() == STEPS
     loss = tm.train_one_batch(x, y)[1].item()
     tm.eval()
     np.testing.assert_allclose(loss, trained["j_loss4"], rtol=1e-5, atol=0)

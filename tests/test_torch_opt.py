@@ -1,10 +1,12 @@
 """The port's optimizers and schedules (singa_tpu_torch.opt, on the CPU)
 against the JAX package's (singa_tpu.opt): the same parameters and the
-same seeded gradients through ``apply`` + ``step`` for 3 steps; parameters
+same seeded gradients through ``apply`` + ``step`` for 3 steps (SGD,
+RMSProp, AdaGrad, Adam, AdamW, with and without schedules); parameters
 and every named state agree to atol 1e-6 in float32 after each step (the
 update rules are the same elementwise arithmetic), and the schedules give
 the JAX float32 learning rates to a relative 3e-7 (a float32 ulp or two:
-``pow`` is numpy's on one side and XLA's on the other)."""
+``pow`` and ``cos`` are torch's on one side and XLA's on the other),
+from a host step or from the optimizer's int32 step counter alike."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,12 @@ CASES = {
     "adamw": lambda o: o.AdamW(lr=0.01, weight_decay=0.1),
     "adamw_warmup_cosine": lambda o: o.AdamW(
         lr=o.WarmupCosine(0.01, 1, 3, final_value=0.001), weight_decay=0.1),
+    "rmsprop": lambda o: o.RMSProp(lr=0.01),
+    "rmsprop_rho_exponential_decay": lambda o: o.RMSProp(
+        lr=o.ExponentialDecay(0.05, 2, 0.5), rho=0.5, epsilon=1e-6),
+    "adagrad": lambda o: o.AdaGrad(lr=0.1),
+    "adagrad_warmup_cosine": lambda o: o.AdaGrad(
+        lr=o.WarmupCosine(0.1, 2, 3), epsilon=1e-6),
 }
 
 
@@ -93,9 +101,32 @@ def test_states_restore_by_name_before_they_exist():
     o.set_states({"opt_step": np.int32(7),
                   "m:w": np.full((2, 2), 0.5, np.float32),
                   "v:w": np.full((2, 2), 0.25, np.float32)})
-    assert o.step_counter == 7
+    # the counter is the reference's int32 scalar named opt_step
+    assert o.step_counter.name == "opt_step"
+    assert o.step_counter.dtype == torch.int32
+    assert o.step_counter.item() == 7
     assert set(o.get_states()) == {"opt_step", "m:w", "v:w"}
     o.apply(p, TTensor(data=np.zeros((2, 2), np.float32), device="cpu"))
     st = o.get_states()
     np.testing.assert_allclose(st["m:w"], 0.45)          # 0.9 * 0.5
     np.testing.assert_allclose(st["v:w"], 0.24975)       # 0.999 * 0.25
+
+
+@pytest.mark.parametrize("sched", [
+    lambda o: o.WarmupCosine(0.01, 2, 6, final_value=0.001),
+    lambda o: o.ExponentialDecay(0.1, 3, 0.5, staircase=True),
+    lambda o: o.Constant(0.05)],
+    ids=["warmup_cosine", "exp_staircase", "constant"])
+def test_schedules_take_the_step_counter(sched):
+    """The optimizer evaluates its schedule on its own counter, an int32
+    scalar tensor advanced in place by ``step``: the same float32 value
+    as from the host step, on the counter's device."""
+    o = topt.SGD(lr=sched(topt))
+    counter = o.step_counter
+    ptr = counter.data.data_ptr()
+    for step in range(6):
+        got = o.lr(counter)
+        assert got.dtype == torch.float32 and got.device == counter.data.device
+        assert float(got) == float(o.lr(step)), step
+        o.step()
+    assert counter.data.data_ptr() == ptr and counter.item() == 6
