@@ -145,8 +145,10 @@ Phases (any failure exits non-zero before the result lines print):
    fall; exactly 12 launches of each flash kernel a step, none of the
    combine, the captured run's credited counts equal to the eager
    run's; the two runs' losses and every parameter and Adam moment
-   bit for bit; 1 capture and 4 replays; the graph's debug dump names
-   ``flash_fwd_mma``, ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma``);
+   bit for bit; 1 capture and 4 replays; three more replays under
+   ``torch.profiler``, the middle one of which runs ``flash_fwd_mma``,
+   ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma`` as many times each as
+   it is credited with, 12; the state is restored after them);
 8a. the rest of the Model API there: the checkpoint saved after step 2
    (``save_states``, the zip of npz members) loads into a fresh captured
    model, whose steps 3-5 equal the uninterrupted run's bit for bit;
@@ -162,14 +164,16 @@ Phases (any failure exits non-zero before the result lines print):
    batches: the loss falls and ends within 2 % of phase 8's; 12 launches
    of each flash kernel a step, all on 16-bit operands; every parameter
    and optimizer state float32 after the steps; step time and peak
-   memory beside float32's; bf16: the captured ``predict`` against its
+   memory beside float32's; the profiled replay's flash kernels against
+   its credited launches, as in phase 8; bf16: the captured ``predict`` against its
    eager first call; fp16 then replays one step with its loss scale
    forced to 2^40: nothing moves and the scale halves;
 11. path ``rnn_train``: the char-LSTM of ``bench_rnn.py`` (V 86, H 256,
    T 100, B 64, ``LSTM(use_fused_cell=True)``, SGD 0.1 with momentum
    0.9) takes 10 steps on a seeded batch eagerly and captured from the
    same weights (held together as in phase 8: bit for bit, 1 capture
-   and 9 replays, ``lstm_cell_kernel`` in the graph), then captured
+   and 9 replays, a profiled replay runs ``lstm_cell_kernel`` 200 times,
+   the forward's and the backward's credited launches), then captured
    through the plain cell from the same weights (step time, tokens/s,
    loss, peak memory of each; the loss must fall; exactly 100 launches
    of each cell kernel, forward and backward, a fused step, none on the
@@ -2610,24 +2614,54 @@ def _graph_against_eager(label, g_launch, g_stats, e_launch, e_stats,
                              f"{e_stats['graph_replays']}")
 
 
-def _graph_kernels(model, label, names):
-    """The kernels' names in the captured step's graph
-    (``CUDAGraph.debug_dump`` of the graph the model kept with
-    ``graph_debug``): each of ``names`` must be a node of it."""
-    path = os.path.join(REPO, "build", f"graph_{label}.dot")
-    found = {}
-    for key, entry in model._graphs.items():
-        if key[0] != "train":
-            continue
-        entry.graph.debug_dump(path)
-        with open(path) as f:
-            dot = f.read()
-        os.remove(path)
-        found = {n: dot.count(n) for n in names}
-        found["kernel nodes"] = dot.count("KERNEL")
-    _log(f"{label} graph holds: " + json.dumps(found))
-    if not found or not all(found[n] > 0 for n in names):
-        raise AssertionError(f"{label}: the captured graph lacks {names}")
+def _graph_kernels(model, label, want):
+    """Three more replays of the captured training step under
+    ``torch.profiler``, with a marker kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``) after the first and after the second: the middle
+    replay's kernels counted by name, and each count held equal to the
+    launches that replay was credited with (``want`` maps a kernel's
+    name to the counters of :func:`_read_launches` it stands for).  The
+    replays either side keep the middle one clear of the trace's edges,
+    where the tracer can lose a graph's first records.  The state is
+    restored in place after them, so the run goes on from where it was;
+    the counters are zeroed first (the path's own were read already)."""
+    from torch.profiler import ProfilerActivity, profile
+    entry = next(e for k, e in model._graphs.items() if k[0] == "train")
+    saved = _device_states(model)
+    torch.cuda.synchronize()
+    _zero_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        entry.graph.replay()
+        torch.cuda._sleep(1000)
+        entry.replay()          # the one credited
+        torch.cuda._sleep(1000)
+        entry.graph.replay()
+        torch.cuda.synchronize()
+    credited = _read_launches()
+    _restore(model, saved)
+    del saved
+    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [i for i, (_, n) in enumerate(kernels) if "spin_kernel" in n]
+    if len(marks) != 2:
+        raise AssertionError(f"{label}: {len(marks)} marker kernels in the "
+                             f"trace, want 2")
+    parts = (kernels[:marks[0]], kernels[marks[0] + 1:marks[1]],
+             kernels[marks[1] + 1:])
+    found = {n: {"in_replay": sum(n in k for _, k in parts[1]),
+                 "credited": sum(credited[c] for c in counters),
+                 "first_and_last": [sum(n in k for _, k in parts[0]),
+                                    sum(n in k for _, k in parts[2])]}
+             for n, counters in want.items()}
+    _log(f"{label}: three replays ran {[len(p) for p in parts]} device "
+         f"activities; the middle one's kernels by name against its "
+         f"credited launches " + json.dumps(found))
+    bad = {n: f for n, f in found.items()
+           if f["in_replay"] != f["credited"] or f["credited"] == 0}
+    if bad:
+        raise AssertionError(f"{label}: the replayed graph's kernels differ "
+                             f"from the credited launches: {bad}")
     return found
 
 
@@ -2652,6 +2686,13 @@ def _predict_check(model, x, label):
     return err
 
 
+# the flash kernels of a training step by name, and the counters of
+# _read_launches that each one's launches tick
+FLASH_KERNELS = {"flash_fwd_mma": ("flash_attention_fwd",),
+                 "flash_bwd_dq_mma": ("flash_attention_bwd_dq",),
+                 "flash_bwd_dkv_mma": ("flash_attention_bwd_dkv",)}
+
+
 def phase_train():
     """The training slice: GPT-2-small, fp32, B 8, T 1024, Adam, 5 steps
     through ``train_one_batch``, first eagerly (``use_graph=False``),
@@ -2666,7 +2707,6 @@ def phase_train():
     e_states = _host_states(eager)
     del eager
     cfg, model, batches = _train_setup()
-    model.graph_debug = True
     ckpt = os.path.join(REPO, "build", "train_step2.zip")
 
     def save(s):
@@ -2689,9 +2729,7 @@ def phase_train():
         raise AssertionError("the training shape took the split route")
     _graph_against_eager("train", launches, stats, e_launch, e_stats,
                          _host_states(model), e_states)
-    stats["graph_kernels"] = _graph_kernels(
-        model, "train", ("flash_fwd_mma", "flash_bwd_dq_mma",
-                         "flash_bwd_dkv_mma"))
+    stats["graph_kernels"] = _graph_kernels(model, "train", FLASH_KERNELS)
     # what handing the logits out of the graph costs a step: one clone
     logits = next(e.outputs[0].data for k, e in model._graphs.items()
                   if k[0] == "train")
@@ -3024,6 +3062,7 @@ def phase_train_lowp(precision, f32_stats):
     _graph_against_eager(label, launches, stats, e_launch, e_stats,
                          _host_states(model), e_states)
     del e_states
+    stats["graph_kernels"] = _graph_kernels(model, label, FLASH_KERNELS)
     stats["eager"] = e_stats
     opt = model.optimizer
     states = list(model.get_states().items()) + [
@@ -3201,8 +3240,9 @@ def phase_rnn_train():
     0.9), 10 steps through the fused cell: captured (``use_graph=True``)
     and its eager twin from the same weights, held together as phase 8's
     runs are (losses and every state bit for bit, the credited launches
-    equal the eager ones, 1 capture and 9 replays, ``lstm_cell_kernel``
-    a node of the graph); then the same captured from the same weights
+    equal the eager ones, 1 capture and 9 replays, one profiled replay
+    running ``lstm_cell_kernel`` as often as it is credited with cell
+    launches, forward and backward); then the same captured from the same weights
     through the plain cell (the scan-path yardstick).  Checks: the loss
     falls on each; exactly T launches of the cell's forward and T of its
     backward kernel a fused step, none on the scan path; fused and scan
@@ -3210,7 +3250,6 @@ def phase_rnn_train():
     cell's product and the kernel's sum in other orders).  Returns
     ``(fused model, launches, stats)``."""
     fused = _rnn_model(True, "cuda")
-    fused.graph_debug = True
     start = {k: t.data.detach().clone()
              for k, t in fused.get_states().items()}
     eager = _rnn_model(True, "cuda", states=start, use_graph=False)
@@ -3220,8 +3259,9 @@ def phase_rnn_train():
     f_launch, f_stats = _rnn_run(fused, "rnn_train fused")
     _graph_against_eager("rnn_train", f_launch, f_stats, e_launch, e_stats,
                          _host_states(fused), e_states)
-    f_stats["graph_kernels"] = _graph_kernels(fused, "rnn_train",
-                                              ("lstm_cell_kernel",))
+    f_stats["graph_kernels"] = _graph_kernels(
+        fused, "rnn_train", {"lstm_cell_kernel": ("lstm_cell",
+                                                  "lstm_cell_bwd")})
     scan = _rnn_model(False, "cuda", states=start)
     s_launch, s_stats = _rnn_run(scan, "rnn_train scan")
     del scan, start

@@ -196,19 +196,16 @@ def gather(x, indices, axis=0):
     of ``x``.  All of it on the tensor's device, with no host sync: the
     negatives are wrapped, the ids clamped for ``index_select`` and the
     invalid rows replaced by ``torch.where`` against the validity mask,
-    so no id ever reaches a bound check.  On the card the gradient sums
-    repeated ids in a fixed order (:class:`_Take`), so a training step
-    gives the same result run after run."""
+    so no id ever reaches a bound check.  The gradient sums repeated ids
+    in a fixed order (:class:`_Take`), so a training step gives the same
+    result run after run."""
     def fn(v, i):
         i = torch.as_tensor(i, device=v.device).long()
         ax = axis if axis >= 0 else v.dim() + axis
         n = v.shape[ax]
         valid = (i >= -n) & (i < n)
         safe = torch.where(i < 0, i + n, i).clamp(0, max(n - 1, 0))
-        if v.is_cuda:
-            out = _Take.apply(v, ax, safe.reshape(-1))
-        else:
-            out = torch.index_select(v, ax, safe.reshape(-1))
+        out = _Take.apply(v, ax, safe.reshape(-1))
         out = out.reshape(v.shape[:ax] + i.shape + v.shape[ax + 1:])
         mask = valid.reshape((1,) * ax + i.shape + (1,) * (v.dim() - ax - 1))
         return torch.where(mask, out, _fill_value(v.dtype))

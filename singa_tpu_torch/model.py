@@ -168,7 +168,6 @@ class Model(Layer):
         self._graphs = {}      # (kind, signature) -> _Graph
         self._warm = {}        # (kind, signature) -> state ids after call 1
         self._stream = None    # the side stream of first calls and captures
-        self.graph_debug = False   # keep each graph for debug_dump()
         self.graph_captures = {}   # kind ("train", "predict") -> count
         self.graph_replays = {}
 
@@ -396,9 +395,7 @@ class Model(Layer):
         bufs = [torch.empty(r.shape, dtype=r.dtype, device=dev)
                 if isinstance(r, torch.Tensor) else r for r in raw]
         state = _addresses(reg)
-        # graph_debug keeps the captured graph beside its executable, for
-        # debug_dump()
-        graph = torch.cuda.CUDAGraph(keep_graph=self.graph_debug)
+        graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
         try:
             with torch.cuda.graph(graph, stream=self._side_stream()):
@@ -407,8 +404,6 @@ class Model(Layer):
             after = _launch_counts()
             for (mod, name), n in before.items():   # nothing ran yet
                 setattr(mod, name, n)
-        if self.graph_debug:
-            graph.instantiate()
         if _addresses(registry_fn()) != state:
             raise RuntimeError(
                 "state was created or rebound while the step was captured: "
@@ -496,13 +491,16 @@ class Model(Layer):
     def load_states(self, fpath: str) -> dict:
         """Restore a zip checkpoint in place, by name (the port's or the
         JAX package's); returns the aux states."""
-        if not os.path.exists(fpath) and not os.path.exists(fpath + ".bin"):
+        # a snapshot is named by its prefix and stored as prefix + ".bin",
+        # as the reference resolves it (Snapshot.SUFFIX)
+        path = fpath if os.path.exists(fpath) else fpath + ".bin"
+        if not os.path.exists(path):
             raise FileNotFoundError(fpath)
-        if os.path.isdir(fpath) or not zipfile.is_zipfile(fpath):
+        if os.path.isdir(path) or not zipfile.is_zipfile(path):
             _not_ported(f"{fpath!r}: only the zip checkpoint format is "
                         f"read; the snapshot and orbax formats",
                         "item 12 (snapshot.py and its codec)")
-        with zipfile.ZipFile(fpath, "r") as zf:
+        with zipfile.ZipFile(path, "r") as zf:
             states = dict(np.load(io.BytesIO(zf.read(self.TENSOR_DICT)),
                                   allow_pickle=False))
             aux = dict(np.load(io.BytesIO(zf.read(self.STATES_ATTR)),

@@ -269,7 +269,6 @@ class Optimizer:
         """Update ``param`` in place from ``grad`` (under
         ``torch.no_grad()``); policy-aware (see the module docstring)."""
         with torch.no_grad():
-            self._place(param.device)
             pol = self._precision_policy
             if pol is None or not pol.active:
                 self._track_grad(grad.data)
