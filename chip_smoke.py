@@ -86,11 +86,23 @@ Phases (any failure exits non-zero before the result lines print):
    add, copy to bf16 and clamp against the one torch call each;
 6. the serving path: the paged, chunked ``ServingEngine`` on GPT-2-small
    dimensions (fp32, seeded random weights carried in through
-   ``GPT.from_jax_decode_params``) serves 8 staggered requests (one
-   sampled, the rest greedy); two greedy requests are replayed through
-   the port on the CPU and their tokens compared; the prefill chunks'
-   flash calls must take the split route (combine launches), and so
-   must the paged decode calls (merge launches, ``launches_merge``);
+   ``GPT.from_jax_decode_params``) serves 8 staggered requests (3, 5 and
+   7 sampled, the rest greedy) through its CUDA graphs (the unified step
+   and the horizon, a greedy and a sampled twin of each); two greedy
+   requests are replayed through the port on the CPU and their tokens
+   compared; the prefill chunks' flash calls must take the split route
+   (combine launches), and so must the paged decode calls (merge
+   launches, ``launches_merge``).  Every serving path (6-7f) is then
+   held against its eager twin (``_capture=False``, the same weights
+   and stream): every request's tokens bit for bit, greedy and sampled,
+   and the credited launches equal to the twin's; at most 2 graph keys
+   a sampling mode (1 for the monolithic decode step), at most one
+   capture a key, replays; in steady-state decode no upload and one
+   fetch a horizon (the monolithic engine: 5 uploads and 1 fetch a
+   step); three profiled replays of the unified and the horizon graph,
+   whose middle one runs exactly the flash partial and combine and
+   paged decode and merge launches it is credited with; each sampled
+   request served alone on a fresh engine gives its stream tokens;
 7. the quantized serving path: the same weights and stream served with
    ``kv_dtype="int8", weight_dtype="int8"`` (the model on the host, the
    engine on the card); the int8 kernel must launch, on its split route,
@@ -103,12 +115,14 @@ Phases (any failure exits non-zero before the result lines print):
    TTFT, KV and weight bytes and peak memory print beside phase 6's;
 7a. path ``generate``: ``GPT.generate`` on the card, B 4 of phase 6's
    prompts cut to 200 tokens, 32 new greedy tokens, with
-   ``decode_horizon`` None and 8 (one decode loop in the port; the
-   argument changes nothing): exactly 12 flash forward launches a call
-   (one a layer, unsplit), no combine, no other kernel; the two calls'
-   tokens identical; each row against the paged engine's tokens for its
-   prompt, and two rows replayed through the port on the CPU, under the
-   margin rule;
+   ``decode_horizon`` None and 8 (one decode loop in the port, a CUDA
+   graph replayed 31 times a call; the argument changes nothing):
+   exactly 12 flash forward launches a call (the eager prefill, one a
+   layer, unsplit), no combine, no other kernel; the two calls' tokens
+   identical, and equal to the eager loop's (``_capture=False``), greedy
+   and sampled; one graph a loop entry, 122 replays; each row against
+   the paged engine's tokens for its prompt, and two rows replayed
+   through the port on the CPU, under the margin rule;
 7b. path ``serve_slot``: phase 6's stream through ``ServingEngine(
    paged=False)``, horizon 8: 8/8 complete; greedy requests equal phase
    6's tokens under the margin rule; flash forward and its combine
@@ -186,9 +200,11 @@ Phases (any failure exits non-zero before the result lines print):
    each, no backward one); the
    epoch loss must fall and the characters must equal the port's on the
    CPU from the same weights and generator;
-14. one line comparing each captured path with its eager twin (steady
-   step, tokens/s, peak memory, replays; the predict errors), one
-   ``kernels`` JSON line, then the result line.
+14. one line comparing each captured serving path with its eager twin
+   (tokens/s, TTFT p50, ITL p50 and p99, peak memory, captures and
+   replays), one comparing each captured training path with its eager
+   twin (steady step, tokens/s, peak memory, replays; the predict
+   errors), one ``kernels`` JSON line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
 7, 7a-7f, 8, 8b, 8c, 11 and 13) and read just after it; a kernel's
@@ -200,13 +216,16 @@ card ran; the eager twins' runs are not in the sums.  The
 the row without the suffix) and carry the bf16 figures (fp16's and the
 other paged combinations under ``by_dtype`` / ``by_combination``).
 
-    python3 chip_smoke.py --profile [serve|serve_int8|serve_slot|generate|
+    python3 chip_smoke.py --profile [serve[_eager]|serve_int8|
+                                     serve_slot[_eager]|generate[_eager]|
                                      train[_eager]|train_bf16[_eager]|
                                      train_fp16[_eager]|rnn_train[_eager]|
                                      rnn_train_plain]
 
 runs phases 1-2 and then the serving stream (float or int8 pages, or
-float slots), one ``GPT.generate`` call of path 7a, or two training
+float slots; on an engine whose graphs the same stream with other token
+values captured first; with ``_eager`` the eager twin), one
+``GPT.generate`` call of path 7a (captured, or the eager loop), or two training
 steps (GPT in float32 or under the bf16 or fp16 policy, the fused
 char-LSTM or the char-LSTM through the plain cell; captured, or with
 ``_eager`` the eager twin) after two warm-up steps (on the captured
@@ -214,14 +233,16 @@ path: the eager first step and the capture), once under ``torch.profiler`` (CPU 
 and prints the device's busy and idle share over the run, device time by
 kernel group and the costliest kernels.
 
-    python3 chip_smoke.py --compare-serve [layouts|precision]
+    python3 chip_smoke.py --compare-serve [layouts|precision|graphs]
 
-runs phases 1-2 and then the float and the int8 serving slices
-alternately, four runs of each on fresh engines (with ``layouts``: the
-paged, slot and monolithic engines, three runs of each; with
-``precision``: the float32 and the bf16 paged engines, four each), and
-prints
-each run's tokens/s, TTFT p50, ITL p99 and wall time and their spread.
+runs phases 1-2 and then the paged engine captured and its eager twin
+alternately, four runs of each (with ``layouts``: the paged, slot and
+monolithic engines, three runs of each; with ``precision``: the float32
+and the bf16 paged engines, four each; with ``graphs``: the paged,
+int8, slot, monolithic and bf16 engines, each captured and eager, three
+runs of each), each kind on one engine whose graphs a first stream
+captured, and prints each run's tokens/s, TTFT p50, ITL p50 and p99 and
+wall time and their spread.
 
 Kernel times are the median of single launches timed with CUDA events,
 each after a 64 MiB write that evicts the 50 MB L2, so operands come
@@ -2038,19 +2059,69 @@ def _cpu_margin(cpu_model, tokens, weight_dtype=None):
     return float(margin), tol, ulp
 
 
+# the sampled requests of the staggered stream (the rest are greedy)
+SAMPLED = {3: dict(temperature=0.8, top_k=40, seed=3),
+           5: dict(temperature=1.0, seed=5),
+           7: dict(temperature=0.7, top_k=8, seed=7)}
+
+
 def _serve(eng, prompts):
     """The staggered stream: four requests, two steps, four more, run to
-    the end.  Request 3 samples (temperature 0.8, top-k 40) from its own
-    generator; the rest are greedy.  Returns ``(rids, results)``."""
-    sampling = [dict(temperature=0.8, top_k=40, seed=3) if i == 3 else {}
-                for i in range(len(prompts))]
+    the end; requests 3, 5 and 7 sample (``SAMPLED``), the rest are
+    greedy.  The steps that admit come first (until the queue and the
+    admission lane are empty), then the steady state, whose uploads,
+    syncs and horizons are counted.  Returns ``(rids, results,
+    steady)``."""
+    sampling = [SAMPLED.get(i, {}) for i in range(len(prompts))]
     rids = [eng.submit(p, NEW, **kw_i)
             for p, kw_i in zip(prompts[:4], sampling[:4])]
     eng.step()
     eng.step()
     rids += [eng.submit(p, NEW, **kw_i)
              for p, kw_i in zip(prompts[4:], sampling[4:])]
-    return rids, eng.run()
+    while eng.queue or eng._lane is not None:
+        eng.step()
+    before = eng.metrics.snapshot()
+    res = eng.run()
+    after = eng.metrics.snapshot()
+    return rids, res, {k: after[k] - before[k] for k in (
+        "host_uploads", "host_syncs", "horizon_blocks")}
+
+
+def _check_steady(label, eng, steady):
+    """Steady-state decode uploads nothing and fetches once a horizon
+    (chunked engines); the monolithic engine uploads its 5 arrays and
+    fetches once a step."""
+    _log(f"{label} steady state: {json.dumps(steady)}")
+    if eng.chunked:
+        ok = (steady["host_uploads"] == 0 and steady["horizon_blocks"] > 0
+              and steady["host_syncs"] == steady["horizon_blocks"])
+    else:
+        ok = (steady["host_syncs"] > 0 and steady["host_uploads"]
+              == 5 * steady["host_syncs"])
+    if not ok:
+        raise AssertionError(f"{label}: steady state {steady}")
+
+
+def _check_graphs(label, eng):
+    """The graph pin, as the reference pins its programs: at most 2 keys
+    a sampling mode on a chunked engine, 1 on the monolithic one; at
+    most one capture a key, and replays; the eager twin captures
+    nothing."""
+    log, caps, reps = eng.trace_log, eng.graph_captures, eng.graph_replays
+    _log(f"{label} graphs: keys {log}, captures {caps}, replays {reps}")
+    pin = 2 if eng.chunked else 1
+    sampled = [k for k in log if k.endswith(":sampled")]
+    if len(sampled) > pin or len(log) - len(sampled) > pin \
+            or len(set(log)) != len(log):
+        raise AssertionError(f"{label}: graph keys {log} over the pin")
+    if not eng._capture:
+        if caps or reps:
+            raise AssertionError(f"{label}: the eager twin captured {caps}")
+        return
+    if not 1 <= sum(caps.values()) <= len(log) \
+            or sum(reps.values()) <= sum(caps.values()):
+        raise AssertionError(f"{label}: captures {caps}, replays {reps}")
 
 
 def _slice_setup():
@@ -2092,18 +2163,22 @@ def _drive(eng, prompts, cfg, label):
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
-    rids, res = _serve(eng, prompts)
+    rids, res, steady = _serve(eng, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
     snap = eng.metrics.snapshot()
     stats = {"wall_s": wall, "tokens_per_s": snap["tokens_per_s"],
              "ttft_p50_ms": snap["ttft_p50_ms"],
+             "itl_p50_ms": snap["itl_p50_ms"],
+             "itl_p99_ms": snap["itl_p99_ms"],
              "kv_bytes_committed": snap["kv_bytes_committed"],
              "weight_bytes": _tree_bytes(eng.params),
-             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "graph_captures": dict(eng.graph_captures),
+             "graph_replays": dict(eng.graph_replays)}
     _log(f"{label} launches " + json.dumps(launches))
-    _log(f"{label}: {len(res)} requests in {wall:.3f}s; "
+    _log(f"{label}: {len(rids)} requests in {wall:.3f}s; "
          f"ttft_p50_ms {snap['ttft_p50_ms']} itl_p50_ms {snap['itl_p50_ms']}"
          f" itl_p99_ms {snap['itl_p99_ms']} tokens_per_s "
          f"{snap['tokens_per_s']} prefix_cache_hit_rate "
@@ -2114,15 +2189,46 @@ def _drive(eng, prompts, cfg, label):
          f"{stats['weight_bytes']} peak_memory_bytes "
          f"{stats['peak_memory_bytes']}")
     _log(f"{label} metrics " + json.dumps(snap))
-    if len(res) != len(prompts):
-        raise AssertionError(f"{label}: {len(res)} of {len(prompts)} "
+    done = sum(r in res for r in rids)
+    if done != len(prompts):
+        raise AssertionError(f"{label}: {done} of {len(prompts)} "
                              f"requests completed")
     for r in rids:
         toks = res[r]
         if toks.shape != (NEW,) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"{label} request {r}: bad tokens {toks}")
+    _check_steady(label, eng, steady)
+    _check_graphs(label, eng)
     return rids, res, launches, stats
+
+
+def _eager_twin(label, make, prompts, cfg, rids, res, launches, stats):
+    """The path's eager twin: ``make(_capture=False)``, an engine on the
+    same weights that runs the same steps without graphs, drives the
+    same stream.  Every request's tokens equal the captured engine's
+    bit for bit, greedy and sampled; the captured run's credited
+    launches equal the twin's.  The two runs' metrics print side by
+    side and the twin's land in ``stats["eager"]``."""
+    eng = make(_capture=False)
+    e_rids, e_res, e_launches, e_stats = _drive(eng, prompts, cfg,
+                                                f"{label} eager twin")
+    del eng
+    same = [bool(np.array_equal(res[a], e_res[b]))
+            for a, b in zip(rids, e_rids)]
+    _log(f"{label} captured against eager: {sum(same)} of {len(same)} "
+         f"requests bit for bit (sampled: {sorted(SAMPLED)}); " + " ".join(
+             f"{k} {stats[k]} / {e_stats[k]}" for k in (
+                 "tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms",
+                 "peak_memory_bytes")))
+    if not all(same):
+        raise AssertionError(f"{label}: captured tokens differ from the "
+                             f"eager twin's: {same}")
+    if launches != e_launches:
+        raise AssertionError(f"{label}: credited launches {launches} differ "
+                             f"from the eager twin's {e_launches}")
+    stats["eager"] = e_stats
+    return e_stats
 
 
 def _margin_check(label, cpu_model, prompt, a, b, weight_dtype=None):
@@ -2162,6 +2268,22 @@ def _cpu_oracle(cpu_model, kw, prompts, res, rids, weight_dtype=None):
                       weight_dtype)
 
 
+def _sampled_alone(eng, prompts, rids, res, label):
+    """Each sampled request of the stream served alone on a fresh
+    captured engine gives the tokens it gave in the stream: its k-th
+    token takes the k-th draw of its seed's generator, whatever its
+    neighbours (every slot of a sampled graph draws)."""
+    for i, kw_i in SAMPLED.items():
+        rid = eng.submit(prompts[i], NEW, **kw_i)
+        got = eng.run()[rid]
+        if not np.array_equal(got, res[rids[i]]):
+            raise AssertionError(f"{label}: sampled request {i} alone gave "
+                                 f"{got}, in the stream {res[rids[i]]}")
+    _log(f"{label}: sampled requests {sorted(SAMPLED)} alone give their "
+         f"stream tokens (captures {eng.graph_captures}, replays "
+         f"{eng.graph_replays})")
+
+
 def phase_slice():
     """Returns ``(launches, stats, setup)``: ``setup`` carries the
     configuration, the seeded tree, the engine arguments, the prompts,
@@ -2178,7 +2300,14 @@ def phase_slice():
                                  f"serving path")
     if eng.metrics.snapshot()["prefix_cache_hit_rate"] <= 0:
         raise AssertionError("the shared 64-token prefix was not reused")
-    del eng, model
+    stats["graph_kernels"] = _serving_graph_kernels(
+        eng, "serve", {"unified": CHUNK_KERNELS | PAGED_KERNELS,
+                       "horizon": PAGED_KERNELS})
+    del eng
+    _eager_twin("serve", lambda **k: ServingEngine(model, **kw, **k),
+                prompts, cfg, rids, res, launches, stats)
+    _sampled_alone(ServingEngine(model, **kw), prompts, rids, res, "serve")
+    del model
     cpu_model = tgpt.GPT.from_jax_decode_params(tree, cfg, device="cpu")
     _cpu_oracle(cpu_model, kw, prompts, res, rids)
     return launches, stats, {"cfg": cfg, "tree": tree, "kw": kw,
@@ -2232,12 +2361,20 @@ def phase_slice_int8(setup, float_stats):
         if launches[name] != 0:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"on the quantized path")
+    stats["graph_kernels"] = _serving_graph_kernels(
+        eng, "serve_int8", {"unified": PAGED_KERNELS,
+                            "horizon": PAGED_KERNELS})
+    _eager_twin("serve_int8",
+                lambda **k: ServingEngine(cpu_model, device="cuda", **qkw,
+                                          **k),
+                prompts, cfg, rids, res, launches, stats)
     fresh = ServingEngine(cpu_model, device="cuda", **qkw)
-    frids, fres = _serve(fresh, prompts)
+    frids, fres, _ = _serve(fresh, prompts)
     same = [bool(np.array_equal(res[a], fres[b]))
             for a, b in zip(rids, frids)]
     _log(f"int8 determinism: a fresh engine replays {sum(same)} of "
-         f"{len(same)} requests identically (request 3 sampled)")
+         f"{len(same)} requests identically (requests {sorted(SAMPLED)} "
+         f"sampled)")
     if not all(same):
         raise AssertionError(f"a fresh int8 engine gave other tokens: "
                              f"{same}")
@@ -2311,12 +2448,14 @@ def phase_generate(setup):
     toks, stats = {}, {}
     for K in (None, HORIZON):
         before = _read_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         toks[K] = model.generate(batch, NEW, decode_horizon=K)
         wall = time.perf_counter() - t0
         after = _read_launches()
         call = {k: after[k] - before[k] for k in after}
-        stats[K] = {"wall_s": wall, "tokens_per_s": GEN_B * NEW / wall}
+        stats[K] = {"wall_s": wall, "tokens_per_s": GEN_B * NEW / wall,
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
         _log(f"generate B {GEN_B} T {GEN_T} (bucket "
              f"{tgpt.bucket_length(GEN_T, cfg.max_len)}), {NEW} new, "
              f"decode_horizon {K}: {wall:.3f}s, "
@@ -2335,6 +2474,8 @@ def phase_generate(setup):
                              "tokens")
     _log(f"generate: decode_horizon None and 8 give identical tokens "
          f"({GEN_B} x {NEW})")
+    stats["eager"] = _generate_twins("generate", model, batch, toks[None],
+                                     stats[HORIZON], 2 * (2 * (NEW - 1) - 1))
     eng = ServingEngine(model, **setup["kw"])
     rids = [eng.submit(r, NEW) for r in rows]
     res = eng.run()
@@ -2352,11 +2493,61 @@ def phase_generate(setup):
     return launches, stats
 
 
+def _generate_twins(label, model, batch, toks, captured, want_replays):
+    """``generate``'s decode loop captured against its eager twin
+    (``_capture=False``) on one batch: the greedy ``toks`` (its second,
+    all-replay call's time and peak memory in ``captured``) and a
+    sampled pair of calls (temperature 0.8, top-k 40, seed 11), each bit
+    for bit; one graph an entry (B, dtype, greedy or sampled), at most
+    ``GEN_CACHE_MAX`` entries, ``want_replays`` replays in all (every
+    step after an entry's first two: 2 (NEW - 1) - 1 a key over two
+    calls).  Returns the eager twin's stats."""
+    def timed(**kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = model.generate(batch, NEW, **kw)
+        wall = time.perf_counter() - t0
+        return out, {"wall_s": wall, "tokens_per_s": GEN_B * NEW / wall,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+    eager, e_stats = timed(_capture=False)
+    samp = dict(temperature=0.8, top_k=40, seed=11)
+    s1, _ = timed(**samp)
+    s2, s_stats = timed(**samp)
+    s_eager, _ = timed(_capture=False, **samp)
+    caps, reps = model.graph_captures, model.graph_replays
+    keys = [k for k in model._gen_entries if k[1] == GEN_B]
+    entry_bytes = sum(t.numel() * t.element_size()
+                      for k in keys for layer in model._gen_entries[k].caches
+                      for t in layer)
+    _log(f"{label} captured against eager: greedy tokens/s "
+         f"{captured['tokens_per_s']:.1f} / {e_stats['tokens_per_s']:.1f}, "
+         f"peak memory {captured['peak_memory_bytes']} / "
+         f"{e_stats['peak_memory_bytes']} bytes; sampled tokens/s "
+         f"{s_stats['tokens_per_s']:.1f}; entries {list(model._gen_entries)}"
+         f" ({entry_bytes} bytes of static caches at B {GEN_B}); captures "
+         f"{caps}, replays {reps}")
+    if not (np.array_equal(eager, toks) and np.array_equal(s1, s2)
+            and np.array_equal(s1, s_eager)):
+        raise AssertionError(f"{label}: captured tokens differ from the "
+                             f"eager loop's")
+    if np.array_equal(s1, toks):
+        raise AssertionError(f"{label}: sampling gave the greedy tokens")
+    if len(model._gen_entries) > tgpt.GEN_CACHE_MAX \
+            or caps.get("generate") != len(model._gen_entries) \
+            or len(keys) != 2 or reps.get("generate") != want_replays:
+        raise AssertionError(f"{label}: entries {list(model._gen_entries)}, "
+                             f"captures {caps}, replays {reps}")
+    e_stats["entry_cache_bytes"] = entry_bytes
+    return e_stats
+
+
 def _greedy_against_serve(setup, label, rids, res):
-    """Every greedy request of the stream (all but request 3) against
+    """Every greedy request of the stream (all but ``SAMPLED``) against
     phase 6's paged tokens, under the margin rule."""
     for i, p in enumerate(setup["prompts"]):
-        if i != 3:
+        if i not in SAMPLED:
             _margin_check(f"{label} request {i} against serve",
                           setup["cpu_model"], p, res[rids[i]],
                           setup["res"][setup["rids"][i]])
@@ -2390,7 +2581,12 @@ def phase_serve_layout(setup, label, kw, float_stats):
     eng = ServingEngine(model, **kw)
     rids, res, launches, stats = _drive(eng, setup["prompts"], setup["cfg"],
                                         label)
+    if kw.get("chunked", True):
+        stats["graph_kernels"] = _serving_graph_kernels(
+            eng, label, {"unified": CHUNK_KERNELS})
     del eng
+    _eager_twin(label, lambda **k: ServingEngine(model, **kw, **k),
+                setup["prompts"], setup["cfg"], rids, res, launches, stats)
     for name in ("flash_attention_fwd", "flash_attention_fwd_combine"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on {label}")
@@ -2420,12 +2616,17 @@ def phase_serve_slot_int8(setup):
         if n != 0:
             raise AssertionError(f"{name} launched {n} times on the int8 "
                                  f"slot path")
+    _eager_twin("serve_slot_int8",
+                lambda **k: ServingEngine(cpu_model, device="cuda", **qkw,
+                                          **k),
+                prompts, cfg, rids, res, launches, stats)
     fresh = ServingEngine(cpu_model, device="cuda", **qkw)
-    frids, fres = _serve(fresh, prompts)
+    frids, fres, _ = _serve(fresh, prompts)
     del fresh
     same = [bool(np.array_equal(res[a], fres[b])) for a, b in zip(rids, frids)]
     _log(f"serve_slot_int8 determinism: a fresh engine replays {sum(same)} "
-         f"of {len(same)} requests identically (request 3 sampled)")
+         f"of {len(same)} requests identically (requests {sorted(SAMPLED)} "
+         f"sampled)")
     if not all(same):
         raise AssertionError(f"a fresh int8 slot engine gave other tokens: "
                              f"{same}")
@@ -2615,19 +2816,27 @@ def _graph_against_eager(label, g_launch, g_stats, e_launch, e_stats,
 
 
 def _graph_kernels(model, label, want):
-    """Three more replays of the captured training step under
+    """:func:`_replay_kernels` on the captured training step; the state
+    is restored in place after the replays, so the run goes on from
+    where it was."""
+    entry = next(e for k, e in model._graphs.items() if k[0] == "train")
+    saved = _device_states(model)
+    found = _replay_kernels(entry, label, want)
+    _restore(model, saved)
+    return found
+
+
+def _replay_kernels(entry, label, want):
+    """Three more replays of a captured graph (``entry``) under
     ``torch.profiler``, with a marker kernel (``torch.cuda._sleep``'s
     ``spin_kernel``) after the first and after the second: the middle
     replay's kernels counted by name, and each count held equal to the
     launches that replay was credited with (``want`` maps a kernel's
     name to the counters of :func:`_read_launches` it stands for).  The
     replays either side keep the middle one clear of the trace's edges,
-    where the tracer can lose a graph's first records.  The state is
-    restored in place after them, so the run goes on from where it was;
-    the counters are zeroed first (the path's own were read already)."""
+    where the tracer can lose a graph's first records.  The counters
+    are zeroed first (the path's own were read already)."""
     from torch.profiler import ProfilerActivity, profile
-    entry = next(e for k, e in model._graphs.items() if k[0] == "train")
-    saved = _device_states(model)
     torch.cuda.synchronize()
     _zero_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2639,8 +2848,6 @@ def _graph_kernels(model, label, want):
         entry.graph.replay()
         torch.cuda.synchronize()
     credited = _read_launches()
-    _restore(model, saved)
-    del saved
     kernels = sorted((e.time_range.start, e.name) for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA)
     marks = [i for i, (_, n) in enumerate(kernels) if "spin_kernel" in n]
@@ -2691,6 +2898,30 @@ def _predict_check(model, x, label):
 FLASH_KERNELS = {"flash_fwd_mma": ("flash_attention_fwd",),
                  "flash_bwd_dq_mma": ("flash_attention_bwd_dq",),
                  "flash_bwd_dkv_mma": ("flash_attention_bwd_dkv",)}
+# the serving graphs' kernels: the unified step's prompt chunk (flash on
+# its split route and the combine) and every paged decode iteration (the
+# kernel, float or int8, and its merge)
+CHUNK_KERNELS = {"flash_fwd_mma": ("flash_attention_fwd",),
+                 "flash_fwd_combine": ("flash_attention_fwd_combine",)}
+PAGED_KERNELS = {"paged_decode_kernel": ("paged_decode_attention",
+                                         "paged_decode_attention_q8"),
+                 "paged_merge_kernel": ("paged_decode_merge",)}
+
+
+def _serving_graph_kernels(eng, label, want):
+    """:func:`_replay_kernels` on each of an engine's graphs that
+    ``want`` names (kind -> kernels; the greedy twin where it was
+    captured, else the sampled one), after its stream: the engine is
+    not used again."""
+    found = {}
+    for kind, kernels in want.items():
+        keys = sorted((k for k in eng._gc.graphs if k[0] == kind),
+                      key=lambda k: k[1].endswith(":sampled"))
+        if not keys:
+            raise AssertionError(f"{label}: no {kind} graph was captured")
+        found[keys[0][1]] = _replay_kernels(eng._gc.graphs[keys[0]],
+                                            f"{label} {keys[0][1]}", kernels)
+    return found
 
 
 def phase_train():
@@ -2829,7 +3060,12 @@ def phase_serve_bf16(setup, float_stats):
         raise AssertionError(f"serve_bf16 pools are "
                              f"{eng.kv.caches[0][0].dtype}")
     rids, res, launches, stats = _drive(eng, prompts, cfg16, "serve_bf16")
+    stats["graph_kernels"] = _serving_graph_kernels(
+        eng, "serve_bf16", {"unified": CHUNK_KERNELS | PAGED_KERNELS,
+                            "horizon": PAGED_KERNELS})
     del eng
+    _eager_twin("serve_bf16", lambda **k: ServingEngine(model, **kw, **k),
+                prompts, cfg16, rids, res, launches, stats)
     _lowp_launches("serve_bf16", launches,
                    ("flash_attention_fwd", "flash_attention_fwd_combine",
                     "paged_decode_attention"))
@@ -2865,6 +3101,17 @@ def phase_generate_bf16(setup):
     wall = time.perf_counter() - t0
     launches = _read_launches()
     stats = {"wall_s": wall, "tokens_per_s": GEN_B * NEW / wall}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = model.generate(batch, NEW)          # all replays
+    wall = time.perf_counter() - t0
+    if not np.array_equal(again, toks):
+        raise AssertionError("generate_bf16: a second call differs")
+    stats["captured"] = {"tokens_per_s": GEN_B * NEW / wall,
+                         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    stats["eager"] = _generate_twins(
+        "generate_bf16", model, batch, toks, stats["captured"],
+        2 + 2 * (2 * (NEW - 1) - 1))     # the B 1 warm-up's 2 replays too
     _log(f"generate_bf16 B {GEN_B} T {GEN_T}, {NEW} new: {wall:.3f}s, "
          f"{stats['tokens_per_s']:.1f} tokens/s; launches "
          + json.dumps({k: v for k, v in launches.items() if v}))
@@ -3472,60 +3719,68 @@ def _int8_engine_setup(cfg, tree, kw, prompts):
 
 
 def _compare_engine(kind, model, cpu_model, kw, qkw, model16=None):
-    """A fresh engine of ``kind`` and the kernel counter its run must
-    move: ``paged`` the float paged engine, ``int8`` the quantized one,
+    """An engine of ``kind`` and the kernel counter its run must move:
+    ``paged`` the float paged engine, ``int8`` the quantized one,
     ``slot`` the slot chunked engine, ``mono`` the monolithic one,
-    ``bf16`` the paged engine of ``model16`` (``precision="bfloat16"``)."""
-    if kind == "bf16":
-        return ServingEngine(model16, **kw), "paged_decode_attention_lowp"
-    if kind == "int8":
-        return (ServingEngine(cpu_model, device="cuda", **qkw),
+    ``bf16`` the paged engine of ``model16`` (``precision="bfloat16"``);
+    with ``_eager``, its eager twin (``_capture=False``)."""
+    base = kind.replace("_eager", "")
+    twin = dict(_capture=base == kind)
+    if base == "bf16":
+        return (ServingEngine(model16, **kw, **twin),
+                "paged_decode_attention_lowp")
+    if base == "int8":
+        return (ServingEngine(cpu_model, device="cuda", **qkw, **twin),
                 "paged_decode_attention_q8")
-    if kind == "paged":
-        return ServingEngine(model, **kw), "paged_decode_attention"
-    if kind == "slot":
-        return (ServingEngine(model, **dict(kw, paged=False)),
+    if base == "paged":
+        return ServingEngine(model, **kw, **twin), "paged_decode_attention"
+    if base == "slot":
+        return (ServingEngine(model, **dict(kw, paged=False), **twin),
                 "flash_attention_fwd_combine")
-    return (ServingEngine(model, n_slots=N_SLOTS, paged=False, chunked=False),
-            "flash_attention_fwd_combine")
+    return (ServingEngine(model, n_slots=N_SLOTS, paged=False, chunked=False,
+                          **twin), "flash_attention_fwd_combine")
 
 
-def phase_compare_serve(kinds=("paged", "int8"), runs=4):
+def phase_compare_serve(kinds=("paged", "paged_eager"), runs=4):
     """Serving engines alternated in one process, ``runs`` runs of each
-    on fresh engines over the staggered stream, the order reversed every
-    other round (paged, int8, int8, paged, ...; or paged, slot, mono,
-    mono, slot, paged, ...; or paged, bf16, bf16, paged, ...).  Prints
-    every run's tokens/s, TTFT p50, ITL
-    p99 and wall time, then the smallest, median and largest of each and
-    each kind's medians over the first kind's."""
+    over the staggered stream, the order reversed every other round
+    (paged, paged_eager, paged_eager, paged, ...).  Each kind has one
+    engine, which first serves the stream with other token values (its
+    graphs captured before the first timed run); run r serves the
+    prompts shifted by r token values (no prefix pages from an earlier
+    run), on metrics reset before it.  Prints every run's tokens/s, TTFT
+    p50, ITL p50 and p99 and wall time, then the smallest, median and
+    largest of each, and the ratio of medians of each ``_eager`` kind to
+    its captured kind (of every other kind to the first)."""
     cfg, tree, model, kw, prompts = _slice_setup()
     cpu_model = qkw = model16 = None
-    if "int8" in kinds:
+    if any(k.startswith("int8") for k in kinds):
         cpu_model, qkw = _int8_engine_setup(cfg, tree, kw, prompts)
-    if "bf16" in kinds:
+    if any(k.startswith("bf16") for k in kinds):
         model16 = tgpt.GPT.from_jax_decode_params(
             tree, tgpt.GPTConfig.small(precision="bfloat16"))
-    for kind in kinds:                  # one short warm-up run each
-        eng = _compare_engine(kind, model, cpu_model, kw, qkw, model16)[0]
-        eng.submit(prompts[0][:80], 9)
-        eng.run()
-        del eng
+    V = cfg.vocab_size
+    engines = {}
+    for kind in kinds:
+        engines[kind] = _compare_engine(kind, model, cpu_model, kw, qkw,
+                                        model16)
+        _serve(engines[kind][0], [(p + 1000) % V for p in prompts])
     order = [k for r in range(runs)
              for k in (kinds if r % 2 == 0 else kinds[::-1])]
     out = {k: [] for k in kinds}
     for i, kind in enumerate(order):
-        eng, want = _compare_engine(kind, model, cpu_model, kw, qkw, model16)
-        _, _, launches, stats = _drive(eng, prompts, cfg,
-                                       f"compare {i} {kind}")
+        eng, want = engines[kind]
+        eng.metrics.reset()
+        _, _, launches, stats = _drive(
+            eng, [(p + len(out[kind])) % V for p in prompts], cfg,
+            f"compare {i} {kind}")
         if launches[want] <= 0:
             raise AssertionError(f"compare {i} {kind}: {want} not launched")
-        snap = eng.metrics.snapshot()
-        out[kind].append({"tokens_per_s": snap["tokens_per_s"],
-                          "ttft_p50_ms": snap["ttft_p50_ms"],
-                          "itl_p99_ms": snap["itl_p99_ms"],
-                          "wall_s": stats["wall_s"]})
-        del eng
-    keys = ("tokens_per_s", "ttft_p50_ms", "itl_p99_ms", "wall_s")
+        out[kind].append({k: stats[k] for k in (
+            "tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms",
+            "wall_s")})
+    keys = ("tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms",
+            "wall_s")
     med = {}
     for kind, rs in out.items():
         for key in keys:
@@ -3534,16 +3789,23 @@ def phase_compare_serve(kinds=("paged", "int8"), runs=4):
             _log(f"compare {kind} {key}: min {v[0]} median "
                  f"{med[kind, key]} max {v[-1]} over {len(v)} runs {v}")
     for kind in kinds[1:]:
-        _log(f"compare {kind} / {kinds[0]}, ratio of medians: " + json.dumps(
-            {key: med[kind, key] / med[kinds[0], key] for key in keys}))
+        ref = kind.replace("_eager", "") if kind.endswith("_eager") \
+            else kinds[0]
+        _log(f"compare {kind} / {ref}, ratio of medians: " + json.dumps(
+            {key: med[kind, key] / med[ref, key] if med[ref, key] else None
+             for key in keys}))
 
 
 def phase_profile(path):
     """One path once more under ``torch.profiler`` (CPU and CUDA
     activity): ``serve``, the slice's stream; ``serve_int8``, the same
     stream on the quantized engine; ``serve_slot``, the same stream on
-    the slot chunked engine (after a warm-up run); ``generate``, one
-    ``GPT.generate`` call of the generate path after a warm-up call;
+    the slot chunked engine; each on an engine that served the stream
+    once already with other token values (the same keys: every graph
+    captured before the window); with ``_eager`` (``serve``,
+    ``serve_slot``), the eager twin; ``generate``, one
+    ``GPT.generate`` call of the generate path after a warm-up call
+    (captured; ``generate_eager`` the eager loop);
     ``train``, ``train_bf16``, ``train_fp16``, two captured training
     steps (replays) after two unprofiled ones (the eager first step and
     the capture), and each with ``_eager``, the same steps of the eager
@@ -3554,28 +3816,29 @@ def phase_profile(path):
     kernel group and by kernel.  Times under the profiler include its
     own host overhead."""
     from torch.profiler import ProfilerActivity, profile
-    if path in ("serve", "serve_int8", "serve_slot"):
+    if path.startswith("serve"):
         cfg, tree, model, kw, prompts = _slice_setup()
-        if path == "serve":
-            eng = ServingEngine(model, **kw)
-        elif path == "serve_slot":
+        twin = dict(_capture=not path.endswith("_eager"))
+        if path.startswith("serve_slot"):
             kw = dict(kw, paged=False)
-            _warm(model, kw, prompts)
-            eng = ServingEngine(model, **kw)
-        else:
+        if path == "serve_int8":
             del model
             cpu_model, qkw = _int8_engine_setup(cfg, tree, kw, prompts)
             eng = ServingEngine(cpu_model, device="cuda", **qkw)
+        else:
+            eng = ServingEngine(model, **kw, **twin)
+        _serve(eng, [(p + 1) % cfg.vocab_size for p in prompts])
 
         def run():
             _serve(eng, prompts)
-    elif path == "generate":
+    elif path.startswith("generate"):
         cfg, tree, model, kw, prompts = _slice_setup()
         batch = np.stack(_generate_rows(prompts))
-        model.generate(batch, NEW)
+        twin = dict(_capture=path == "generate")
+        model.generate(batch, NEW, **twin)
 
         def run():
-            model.generate(batch, NEW)
+            model.generate(batch, NEW, **twin)
     elif path.startswith("train"):
         base = path.replace("_eager", "")
         cfg, model, batches = _train_setup(
@@ -3640,7 +3903,8 @@ def phase_profile(path):
              f"{key[:110]}")
 
 
-PROFILE_PATHS = ("serve", "serve_int8", "serve_slot", "generate", "train",
+PROFILE_PATHS = ("serve", "serve_eager", "serve_int8", "serve_slot",
+                 "serve_slot_eager", "generate", "generate_eager", "train",
                  "train_eager", "train_bf16", "train_bf16_eager",
                  "train_fp16", "train_fp16_eager", "rnn_train",
                  "rnn_train_eager", "rnn_train_plain")
@@ -3657,12 +3921,17 @@ def main(argv):
              ("--compare-serve", "layouts"):
              lambda: phase_compare_serve(("paged", "slot", "mono"), 3),
              ("--compare-serve", "precision"):
-             lambda: phase_compare_serve(("paged", "bf16"))}
+             lambda: phase_compare_serve(("paged", "bf16")),
+             ("--compare-serve", "graphs"):
+             lambda: phase_compare_serve(tuple(
+                 k + e for k in ("paged", "int8", "slot", "mono", "bf16")
+                 for e in ("", "_eager")), 3)}
     for path in PROFILE_PATHS:
         modes["--profile", path] = lambda p=path: phase_profile(p)
     if tuple(argv) not in modes:
         print(f"usage: chip_smoke.py [--profile [{'|'.join(PROFILE_PATHS)}]"
-              f" | --compare-serve [layouts|precision]]", file=sys.stderr)
+              f" | --compare-serve [layouts|precision|graphs]]",
+              file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     card = phase_card()
@@ -3687,21 +3956,39 @@ def main(argv):
     rows = [fwd, combine, dq, dkv, elementwise, lstm, lstm_bwd, paged,
             paged_q8, paged_merge] + lowp
     serve_launches, serve_stats, setup = phase_slice()
-    int8_launches, _ = phase_slice_int8(setup, serve_stats)
+    int8_launches, int8_stats = phase_slice_int8(setup, serve_stats)
     t_s = time.perf_counter()
-    gen_launches, _ = phase_generate(setup)
-    slot_launches, _ = phase_serve_layout(
+    gen_launches, gen_stats = phase_generate(setup)
+    slot_launches, slot_stats = phase_serve_layout(
         setup, "serve_slot", dict(setup["kw"], paged=False), serve_stats)
-    mono_launches, _ = phase_serve_layout(
+    mono_launches, mono_stats = phase_serve_layout(
         setup, "serve_mono", dict(n_slots=N_SLOTS, paged=False,
                                   chunked=False), serve_stats)
-    slot8_launches, _ = phase_serve_slot_int8(setup)
+    slot8_launches, slot8_stats = phase_serve_slot_int8(setup)
     _log(f"generate and slot-layout phases (7a-7d): "
          f"{time.perf_counter() - t_s:.1f}s")
     t_s = time.perf_counter()
-    serve16_launches, _ = phase_serve_bf16(setup, serve_stats)
-    gen16_launches, _ = phase_generate_bf16(setup)
+    serve16_launches, serve16_stats = phase_serve_bf16(setup, serve_stats)
+    gen16_launches, gen16_stats = phase_generate_bf16(setup)
     _log(f"bf16 serving phases (7e-7f): {time.perf_counter() - t_s:.1f}s")
+    keys = ("tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms",
+            "peak_memory_bytes")
+    _log("serving captured against eager: " + json.dumps({
+        label: {k: st[k] for k in keys + ("graph_captures",
+                                          "graph_replays")}
+        | {"eager": {k: st["eager"][k] for k in keys}}
+        for label, st in (("serve", serve_stats),
+                          ("serve_int8", int8_stats),
+                          ("serve_slot", slot_stats),
+                          ("serve_mono", mono_stats),
+                          ("serve_slot_int8", slot8_stats),
+                          ("serve_bf16", serve16_stats))}
+        | {label: {k: st[k] for k in ("tokens_per_s", "peak_memory_bytes")}
+           | {"eager": st["eager"]}
+           for label, st in (("generate", gen_stats[HORIZON]
+                              | {"eager": gen_stats["eager"]}),
+                             ("generate_bf16", gen16_stats["captured"]
+                              | {"eager": gen16_stats["eager"]}))}))
     del setup
     t_s = time.perf_counter()
     model, train_launches, train_stats, batches, ckpt = phase_train()

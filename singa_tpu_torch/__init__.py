@@ -16,7 +16,9 @@ char-LSTM trained and sampled through the RNN layers
 (:mod:`singa_tpu_torch.examples.char_rnn`), the training step captured
 as a CUDA graph under ``Model.compile(use_graph=True)`` with
 ``run_k_steps``, ``predict`` and zip checkpoints that cross to the JAX
-package (:mod:`~singa_tpu_torch.model`), with hand-written CUDA
+package (:mod:`~singa_tpu_torch.model`), the serving engine's steps and
+``GPT.generate``'s decode loop captured as CUDA graphs on the card
+(the shared protocol: ``_graphs``), with hand-written CUDA
 kernels for flash-attention forward and backward, paged decode
 attention, the fused LSTM cell and the elementwise catalogue
 (:mod:`singa_tpu_torch.ops`).

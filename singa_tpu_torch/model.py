@@ -96,23 +96,15 @@ from . import autograd
 from . import precision as _precision
 from .device import get_device
 from .layer import Layer
-from .ops import elementwise, flash_attention, lstm_cell, paged_attention
+from ._graphs import GraphCache, launch_counts as _launch_counts
 from .tensor import _NARROW, Tensor
 
 __all__ = ["Model"]
-
-# the modules whose ``launches*`` counters a replay credits
-_KERNEL_MODULES = (flash_attention, paged_attention, lstm_cell, elementwise)
 
 
 def _not_ported(what: str, where: str):
     raise NotImplementedError(f"{what} belongs to a later slice of the "
                               f"port (ROADMAP.md queue 1, {where})")
-
-
-def _launch_counts() -> dict:
-    return {(m, n): v for m in _KERNEL_MODULES for n, v in vars(m).items()
-            if n.startswith("launches") and isinstance(v, int)}
 
 
 def _atomic_publish(tmp: str, final: str) -> None:
@@ -127,32 +119,6 @@ def _atomic_publish(tmp: str, final: str) -> None:
     os.replace(tmp, final)
 
 
-class _Graph:
-    """One captured step (or forward) of one input signature: the graph,
-    its input buffers and outputs, the storage of the state it was
-    captured against, and the kernel launches a replay credits."""
-
-    __slots__ = ("graph", "inputs", "outputs", "state", "launches")
-
-    def __init__(self, graph, inputs, outputs, state, launches):
-        self.graph = graph
-        self.inputs = inputs
-        self.outputs = outputs
-        self.state = state
-        self.launches = launches
-
-    def load(self, raw):
-        with torch.no_grad():
-            for buf, r in zip(self.inputs, raw):
-                if isinstance(buf, torch.Tensor):
-                    buf.copy_(r)
-
-    def replay(self):
-        self.graph.replay()
-        for (mod, name), n in self.launches.items():
-            setattr(mod, name, getattr(mod, name) + n)
-
-
 class Model(Layer):
     TENSOR_DICT = "tensor_dict.npz"
     STATES_ATTR = "states_attr.npz"
@@ -165,11 +131,22 @@ class Model(Layer):
         self.graph_mode = False
         self._user_tob = None
         self.precision_policy = None   # a precision.Policy or None
-        self._graphs = {}      # (kind, signature) -> _Graph
-        self._warm = {}        # (kind, signature) -> state ids after call 1
-        self._stream = None    # the side stream of first calls and captures
-        self.graph_captures = {}   # kind ("train", "predict") -> count
-        self.graph_replays = {}
+        # (kind, signature) -> graph; the keys' eager first calls (state
+        # ids after call 1); the side stream; captures and replays by
+        # kind ("train", "predict")
+        self._gc = GraphCache()
+
+    @property
+    def _graphs(self) -> dict:
+        return self._gc.graphs
+
+    @property
+    def graph_captures(self) -> dict:
+        return self._gc.captures
+
+    @property
+    def graph_replays(self) -> dict:
+        return self._gc.replays
 
     # ------------------------------------------------------------------
     # configuration (reference-parity API)
@@ -347,74 +324,34 @@ class Model(Layer):
     # CUDA graphs
     # ------------------------------------------------------------------
     def _drop_graphs(self):
-        self._graphs = {}
-        self._warm = {}
-
-    def _side_stream(self):
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device.torch_device)
-        return self._stream
+        self._gc.drop()
 
     def _graph_call(self, kind, fn, raw, registry_fn, k=1):
         """``fn`` on ``raw`` through the graph of its signature, ``k``
         times (see the module docstring): the first call of a signature,
         or of a new set of state tensors, runs eagerly on the side
         stream; a graph whose state storage moved is captured again."""
+        gc = self._gc
+        dev = self.device.torch_device
         key = (kind,) + _signature(raw)
         reg = registry_fn()
-        entry = self._graphs.get(key)
+        entry = gc.graphs.get(key)
         if entry is None or entry.state != _addresses(reg):
-            self._graphs.pop(key, None)
-            if self._warm.get(key) != _ids(reg):
-                out = self._first_call(fn, raw)
-                reg = registry_fn()
-                self._warm[key] = _ids(reg)
+            gc.graphs.pop(key, None)
+            if gc.warm.get(key) != _ids(reg):
+                out = gc.eager(dev, fn, _wrap(raw, self.device))
+                gc.warm[key] = _ids(registry_fn())
                 k -= 1
                 if k == 0:
                     return out
-            entry = self._capture(key, fn, raw, reg, registry_fn)
+            bufs = [torch.empty(r.shape, dtype=r.dtype, device=dev)
+                    if isinstance(r, torch.Tensor) else r for r in raw]
+            entry = gc.capture(key, dev, fn, (_wrap(bufs, self.device),),
+                               lambda: _addresses(registry_fn()),
+                               inputs=bufs)
         entry.load(raw)
-        for _ in range(k):
-            entry.replay()
-        self.graph_replays[kind] = self.graph_replays.get(kind, 0) + k
+        gc.replay(entry, kind, k)
         return _fresh(entry.outputs)
-
-    def _first_call(self, fn, raw):
-        side = self._side_stream()
-        cur = torch.cuda.current_stream(self.device.torch_device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = fn(_wrap(raw, self.device))
-        cur.wait_stream(side)
-        for t in _tensors(out):
-            t.data.record_stream(cur)
-        return out
-
-    def _capture(self, key, fn, raw, reg, registry_fn):
-        dev = self.device.torch_device
-        bufs = [torch.empty(r.shape, dtype=r.dtype, device=dev)
-                if isinstance(r, torch.Tensor) else r for r in raw]
-        state = _addresses(reg)
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        try:
-            with torch.cuda.graph(graph, stream=self._side_stream()):
-                out = fn(_wrap(bufs, self.device))
-        finally:
-            after = _launch_counts()
-            for (mod, name), n in before.items():   # nothing ran yet
-                setattr(mod, name, n)
-        if _addresses(registry_fn()) != state:
-            raise RuntimeError(
-                "state was created or rebound while the step was captured: "
-                "the graph would hold storage the model does not")
-        entry = _Graph(graph, bufs, out, state,
-                       {c: after[c] - n for c, n in before.items()
-                        if after.get(c, n) != n})
-        self._graphs[key] = entry
-        kind = key[0]
-        self.graph_captures[kind] = self.graph_captures.get(kind, 0) + 1
-        return entry
 
     # ------------------------------------------------------------------
     # inference

@@ -45,13 +45,14 @@ JAX's weakly typed ``jnp.where(..., 0.0, -1e9)`` is.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import autograd, layer
-from ..device import get_device, seeded_generator
+from .. import _graphs, autograd, layer
+from ..device import get_device
 from ..layer import apply_rope
 from ..model import Model
 from ..ops.flash_attention import flash_attention
@@ -61,7 +62,7 @@ from ..tensor import Tensor
 
 __all__ = ["GPTConfig", "GPTBlock", "GPT", "bucket_length",
            "ensure_decode_ready", "generated_lengths", "NONFINITE_TOKEN",
-           "MIN_PREFILL_BUCKET", "seeded_decode_params",
+           "MIN_PREFILL_BUCKET", "GEN_CACHE_MAX", "seeded_decode_params",
            "decode_slots_iteration", "decode_slots_iteration_paged"]
 
 # Sentinel token emitted when a row's logits go non-finite; -1 is never a
@@ -71,6 +72,10 @@ NONFINITE_TOKEN = -1
 # prompt lengths are padded up to the next power of two at least this
 # large (the JAX package's prefill bucketing)
 MIN_PREFILL_BUCKET = 16
+
+# generate's decode loops kept per model, least recently used dropped
+# first (the reference's bound on its compiled-program cache)
+GEN_CACHE_MAX = 8
 
 
 def bucket_length(n: int, max_len: int,
@@ -226,9 +231,13 @@ class GPT(Model):
                        for i in range(c.n_layers)]
         self.ln_f = layer.LayerNorm()
         self.head = layer.Linear(c.vocab_size)
-        # quantized decode trees, by (weight_dtype, scale_dtype) name:
-        # (Linear weights, their version counters, tree)
-        self._decode_quant: dict = {}
+        # decode trees that are not the parameters' own storage (cast to
+        # a mixed policy's compute dtype, or quantized), by (compute
+        # dtype, weight_dtype, scale_dtype) name: (the state tensors,
+        # their version counters, tree)
+        self._decode_memo: dict = {}
+        # generate's decode loops, by (B, compute dtype, sampled)
+        self._gen_entries: OrderedDict = OrderedDict()
         if c.precision is not None:
             self.set_precision_policy(c.precision)
 
@@ -341,29 +350,31 @@ class GPT(Model):
         (q/k/v/o/f1/f2/head) stores a per-output-channel quantized ``W``
         plus a ``Ws`` scale row in ``scale_dtype``
         (:func:`_quantize_channels`); LayerNorms and embeddings stay
-        float and shared.  The quantized tree is memoised per
-        ``(weight_dtype, scale_dtype)`` and rebuilt once a Linear weight
-        has been replaced or updated in place (training, ``set_states``):
-        its tensors and their version counters key the memo."""
+        float and shared.  A tree that is not the parameters' own
+        storage (quantized, or cast under a mixed policy) is memoised per
+        ``(compute dtype, weight_dtype, scale_dtype)`` and rebuilt once a
+        state tensor has been replaced or updated in place (training,
+        ``set_states``): the tensors and their version counters key the
+        memo.  So repeated calls return the same tensors, which a
+        captured ``generate`` loop reads."""
         self._materialize()
-        if weight_dtype is None:
+        pol = self.precision_policy
+        cast = pol is not None and pol.mixed
+        if weight_dtype is None and not cast:
             return self._build_decode_params(None, None)
-        wd, sd = resolve_dtype(weight_dtype), resolve_dtype(scale_dtype)
-        key = (dtype_name(wd), dtype_name(sd))
-        ws = [lay.W.data for lay in self._linears()]
-        versions = [w._version for w in ws]
-        hit = self._decode_quant.get(key)
+        wd = sd = None
+        if weight_dtype is not None:
+            wd, sd = resolve_dtype(weight_dtype), resolve_dtype(scale_dtype)
+        key = tuple(dtype_name(d) if d is not None else None
+                    for d in (pol.compute_dtype if cast else None, wd, sd))
+        srcs = [t.data for t in self.get_states().values()]
+        versions = [t._version for t in srcs]
+        hit = self._decode_memo.get(key)
         if hit is None or hit[1] != versions \
-                or any(a is not b for a, b in zip(hit[0], ws)):
-            hit = self._decode_quant[key] = (
-                ws, versions, self._build_decode_params(wd, sd))
+                or any(a is not b for a, b in zip(hit[0], srcs)):
+            hit = self._decode_memo[key] = (
+                srcs, versions, self._build_decode_params(wd, sd))
         return hit[2]
-
-    def _linears(self):
-        for blk in self.blocks:
-            a = blk.attn
-            yield from (a.Wq, a.Wk, a.Wv, a.Wo, blk.fc1, blk.fc2)
-        yield self.head
 
     def _build_decode_params(self, weight_dtype, scale_dtype, cast=True):
         """The decode tree; with ``cast`` and a mixed policy, its float
@@ -405,7 +416,7 @@ class GPT(Model):
                  temperature: float = 0.0, top_k: int | None = None,
                  seed: int = 0, stop_tokens=None,
                  return_lengths: bool = False,
-                 decode_horizon: int | None = None):
+                 decode_horizon: int | None = None, _capture: bool = True):
         """Autoregressive generation on the model's device: the prompt
         (B, Tp), padded to its power-of-2 bucket, is prefilled through
         the causal flash-attention kernel into per-layer ``(B, H,
@@ -415,14 +426,23 @@ class GPT(Model):
         ``logits/temperature`` (optionally top-k filtered), drawing from
         one ``torch.Generator`` seeded by ``seed`` for the call.
 
-        ``decode_horizon`` is checked (>= 1) as in the reference and
-        changes nothing here: the reference runs the decode steps as
-        jitted K-step programs and caches them (``GEN_CACHE_MAX``,
-        ``TRACE_EVENTS``) so that one program serves every
-        ``max_new_tokens``; eager PyTorch compiles nothing, so every
-        horizon runs the same ``max_new_tokens - 1`` steps and gives the
-        same tokens, greedy or sampled.  The tokens stay on the device
-        and are fetched once at the end.
+        The decode loop belongs to an entry kept per ``(B, compute
+        dtype, greedy or sampled)`` (at most :data:`GEN_CACHE_MAX`, the
+        least recently used dropped first; the reference's compiled
+        program cache): its caches, zeroed once when it is made (an
+        earlier call's columns stay finite and weigh exactly 0 under the
+        mask), its token buffer, device position, temperature and top-k
+        and its generator, re-seeded every call.  On the card the decode
+        step is a CUDA graph (the protocol of :mod:`singa_tpu_torch.
+        _graphs`: the entry's first step runs eagerly, its second
+        captures): ``max_new_tokens - 1`` replays, whatever the prompt,
+        its length, the temperature or top-k (device scalars).  The
+        prefill stays eager.  On the CPU the same step runs eagerly.
+        ``_capture=False`` runs the card's loop eagerly too: the twin a
+        check holds the graph against.  ``decode_horizon`` is checked
+        (>= 1) as in the reference and changes nothing: one loop serves
+        every horizon with the same tokens, greedy or sampled.  The
+        tokens stay on the device and are fetched once at the end.
 
         Returns a numpy array (B, max_new_tokens); with ``stop_tokens=``
         or ``return_lengths=True``, ``(tokens, lengths)`` where
@@ -447,19 +467,69 @@ class GPT(Model):
             raise ValueError(f"decode_horizon must be >= 1, "
                              f"got {decode_horizon}")
         dev = self.device.torch_device
-        gen = seeded_generator(seed, dev)
-        samp = (float(temperature), int(top_k or 0), gen)
-        caches, tok = _make_gen_prefill(c)(
-            params, torch.from_numpy(padded).to(dev), Tp, *samp)
-        toks = [tok]
-        carry = (caches, Tp, tok) + samp
-        for _ in range(int(max_new_tokens) - 1):
-            carry = _gen_decode_step(params, carry, c)
-            toks.append(carry[2])
-        toks = np.ascontiguousarray(torch.stack(toks).T.cpu().numpy())
+        t, k = float(temperature), int(top_k or 0)
+        key = ("generate", B, dtype_name(params["tok"].dtype), t > 0)
+        e = self._gen_entry(key, B, params["tok"].dtype, dev)
+        e.gen.manual_seed(int(seed))
+        tok = _make_gen_prefill(c)(params, torch.from_numpy(padded).to(dev),
+                                   Tp, t, k, e.gen, e.caches)
+        e.start(tok, Tp, t, k)
+        gens = [e.gen] * B if t > 0 else None
+        n = int(max_new_tokens) - 1
+        if n and _capture and _graphs.captures_on(dev):
+            self._gen_loop_captured(key, e, params, gens, n)
+        else:
+            for _ in range(n):
+                _gen_decode_step(params, e, c, gens)
+        # a copy: on the CPU the tensor's numpy view is the entry's buffer
+        toks = e.out[:, :max_new_tokens].cpu().numpy().copy()
         if stop_tokens is None and not return_lengths:
             return toks
         return toks, generated_lengths(toks, stop_tokens)
+
+    def _gen_entry(self, key, B, dtype, dev):
+        """The decode loop's entry of ``key``, made (and the least
+        recently used one dropped, with its graph) when missing."""
+        entries = self._gen_entries
+        e = entries.pop(key, None)
+        if e is None:
+            self._gc.graphs.pop(key, None)
+            self._gc.warm.pop(key, None)
+            e = _GenEntry(self.config, B, dtype, dev)
+            while len(entries) >= GEN_CACHE_MAX:
+                old, _ = entries.popitem(last=False)
+                self._gc.graphs.pop(old, None)
+                self._gc.warm.pop(old, None)
+        entries[key] = e
+        return e
+
+    def _gen_loop_captured(self, key, e, params, gens, n):
+        """``n`` decode steps of entry ``e`` through its graph: the
+        entry's first step eagerly on the side stream, its second
+        captured (the entry's generator registered when it samples),
+        every later one a replay; a graph whose parameters' storage
+        moved is captured again (the tree's storage: its view objects
+        are new every call)."""
+        gc, dev, c = self._gc, e.out.device, self.config
+
+        def state():
+            return tuple(t.data_ptr() for t in _leaves(params))
+
+        entry = gc.graphs.get(key)
+        if entry is not None and entry.state != state():
+            del gc.graphs[key]
+            entry = None
+        if entry is None:
+            if key not in gc.warm:
+                gc.warm[key] = True
+                gc.eager(dev, _gen_decode_step, params, e, c, gens)
+                n -= 1
+                if n == 0:
+                    return
+            entry = gc.capture(key, dev, _gen_decode_step,
+                               (params, e, c, gens), state,
+                               generators=[e.gen] if gens else ())
+        gc.replay(entry, "generate", n)
 
 
 # the reference's name for the same call
@@ -642,66 +712,114 @@ def _block_prefill(bp, h, H, scale, rope=False, base=10000.0):
     return _block_out(bp, h, ctx), k, v
 
 
-def _gen_decode_step(params, carry, c):
-    """``generate``'s decode body: one token for the whole batch at the
-    shared position ``pos`` (a host int), through
-    :func:`_block_decode_slots` with every row at ``pos``.  ``carry`` is
-    ``(caches, pos, tok, temperature, top_k, gen)``; returns the next
-    carry."""
-    from ..serving.sampling import sample_logits
+def _leaves(tree):
+    """The tensors of a decode tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
 
-    caches, pos, tok, temperature, top_k, gen = carry
+
+class _GenEntry:
+    """One ``generate`` decode loop: per-layer ``(B, H, max_len, dh)``
+    caches (zeroed once), the current tokens ``tok`` (B,) int32, the
+    shared position ``pos`` and the next column ``n`` of ``out`` (B,
+    max_len) int32 (one-element int64 tensors, advanced by the step),
+    the temperature and top-k (one-element device tensors), and the
+    loop's generator."""
+
+    def __init__(self, c, B, dtype, dev):
+        H = c.n_heads
+        shape = (B, H, c.max_len, c.d_model // H)
+        self.caches = tuple(
+            (torch.zeros(shape, dtype=dtype, device=dev),
+             torch.zeros(shape, dtype=dtype, device=dev))
+            for _ in range(c.n_layers))
+        self.tok = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.out = torch.zeros((B, c.max_len), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros(1, dtype=torch.long, device=dev)
+        self.n = torch.zeros(1, dtype=torch.long, device=dev)
+        self.temp = torch.zeros(1, dtype=torch.float32, device=dev)
+        self.topk = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.gen = torch.Generator(device=dev)
+
+    def start(self, tok, pos, temperature, top_k):
+        """A call's first token ``tok`` (B,) at ``out[:, 0]``, the loop
+        at position ``pos`` (fills on the device: no upload)."""
+        self.tok.copy_(tok)
+        self.out[:, :1].copy_(tok[:, None])
+        self.pos.fill_(pos)
+        self.n.fill_(1)
+        self.temp.fill_(temperature)
+        self.topk.fill_(top_k)
+
+
+def _gen_decode_step(params, e, c, gens):
+    """``generate``'s decode body on entry ``e`` (:class:`_GenEntry`):
+    one token for the whole batch at the shared position ``e.pos``,
+    through :func:`_block_decode_slots` with every row there, sampled
+    per row with the entry's device temperature and top-k from ``gens``
+    (the entry's generator once a row, or None when greedy); the token,
+    the position and the output column are advanced in place, so the
+    step reads no host scalar and can be captured."""
+    from ..serving.sampling import sample_logits_per_row
+
+    B = e.tok.shape[0]
     H = c.n_heads
     scale = 1.0 / math.sqrt(c.d_model // H)
-    dpos = torch.full(tok.shape, pos, dtype=torch.long, device=tok.device)
-    h = _embed(params, tok[:, None], dpos[:, None], c.use_rope)  # (B,1,D)
-    for bp, (kc, vc) in zip(params["blocks"], caches):
+    dpos = e.pos.expand(B)
+    h = _embed(params, e.tok[:, None], dpos[:, None], c.use_rope)  # (B,1,D)
+    for bp, (kc, vc) in zip(params["blocks"], e.caches):
         h = _block_decode_slots(bp, h, kc, vc, dpos, H, scale, c.use_rope,
                                 c.rope_base)[0]
-    nxt = sample_logits(_logits(params, h)[:, 0], temperature, top_k, gen)
-    return (caches, pos + 1, nxt, temperature, top_k, gen)
+    nxt = sample_logits_per_row(_logits(params, h)[:, 0], e.temp.expand(B),
+                                e.topk.expand(B), gens)
+    e.tok.copy_(nxt)
+    e.out.index_copy_(1, e.n, nxt[:, None])
+    e.pos.add_(1)
+    e.n.add_(1)
 
 
 def _make_gen_prefill(c):
     """``generate``'s prefill: the bucket-padded prompt (B, Tb) through
-    every block into fresh ``(B, H, max_len, dh)`` caches, and the first
-    new token sampled from the true last prompt position ``tp - 1``.
-    Returns ``run(params, prompt, tp, temperature, top_k, gen) ->
-    (caches, tok)``."""
+    every block, its K/V written into ``[0, Tb)`` of the given ``(B, H,
+    max_len, dh)`` caches, and the first new token sampled from the true
+    last prompt position ``tp - 1``.  Returns ``run(params, prompt, tp,
+    temperature, top_k, gen, caches) -> tok``."""
     H = c.n_heads
     dh = c.d_model // H
     scale = 1.0 / math.sqrt(dh)
 
-    def run(params, prompt, tp, temperature, top_k, gen):
+    def run(params, prompt, tp, temperature, top_k, gen, caches):
         from ..serving.sampling import sample_logits
 
         B, Tb = prompt.shape
         dev = prompt.device
         h = _embed(params, prompt, torch.arange(Tb, device=dev), c.use_rope)
-        caches = []
-        for bp in params["blocks"]:
+        for bp, (kc, vc) in zip(params["blocks"], caches):
             h, k, v = _block_prefill(bp, h, H, scale, c.use_rope, c.rope_base)
-            kc = torch.zeros((B, H, c.max_len, dh), dtype=k.dtype, device=dev)
-            vc = torch.zeros_like(kc)
             kc[:, :, :Tb] = k
             vc[:, :, :Tb] = v
-            caches.append((kc, vc))
-        tok = sample_logits(_logits(params, h[:, tp - 1:tp])[:, 0],
-                            temperature, top_k, gen)
-        return tuple(caches), tok
+        return sample_logits(_logits(params, h[:, tp - 1:tp])[:, 0],
+                             temperature, top_k, gen)
 
     return run
 
 
-def _block_chunk_prefill(bp, h, k_cache, v_cache, slot: int, off: int,
-                         positions, H, scale, rope=False, base=10000.0,
-                         k_scale=None, v_scale=None):
+def _block_chunk_prefill(bp, h, k_cache, v_cache, slot, off, positions, H,
+                         scale, rope=False, base=10000.0, k_scale=None,
+                         v_scale=None):
     """Chunked-prefill block step of the slot-layout engine: ONE prompt
-    chunk ``h`` (1, C, D) of the admitting slot ``slot`` (a host int),
-    caches (S, H, L, dh), ``positions = off + arange(C)``.  Writes the
-    chunk's K/V at ``[off, off + C)`` of the slot's row first, then the
-    chunk's queries attend over the whole row (:func:`_chunk_attention`:
-    flash with the ``(C, L)`` dense mask).  ``k_scale``/``v_scale`` (S,
+    chunk ``h`` (1, C, D) of the admitting slot ``slot`` (a host int, or
+    the engine's one-element device index), caches (S, H, L, dh),
+    ``positions = off + arange(C)`` on the device (``off``, the
+    reference's argument, is not read: the positions carry it).  Writes
+    the chunk's K/V at ``positions`` of the slot's row first (an
+    ``index_put``), then the chunk's queries attend over the whole row,
+    read back with ``index_select`` (:func:`_chunk_attention`: flash
+    with the ``(C, L)`` dense mask): no host scalar of the request
+    enters, so the engine's step can be captured.  ``k_scale``/``v_scale`` (S,
     H, L): the quantized 4-leaf cache; the rows are quantized on write
     and attention is the reference's einsum with the scales folded in.
     Returns ``(h, k_cache, v_cache)``, plus the two scale caches when
@@ -710,18 +828,20 @@ def _block_chunk_prefill(bp, h, k_cache, v_cache, slot: int, off: int,
     if rope:
         q = apply_rope(q, positions=positions, base=base)
         k = apply_rope(k, positions=positions, base=base)
-    C = positions.shape[0]
+    if not torch.is_tensor(slot):
+        slot = torch.full((1,), int(slot), device=positions.device)
+    s, cols = slot.reshape(1).long(), positions.long()
     ksr = vsr = None
     if k_scale is not None:
         k, ks = _quantize_rows(k, k_scale.dtype, k_cache.dtype)  # (1,H,C)
         v, vs = _quantize_rows(v, v_scale.dtype, v_cache.dtype)
-        k_scale[slot, :, off:off + C] = ks[0]
-        v_scale[slot, :, off:off + C] = vs[0]
-        ksr, vsr = k_scale[slot:slot + 1], v_scale[slot:slot + 1]
-    k_cache[slot, :, off:off + C] = k[0].to(k_cache.dtype)
-    v_cache[slot, :, off:off + C] = v[0].to(v_cache.dtype)
-    kr = k_cache[slot:slot + 1].to(q.dtype)                 # (1,H,L,dh)
-    vr = v_cache[slot:slot + 1].to(q.dtype)
+        k_scale[s, :, cols] = ks[0].transpose(0, 1)            # (C, H)
+        v_scale[s, :, cols] = vs[0].transpose(0, 1)
+        ksr, vsr = k_scale.index_select(0, s), v_scale.index_select(0, s)
+    k_cache[s, :, cols] = k[0].transpose(0, 1).to(k_cache.dtype)  # (C,H,dh)
+    v_cache[s, :, cols] = v[0].transpose(0, 1).to(v_cache.dtype)
+    kr = k_cache.index_select(0, s).to(q.dtype)             # (1,H,L,dh)
+    vr = v_cache.index_select(0, s).to(q.dtype)
     ctx = _chunk_attention(q, kr, vr, positions, scale, ksr, vsr)
     return (_block_out(bp, h, ctx),) + _pack_kv(k_cache, v_cache, k_scale,
                                                 v_scale)

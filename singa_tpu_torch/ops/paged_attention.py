@@ -228,7 +228,11 @@ def _parts(index, stream, n):
     """``(buffer, address)``: ``n`` float32 of scratch for the split
     route's partials on ``stream``.  Each call writes the partials it
     merges before the merge reads them, in stream order, so nothing in it
-    carries from one call to the next."""
+    carries from one call to the next.  Not for a launch that a CUDA
+    graph records: the cache may drop its buffer while the graph lives,
+    and the allocator may then hand the memory to another tensor
+    (:func:`_launch` allocates such a launch's scratch from the graph's
+    own pool)."""
     buf = torch.empty(n, dtype=torch.float32,
                       device=torch.device("cuda", index))
     return buf, buf.data_ptr()
@@ -333,7 +337,16 @@ def _launch(q, k_pages, v_pages, table, pos, scale, k_scales, v_scales,
     R, ppr = plan
     index = q.device.index
     stream = _stream(index)
-    parts = _parts(index, stream, S * H * R * (d + 2))[1] if R > 1 else None
+    parts = scratch = None
+    if R > 1:
+        n = S * H * R * (d + 2)
+        if q.is_cuda and torch.cuda.is_current_stream_capturing():
+            # recorded into a graph: scratch from the graph's private
+            # pool, which the graph holds for its lifetime
+            scratch = torch.empty(n, dtype=torch.float32, device=q.device)
+            parts = scratch.data_ptr()
+        else:
+            parts = _parts(index, stream, n)[1]
     out = torch.empty_like(q)
     quant = k_scales is not None
     err = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -38,12 +38,43 @@ step uploads the host-resident scheduler state, advances every slot one
 token and fetches the tokens.  One sync an admission and one a step;
 ``decode_horizon`` is 1.
 
-Where the JAX package compiles each step once and branches under
-``lax.cond``, PyTorch runs eagerly: the chunk half runs only when an
-admission is in flight and the decode half only when a slot is live,
-both decided from host state that is exact at that point (no device
-sync).  Sampling draws from per-slot ``torch.Generator`` objects in
-place of JAX keys.
+Where the JAX package compiles a pinned set of programs, the port
+captures each step as a CUDA graph on the card (the protocol of
+:mod:`singa_tpu_torch._graphs`: a step's first call runs eagerly, its
+second captures, later calls replay): the unified step
+(``unified:C{C}``, with ``:paged`` and the quantization tags ``:kv8``,
+``:w8`` as the reference labels its programs), the horizon
+(``horizon:K{K}``; with ``decode_horizon=1`` its one-iteration graph
+plays the step without an admission) and the monolithic decode step
+(``decode``), each with a greedy twin and a ``:sampled`` one (a stream
+of greedy requests draws no noise): at most 2 graphs a sampling mode
+for the chunked engine and 1 for the monolithic one, whatever the mix
+of prompt lengths.  ``trace_log`` lists the labels in order of first
+use, on either device; ``graph_captures`` / ``graph_replays`` count by
+kind (``unified``, ``horizon``, ``decode``; nothing on the CPU).  Every
+per-request value of an admission (slot, write offset, last prompt
+position, prompt length, temperature by its float32 bit pattern,
+top-k, token budget, the commit flag) travels in the admission's one
+packed int32 upload and is read on the device: the chunk half runs
+every unified step, always computes its token, and the commit masks it
+(no ``lax.cond`` and no Python branch); the decode half runs every
+slot, an inactive one frozen.  A capture that fails raises.  The CPU
+runs the same step functions eagerly; ``_capture=False`` (a check hook,
+not a knob) runs them eagerly on the card too.
+
+Sampling: a request's k-th token takes the k-th ``rand(V)`` draw of a
+generator seeded with its seed, whatever its neighbours are (the port's
+stand-in for the reference's per-slot keys).  On the CPU each sampled
+request draws from its own generator while it is live.  On the card the
+engine owns one generator a slot and one for the admission's first
+token, registered with every sampled graph, and every slot draws every
+iteration of a sampled graph (a greedy, free or prefilling slot's noise
+is discarded by the ``torch.where`` that picks greedy rows): the
+admission generator and the admitted slot's are re-seeded with the
+request's seed just before the step that commits it, so its first token
+takes draw 0 and the discarded decode draw of that step is draw 0 of
+the slot's generator, and every later iteration, eager or replayed,
+advances it by one draw.
 
 Quantized serving (``kv_dtype="int8"``, ``weight_dtype="int8"``, the
 chunked engine on either layout) stores K/V as int8 rows with one scale
@@ -75,6 +106,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import _graphs
 from .. import precision as _precision
 from ..device import resolve_device, seeded_generator
 from ..models import gpt as _gpt
@@ -155,22 +187,10 @@ class _Prefill:
     n_new: int
 
 
-@dataclass
-class _Admission:
-    """One unified step's admission arguments: host scalars plus views
-    into the one packed array uploaded for the step."""
-    slot: int
-    woff: int
-    p_last: int
-    p_len: int
-    temp: float
-    top_k: int
-    limit: int
-    commit: bool
-    gen: object
-    toks: torch.Tensor          # (C,) int32, device
-    pages: torch.Tensor | None  # (Ps,) int32, device; None for slots
-    stops: torch.Tensor         # (M,) int32, device
+# the per-request scalars at the end of an admission's packed int32 array
+# (temperature by its float32 bit pattern)
+_ADM_SCALARS = ("slot", "woff", "p_last", "p_len", "temp", "top_k", "limit",
+                "commit")
 
 
 def _decode_iteration(params, caches, st, gens, H, scale, rope, base,
@@ -194,66 +214,73 @@ def _decode_iteration(params, caches, st, gens, H, scale, rope, base,
     return nxt
 
 
-def _make_unified_step(cfg, C, max_len):
+def _make_unified_step(cfg, C, Ps, max_len):
     """The unified step (port of the JAX ``_make_unified_step`` and
-    ``_make_unified_step_paged`` with one lane): (a) one prompt chunk
-    when ``adm`` is given, (b) one decode iteration for every slot when
-    ``decode``, (c) the masked admission commit when ``adm.commit``.
-    ``st`` is the engine's device state, updated in place; the layout
-    is paged when ``adm.pages`` (and ``st["table"]``) is given."""
+    ``_make_unified_step_paged`` with one lane): (a) one prompt chunk of
+    the admitting slot and its first new token, sampled from the true
+    last prompt position; (b) one decode iteration of every slot; (c)
+    the masked admission commit.  ``buf`` is the admission's packed
+    int32 array on the device: the chunk's C tokens, the slot's ``Ps``
+    block-table entries (paged; ``Ps == 0`` for slots), its stop row and
+    the scalars ``_ADM_SCALARS``.  ``st`` is the engine's device state,
+    updated in place.  Nothing is read from the host, so the step can be
+    captured: the chunk half always runs (a non-final chunk's token is
+    masked out by the commit flag) and the decode half runs every slot
+    (an inactive one frozen)."""
     rope, base = cfg.use_rope, cfg.rope_base
     H = cfg.n_heads
     scale = 1.0 / math.sqrt(cfg.d_model // H)
+    M = MAX_STOP_TOKENS
 
-    def step(params, caches, st, gens, adm, decode):
-        tok1 = None
+    def step(params, caches, st, gens, adm_gen, buf):
+        toks = buf[:C]
+        pages = buf[C:C + Ps] if Ps else None
+        stops = buf[C + Ps:C + Ps + M]
+        slot, woff, p_last, p_len, t_bits, top_k, limit, commit = (
+            buf[C + Ps + M + i:C + Ps + M + i + 1]
+            for i in range(len(_ADM_SCALARS)))
+        temp = t_bits.view(torch.float32)
         # ---- (a) one prompt chunk for the admitting slot --------------
-        if adm is not None:
-            dev = adm.toks.device
-            positions = adm.woff + torch.arange(C, device=dev)
-            h = _gpt._embed(params, adm.toks[None], positions, rope)
-            for bp, layer_kv in zip(params["blocks"], caches):
-                kc, vc, ksc, vsc = _gpt._layer_kv(layer_kv)
-                if adm.pages is not None:
-                    h = _gpt._block_chunk_prefill_paged(
-                        bp, h, kc, vc, adm.pages, positions, H, scale, rope,
-                        base, k_scale=ksc, v_scale=vsc)[0]
-                else:
-                    h = _gpt._block_chunk_prefill(
-                        bp, h, kc, vc, adm.slot, adm.woff, positions, H,
-                        scale, rope, base, k_scale=ksc, v_scale=vsc)[0]
-            # the final chunk samples the first new token from the TRUE
-            # last prompt position
-            if adm.commit:
-                lg = _gpt._logits(params,
-                                  h[:, adm.p_last:adm.p_last + 1])[:, 0]
-                tok1 = sample_logits(lg, adm.temp, adm.top_k, adm.gen)[0]
-                tok1 = torch.where(torch.isfinite(lg).all(), tok1,
-                                   _gpt.NONFINITE_TOKEN)   # poison probe
+        positions = woff + torch.arange(C, device=buf.device)
+        h = _gpt._embed(params, toks[None], positions, rope)
+        for bp, layer_kv in zip(params["blocks"], caches):
+            kc, vc, ksc, vsc = _gpt._layer_kv(layer_kv)
+            if pages is not None:
+                h = _gpt._block_chunk_prefill_paged(
+                    bp, h, kc, vc, pages, positions, H, scale, rope, base,
+                    k_scale=ksc, v_scale=vsc)[0]
+            else:
+                h = _gpt._block_chunk_prefill(
+                    bp, h, kc, vc, slot, None, positions, H, scale, rope,
+                    base, k_scale=ksc, v_scale=vsc)[0]
+        # the final chunk's first new token, from the TRUE last prompt
+        # position
+        lg = _gpt._logits(params, h.index_select(1, p_last.long()))[:, 0]
+        tok1 = sample_logits_per_row(
+            lg, temp, top_k, None if adm_gen is None else [adm_gen])
+        tok1 = torch.where(torch.isfinite(lg).all(), tok1,
+                           _gpt.NONFINITE_TOKEN)            # poison probe
 
         # ---- (b) advance every active decode slot one token -----------
         # on the PRE-commit mask: the admitted slot goes live next step
-        if decode:
-            _decode_iteration(params, caches, st, gens, H, scale, rope,
-                              base, max_len)
+        _decode_iteration(params, caches, st, gens, H, scale, rope, base,
+                          max_len)
 
         # ---- (c) commit the finished admission into slot state --------
-        if adm is not None and adm.commit:
-            S = st["tok"].shape[0]
-            oh = torch.arange(S, device=st["tok"].device) == adm.slot
-            live = (tok1 >= 0) & ~(tok1 == adm.stops).any() \
-                & (adm.p_len < adm.limit)
-            st["tok"].copy_(torch.where(oh, tok1, st["tok"]))
-            st["pos"].copy_(torch.where(oh, adm.p_len, st["pos"]))
-            st["active"].copy_(torch.where(oh, live, st["active"]))
-            st["temp"].copy_(torch.where(oh, adm.temp, st["temp"]))
-            st["topk"].copy_(torch.where(oh, adm.top_k, st["topk"]))
-            st["limit"].copy_(torch.where(oh, adm.limit, st["limit"]))
-            st["stops"].copy_(torch.where(oh[:, None], adm.stops[None],
-                                          st["stops"]))
-            if adm.pages is not None:
-                st["table"].copy_(torch.where(oh[:, None], adm.pages[None],
-                                              st["table"]))
+        S = st["tok"].shape[0]
+        oh = (torch.arange(S, device=buf.device) == slot) & (commit != 0)
+        live = (tok1 >= 0) & ~(tok1 == stops).any() & (p_len < limit)
+        st["tok"].copy_(torch.where(oh, tok1, st["tok"]))
+        st["pos"].copy_(torch.where(oh, p_len, st["pos"]))
+        st["active"].copy_(torch.where(oh, live, st["active"]))
+        st["temp"].copy_(torch.where(oh, temp, st["temp"]))
+        st["topk"].copy_(torch.where(oh, top_k, st["topk"]))
+        st["limit"].copy_(torch.where(oh, limit, st["limit"]))
+        st["stops"].copy_(torch.where(oh[:, None], stops[None],
+                                      st["stops"]))
+        if pages is not None:
+            st["table"].copy_(torch.where(oh[:, None], pages[None],
+                                          st["table"]))
 
     return step
 
@@ -342,7 +369,10 @@ class ServingEngine:
     ``kv_dtype`` (``"int8"`` quantizes; ``"bfloat16"``/``"float32"``
     override the cache's storage dtype), ``weight_dtype`` (``"int8"``)
     and ``scale_dtype`` (bfloat16 or float32) are the reference's
-    quantized-serving arguments (see the module docstring).
+    quantized-serving arguments (see the module docstring).  On the card
+    the steps run as CUDA graphs; ``_capture=False`` is a check hook
+    that runs them eagerly there (the twin a check holds the graphs
+    against), not a setting.
     """
 
     def __init__(self, model, n_slots: int = 8, max_len: int | None = None,
@@ -368,7 +398,8 @@ class ServingEngine:
                  weight_dtype=None,
                  scale_dtype=torch.bfloat16,
                  clock=None,
-                 device=None):
+                 device=None,
+                 _capture: bool = True):
         self.device = dev = resolve_device(device)
         if int(admit_lanes) != 1:
             _not_ported(f"admit_lanes={admit_lanes}", 11)
@@ -451,25 +482,47 @@ class ServingEngine:
         self._rid = itertools.count()
         S, C, M = n_slots, self.chunk_tokens, MAX_STOP_TOKENS
         self._slot_req: list[Request | None] = [None] * S
-        self._gens: list = [None] * S      # per-slot generator (sampled)
+        self._gens: list = [None] * S      # CPU: per-slot request generator
         # host MIRROR of the device active mask (chunked: trailing it by
         # at most one pipelined horizon; monolithic: the authority)
         self._active = np.zeros(S, bool)
         self._lane: _Prefill | None = None
+        # the steps' graphs (the card), the labels in order of first use
+        self._capture = bool(_capture) and _graphs.captures_on(dev)
+        self._gc = _graphs.GraphCache()
+        self.trace_log: list[str] = []
+        self._qtag = (":paged" if self.paged else "") + (
+            ":kv8" if pol.kv_dtype is not None else "") + (
+            ":w8" if pol.weight_dtype is not None else "")
+        # the card's engine-owned generators (see the module docstring);
+        # the CPU's are the requests' own
+        self._slot_gens: list = []
+        self._adm_gen = None
+        if dev.type == "cuda":
+            self._own_generators()
         if not self.chunked:
             # the monolithic engine's host-resident scheduler state,
-            # uploaded every step
+            # uploaded every step into the step's static input buffers
             self._tok = np.zeros(S, np.int32)
             self._pos = np.zeros(S, np.int32)
             self._temp = np.zeros(S, np.float32)
             self._topk = np.zeros(S, np.int32)
+            self._mono_in = [torch.zeros(S, dtype=dt, device=dev) for dt in (
+                torch.int32, torch.int32, torch.bool, torch.float32,
+                torch.int32)]
             self._decode_fn = _make_decode_step(cfg)
             self._prefill_fn = _make_prefill(cfg)
+            self._state_tensors = self._mono_in + _cache_tensors(
+                self.kv.caches)
             return
-        self._step_fn = _make_unified_step(cfg, C, self.max_len)
-        self._horizon_fn = (
-            _make_horizon_step(cfg, self.decode_horizon, self.max_len)
-            if self.decode_horizon > 1 else None)
+        Ps = self.kv.pages_per_slot if self.paged else 0
+        self._step_fn = _make_unified_step(cfg, C, Ps, self.max_len)
+        self._horizon_fn = _make_horizon_step(cfg, self.decode_horizon,
+                                              self.max_len)
+        # the admission's packed int32 array on the device (the unified
+        # step's input buffer), written by one upload an admission step
+        self._adm_buf = torch.zeros(C + Ps + M + len(_ADM_SCALARS),
+                                    dtype=torch.int32, device=dev)
         # the device-resident scheduler state: allocated once here (no
         # host copy: zeros/fill run on the device) and only ever updated
         # in place by the step and horizon functions
@@ -486,6 +539,70 @@ class ServingEngine:
             self._dstate["table"] = torch.zeros(
                 (S, self.kv.pages_per_slot), dtype=torch.int32, device=dev)
         self._hz_pending: list = []        # dispatched, unemitted blocks
+        # the storage the graphs are bound to, checked before a replay
+        self._state_tensors = [self._adm_buf] + list(
+            self._dstate.values()) + _cache_tensors(self.kv.caches)
+
+    # ---- the steps' graphs -----------------------------------------------
+    @property
+    def graph_captures(self) -> dict:
+        return self._gc.captures
+
+    @property
+    def graph_replays(self) -> dict:
+        return self._gc.replays
+
+    def _state(self) -> tuple:
+        return _graphs.addresses(self._state_tensors)
+
+    def _run(self, kind, label, fn, args, generators=()):
+        """``fn(*args)`` as the step ``label``: through its graph on the
+        card (the first call eagerly, the second captures with
+        ``generators`` registered, then replays; a graph whose state
+        storage moved is captured again), eagerly on the CPU or for the
+        eager twin.  Returns the step's output (a graph's own buffers on
+        a replay)."""
+        if label not in self.trace_log:
+            self.trace_log.append(label)
+        if not self._capture:
+            return fn(*args)
+        gc, key = self._gc, (kind, label)
+        entry = gc.graphs.get(key)
+        if entry is not None and entry.state != self._state():
+            del gc.graphs[key]
+            entry = None
+        if entry is None:
+            if key not in gc.warm:
+                gc.warm[key] = True
+                return gc.eager(self.device, fn, *args)
+            entry = gc.capture(key, self.device, fn, args, self._state,
+                               generators=generators)
+        gc.replay(entry, kind)
+        return entry.outputs
+
+    def _own_generators(self) -> None:
+        """The card's sampling scheme (see the module docstring): one
+        engine-owned generator a slot and one for the admission's first
+        token, every slot drawing every iteration of a sampled step."""
+        self._slot_gens = [torch.Generator(device=self.device)
+                           for _ in range(self.kv.n_slots)]
+        self._adm_gen = torch.Generator(device=self.device)
+
+    def _sampled(self) -> bool:
+        """Does a request in a slot, or the one being admitted, sample?
+        (Selects the ``:sampled`` twin.)"""
+        reqs = self._slot_req + ([self._lane.req] if self._lane else [])
+        return any(r is not None and r.params.temperature > 0 for r in reqs)
+
+    def _upload(self, dst, arr) -> None:
+        """One host array into the device buffer ``dst``: through a
+        pinned staging copy that the host does not wait for on the card
+        (the pinned block is kept until the copy has run)."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if dst.is_cuda:
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
 
     # ---- submission ------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int,
@@ -590,9 +707,11 @@ class ServingEngine:
         return self.kv.can_admit(req.prompt, total)
 
     def _gen(self, req: Request):
-        """The request's own generator (None when greedy)."""
+        """The request's own generator on the CPU (None when greedy, and
+        where the engine owns its generators)."""
         return (seeded_generator(req.params.seed, self.device)
-                if req.params.temperature > 0 else None)
+                if req.params.temperature > 0 and self._adm_gen is None
+                else None)
 
     def _start_admission(self) -> None:
         """Grant the queue head a slot (and on pages its pages, mapping
@@ -639,32 +758,36 @@ class ServingEngine:
         return woff, valid, last, chunk, p_last, limit, stops_row
 
     def _admission_args(self):
-        """Build the unified step's admission arguments and upload the
-        one packed array they need.  Returns ``(adm, meta)`` with
-        ``meta = (pf, woff, valid, last)``."""
+        """Pack the unified step's admission arguments (the chunk, the
+        table row on pages, the stop row and ``_ADM_SCALARS``, the
+        temperature by its float32 bit pattern) and upload them into the
+        step's input buffer: one upload.  Returns ``(pf, woff, valid,
+        last)``."""
         pf = self._lane
         woff, valid, last, chunk, p_last, limit, stops_row = \
             self._lane_chunk(pf)
-        C = self.chunk_tokens
         # the admitted slot's block-table row, on pages: the chunk
         # scatters and gathers through it; the commit installs it
         row = (self.kv.table_row(pf.slot) if self.paged
                else np.zeros(0, np.int32))
-        packed = np.concatenate([chunk, row, stops_row]).astype(np.int32)
-        dev_packed = torch.from_numpy(packed).to(self.device)
-        self.metrics.record_upload(1)
         sp = pf.req.params
-        Ps = row.size
-        adm = _Admission(pf.slot, woff, p_last, pf.prompt.size,
-                         sp.temperature, sp.top_k, limit, last, pf.gen,
-                         dev_packed[:C],
-                         dev_packed[C:C + Ps] if self.paged else None,
-                         dev_packed[C + Ps:])
-        return adm, (pf, woff, valid, last)
+        t_bits = int(np.float32(sp.temperature).view(np.int32))
+        scalars = np.array([pf.slot, woff, p_last, pf.prompt.size, t_bits,
+                            sp.top_k, limit, int(last)], np.int32)
+        packed = np.concatenate([chunk, row, stops_row, scalars]).astype(
+            np.int32)
+        self._upload(self._adm_buf, packed)
+        self.metrics.record_upload(1)
+        return pf, woff, valid, last
 
-    def _decode_gens(self):
-        """Per-slot generators of the live sampled requests (None when
-        every live request is greedy: no noise is drawn)."""
+    def _decode_gens(self, sampled: bool):
+        """The decode half's generators: None for the greedy twin; on the
+        card every slot's; on the CPU each live sampled request's (None
+        when there is none: no noise is drawn)."""
+        if not sampled:
+            return None
+        if self._slot_gens:
+            return self._slot_gens
         gens = [g if self._slot_req[s] is not None else None
                 for s, g in enumerate(self._gens)]
         return gens if any(g is not None for g in gens) else None
@@ -681,23 +804,50 @@ class ServingEngine:
         self._drain_horizon()                  # mirrors exact from here
         self._start_admission()
         n_dec = int(self._active.sum())
-        adm = meta = None
+        if self._lane is None and n_dec and K > 1:
+            return self._step_horizon()
+        meta = None
         if self._lane is not None:
-            adm, meta = self._admission_args()
+            meta = self._admission_args()
         total_valid = meta[2] if meta is not None else 0
         self.metrics.record_step(
             self.kv.active_slots, self.kv.n_slots, len(self.queue),
             used_tokens=total_valid + n_dec,
             budget_tokens=self.chunk_tokens + self.kv.n_slots)
         self._record_kv()
-        if adm is None and n_dec == 0:
+        if meta is None and n_dec == 0:
             return False
-        self._step_fn(self.params, self.kv.caches, self._dstate,
-                      self._decode_gens(), adm, n_dec > 0)
-        row = None
-        if n_dec or (meta is not None and meta[3]):
-            row = self._dstate["tok"].cpu().numpy()      # THE step's sync
+        sampled = self._sampled()
+        gens = self._decode_gens(sampled)
+        tag = self._qtag + (":sampled" if sampled else "")
+        if meta is None:
+            # decode_horizon 1, nothing to admit: the one-iteration horizon
+            block = self._run("horizon", f"horizon:K{K}{tag}",
+                              self._horizon_fn,
+                              (self.params, self.kv.caches, self._dstate,
+                               gens),
+                              self._slot_gens if sampled else ())
+            row = block[0].cpu().numpy()                # THE step's sync
             self.metrics.record_sync()
+        else:
+            pf, _, _, last = meta
+            if self._adm_gen is not None:
+                adm_gen = self._adm_gen if sampled else None
+                if last:
+                    # the request's draws start at 0 on both generators
+                    self._adm_gen.manual_seed(pf.req.params.seed)
+                    self._slot_gens[pf.slot].manual_seed(pf.req.params.seed)
+            else:
+                adm_gen = pf.gen if last else None   # draws once, at commit
+            self._run("unified", f"unified:C{self.chunk_tokens}{tag}",
+                      self._step_fn,
+                      (self.params, self.kv.caches, self._dstate, gens,
+                       adm_gen, self._adm_buf),
+                      self._slot_gens + [self._adm_gen] if sampled else ())
+            row = None
+            if n_dec or last:
+                row = self._dstate["tok"].cpu().numpy()  # THE step's sync
+                self.metrics.record_sync()
         t = self.metrics.now()
         emitted = []
         for slot in np.flatnonzero(self._active):
@@ -739,8 +889,14 @@ class ServingEngine:
                                  len(self.queue), used_tokens=K * n_act,
                                  budget_tokens=K * self.kv.n_slots)
         self._record_kv()
-        block = self._horizon_fn(self.params, self.kv.caches, self._dstate,
-                                 self._decode_gens())
+        sampled = self._sampled()
+        block = self._run(
+            "horizon",
+            f"horizon:K{K}{self._qtag}" + (":sampled" if sampled else ""),
+            self._horizon_fn,
+            (self.params, self.kv.caches, self._dstate,
+             self._decode_gens(sampled)),
+            self._slot_gens if sampled else ())
         self._hz_pending.append(_to_host_async(block))
         if len(self._hz_pending) > 1:
             self._emit_block(self._hz_pending.pop(0))
@@ -792,6 +948,11 @@ class ServingEngine:
             padded = np.zeros((1, Tb), np.int32)
             padded[0, :tp] = req.prompt
             sp, gen = req.params, self._gen(req)
+            if self._slot_gens:
+                # the slot's generator: the prefill takes draw 0, the
+                # decode steps (every slot draws) the next ones
+                gen = self._slot_gens[slot]
+                gen.manual_seed(sp.seed)
             req.status = RequestStatus.RUNNING
             self.metrics.record_admitted(req.rid)
             tok = self._prefill_fn(
@@ -802,7 +963,7 @@ class ServingEngine:
             tok = int(tok)                              # THE sync
             self.metrics.record_sync()
             self._slot_req[slot] = req
-            self._gens[slot] = gen
+            self._gens[slot] = None if self._slot_gens else gen
             self._tok[slot] = tok
             self._pos[slot] = tp
             self._active[slot] = True
@@ -823,12 +984,19 @@ class ServingEngine:
         self._record_kv()
         if n_active == 0:
             return admitted > 0
-        up = [torch.from_numpy(a).to(self.device) for a in (
-            self._tok, self._pos, self._active, self._temp, self._topk)]
-        self.metrics.record_upload(len(up))
-        nxt, _ = self._decode_fn(self.params, self.kv.caches, *up,
-                                 self._decode_gens())
-        nxt = nxt.cpu().numpy()                         # THE step's sync
+        arrays = (self._tok, self._pos, self._active, self._temp,
+                  self._topk)
+        for buf, a in zip(self._mono_in, arrays):
+            self._upload(buf, a)
+        self.metrics.record_upload(len(arrays))
+        sampled = self._sampled()
+        nxt, _ = self._run(
+            "decode", "decode" + (":sampled" if sampled else ""),
+            self._decode_fn,
+            (self.params, self.kv.caches, *self._mono_in,
+             self._decode_gens(sampled)),
+            self._slot_gens if sampled else ())
+        nxt = nxt.cpu().numpy().copy()                  # THE step's sync
         self.metrics.record_sync()
         t = self.metrics.now()
         was_active = np.flatnonzero(self._active)
@@ -882,6 +1050,11 @@ class ServingEngine:
                 for r in self.requests.values() if r.done}
 
 
+def _cache_tensors(caches) -> list:
+    """The cache tensors of every layer, in order."""
+    return [t for layer in caches for t in layer]
+
+
 def _to_device(tree, dev):
     """The decode-param tree with every tensor on ``dev`` (no copy for
     tensors already there)."""
@@ -898,7 +1071,7 @@ def _to_host_async(block):
     the event before reading (None on the CPU, where the block is
     already host memory)."""
     if block.device.type != "cuda":
-        return block, None
+        return block.clone(), None      # a graph's output is rewritten
     host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
     host.copy_(block, non_blocking=True)
     event = torch.cuda.Event()

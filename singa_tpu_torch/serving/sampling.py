@@ -3,13 +3,21 @@ Counterpart: ``singa_tpu/serving/sampling.py``.
 
 ``top_k == 0`` means "no top-k filter"; ``temperature <= 0`` means
 greedy.  Where the JAX package threads ``jax.random`` keys, the port
-draws from per-slot ``torch.Generator`` objects (Gumbel-max over the
-filtered logits, the same distribution as ``jax.random.categorical``).
-The two never produce the same bits from one seed; a request's draws
-here depend only on its own seed and token index, not on the batch it
-shares the engine with.  16-bit logits (a bf16 policy) are divided by
-the temperature in float32, as the reference's float32 temperature
-promotes them; the float32 noise is added to that.
+draws from ``torch.Generator`` objects (Gumbel-max over the filtered
+logits, the same distribution as ``jax.random.categorical``): one
+``rand(V)`` draw a row and a token.  The two never produce the same bits
+from one seed; a request's k-th token here takes the k-th draw of a
+generator seeded with its seed, whatever the batch it shares the engine
+with (how the engine keeps that while every slot of a captured step
+draws: ``serving/engine.py``).  16-bit logits (a bf16 policy) are
+divided by the temperature in float32, as the reference's float32
+temperature promotes them; the float32 noise is added to that.
+
+:func:`sample_logits` takes the temperature and top-k from the host (the
+eager prefills); :func:`sample_logits_per_row` takes them as device
+tensors and reads nothing from the host, so a captured step runs it (the
+engine's steps, its admission token included, and ``generate``'s decode
+loop).  Both give the same bits on the same logits and draws.
 """
 
 from __future__ import annotations
@@ -76,10 +84,12 @@ def sample_logits(logits, temperature: float, top_k: int, gen):
 
 
 def sample_logits_per_row(logits, temperature, top_k, gens):
-    """Per-row sampling (the serving engine's decode step): ``logits``
-    (S, V), ``temperature`` (S,), ``top_k`` (S,) device tensors and
-    ``gens`` a list of S generators (None for greedy rows) or None when
-    every row is greedy — then no noise is drawn at all."""
+    """Per-row sampling (the serving engine's steps, ``generate``'s
+    decode loop): ``logits`` (S, V), ``temperature`` (S,), ``top_k`` (S,)
+    device tensors and ``gens`` a list of S generators (None for rows
+    that draw nothing; one generator may stand for several rows, drawn
+    in row order) or None when every row is greedy — then no noise is
+    drawn at all.  A greedy row that draws has its noise discarded."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if gens is None or all(g is None for g in gens):
         return greedy
