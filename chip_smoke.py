@@ -909,6 +909,20 @@ def _paged_force(args, scales, plan):
                       scales.get("k_scales"), scales.get("v_scales"), plan)
 
 
+def _paged_force_parts(args, scales, plan):
+    """One call under a split ``plan``, its partials scratch kept:
+    ``(output, partials (S, H, R, d + 2) float32)`` after the call."""
+    kept, alloc = [], pa._scratch
+    pa._scratch = lambda device, n: kept.append(alloc(device, n)) or kept[-1]
+    try:
+        out = _paged_force(args, scales, plan)
+    finally:
+        pa._scratch = alloc
+    torch.cuda.synchronize()
+    S, H, d = args[0].shape
+    return out, kept[0].view(S, H, plan[0], d + 2)
+
+
 def _misaligned(t):
     """A contiguous copy of ``t`` one element past a 16-byte boundary."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
@@ -929,10 +943,7 @@ def _paged_split_parts(args, scales, plan):
     q, kp, _, table, pos = args
     S, H, d = q.shape
     R, ppr = plan
-    got = _paged_force(args, scales, plan)
-    torch.cuda.synchronize()
-    part = pa._parts(0, pa._stream(0), S * H * R * (d + 2))[0].view(
-        S, H, R, d + 2).clone()
+    got, part = _paged_force_parts(args, scales, plan)
     ml, acc = part[..., :2], part[..., 2:]
     n_live = pa._live_ranges(pos, R, ppr, kp.shape[2], table.shape[1])
     split = n_live > 1
@@ -1130,10 +1141,7 @@ def _paged_merge_row(args, scales, err):
     P, Ps = kp.shape[2], table.shape[1]
     plan = _paged_routes(q, table)["card"]
     R = plan[0]
-    _paged_force(args, scales, plan)
-    torch.cuda.synchronize()
-    part = pa._parts(0, pa._stream(0), S * H * R * (d + 2))[0].view(
-        S, H, R, d + 2).clone()
+    part = _paged_force_parts(args, scales, plan)[1]
     out = torch.zeros_like(q)
     ms = _time_ms(lambda: pa._merge_launch(part, pos, out, P, Ps, plan))
     plain_ms = _time_ms(lambda: pa.paged_decode_merge_reference(
@@ -1545,10 +1553,7 @@ def _paged_split_lowp(args, scales, plan):
     q, kp, _, table, pos = args
     S, H, d = q.shape
     R, ppr = plan
-    _paged_force(args, scales, plan)
-    torch.cuda.synchronize()
-    part = pa._parts(0, pa._stream(0), S * H * R * (d + 2))[0].view(
-        S, H, R, d + 2).clone()
+    part = _paged_force_parts(args, scales, plan)[1]
     n_live = pa._live_ranges(pos, R, ppr, kp.shape[2], table.shape[1])
     split = n_live > 1
     if not bool(split.any()):

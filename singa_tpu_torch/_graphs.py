@@ -24,8 +24,12 @@ so a replay reads the generator's seed and Philox offset as they stand
 when it is launched and advances the offset by what the captured draws
 advance it by, as the eager step would.  Scratch that a captured kernel
 reads is allocated while the graph records, from the graph's private
-pool, which the graph holds for its lifetime (the wrappers allocate it
-per call, or per capture: ``ops/paged_attention.py``).
+pool, which the graph holds for its lifetime (the kernel wrappers
+allocate their scratch per call).
+
+:meth:`GraphCache.call` is the whole protocol; the owners (the model,
+the serving engine, ``generate``) say what a key, a step and its state
+are.
 """
 
 from __future__ import annotations
@@ -93,9 +97,12 @@ class Graph:
             setattr(mod, name, getattr(mod, name) + n)
 
 
+_COLD = object()
+
+
 class GraphCache:
     """The graphs of one owner by key, the keys whose eager first call
-    ran (``warm``: key -> what the owner recorded then), the side
+    ran (``warm``: key -> the owner's state identity then), the side
     stream, and the captures and replays by kind (a key's first item)."""
 
     def __init__(self):
@@ -109,6 +116,46 @@ class GraphCache:
         """Forget every graph and first call (the counts stay)."""
         self.graphs = {}
         self.warm = {}
+
+    def forget(self, key):
+        """Forget the graph and the first call of ``key``."""
+        self.graphs.pop(key, None)
+        self.warm.pop(key, None)
+
+    def call(self, key, device, fn, args, state_fn, generators=(), k=1,
+             own_inputs=False, warm_id=None):
+        """``fn(*args)`` as the step ``key``, ``k`` times in a row: a
+        graph whose storage (``state_fn()``) moved is dropped; a key with
+        no graph runs its first call eagerly (again when ``warm_id()``,
+        the identity of the owner's state, differs from what it gave
+        after that call), and the call after captures it with
+        ``generators`` registered; then the graph replays.  With
+        ``own_inputs`` the tensors among ``args`` are copied into the
+        graph's own buffers before each replay (inputs that change from
+        call to call); otherwise the graph reads ``args`` where they lie.
+        Returns the eager call's output or the graph's own output
+        buffers."""
+        entry = self.graphs.get(key)
+        if entry is not None and entry.state != state_fn():
+            del self.graphs[key]
+            entry = None
+        if entry is None:
+            ident = warm_id() if warm_id is not None else None
+            if self.warm.get(key, _COLD) != ident:
+                out = self.eager(device, fn, *args)
+                self.warm[key] = warm_id() if warm_id is not None else None
+                k -= 1
+                if k == 0:
+                    return out
+            bufs = [torch.empty(a.shape, dtype=a.dtype, device=device)
+                    if isinstance(a, torch.Tensor) else a
+                    for a in args] if own_inputs else None
+            entry = self.capture(key, device, fn,
+                                 args if bufs is None else bufs, state_fn,
+                                 inputs=bufs or (), generators=generators)
+        entry.load(args)
+        self.replay(entry, key[0], k)
+        return entry.outputs
 
     def side_stream(self, device):
         if self._stream is None:
@@ -167,5 +214,6 @@ class GraphCache:
 
 def addresses(tensors) -> tuple:
     """The storage a graph is bound to: each tensor's identity and data
-    address."""
-    return tuple((id(t), t.data_ptr()) for t in tensors)
+    address (a :class:`Tensor`'s own identity, its data's address)."""
+    return tuple((id(t), (t.data if isinstance(t, Tensor) else t).data_ptr())
+                 for t in tensors)

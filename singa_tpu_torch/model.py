@@ -96,6 +96,7 @@ from . import autograd
 from . import precision as _precision
 from .device import get_device
 from .layer import Layer
+from . import _graphs
 from ._graphs import GraphCache, launch_counts as _launch_counts
 from .tensor import _NARROW, Tensor
 
@@ -330,28 +331,13 @@ class Model(Layer):
         """``fn`` on ``raw`` through the graph of its signature, ``k``
         times (see the module docstring): the first call of a signature,
         or of a new set of state tensors, runs eagerly on the side
-        stream; a graph whose state storage moved is captured again."""
-        gc = self._gc
-        dev = self.device.torch_device
-        key = (kind,) + _signature(raw)
-        reg = registry_fn()
-        entry = gc.graphs.get(key)
-        if entry is None or entry.state != _addresses(reg):
-            gc.graphs.pop(key, None)
-            if gc.warm.get(key) != _ids(reg):
-                out = gc.eager(dev, fn, _wrap(raw, self.device))
-                gc.warm[key] = _ids(registry_fn())
-                k -= 1
-                if k == 0:
-                    return out
-            bufs = [torch.empty(r.shape, dtype=r.dtype, device=dev)
-                    if isinstance(r, torch.Tensor) else r for r in raw]
-            entry = gc.capture(key, dev, fn, (_wrap(bufs, self.device),),
-                               lambda: _addresses(registry_fn()),
-                               inputs=bufs)
-        entry.load(raw)
-        gc.replay(entry, kind, k)
-        return _fresh(entry.outputs)
+        stream; a graph whose state storage moved is captured again.
+        The outputs are fresh tensors."""
+        return _fresh(self._gc.call(
+            (kind,) + _signature(raw), self.device.torch_device,
+            lambda *r: fn(_wrap(r, self.device)), raw,
+            lambda: _graphs.addresses(registry_fn()), k=k, own_inputs=True,
+            warm_id=lambda: _ids(registry_fn())))
 
     # ------------------------------------------------------------------
     # inference
@@ -475,14 +461,6 @@ def _fresh(x):
     return x
 
 
-def _tensors(x):
-    if isinstance(x, Tensor):
-        yield x
-    elif isinstance(x, (tuple, list)):
-        for v in x:
-            yield from _tensors(v)
-
-
 def _raw_inputs(xs) -> list:
     """Each argument as a step takes it: a Tensor's data, a torch tensor
     as it is, a numpy array as a host tensor (64-bit types narrowed as
@@ -521,7 +499,3 @@ def _signature(raw) -> tuple:
 
 def _ids(reg) -> tuple:
     return tuple(id(t) for t in reg)
-
-
-def _addresses(reg) -> tuple:
-    return tuple((id(t), t.data.data_ptr()) for t in reg)

@@ -477,7 +477,11 @@ class GPT(Model):
         gens = [e.gen] * B if t > 0 else None
         n = int(max_new_tokens) - 1
         if n and _capture and _graphs.captures_on(dev):
-            self._gen_loop_captured(key, e, params, gens, n)
+            # a graph is bound to the parameters' storage (the tree's
+            # view objects are new every call)
+            self._gc.call(key, dev, _gen_decode_step, (params, e, c, gens),
+                          lambda: tuple(x.data_ptr() for x in _leaves(params)),
+                          generators=[e.gen] if gens else (), k=n)
         else:
             for _ in range(n):
                 _gen_decode_step(params, e, c, gens)
@@ -493,43 +497,12 @@ class GPT(Model):
         entries = self._gen_entries
         e = entries.pop(key, None)
         if e is None:
-            self._gc.graphs.pop(key, None)
-            self._gc.warm.pop(key, None)
+            self._gc.forget(key)
             e = _GenEntry(self.config, B, dtype, dev)
             while len(entries) >= GEN_CACHE_MAX:
-                old, _ = entries.popitem(last=False)
-                self._gc.graphs.pop(old, None)
-                self._gc.warm.pop(old, None)
+                self._gc.forget(entries.popitem(last=False)[0])
         entries[key] = e
         return e
-
-    def _gen_loop_captured(self, key, e, params, gens, n):
-        """``n`` decode steps of entry ``e`` through its graph: the
-        entry's first step eagerly on the side stream, its second
-        captured (the entry's generator registered when it samples),
-        every later one a replay; a graph whose parameters' storage
-        moved is captured again (the tree's storage: its view objects
-        are new every call)."""
-        gc, dev, c = self._gc, e.out.device, self.config
-
-        def state():
-            return tuple(t.data_ptr() for t in _leaves(params))
-
-        entry = gc.graphs.get(key)
-        if entry is not None and entry.state != state():
-            del gc.graphs[key]
-            entry = None
-        if entry is None:
-            if key not in gc.warm:
-                gc.warm[key] = True
-                gc.eager(dev, _gen_decode_step, params, e, c, gens)
-                n -= 1
-                if n == 0:
-                    return
-            entry = gc.capture(key, dev, _gen_decode_step,
-                               (params, e, c, gens), state,
-                               generators=[e.gen] if gens else ())
-        gc.replay(entry, "generate", n)
 
 
 # the reference's name for the same call

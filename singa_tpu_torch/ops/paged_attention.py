@@ -41,8 +41,9 @@ leaves its online-softmax state ``(m, l, acc)`` in a partials buffer,
 and a second launch from the same C entry merges each slot's live
 ranges in range order (deterministic, no atomics, one host call).
 Nothing carries from one call to the next: the partials buffer
-(``_parts``, cached per device, stream and size) is scratch that each
-call writes before its merge reads it.  ``paged_decode_partial_reference``
+(``_scratch``) is allocated per call, which its merge reads in stream
+order; a call that a CUDA graph records takes it from the graph's
+private pool, which the graph holds for its lifetime.  ``paged_decode_partial_reference``
 and ``paged_decode_merge_reference`` are the plain versions of the two
 halves of that decomposition.
 
@@ -223,19 +224,11 @@ def _stream(index):
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-@functools.lru_cache(maxsize=8)
-def _parts(index, stream, n):
-    """``(buffer, address)``: ``n`` float32 of scratch for the split
-    route's partials on ``stream``.  Each call writes the partials it
-    merges before the merge reads them, in stream order, so nothing in it
-    carries from one call to the next.  Not for a launch that a CUDA
-    graph records: the cache may drop its buffer while the graph lives,
-    and the allocator may then hand the memory to another tensor
-    (:func:`_launch` allocates such a launch's scratch from the graph's
-    own pool)."""
-    buf = torch.empty(n, dtype=torch.float32,
-                      device=torch.device("cuda", index))
-    return buf, buf.data_ptr()
+def _scratch(device, n):
+    """``n`` float32 of scratch for one split call's partials (allocated
+    on the current stream: the memory goes to no later work before the
+    merge has read it)."""
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def _check_kernel_operands(q, k_pages, v_pages, table, pos, k_scales,
@@ -335,24 +328,15 @@ def _launch(q, k_pages, v_pages, table, pos, scale, k_scales, v_scales,
     global launches, launches_q8, launches_merge, launches_lowp
     S, H, d = q.shape
     R, ppr = plan
-    index = q.device.index
-    stream = _stream(index)
-    parts = scratch = None
-    if R > 1:
-        n = S * H * R * (d + 2)
-        if q.is_cuda and torch.cuda.is_current_stream_capturing():
-            # recorded into a graph: scratch from the graph's private
-            # pool, which the graph holds for its lifetime
-            scratch = torch.empty(n, dtype=torch.float32, device=q.device)
-            parts = scratch.data_ptr()
-        else:
-            parts = _parts(index, stream, n)[1]
+    stream = _stream(q.device.index)
+    scratch = _scratch(q.device, S * H * R * (d + 2)) if R > 1 else None
     out = torch.empty_like(q)
     quant = k_scales is not None
     err = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scales.data_ptr() if quant else None,
                 v_scales.data_ptr() if quant else None,
-                table.data_ptr(), pos.data_ptr(), out.data_ptr(), parts, S, H,
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), S, H,
                 k_pages.shape[2], table.shape[1], d, R, ppr, scale,
                 _QELEM[q.dtype], _ELEM[k_pages.dtype],
                 _SCALE[k_scales.dtype] if quant else 0, stream)

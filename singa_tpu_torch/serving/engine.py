@@ -64,17 +64,16 @@ not a knob) runs them eagerly on the card too.
 
 Sampling: a request's k-th token takes the k-th ``rand(V)`` draw of a
 generator seeded with its seed, whatever its neighbours are (the port's
-stand-in for the reference's per-slot keys).  On the CPU each sampled
-request draws from its own generator while it is live.  On the card the
-engine owns one generator a slot and one for the admission's first
-token, registered with every sampled graph, and every slot draws every
-iteration of a sampled graph (a greedy, free or prefilling slot's noise
-is discarded by the ``torch.where`` that picks greedy rows): the
-admission generator and the admitted slot's are re-seeded with the
-request's seed just before the step that commits it, so its first token
-takes draw 0 and the discarded decode draw of that step is draw 0 of
-the slot's generator, and every later iteration, eager or replayed,
-advances it by one draw.
+stand-in for the reference's per-slot keys).  The engine owns one
+generator a slot and one for the admission's first token, registered
+with every sampled graph, and every slot draws every iteration of a
+sampled step (a greedy, free or prefilling slot's noise is discarded by
+the ``torch.where`` that picks greedy rows): the admission generator and
+the admitted slot's are re-seeded with the request's seed just before
+the step that commits it, so its first token takes draw 0 and the
+discarded decode draw of that step is draw 0 of the slot's generator,
+and every later iteration, eager or replayed, advances it by one draw.
+The monolithic prefill re-seeds its slot's generator and takes draw 0.
 
 Quantized serving (``kv_dtype="int8"``, ``weight_dtype="int8"``, the
 chunked engine on either layout) stores K/V as int8 rows with one scale
@@ -108,7 +107,7 @@ import torch
 
 from .. import _graphs
 from .. import precision as _precision
-from ..device import resolve_device, seeded_generator
+from ..device import resolve_device
 from ..models import gpt as _gpt
 from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache, SlotKVCache
 from .metrics import ServingMetrics
@@ -182,7 +181,6 @@ class _Prefill:
     req: Request
     slot: int
     off: int                    # next chunk starts here
-    gen: object                 # torch.Generator (sampled) or None
     prompt: np.ndarray
     n_new: int
 
@@ -482,7 +480,6 @@ class ServingEngine:
         self._rid = itertools.count()
         S, C, M = n_slots, self.chunk_tokens, MAX_STOP_TOKENS
         self._slot_req: list[Request | None] = [None] * S
-        self._gens: list = [None] * S      # CPU: per-slot request generator
         # host MIRROR of the device active mask (chunked: trailing it by
         # at most one pipelined horizon; monolithic: the authority)
         self._active = np.zeros(S, bool)
@@ -494,12 +491,9 @@ class ServingEngine:
         self._qtag = (":paged" if self.paged else "") + (
             ":kv8" if pol.kv_dtype is not None else "") + (
             ":w8" if pol.weight_dtype is not None else "")
-        # the card's engine-owned generators (see the module docstring);
-        # the CPU's are the requests' own
-        self._slot_gens: list = []
-        self._adm_gen = None
-        if dev.type == "cuda":
-            self._own_generators()
+        # the engine's generators (see the module docstring)
+        self._slot_gens = [torch.Generator(device=dev) for _ in range(S)]
+        self._adm_gen = torch.Generator(device=dev)
         if not self.chunked:
             # the monolithic engine's host-resident scheduler state,
             # uploaded every step into the step's static input buffers
@@ -566,27 +560,8 @@ class ServingEngine:
             self.trace_log.append(label)
         if not self._capture:
             return fn(*args)
-        gc, key = self._gc, (kind, label)
-        entry = gc.graphs.get(key)
-        if entry is not None and entry.state != self._state():
-            del gc.graphs[key]
-            entry = None
-        if entry is None:
-            if key not in gc.warm:
-                gc.warm[key] = True
-                return gc.eager(self.device, fn, *args)
-            entry = gc.capture(key, self.device, fn, args, self._state,
-                               generators=generators)
-        gc.replay(entry, kind)
-        return entry.outputs
-
-    def _own_generators(self) -> None:
-        """The card's sampling scheme (see the module docstring): one
-        engine-owned generator a slot and one for the admission's first
-        token, every slot drawing every iteration of a sampled step."""
-        self._slot_gens = [torch.Generator(device=self.device)
-                           for _ in range(self.kv.n_slots)]
-        self._adm_gen = torch.Generator(device=self.device)
+        return self._gc.call((kind, label), self.device, fn, args,
+                             self._state, generators=generators)
 
     def _sampled(self) -> bool:
         """Does a request in a slot, or the one being admitted, sample?
@@ -674,7 +649,6 @@ class ServingEngine:
     def _free_slot(self, slot: int) -> Request:
         req = self._slot_req[slot]
         self._slot_req[slot] = None
-        self._gens[slot] = None
         self._active[slot] = False
         self.kv.release(slot)
         return req
@@ -706,13 +680,6 @@ class ServingEngine:
         total = min(req.prompt.size + req.max_new_tokens, self.max_len)
         return self.kv.can_admit(req.prompt, total)
 
-    def _gen(self, req: Request):
-        """The request's own generator on the CPU (None when greedy, and
-        where the engine owns its generators)."""
-        return (seeded_generator(req.params.seed, self.device)
-                if req.params.temperature > 0 and self._adm_gen is None
-                else None)
-
     def _start_admission(self) -> None:
         """Grant the queue head a slot (and on pages its pages, mapping
         cached prefix pages: its prefill then starts at the first
@@ -733,8 +700,7 @@ class ServingEngine:
             if slot is None:
                 return
         self.queue.popleft()
-        self._lane = _Prefill(req, slot, cached, self._gen(req), prompt,
-                              n_new)
+        self._lane = _Prefill(req, slot, cached, prompt, n_new)
         req.status = RequestStatus.RUNNING
         self.metrics.record_admitted(req.rid)
 
@@ -781,16 +747,9 @@ class ServingEngine:
         return pf, woff, valid, last
 
     def _decode_gens(self, sampled: bool):
-        """The decode half's generators: None for the greedy twin; on the
-        card every slot's; on the CPU each live sampled request's (None
-        when there is none: no noise is drawn)."""
-        if not sampled:
-            return None
-        if self._slot_gens:
-            return self._slot_gens
-        gens = [g if self._slot_req[s] is not None else None
-                for s, g in enumerate(self._gens)]
-        return gens if any(g is not None for g in gens) else None
+        """The decode half's generators: every slot's for the sampled
+        twin, None for the greedy one (no noise is drawn)."""
+        return self._slot_gens if sampled else None
 
     # ---- steps -----------------------------------------------------------
     def _step_chunked(self) -> bool:
@@ -825,25 +784,20 @@ class ServingEngine:
             block = self._run("horizon", f"horizon:K{K}{tag}",
                               self._horizon_fn,
                               (self.params, self.kv.caches, self._dstate,
-                               gens),
-                              self._slot_gens if sampled else ())
+                               gens), gens or ())
             row = block[0].cpu().numpy()                # THE step's sync
             self.metrics.record_sync()
         else:
             pf, _, _, last = meta
-            if self._adm_gen is not None:
-                adm_gen = self._adm_gen if sampled else None
-                if last:
-                    # the request's draws start at 0 on both generators
-                    self._adm_gen.manual_seed(pf.req.params.seed)
-                    self._slot_gens[pf.slot].manual_seed(pf.req.params.seed)
-            else:
-                adm_gen = pf.gen if last else None   # draws once, at commit
+            if last:
+                # the request's draws start at 0 on both generators
+                self._adm_gen.manual_seed(pf.req.params.seed)
+                self._slot_gens[pf.slot].manual_seed(pf.req.params.seed)
             self._run("unified", f"unified:C{self.chunk_tokens}{tag}",
                       self._step_fn,
                       (self.params, self.kv.caches, self._dstate, gens,
-                       adm_gen, self._adm_buf),
-                      self._slot_gens + [self._adm_gen] if sampled else ())
+                       self._adm_gen if sampled else None, self._adm_buf),
+                      gens + [self._adm_gen] if sampled else ())
             row = None
             if n_dec or last:
                 row = self._dstate["tok"].cpu().numpy()  # THE step's sync
@@ -867,7 +821,6 @@ class ServingEngine:
                     self.kv.register_prefix(slot, req.prompt)
                 self._lane = None
                 self._slot_req[slot] = req
-                self._gens[slot] = pf.gen
                 self._active[slot] = True
                 tok = int(row[slot])
                 if tok < 0:
@@ -947,12 +900,10 @@ class ServingEngine:
             Tb = _gpt.bucket_length(tp, self.max_len, self.min_bucket)
             padded = np.zeros((1, Tb), np.int32)
             padded[0, :tp] = req.prompt
-            sp, gen = req.params, self._gen(req)
-            if self._slot_gens:
-                # the slot's generator: the prefill takes draw 0, the
-                # decode steps (every slot draws) the next ones
-                gen = self._slot_gens[slot]
-                gen.manual_seed(sp.seed)
+            # the slot's generator: the prefill takes draw 0, the decode
+            # steps (every slot draws) the next ones
+            sp, gen = req.params, self._slot_gens[slot]
+            gen.manual_seed(sp.seed)
             req.status = RequestStatus.RUNNING
             self.metrics.record_admitted(req.rid)
             tok = self._prefill_fn(
@@ -963,7 +914,6 @@ class ServingEngine:
             tok = int(tok)                              # THE sync
             self.metrics.record_sync()
             self._slot_req[slot] = req
-            self._gens[slot] = None if self._slot_gens else gen
             self._tok[slot] = tok
             self._pos[slot] = tp
             self._active[slot] = True

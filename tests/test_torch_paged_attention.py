@@ -141,11 +141,15 @@ def _stub_launch_path(monkeypatch, fn):
     monkeypatch.setattr(pa_mod, "_sm_count", lambda index: 132)
     sizes = []
 
-    def parts(index, stream, n):
-        sizes.append((index, stream, n))
-        return None, 2000
+    class _Buf:
+        def data_ptr(self):
+            return 2000
 
-    monkeypatch.setattr(pa_mod, "_parts", parts)
+    def scratch(device, n):
+        sizes.append((device.type, n))
+        return _Buf()
+
+    monkeypatch.setattr(pa_mod, "_scratch", scratch)
     S, H, d, P, Ps = 8, 12, 8, 16, 64
     return (torch.zeros(S, H, d), torch.zeros(3, H, P, d),
             torch.zeros(S, Ps, dtype=torch.int32), sizes)
@@ -171,7 +175,7 @@ def test_launch_path_passes_the_same_plan_for_any_pos(monkeypatch):
     assert rec.calls[0][14:16] == (8, 8)                     # R, ppr
     assert rec.calls[0][8] == 2000                           # partials
     # scratch for (m, l, acc) of every (slot, head, range)
-    assert set(sizes) == {(None, 7, 8 * 12 * 8 * (8 + 2))}
+    assert sizes == [("cpu", 8 * 12 * 8 * (8 + 2))] * 6
 
 
 def test_the_unsplit_plan_launches_no_merge(monkeypatch):

@@ -12,10 +12,10 @@ captured on the CPU.
 The capture protocol itself (first call eager, second captures, later
 calls replay, the state check, the generators a graph registers) runs
 here against a stand-in for ``torch.cuda.CUDAGraph`` whose replay calls
-the step again on the arguments it was captured with (``fake_graphs``),
-and the card's sampling scheme (engine-owned generators, every slot
-drawing every iteration) is held against the CPU's (each request's own
-generator, drawing while it is live): same tokens, bit for bit.
+the step again on the arguments it was captured with (``fake_graphs``).
+The sampling scheme (engine-owned generators, every slot drawing every
+iteration of a sampled step) gives each sampled request of a mixed
+stream the tokens it gets when it is served alone, bit for bit.
 
 The JAX model trains once per module (a module-scoped fixture)."""
 
@@ -130,11 +130,8 @@ def fake_graphs(monkeypatch):
     yield made
 
 
-def _engine(tm, kw, own_generators=False):
-    eng = TorchEngine(tm, device="cpu", **kw)
-    if own_generators:
-        eng._own_generators()
-    return eng
+def _engine(tm, kw):
+    return TorchEngine(tm, device="cpu", **kw)
 
 
 # ---- the unified step against the JAX engine -----------------------------
@@ -180,7 +177,7 @@ def test_unified_step_with_device_arguments_matches_jax(
     if captured:
         request.getfixturevalue("fake_graphs")
     lengths, budgets, kw = CASES[case]
-    eng = _engine(tm, dict(LAYOUTS[layout], **kw), own_generators=captured)
+    eng = _engine(tm, dict(LAYOUTS[layout], **kw))
     got = _run_case(eng, cfg, lengths, budgets)
     for i, (a, b) in enumerate(zip(got, jax_cases[layout, case])):
         np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
@@ -250,7 +247,7 @@ def test_captured_stream_equals_eager_and_registers_its_generators(
     ones none; tokens equal the eager engine's, greedy and sampled."""
     _, tm, _, cfg = served
     kw = PIN_KW[engine]
-    eng = _engine(tm, kw, own_generators=True)
+    eng = _engine(tm, kw)
     got = _mixed_stream(eng, cfg)
     keys = [k for k, _ in fake_graphs]
     assert len(keys) == len(set(keys)) >= 1
@@ -263,8 +260,7 @@ def test_captured_stream_equals_eager_and_registers_its_generators(
             want = eng._slot_gens + ([eng._adm_gen] if kind == "unified"
                                      else [])
         assert [id(x) for x in g.generators] == [id(x) for x in want]
-    ref = _mixed_stream(_engine(tm, dict(kw, _capture=False),
-                                own_generators=True), cfg)
+    ref = _mixed_stream(_engine(tm, dict(kw, _capture=False)), cfg)
     for i, (a, b) in enumerate(zip(got, ref)):
         np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
 
@@ -273,7 +269,7 @@ def test_a_moved_state_tensor_captures_again(served, fake_graphs):
     """The storage of the state is checked before a replay: a cache
     tensor rebound since the capture makes the key capture again."""
     _, tm, _, cfg = served
-    eng = _engine(tm, SLOT_KW, own_generators=True)
+    eng = _engine(tm, SLOT_KW)
     p = _stream(cfg.vocab_size, 30, seed=3)
     want = tm.generate(p, 12)[0]
     rid = eng.submit(p, 12)
@@ -287,29 +283,28 @@ def test_a_moved_state_tensor_captures_again(served, fake_graphs):
     np.testing.assert_array_equal(res[rid], want)
 
 
-# ---- sampling: the card's scheme against the CPU's ---------------------
+# ---- sampling: a request's draws whatever its neighbours -----------------
 
 @pytest.mark.parametrize("engine", ["paged", "slot", "slot_horizon1",
                                     "mono"])
 def test_engine_owned_generators_draw_as_each_request_alone(served, engine):
     """Engine-owned generators, every slot drawing every iteration and
-    re-seeded as a request is committed, give each sampled request the
-    draws of its own generator (the CPU's scheme), whatever its
-    neighbours: the same tokens on a mixed stream."""
+    re-seeded as a request is committed, give each sampled request of a
+    mixed stream the k-th draw of its own seed for its k-th token: served
+    alone, one after the other through one engine, every sampled request
+    gives the tokens it gave in the stream."""
     _, tm, _, cfg = served
     kw = PIN_KW[engine]
-    cpu = _mixed_stream(_engine(tm, kw), cfg)
-    own = _mixed_stream(_engine(tm, kw, own_generators=True), cfg)
-    for i, (a, b) in enumerate(zip(cpu, own)):
-        np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
-    # and a sampled request alone (request 3: temperature 0.8, top-k 3)
-    # gives the tokens it gave in the stream
-    eng = _engine(tm, kw, own_generators=True)
-    n_p = int(np.random.RandomState(1).randint(1, cfg.max_len - 13,
-                                               size=20)[3])
-    rid = eng.submit(_stream(cfg.vocab_size, n_p, seed=103), 8,
-                     temperature=0.8, top_k=3, seed=43)
-    np.testing.assert_array_equal(eng.run()[rid], own[3])
+    stream = _mixed_stream(_engine(tm, kw), cfg)
+    lengths = np.random.RandomState(1).randint(1, cfg.max_len - 13, size=20)
+    eng = _engine(tm, kw)
+    for i in range(1, 20, 2):                       # the sampled requests
+        rid = eng.submit(_stream(cfg.vocab_size, int(lengths[i]),
+                                 seed=100 + i), 8,
+                         temperature=0.8 + 0.1 * (i % 3), top_k=i % 4,
+                         seed=40 + i)
+        np.testing.assert_array_equal(eng.run()[rid], stream[i],
+                                      err_msg=f"request {i}")
 
 
 # ---- the admission's one upload -----------------------------------------
