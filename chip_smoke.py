@@ -200,14 +200,45 @@ Phases (any failure exits non-zero before the result lines print):
    each, no backward one); the
    epoch loss must fall and the characters must equal the port's on the
    CPU from the same weights and generator;
+15. path ``mlp_train``: ``examples/mlp.py``'s MLP (784-128-128-10, SGD
+   0.05 with momentum 0.9) on its synthetic MNIST, B 256, 20 steps,
+   captured beside its eager twin from the same seeded weights: every
+   loss and state bit for bit, 1 capture and 19 replays, the loss falls;
+   phases 15-19 run with cuDNN's deterministic algorithms picked without
+   benchmarking (TF32 off as in phase 1);
+16. path ``cnn_train``: the zoo's MNIST CNN on ``train_cnn.py``'s
+   synthetic MNIST, B 64, 10 steps, captured against eager the same
+   way; its first step's logits and loss on the card against the port on
+   the CPU from the same states (``CNN_CPU_TOL``);
+17. path ``resnet50_train``: ResNet-50 at full width (224x224, 1000
+   classes) on ``train_cnn.py``'s synthetic imagenet, B 32, its SGD (lr
+   0.005, momentum 0.9, weight decay 1e-5), 5 steps, captured against
+   eager bit for bit (parameters, momenta and the BatchNorm buffers);
+   steady step, images/s, peak memory and, over two more profiled steps
+   of each, the idle share;
+18. path ``resnet50_bf16``: the same under ``precision="bfloat16"``; the
+   loss at step 5 within 2 % of float32's;
+19. path ``zoo``: alexnet, vgg16, mobilenet, xception (299) and
+   resnet18, B 4 at each input size, 1000 classes, seeded inputs: 3
+   steps captured against eager bit for bit (AlexNet's and VGG's
+   dropout masks from the card's generator, registered with the graph),
+   then ``predict`` in eval mode captured against its eager first call.
+   No kernel of the port lies on paths 15-19: every counter must read 0
+   there;
+3c. (with 3b) flash on mixed operands: bf16 queries over float32 keys and
+   values (the float chunk under a bf16 policy over float32 cache rows)
+   at the serving shape: one float32 launch, o in bf16 within one unit
+   of its plain version;
 14. one line comparing each captured serving path with its eager twin
    (tokens/s, TTFT p50, ITL p50 and p99, peak memory, captures and
    replays), one comparing each captured training path with its eager
    twin (steady step, tokens/s, peak memory, replays; the predict
-   errors), one ``kernels`` JSON line, then the result line.
+   errors), one for paths 15-19 (steady step, rate, peak memory,
+   replays, idle share, the CPU and float32 comparisons, each beside its
+   eager twin), one ``kernels`` JSON line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
-7, 7a-7f, 8, 8b, 8c, 11 and 13) and read just after it; a kernel's
+7, 7a-7f, 8, 8b, 8c, 11, 13 and 15-19) and read just after it; a kernel's
 ``launches`` is the sum over them, ``launches_by_path`` splits it.  On
 a captured path a replay adds the launches its capture recorded (the
 capture itself launches nothing), so the counts are the kernels the
@@ -220,15 +251,16 @@ other paged combinations under ``by_dtype`` / ``by_combination``).
                                      serve_slot[_eager]|generate[_eager]|
                                      train[_eager]|train_bf16[_eager]|
                                      train_fp16[_eager]|rnn_train[_eager]|
-                                     rnn_train_plain]
+                                     rnn_train_plain|resnet50[_eager]]
 
 runs phases 1-2 and then the serving stream (float or int8 pages, or
 float slots; on an engine whose graphs the same stream with other token
 values captured first; with ``_eager`` the eager twin), one
 ``GPT.generate`` call of path 7a (captured, or the eager loop), or two training
 steps (GPT in float32 or under the bf16 or fp16 policy, the fused
-char-LSTM or the char-LSTM through the plain cell; captured, or with
-``_eager`` the eager twin) after two warm-up steps (on the captured
+char-LSTM or the char-LSTM through the plain cell, or path 17's
+ResNet-50; captured, or with ``_eager`` the eager twin) after two
+warm-up steps (on the captured
 path: the eager first step and the capture), once under ``torch.profiler`` (CPU and CUDA activity),
 and prints the device's busy and idle share over the run, device time by
 kernel group and the costliest kernels.
@@ -287,6 +319,10 @@ from singa_tpu_torch import layer as tlayer  # noqa: E402
 from singa_tpu_torch import model as tmodel  # noqa: E402
 from singa_tpu_torch import opt as topt  # noqa: E402
 from singa_tpu_torch.examples import char_rnn  # noqa: E402
+from singa_tpu_torch.examples import mlp  # noqa: E402
+from singa_tpu_torch.examples.cnn import train_cnn as cnn_train  # noqa: E402
+from singa_tpu_torch.examples.cnn.data import (  # noqa: E402
+    synthetic as cnn_synthetic)
 from singa_tpu_torch.models import gpt as tgpt  # noqa: E402
 from singa_tpu_torch.ops import _build  # noqa: E402
 from singa_tpu_torch.ops import elementwise as ew  # noqa: E402
@@ -1233,6 +1269,37 @@ def _abs(got, ref):
 
 def _lowp_bytes(*tensors, extra=0):
     return sum(t.numel() * t.element_size() for t in tensors) + extra
+
+
+def phase_flash_mixed():
+    """Phase 3c: flash on mixed operands, the float chunk under a bf16
+    policy over float32 cache rows: bf16 queries (1, 12, 64, 64) over
+    float32 keys and values (1, 12, 1024, 64) under the chunk's dense
+    mask.  The entry promotes the operands to float32 and runs that
+    route (a float32 launch, no 16-bit one), returning o in q's dtype;
+    held against the plain version on the same mixed operands within one
+    bf16 unit."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    H, d, C, L = 12, 64, 64, 1024
+    q = torch.randn(1, H, C, d, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(1, H, L, d, generator=g, device="cuda")
+            for _ in range(2))
+    cols = torch.arange(L, device="cuda")
+    positions = 512 + torch.arange(C, device="cuda")
+    mask = torch.where(cols[None] <= positions[:, None], 0.0, -1e9)
+    before = (fa.launches, fa.launches_lowp)
+    o = fa.flash_attention(q, k, v, mask[None, None])
+    ref = fa.flash_attention_reference(q, k, v, mask[None, None])
+    torch.cuda.synchronize()
+    ran = (fa.launches - before[0], fa.launches_lowp - before[1])
+    err = _ulps(o, ref)
+    _log(f"flash mixed (bf16 q, float32 k/v, serving chunk shape): o "
+         f"{o.dtype}, {err:.3g} ulp against the plain version (tol "
+         f"{ULP_TOL:g}); launches {ran[0]} (16-bit {ran[1]})")
+    if o.dtype != torch.bfloat16 or err > ULP_TOL or ran != (1, 0):
+        raise AssertionError(f"flash on mixed operands: {o.dtype}, {err} "
+                             f"ulp, launches {ran}")
+    return err
 
 
 def phase_flash_lowp(rows):
@@ -2749,12 +2816,14 @@ def _same_states(label, a, b):
         raise AssertionError(f"{label}: {len(bad)} states differ")
 
 
-def _train_run(model, batches, label, after_step=None):
+def _train_run(model, batches, label, after_step=None, unit="tokens"):
     """One ``train_one_batch`` a batch, each ending in ``loss.item()``;
     launch counters zeroed just before the steps and read just after;
     ``after_step(s)`` runs between steps, outside the timed window.
     The steady step is steps 2 and on: on the captured path step 0 runs
-    eagerly and step 1 captures, then replays."""
+    eagerly and step 1 captures, then replays.  The rate counts
+    ``unit``: ``tokens`` (every id of a batch) or ``images`` (its first
+    axis)."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2772,17 +2841,19 @@ def _train_run(model, batches, label, after_step=None):
     torch.cuda.synchronize()
     launches = _read_launches()
     steady = walls[2:]
-    tokens = batches[0][0].size
+    per_step = batches[0][0].size if unit == "tokens" \
+        else batches[0][0].shape[0]
+    rate = f"{unit}_per_s"
     stats = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
-             "steady_step_ms": float(np.mean(steady)) * 1e3,
-             "tokens_per_s": tokens * len(steady) / sum(steady),
+             "steady_step_ms": float(np.mean(steady)) * 1e3, "unit": unit,
+             rate: per_step * len(steady) / sum(steady),
              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
              "graph_replays": dict(model.graph_replays),
              "graph_captures": dict(model.graph_captures)}
     _log(f"{label}: steady step {stats['steady_step_ms']:.2f} ms (steps 2-"
          f"{len(batches) - 1}; steps 0, 1: {stats['step_ms'][0]:.1f}, "
-         f"{stats['step_ms'][1]:.1f} ms), {stats['tokens_per_s']:.0f} "
-         f"tokens/s, peak memory {stats['peak_memory_bytes']} bytes "
+         f"{stats['step_ms'][1]:.1f} ms), {stats[rate]:.0f} "
+         f"{unit}/s, peak memory {stats['peak_memory_bytes']} bytes "
          f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); graph captures "
          f"{stats['graph_captures']}, replays {stats['graph_replays']}; "
          f"launches " + json.dumps({k: v for k, v in launches.items() if v}))
@@ -2797,12 +2868,13 @@ def _graph_against_eager(label, g_launch, g_stats, e_launch, e_stats,
     the replays were credited equal the eager run's; one capture and
     steps - 1 replays, so no eager step ran after the first."""
     steps = len(g_stats["losses"])
+    u = g_stats["unit"]
     _log(f"{label} captured against eager: losses {g_stats['losses']} / "
          f"{e_stats['losses']}; steady step {g_stats['steady_step_ms']:.2f}"
          f" / {e_stats['steady_step_ms']:.2f} ms "
          f"({e_stats['steady_step_ms'] / g_stats['steady_step_ms']:.3f}x), "
-         f"tokens/s {g_stats['tokens_per_s']:.0f} / "
-         f"{e_stats['tokens_per_s']:.0f}, peak memory "
+         f"{u}/s {g_stats[u + '_per_s']:.0f} / "
+         f"{e_stats[u + '_per_s']:.0f}, peak memory "
          f"{g_stats['peak_memory_bytes'] / 2**30:.2f} / "
          f"{e_stats['peak_memory_bytes'] / 2**30:.2f} GiB")
     if g_stats["losses"] != e_stats["losses"]:
@@ -3686,6 +3758,248 @@ def phase_rnn_sample():
                       "sample_s": sample_s, "margin": margin}
 
 
+# ---------------------------------------------------------------------------
+# the MLP and CNN workloads (phases 15-19)
+# ---------------------------------------------------------------------------
+
+# path mlp_train: examples/mlp.py's MLP at its widths
+MLP_B, MLP_STEPS, MLP_LR = 256, 20, 0.05
+# path cnn_train: the MNIST CNN on synthetic MNIST
+CNN_B, CNN_STEPS = 64, 10
+# the card's first-step logits and loss against the CPU's: float32 on
+# both sides, convolutions by cuDNN's chosen algorithms (TF32 off) on the
+# card and by the CPU's direct ones; observed differences are ~1e-6 of
+# the logits' unit scale, so the limit leaves a 100x margin
+CNN_CPU_TOL = 1e-4
+# path resnet50_train: ResNet-50 at full width, synthetic imagenet
+R50_B, R50_STEPS, R50_LR = 32, 5, 0.005
+# path zoo: each model, B ZOO_B at its input size, 1000 classes
+ZOO_B, ZOO_STEPS = 4, 3
+ZOO = (("alexnet", 224), ("vgg16", 224), ("mobilenet", 224),
+       ("xceptionnet", 299), ("resnet18", 224))
+
+
+def _cnn_determinism():
+    """cuDNN's deterministic algorithms, picked without benchmarking (the
+    captured run and its eager twin must take the same ones); TF32 stays
+    off (phase 1)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _zoo_model(name, seed=0, use_graph=True, x=None, precision=None,
+               lr=R50_LR, **kw):
+    """A model of the port's CNN zoo on the card, its weights drawn from
+    the card's generator seeded ``seed`` (the dropout draws follow from
+    the same generator), with train_cnn.py's optimizer (SGD, momentum
+    0.9, weight decay 1e-5), compiled on ``x``."""
+    dev = tdevice.get_device("cuda")
+    dev.set_rand_seed(seed)
+    m = cnn_train.create_model(name, **kw)
+    m.set_optimizer(topt.SGD(lr=lr, momentum=0.9, weight_decay=1e-5))
+    m.compile([TTensor(data=x, device=dev, requires_grad=False)],
+              is_train=True, use_graph=use_graph, precision=precision)
+    torch.cuda.synchronize()
+    return m
+
+
+def _no_kernels(label, launches):
+    """The CNN paths run no hand-written kernel (no TPU kernel lies on
+    them): every counter 0."""
+    if any(launches.values()):
+        raise AssertionError(f"{label}: kernel launches on a path that has "
+                             f"none: {launches}")
+
+
+def _twins(label, make, batches, unit="images", profile=0, falls=False):
+    """``make(use_graph)``'s eager twin and captured model over
+    ``batches`` through ``_train_run``, held together by
+    ``_graph_against_eager`` (every loss and state, BatchNorm buffers
+    included, bit for bit); the losses must be finite, and with
+    ``falls`` the last below the first; with ``profile``, that many more
+    steps of each under ``torch.profiler`` give its idle share.  Returns
+    ``(captured model, launches, stats)``."""
+    eager = make(False)
+    e_launch, e_stats = _train_run(eager, batches, f"{label}_eager",
+                                   unit=unit)
+    e_states = _host_states(eager)
+    if profile:
+        e_stats["idle_share"] = _idle_share(eager, batches[:profile])
+    del eager
+    gc.collect()
+    model = make(True)
+    launches, stats = _train_run(model, batches, label, unit=unit)
+    losses = stats["losses"]
+    if not all(np.isfinite(losses)) or (falls and not losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses} (must be finite"
+                             + (" and fall)" if falls else ")"))
+    _graph_against_eager(label, launches, stats, e_launch, e_stats,
+                         _host_states(model), e_states)
+    _no_kernels(label, launches)
+    if profile:
+        stats["idle_share"] = _idle_share(model, batches[:profile])
+        _log(f"{label}: idle share captured {stats['idle_share']:.4f}, eager "
+             f"{e_stats['idle_share']:.4f} over {profile} steps")
+    stats["eager"] = e_stats
+    return model, launches, stats
+
+
+def _idle_share(model, batches):
+    """The device's idle share over ``train_one_batch`` on ``batches``
+    under ``torch.profiler`` (the model's state moves on)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x, y in batches:
+            model.train_one_batch(x, y)
+        torch.cuda.synchronize()
+    busy, window, _ = _busy(prof)
+    return 1 - busy / window
+
+
+def phase_mlp_train():
+    """Path ``mlp_train``: ``examples/mlp.py``'s MLP (784-128-128-10, SGD
+    0.05 with momentum 0.9) on its synthetic MNIST, B 256, 20 steps,
+    captured beside its eager twin (bit for bit); the loss must fall."""
+    x, y = mlp.synthetic_mnist(n=MLP_B * MLP_STEPS, seed=0)
+    batches = [(x[s * MLP_B:(s + 1) * MLP_B], y[s * MLP_B:(s + 1) * MLP_B])
+               for s in range(MLP_STEPS)]
+
+    def make(use_graph):
+        dev = tdevice.get_device("cuda")
+        dev.set_rand_seed(0)
+        m = mlp.MLP()
+        m.set_optimizer(topt.SGD(lr=MLP_LR, momentum=0.9))
+        m.compile([TTensor(data=x[:MLP_B], device=dev, requires_grad=False)],
+                  is_train=True, use_graph=use_graph)
+        return m
+
+    _, launches, stats = _twins("mlp_train", make, batches, unit="samples",
+                                falls=True)
+    return launches, stats
+
+
+def _first_step(model, x, y):
+    """The training-mode forward of a step (logits, loss), no update."""
+    model.train(True)
+    logits = model.forward(x)
+    loss = tautograd.softmax_cross_entropy(logits, y)
+    return logits.data.detach().cpu(), float(loss.item())
+
+
+def phase_cnn_train():
+    """Path ``cnn_train``: the MNIST CNN of the zoo on train_cnn.py's
+    synthetic MNIST, B 64, 10 steps, captured beside its eager twin (bit
+    for bit); the card's first-step logits and loss against the port's on
+    the CPU from the same states, within ``CNN_CPU_TOL``."""
+    x, y = cnn_synthetic.load("mnist", num=CNN_B * CNN_STEPS, seed=0)
+    batches = [(x[s * CNN_B:(s + 1) * CNN_B], y[s * CNN_B:(s + 1) * CNN_B])
+               for s in range(CNN_STEPS)]
+
+    def make(use_graph):
+        return _zoo_model("cnn", use_graph=use_graph, x=x[:CNN_B],
+                          num_classes=10, num_channels=1)
+
+    start = {k: t.data.detach().cpu() for k, t in
+             make(False).get_states().items()}
+    model, launches, stats = _twins("cnn_train", make, batches, falls=True)
+    card = _zoo_model("cnn", use_graph=False, x=x[:CNN_B], num_classes=10,
+                      num_channels=1)
+    card.set_states(start)
+    cpu = cnn_train.create_model("cnn", num_classes=10, num_channels=1)
+    cpu.set_optimizer(topt.SGD(lr=R50_LR))
+    cpu.compile([TTensor(data=x[:CNN_B], device="cpu")], is_train=True)
+    cpu.set_states(start)
+    xb, yb = batches[0]
+    lc, loss_c = _first_step(card, TTensor(data=xb, device=card.device),
+                             TTensor(data=yb, device=card.device))
+    lh, loss_h = _first_step(cpu, TTensor(data=xb, device="cpu"),
+                             TTensor(data=yb, device="cpu"))
+    err = float((lc - lh).abs().max())
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    _log(f"cnn_train card against CPU, first step: logits max |delta| "
+         f"{err:.3e}, loss {loss_c:.7f} / {loss_h:.7f} (relative {rel:.2e});"
+         f" tol {CNN_CPU_TOL:g}")
+    if not (err <= CNN_CPU_TOL and rel <= CNN_CPU_TOL):
+        raise AssertionError("cnn_train: the card's first step differs from "
+                             "the CPU's")
+    stats["card_vs_cpu"] = {"logits_max_abs_err": err, "loss_rel_err": rel}
+    return launches, stats
+
+
+def _imagenet_batches():
+    """train_cnn.py's synthetic imagenet (``-d imagenet``: 1000 classes,
+    3x224x224), R50_STEPS batches of R50_B, uploaded to the card once."""
+    x, y = cnn_synthetic.load("imagenet", num=R50_B * R50_STEPS, seed=0)
+    return [(torch.from_numpy(x[s * R50_B:(s + 1) * R50_B]).cuda(),
+             torch.from_numpy(y[s * R50_B:(s + 1) * R50_B]).cuda())
+            for s in range(R50_STEPS)]
+
+
+def phase_resnet50_train(batches, precision=None, f32_stats=None):
+    """Paths ``resnet50_train`` and ``resnet50_bf16``: ResNet-50 at full
+    width (224x224, 1000 classes), B 32, train_cnn.py's SGD (lr 0.005,
+    momentum 0.9, weight decay 1e-5), 5 steps, captured beside its eager
+    twin from the same seeded weights and batches: losses, parameters,
+    momenta and BatchNorm buffers bit for bit.  Steady step, images/s
+    and peak memory of each, and the idle share over two more profiled
+    steps.  Under ``precision="bfloat16"`` the loss at step 5 must lie
+    within 2 % of float32's."""
+    label = "resnet50_bf16" if precision else "resnet50_train"
+
+    def make(use_graph):
+        return _zoo_model("resnet50", use_graph=use_graph,
+                          x=batches[0][0], precision=precision,
+                          num_classes=1000)
+
+    model, launches, stats = _twins(label, make, batches, profile=2)
+    del model
+    if f32_stats is not None:
+        a, b = stats["losses"][-1], f32_stats["losses"][-1]
+        rel = abs(a - b) / b
+        _log(f"{label}: loss at step {R50_STEPS} {a:.6f} against float32's "
+             f"{b:.6f} (relative {rel:.4f}, tol 0.02); steady step "
+             f"{stats['steady_step_ms']:.2f} ms (float32 "
+             f"{f32_stats['steady_step_ms']:.2f})")
+        if not rel <= 0.02:
+            raise AssertionError(f"{label}: step-{R50_STEPS} loss {rel:.4f} "
+                                 f"off float32's")
+        stats["loss_rel_f32"] = rel
+    return launches, stats
+
+
+def phase_zoo():
+    """Path ``zoo``: alexnet, vgg16, mobilenet, xception (at 299) and
+    resnet18, B 4 at each model's input size, 1000 classes, seeded
+    normal inputs: 3 steps captured (the eager first call, the capture,
+    a replay) against the eager twin, bit for bit (the dropout masks of
+    alexnet and vgg16 drawn from the registered generator), then
+    ``predict`` in eval mode, captured against its eager first call."""
+    launches, stats = {}, {}
+    rng = np.random.RandomState(0)
+    for name, size in ZOO:
+        t0 = time.perf_counter()
+        batches = [(rng.randn(ZOO_B, 3, size, size).astype(np.float32),
+                    rng.randint(0, 1000, ZOO_B).astype(np.int32))
+                   for _ in range(ZOO_STEPS)]
+
+        def make(use_graph, name=name, x=batches[0][0]):
+            return _zoo_model(name, use_graph=use_graph, x=x,
+                              num_classes=1000)
+
+        model, launch, st = _twins(f"zoo {name}", make, batches)
+        st["predict_err"] = _predict_check(model, batches[0][0],
+                                           f"zoo {name}")
+        del model
+        gc.collect()
+        st["seconds"] = time.perf_counter() - t0
+        launches[name], stats[name] = launch, st
+    total = {k: sum(launch[k] for launch in launches.values())
+             for k in next(iter(launches.values()))}
+    return total, stats
+
+
 def _kernel_bucket(name):
     if "lstm_cell" in name:
         bwd = ", true>" in name or "Lb1E" in name
@@ -3705,6 +4019,11 @@ def _kernel_bucket(name):
     if "paged_decode" in name:
         return "paged_decode kernel"
     low = name.lower()
+    if any(w in low for w in ("conv", "fprop", "dgrad", "wgrad", "winograd",
+                              "implicit_convolve", "cudnn")):
+        return "convolutions (cuDNN)"
+    if "pool" in low:
+        return "pooling"
     if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "cublas",
                               "nvjet")):
         return "matmuls (cuBLAS)"
@@ -3801,6 +4120,30 @@ def phase_compare_serve(kinds=("paged", "paged_eager"), runs=4):
              for key in keys}))
 
 
+def _busy(prof):
+    """A profiler window's device busy time (the union of its kernels'
+    spans, us), the window's length (first to last event, us) and its
+    device activities."""
+    dev_type = torch.autograd.DeviceType.CUDA
+    events = list(prof.events())
+    kern = [e for e in events if e.device_type == dev_type
+            and e.time_range.end > e.time_range.start]
+    if not kern:
+        raise AssertionError("the profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events))
+    return busy, window, kern
+
+
 def phase_profile(path):
     """One path once more under ``torch.profiler`` (CPU and CUDA
     activity): ``serve``, the slice's stream; ``serve_int8``, the same
@@ -3855,6 +4198,17 @@ def phase_profile(path):
         def run():
             for x, y in batches[2:4]:
                 model.train_one_batch(x, y)
+    elif path.startswith("resnet50"):
+        _cnn_determinism()
+        batches = _imagenet_batches()
+        model = _zoo_model("resnet50", use_graph=path == "resnet50",
+                           x=batches[0][0], num_classes=1000)
+        for x, y in batches[:2]:     # eager first step; capture
+            model.train_one_batch(x, y)[1].item()
+
+        def run():
+            for x, y in batches[2:4]:
+                model.train_one_batch(x, y)
     else:
         model = _rnn_model(path != "rnn_train_plain", "cuda",
                            use_graph=path != "rnn_train_eager")
@@ -3873,23 +4227,7 @@ def phase_profile(path):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_type = torch.autograd.DeviceType.CUDA
-    events = list(prof.events())
-    kern = [e for e in events if e.device_type == dev_type
-            and e.time_range.end > e.time_range.start]
-    if not kern:
-        raise AssertionError("the profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
-    window = (max(e.time_range.end for e in events)
-              - min(e.time_range.start for e in events))
+    busy, window, kern = _busy(prof)
     groups, names = {}, {}
     for e in kern:
         us = e.time_range.end - e.time_range.start
@@ -3912,7 +4250,8 @@ PROFILE_PATHS = ("serve", "serve_eager", "serve_int8", "serve_slot",
                  "serve_slot_eager", "generate", "generate_eager", "train",
                  "train_eager", "train_bf16", "train_bf16_eager",
                  "train_fp16", "train_fp16_eager", "rnn_train",
-                 "rnn_train_eager", "rnn_train_plain")
+                 "rnn_train_eager", "rnn_train_plain", "resnet50",
+                 "resnet50_eager")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -3951,6 +4290,7 @@ def main(argv):
     t_k = time.perf_counter()
     lowp = phase_flash_lowp([fwd, combine, dq, dkv])
     lowp.append(phase_paged_lowp([paged, paged_q8]))
+    fwd["mixed_operands_ulp"] = phase_flash_mixed()
     _log(f"16-bit kernel phases (3b, 4b, 5c): "
          f"{time.perf_counter() - t_k:.1f}s")
     t_k = time.perf_counter()
@@ -4012,6 +4352,19 @@ def main(argv):
     del rnn_model
     rnn_sample_launches, _ = phase_rnn_sample()
     _log(f"rnn phases (11-13): {time.perf_counter() - t_rnn:.1f}s")
+    t_cnn = time.perf_counter()
+    _cnn_determinism()
+    mlp_launches, mlp_stats = phase_mlp_train()
+    cnn_launches, cnn_stats = phase_cnn_train()
+    r50_batches = _imagenet_batches()
+    r50_launches, r50_stats = phase_resnet50_train(r50_batches)
+    r50b_launches, r50b_stats = phase_resnet50_train(
+        r50_batches, "bfloat16", r50_stats)
+    del r50_batches
+    zoo_launches, zoo_stats = phase_zoo()
+    _log(f"MLP and CNN phases (15-19): {time.perf_counter() - t_cnn:.1f}s "
+         f"(zoo " + ", ".join(f"{n} {st['seconds']:.1f}s"
+                              for n, st in zoo_stats.items()) + ")")
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
                    "serve_int8": int8_launches[row["name"]],
@@ -4026,7 +4379,12 @@ def main(argv):
                    "train_fp16": trainf16_launches[row["name"]],
                    "rnn_train": rnn_train_launches[row["name"]],
                    "rnn_sample": rnn_sample_launches[row["name"]],
-                   "ew": ew_launches[row["name"]]}
+                   "ew": ew_launches[row["name"]],
+                   "mlp_train": mlp_launches[row["name"]],
+                   "cnn_train": cnn_launches[row["name"]],
+                   "resnet50_train": r50_launches[row["name"]],
+                   "resnet50_bf16": r50b_launches[row["name"]],
+                   "zoo": zoo_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     _log("captured against eager: " + json.dumps({
@@ -4041,13 +4399,27 @@ def main(argv):
                            | {"eager": rnn_stats["eager"]}))}
         | {"predict_max_abs_err": {"train": api["predict_err"],
                                    "train_bf16": bf16_stats["predict_err"]}}))
+    keys = ("steady_step_ms", "peak_memory_bytes", "graph_replays")
+    _log("MLP and CNN paths captured against eager: " + json.dumps({
+        label: {k: st[k] for k in keys + (f"{st['unit']}_per_s",)
+                + tuple(k for k in ("idle_share", "loss_rel_f32",
+                                    "card_vs_cpu", "predict_err")
+                        if k in st)}
+        | {"eager": {k: st["eager"][k] for k in
+                     ("steady_step_ms", "peak_memory_bytes",
+                      f"{st['unit']}_per_s") + (
+                          ("idle_share",) if "idle_share" in st else ())}}
+        for label, st in (("mlp_train", mlp_stats), ("cnn_train", cnn_stats),
+                          ("resnet50_train", r50_stats),
+                          ("resnet50_bf16", r50b_stats))
+        + tuple((f"zoo {n}", st) for n, st in zoo_stats.items())}))
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
     _log(json.dumps({"kernels": [
         {k: r[k] for k in KEYS + ("launches_by_path",)}
         | {k: r[k] for k in ("train_shape", "serving_split",
                              "causal_serving", "blocks",
                              "by_op", "by_dtype", "by_combination",
-                             "bound_3xtf32_ms",
+                             "bound_3xtf32_ms", "mixed_operands_ulp",
                              "max_ulp_err",
                              "low_precision", "flush_floor_ms", "plan",
                              "unsplit_ms", "host_us",

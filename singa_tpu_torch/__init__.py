@@ -18,10 +18,15 @@ as a CUDA graph under ``Model.compile(use_graph=True)`` with
 ``run_k_steps``, ``predict`` and zip checkpoints that cross to the JAX
 package (:mod:`~singa_tpu_torch.model`), the serving engine's steps and
 ``GPT.generate``'s decode loop captured as CUDA graphs on the card
-(the shared protocol: ``_graphs``), with hand-written CUDA
-kernels for flash-attention forward and backward, paged decode
-attention, the fused LSTM cell and the elementwise catalogue
-(:mod:`singa_tpu_torch.ops`).
+(the shared protocol: ``_graphs``), the MLP and the CNN zoo
+(ResNet, AlexNet, VGG, MobileNetV2, Xception) trained through the
+convolution, batch-norm and pooling ops and layers with the rest of
+:mod:`~singa_tpu_torch.autograd`, :mod:`~singa_tpu_torch.loss`,
+:mod:`~singa_tpu_torch.metric` and :mod:`~singa_tpu_torch.logging`
+(:mod:`singa_tpu_torch.examples.mlp`,
+:mod:`singa_tpu_torch.examples.cnn`), with hand-written CUDA kernels for
+flash-attention forward and backward, paged decode attention, the fused
+LSTM cell and the elementwise catalogue (:mod:`singa_tpu_torch.ops`).
 """
 
 from .device import resolve_device, seeded_generator

@@ -2,17 +2,23 @@
 
 ``Layer`` (lazy parameter creation on the first call, on the first
 input's device; ``get_params`` / ``get_states`` / ``set_states`` under
-dotted attribute-path names, as the reference), ``Linear`` (:123, ``W``
-is ``(in, out)``, ``y = x @ W + b``), ``ReLU`` (:265), ``Embedding``
-(:312), ``LayerNorm`` (:330, ``scale`` / ``bias``, float32 statistics),
-``Gelu``,
-``MultiHeadAttention`` (:441: the naive decomposition of
-layer.py:559-583 or the differentiable flash-attention kernels), ``RNN``,
+dotted attribute-path names, as the reference; ``set_name_prefix``;
+parameters from ``_param``, non-trainable buffers from ``_buffer``),
+``Linear`` (:123, ``W`` is ``(in, out)``, ``y = x @ W + b``), ``Conv2d``
+(:147, OIHW weights, He-normal init, NCHW or NHWC), ``SeparableConv2d``
+(:183), ``BatchNorm2d`` (:209, ``scale`` / ``bias`` and the buffers
+``running_mean`` / ``running_var``), ``MaxPool2d`` / ``AvgPool2d`` /
+``GlobalAvgPool2d``, the activation layers (``ReLU``, ``Sigmoid``,
+``Tanh``, ``Gelu``, ``Softmax``, ``LeakyReLU``), ``Dropout``,
+``Flatten``, ``Sequential`` (:628), ``Embedding`` (:312), ``LayerNorm``
+(:330, float32 statistics), ``MultiHeadAttention`` (:441: the naive
+decomposition of layer.py:559-583, with dropout on the probabilities in
+training, or the differentiable flash-attention kernels), ``RNN``,
 ``LSTM``, ``GRU`` and ``CudnnRNN`` (:359-419, optionally through the
 fused LSTM cell kernel), plus :func:`apply_rope`.  Initial weights come
-from the device's seeded ``torch.Generator``.  Conv, batch-norm and
-pooling layers, sequence parallelism and attention dropout in training
-belong to later slices (``ROADMAP.md`` queue 1, items 3 and 12).
+from the device's seeded ``torch.Generator``.  ``TransformerEncoderLayer``
+and sequence parallelism belong to later slices (``ROADMAP.md`` queue 1,
+items 3 and 12).
 """
 
 from __future__ import annotations
@@ -24,13 +30,18 @@ import torch
 
 from . import autograd
 from .device import get_device
+from .ops.batchnorm import BatchNormHandle, batchnorm2d
+from .ops.convolution import ConvHandle, conv2d
 from .ops.flash_attention import flash_attention
+from .ops.pooling import PoolingHandle, global_avg_pool, pooling2d
 from .ops.rnn import RNNHandle, rnn_forward
 from .tensor import Tensor
 
-__all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "ReLU", "Gelu",
-           "MultiHeadAttention", "RNN", "LSTM", "GRU", "CudnnRNN",
-           "apply_rope"]
+__all__ = ["Layer", "Linear", "Conv2d", "SeparableConv2d", "BatchNorm2d",
+           "MaxPool2d", "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Sigmoid",
+           "Tanh", "Gelu", "LeakyReLU", "Softmax", "Dropout", "Flatten",
+           "RNN", "LSTM", "GRU", "Embedding", "LayerNorm", "Sequential",
+           "CudnnRNN", "MultiHeadAttention", "apply_rope"]
 
 
 class Layer:
@@ -109,10 +120,25 @@ class Layer:
                 with torch.no_grad():
                     t.data.copy_(v.reshape(t.shape))
 
+    def set_name_prefix(self, prefix: str):
+        self.name = f"{prefix}{self.sep}{self.name}"
+        for _, sub in self._sublayers():
+            sub.set_name_prefix(prefix)
+
     def _param(self, data, name: str) -> Tensor:
         return Tensor(data=data, requires_grad=True, stores_grad=True,
                       device=getattr(self, "_init_device", None),
                       name=f"{self.name}{self.sep}{name}")
+
+    def _buffer(self, data, name: str) -> Tensor:
+        """A non-trainable state (BatchNorm's running statistics): in
+        ``get_states``, not in ``get_params``."""
+        return Tensor(data=data, requires_grad=False, stores_grad=False,
+                      device=getattr(self, "_init_device", None),
+                      name=f"{self.name}{self.sep}{name}")
+
+    def _torch_device(self):
+        return get_device(getattr(self, "_init_device", None)).torch_device
 
     def _generator(self):
         return get_device(getattr(self, "_init_device", None)).generator
@@ -145,16 +171,192 @@ class Linear(Layer):
         return y
 
 
-class ReLU(Layer):
+class Conv2d(Layer):
+    """2-d convolution (reference: ``layer.Conv2d`` -> CudnnConvHandle):
+    ``W`` OIHW ``(out, in / groups, kh, kw)`` drawn He-normal
+    (``N(0, 2 / fan_in)``) from the device's generator, ``b`` zeros.
+    ``layout="NHWC"`` takes and returns channels-last tensors; the
+    weights stay OIHW, so checkpoints do not depend on the layout.
+    ``pad_mode`` is kept and not read, as in the reference."""
+
+    def __init__(self, out_channels: int, kernel_size, stride=1, padding=0,
+                 dilation=1, groups: int = 1, bias: bool = True,
+                 pad_mode: str = "NOTSET", layout: str = "NCHW", name=None):
+        super().__init__(name)
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.dilation = dilation
+        self.groups = groups
+        self.use_bias = bias
+        self.pad_mode = pad_mode
+        self.layout = layout
+
+    def initialize(self, x):
+        in_channels = x.shape[3 if self.layout == "NHWC" else 1]
+        self.handle = ConvHandle(in_channels, self.kernel_size, self.stride,
+                                 self.padding, self.use_bias, self.groups,
+                                 self.dilation, layout=self.layout)
+        kh, kw = self.handle.kernel_size
+        fan_in = in_channels // self.groups * kh * kw
+        dev = self._torch_device()
+        w = torch.randn((self.out_channels, in_channels // self.groups, kh,
+                         kw), generator=self._generator(), device=dev)
+        self.W = self._param(w * math.sqrt(2.0 / fan_in), "W")
+        if self.use_bias:
+            self.b = self._param(torch.zeros(self.out_channels, device=dev),
+                                 "b")
+
     def forward(self, x):
-        return autograd.relu(x)
+        return conv2d(self.handle, x, self.W,
+                      self.b if self.use_bias else None)
 
 
-class Gelu(Layer):
+class SeparableConv2d(Layer):
+    """A depthwise conv (``groups`` = channels) then a pointwise 1x1 conv
+    (reference: ``layer.SeparableConv2d``; NCHW inputs)."""
+
+    def __init__(self, out_channels: int, kernel_size, stride=1, padding=0,
+                 bias: bool = False, name=None):
+        super().__init__(name)
+        self.depthwise = None
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.use_bias = bias
+
+    def initialize(self, x):
+        in_channels = x.shape[1]
+        self.depthwise = Conv2d(in_channels, self.kernel_size, self.stride,
+                                self.padding, groups=in_channels,
+                                bias=self.use_bias, name=f"{self.name}.dw")
+        self.pointwise = Conv2d(self.out_channels, 1, bias=self.use_bias,
+                                name=f"{self.name}.pw")
+
+    def forward(self, x):
+        return self.pointwise(self.depthwise(x))
+
+
+class BatchNorm2d(Layer):
+    """Batch normalization over the channels of an NCHW or NHWC input
+    (or the features of an NC one): ``scale`` ones and ``bias`` zeros,
+    the buffers ``running_mean`` zeros and ``running_var`` ones, updated
+    in place in training as ``momentum * old + (1 - momentum) * batch``
+    with the biased batch variance (:mod:`~singa_tpu_torch.ops.batchnorm`)."""
+
+    def __init__(self, momentum: float = 0.9, eps: float = 1e-5,
+                 layout: str = "NCHW", name=None):
+        super().__init__(name)
+        self.handle = BatchNormHandle(momentum, eps, layout=layout)
+
+    def initialize(self, x):
+        c = x.shape[3 if self.handle.layout == "NHWC" and len(x.shape) == 4
+                    else 1]
+        dev = self._torch_device()
+        self.scale = self._param(torch.ones(c, device=dev), "scale")
+        self.bias = self._param(torch.zeros(c, device=dev), "bias")
+        self.running_mean = self._buffer(torch.zeros(c, device=dev),
+                                         "running_mean")
+        self.running_var = self._buffer(torch.ones(c, device=dev),
+                                        "running_var")
+
+    def forward(self, x):
+        return batchnorm2d(self.handle, x, self.scale, self.bias,
+                           self.running_mean, self.running_var,
+                           autograd.training)
+
+
+class _Pool(Layer):
+    is_max = True
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 layout: str = "NCHW", name=None):
+        super().__init__(name)
+        self.handle = PoolingHandle(kernel_size, stride, padding, self.is_max,
+                                    layout=layout)
+
+    def forward(self, x):
+        return pooling2d(self.handle, x)
+
+
+class MaxPool2d(_Pool):
+    is_max = True
+
+
+class AvgPool2d(_Pool):
+    """Average pooling; the padding is left out of each window's count."""
+    is_max = False
+
+
+class GlobalAvgPool2d(Layer):
+    """The mean over the spatial axes, which it drops: ``(N, C)``."""
+
+    def __init__(self, layout: str = "NCHW", name=None):
+        super().__init__(name)
+        self.layout = layout
+
+    def forward(self, x):
+        return global_avg_pool(x, layout=self.layout)
+
+
+class _Activation(Layer):
+    fn = None
+
+    def forward(self, x):
+        return type(self).fn(x)
+
+
+class ReLU(_Activation):
+    fn = staticmethod(autograd.relu)
+
+
+class Sigmoid(_Activation):
+    fn = staticmethod(autograd.sigmoid)
+
+
+class Tanh(_Activation):
+    fn = staticmethod(autograd.tanh)
+
+
+class Gelu(_Activation):
     """Exact (erf) GELU."""
+    fn = staticmethod(autograd.gelu)
+
+
+class Softmax(_Activation):
+    fn = staticmethod(autograd.softmax)
+
+
+class LeakyReLU(Layer):
+    def __init__(self, a=0.01, name=None):
+        super().__init__(name)
+        self.a = a
 
     def forward(self, x):
-        return autograd.gelu(x)
+        return autograd.leakyrelu(x, self.a)
+
+
+class Dropout(Layer):
+    """Inverted dropout in training (:func:`autograd.dropout`), the
+    identity outside it."""
+
+    def __init__(self, p: float = 0.5, name=None):
+        super().__init__(name)
+        self.p = p
+
+    def forward(self, x):
+        return autograd.dropout(x, self.p)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis: int = 1, name=None):
+        super().__init__(name)
+        self.start_axis = start_axis
+
+    def forward(self, x):
+        return autograd.flatten(x, self.start_axis)
 
 
 class Embedding(Layer):
@@ -310,7 +512,9 @@ class MultiHeadAttention(Layer):
     runs the naive decomposition (scores, scale, the additive
     ``triu(-1e9)`` causal constant, the mask, softmax, product); None
     picks by the input's device — flash on CUDA, naive on the CPU, as
-    the reference picks flash on an accelerator.  ``rope`` rotates q and
+    the reference picks flash on an accelerator.  ``dropout``: in
+    training, the probabilities go through :func:`autograd.dropout`, on
+    the naive route whatever ``use_flash`` says.  ``rope`` rotates q and
     k after the head split."""
 
     def __init__(self, num_heads: int, dropout: float = 0.0,
@@ -368,12 +572,11 @@ class MultiHeadAttention(Layer):
             base = self.rope_base
             q = autograd.op("RoPE", lambda a: apply_rope(a, base=base), q)
             k = autograd.op("RoPE", lambda a: apply_rope(a, base=base), k)
-        if self.dropout_p and autograd.training:
-            raise NotImplementedError(
-                "attention dropout in training belongs to the slice of "
-                "layer.py's Dropout and the Transformer layers (ROADMAP.md "
-                "queue 1, item 3); set dropout=0")
-        if self._flash_resolved(x):
+        # the probabilities' dropout exists only in the naive
+        # decomposition (the fused kernels would need RNG inside them), so
+        # training with dropout takes the naive route, as the reference's
+        dropout_active = bool(self.dropout_p) and autograd.training
+        if self._flash_resolved(x) and not dropout_active:
             causal = self.causal
             ctx = autograd.op(
                 "FlashAttention",
@@ -402,7 +605,23 @@ class MultiHeadAttention(Layer):
                     mask = autograd.cast(mask, sdt)
                 scores = autograd.add(scores, mask)
             probs = autograd.softmax(scores, axis=-1)
+            if self.dropout_p:
+                probs = autograd.dropout(probs, self.dropout_p)
             ctx = autograd.matmul(probs, v)
         ctx = autograd.transpose(ctx, (0, 2, 1, 3))
         ctx = autograd.reshape(ctx, (-1, T, self.d_model))
         return self.Wo(ctx)
+
+
+class Sequential(Layer):
+    """The layers applied in order; their states are named
+    ``layers<i>.<name>``."""
+
+    def __init__(self, *layers, name=None):
+        super().__init__(name)
+        self.layers = list(layers)
+
+    def forward(self, x):
+        for lay in self.layers:
+            x = lay(x)
+        return x

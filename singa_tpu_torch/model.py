@@ -42,12 +42,16 @@ cuts the gradient there.
   eager step.  The kernel wrappers' launch counters tick while the step
   is captured; the capture's own ticks are taken back (it launches
   nothing) and every replay adds the counts the capture recorded, so
-  the counters still count the kernels the card ran.  The step must not
-  synchronise with the host or draw random numbers (no layer of the port
-  does either in training), and nothing outside it may hold an autograd
-  graph over the parameters (a clone of one that was not detached): its
-  backward would meet a gradient accumulator made on another stream, and
-  the capture fails.
+  the counters still count the kernels the card ran.  A step that draws
+  random numbers (``Dropout``, attention dropout) draws them from the
+  generator of the model's device, which every captured training step
+  registers with its graph: a replay draws at the generator's offset as
+  it stands and advances it as the eager step would, so each replay
+  takes fresh masks and a captured run equals its eager twin.  The step
+  must not synchronise with the host, and nothing outside it may hold an
+  autograd graph over the parameters (a clone of one that was not
+  detached): its backward would meet a gradient accumulator made on
+  another stream, and the capture fails.
 * On the CPU, ``use_graph=True`` runs the same step eagerly, with the
   boundary kept: the plain path, as for the kernels.
 * ``use_graph=False`` runs the eager step and passes inputs and outputs
@@ -262,7 +266,8 @@ class Model(Layer):
     def _dispatch_tob(self, *xs):
         if self.graph_mode and self._on_card():
             return self._graph_call("train", self._graph_step,
-                                    _raw_inputs(xs), self._registry)
+                                    _raw_inputs(xs), self._registry,
+                                    generators=self._generators())
         return self._step([self._as_input(x) for x in xs], self.graph_mode)
 
     def _graph_step(self, xs):
@@ -300,7 +305,8 @@ class Model(Layer):
                                "train_one_batch")
         if self._on_card():
             return self._graph_call("train", self._graph_step,
-                                    _raw_inputs(xs), self._registry, k)
+                                    _raw_inputs(xs), self._registry, k,
+                                    self._generators())
         for _ in range(k):
             out = self._step([self._as_input(x) for x in xs], True)
         return out
@@ -327,17 +333,24 @@ class Model(Layer):
     def _drop_graphs(self):
         self._gc.drop()
 
-    def _graph_call(self, kind, fn, raw, registry_fn, k=1):
+    def _generators(self) -> tuple:
+        """The generators a training step may draw from: the device's,
+        which ``autograd.dropout`` draws from (the step's Tensors are
+        all on the model's device)."""
+        return (self.device.generator,)
+
+    def _graph_call(self, kind, fn, raw, registry_fn, k=1, generators=()):
         """``fn`` on ``raw`` through the graph of its signature, ``k``
         times (see the module docstring): the first call of a signature,
         or of a new set of state tensors, runs eagerly on the side
-        stream; a graph whose state storage moved is captured again.
-        The outputs are fresh tensors."""
+        stream; a graph whose state storage moved is captured again,
+        with ``generators`` registered.  The outputs are fresh
+        tensors."""
         return _fresh(self._gc.call(
             (kind,) + _signature(raw), self.device.torch_device,
             lambda *r: fn(_wrap(r, self.device)), raw,
-            lambda: _graphs.addresses(registry_fn()), k=k, own_inputs=True,
-            warm_id=lambda: _ids(registry_fn())))
+            lambda: _graphs.addresses(registry_fn()), generators=generators,
+            k=k, own_inputs=True, warm_id=lambda: _ids(registry_fn())))
 
     # ------------------------------------------------------------------
     # inference

@@ -652,22 +652,26 @@ def _chunk_attention(q, kr, vr, positions, scale, ksr=None, vsr=None):
     row ``kr``/``vr`` (1, H, L, dh) under the ``(C, L)`` mask ``col <=
     position``: columns past the written prefix weigh exactly zero.
     Float rows go through the flash-attention kernel with that dense
-    mask.  With ``ksr``/``vsr`` (1, H, L), the quantized rows' scales,
-    it is the reference's own route, an einsum with the K scales folded
-    into the scores and the V scales into the softmax weights: no kernel
-    runs there on the TPU either, so flash is not launched."""
+    mask; rows in another dtype than q's (float32 pages under a bf16
+    policy) go in as they are and flash computes on the common dtype,
+    returning q's (reference gpt.py:655-661, :966-975).  With
+    ``ksr``/``vsr`` (1, H, L), the quantized rows' scales, it is the
+    reference's own route, an einsum with the K scales folded into the
+    scores and the V scales into the softmax weights, the int8 rows cast
+    to q's dtype (:630, :963): no kernel runs there on the TPU either,
+    so flash is not launched."""
     L = kr.shape[2]
     cols = torch.arange(L, device=positions.device)
     mask = torch.where(cols[None] <= positions[:, None], 0.0, -1e9)  # (C, L)
     if ksr is None:
         return flash_attention(q.contiguous(), kr, vr, mask[None, None],
                                sm_scale=scale)
-    s = torch.einsum("bhtd,bhsd->bhts", q, kr) * scale
+    s = torch.einsum("bhtd,bhsd->bhts", q, kr.to(q.dtype)) * scale
     s = s * ksr.to(s.dtype)[:, :, None, :]
     s = s + mask[None, None].to(s.dtype)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhts,bhsd->bhtd", w * vsr.to(w.dtype)[:, :, None, :],
-                        vr)
+                        vr.to(w.dtype))
 
 
 def _block_prefill(bp, h, H, scale, rope=False, base=10000.0):
@@ -813,8 +817,8 @@ def _block_chunk_prefill(bp, h, k_cache, v_cache, slot, off, positions, H,
         ksr, vsr = k_scale.index_select(0, s), v_scale.index_select(0, s)
     k_cache[s, :, cols] = k[0].transpose(0, 1).to(k_cache.dtype)  # (C,H,dh)
     v_cache[s, :, cols] = v[0].transpose(0, 1).to(v_cache.dtype)
-    kr = k_cache.index_select(0, s).to(q.dtype)             # (1,H,L,dh)
-    vr = v_cache.index_select(0, s).to(q.dtype)
+    kr = k_cache.index_select(0, s)                         # (1,H,L,dh)
+    vr = v_cache.index_select(0, s)
     ctx = _chunk_attention(q, kr, vr, positions, scale, ksr, vsr)
     return (_block_out(bp, h, ctx),) + _pack_kv(k_cache, v_cache, k_scale,
                                                 v_scale)
@@ -828,9 +832,9 @@ def _block_chunk_prefill_paged(bp, h, k_pages, v_pages, page_row,
     (Ps,), then attention gathers the row back under the ``(C, L)`` mask
     ``col <= position`` (:func:`_chunk_attention`).  Chunk positions
     past the request's pages land in NULL page 0, which no query
-    attends.  The gathered rows are cast to q's dtype first (exact for
-    the bfloat16 storage override — what the reference's einsum
-    promotion computes).  ``k_scale``/``v_scale`` (N, H, P): the
+    attends.  Float rows reach attention in the pool's dtype, as in
+    the reference (float32 pages under a bf16 policy are not rounded to
+    bf16).  ``k_scale``/``v_scale`` (N, H, P): the
     quantized 4-leaf pool, quantized on write.  Returns ``(h, k_pages,
     v_pages)``, plus the two scale pools when quantized."""
     q, k, v = _qkv(bp, h, H)
@@ -850,8 +854,8 @@ def _block_chunk_prefill_paged(bp, h, k_pages, v_pages, page_row,
         vsr = _gather_page_scales(v_scale, page_row)[None]
     k_pages[phys, :, offs] = k[0].permute(1, 0, 2).to(k_pages.dtype)
     v_pages[phys, :, offs] = v[0].permute(1, 0, 2).to(v_pages.dtype)
-    kr = _gather_pages(k_pages, page_row)[None].to(q.dtype)  # (1,H,L,dh)
-    vr = _gather_pages(v_pages, page_row)[None].to(q.dtype)
+    kr = _gather_pages(k_pages, page_row)[None]              # (1,H,L,dh)
+    vr = _gather_pages(v_pages, page_row)[None]
     ctx = _chunk_attention(q, kr, vr, positions, scale, ksr, vsr)
     return (_block_out(bp, h, ctx),) + _pack_kv(k_pages, v_pages, k_scale,
                                                 v_scale)

@@ -12,7 +12,9 @@ version (counterpart: ``singa_tpu/ops``):
   (``csrc/elementwise.cu``);
 
 and :mod:`.rnn`, the RNN ops (LSTM, GRU, tanh, relu; the fused cell when
-asked for).
+asked for), and :mod:`.convolution`, :mod:`.batchnorm` and
+:mod:`.pooling`, the CNN ops (XLA ops in the reference, with no Pallas
+kernel: torch's conv and pool calls and batch-norm math in torch ops).
 
 Kernels build from ``csrc/`` at first use (:mod:`._build`); nothing is
 compiled or loaded at import time.  Each module keeps its launch counts

@@ -14,11 +14,19 @@ accuracy; :func:`matmul_3xtf32` emulates that product here and
 :func:`matmul_1xtf32` the single TF32 product it avoids.
 
 Operands: q, k, v (and the backward's dO) in float32, bfloat16 or
-float16, all of one dtype (a mixed call raises ``TypeError``).  Every
-version computes the float32 function of the upcast operands, as the
-reference's kernels do (pallas_kernels.py:108-203), and returns ``o``
-and ``dq`` in q's dtype and ``dk``/``dv`` in k's and v's; the mask,
-``lse``, ``delta`` and the split route's partials are float32.
+float16.  Every version computes the float32 function of the upcast
+operands, as the reference's kernels do (pallas_kernels.py:108-203),
+and returns ``o`` and ``dq`` in q's dtype and ``dk``/``dv`` in k's and
+v's; the mask, ``lse``, ``delta`` and the split route's partials are
+float32.  The kernels take operands of one dtype: where q, k and v
+differ (bf16 queries over float32 cache rows), :func:`flash_attention`
+promotes them to their common dtype (``torch.promote_types``: float32
+for bf16 with float32) and runs that dtype's route, which computes what
+the reference's kernels compute on the mixed operands, each upcast to
+float32 as it is read; ``o`` comes back in q's dtype, the reference's
+``out_shape`` (pallas_kernels.py:314), and each gradient in its
+operand's.  The ``(BH, T, d)`` functions below it take one dtype and
+raise ``TypeError`` otherwise.
 
 Contract, as in the reference: ``(B, H, T, d)`` inputs; an additive
 float mask broadcastable to ``(B, H, T, S)`` carried at its natural
@@ -124,6 +132,13 @@ def matmul_3xtf32(a, b):
 def matmul_1xtf32(a, b):
     """``a @ b`` as one TF32 product: both operands rounded to TF32."""
     return torch.matmul(tf32_round(a), tf32_round(b))
+
+
+def _common(*ts):
+    """``ts`` in their common dtype (``torch.promote_types``), each cast
+    only where it differs."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return [t if t.dtype == dt else t.to(dt) for t in ts]
 
 
 def _prepare(q, k, v, mask, sm_scale):
@@ -684,10 +699,14 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def flash_attention(q, k, v, mask=None, sm_scale=None, causal=False):
     """Fused attention over ``(B, H, T, d)`` tensors (see the module
-    docstring for the mask contract).  Returns ``(B, H, T, d)``.
-    Differentiable in q, k and v; called without grad (or on inputs that
-    need none) it runs the forward kernel alone and saves nothing."""
+    docstring for the mask contract).  Returns ``(B, H, T, d)`` in q's
+    dtype; q, k and v of different dtypes run in their common dtype.
+    Differentiable in q, k and v (each gradient in its operand's dtype);
+    called without grad (or on inputs that need none) it runs the
+    forward kernel alone and saves nothing."""
     B, H, T, d = q.shape
+    out_dtype = q.dtype
+    q, k, v = _common(q, k, v)
     q3, k3, v3, m3, scale, mode = _prepare(q, k, v, mask, sm_scale)
     q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -696,7 +715,7 @@ def flash_attention(q, k, v, mask=None, sm_scale=None, causal=False):
                                          bool(causal))
     else:
         o, _ = flash_attention_fwd(q3, k3, v3, m3, scale, mode, causal)
-    return o.reshape(B, H, T, d)
+    return o.reshape(B, H, T, d).to(out_dtype)
 
 
 def flash_attention_reference(q, k, v, mask=None, sm_scale=None,
@@ -704,6 +723,7 @@ def flash_attention_reference(q, k, v, mask=None, sm_scale=None,
     """Plain PyTorch version of :func:`flash_attention`'s forward, on any
     device."""
     B, H, T, d = q.shape
-    q3, k3, v3, m3, scale, mode = _prepare(q, k, v, mask, sm_scale)
+    out_dtype = q.dtype
+    q3, k3, v3, m3, scale, mode = _prepare(*_common(q, k, v), mask, sm_scale)
     o, _ = flash_attention_fwd_reference(q3, k3, v3, m3, scale, mode, causal)
-    return o.reshape(B, H, T, d)
+    return o.reshape(B, H, T, d).to(out_dtype)

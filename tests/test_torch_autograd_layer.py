@@ -212,15 +212,22 @@ def test_flash_none_resolves_by_device():
 
 
 def test_out_of_slice_arguments_raise():
+    """Sequence parallelism raises, naming its slice.  Attention dropout
+    in training is ported now: it runs on the naive route (flash asked
+    for or not), draws a fresh mask each call, and is the identity
+    outside training."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlayer.MultiHeadAttention(2, seq_mesh=object())
-    tl = tlayer.MultiHeadAttention(2, dropout=0.1)
+    tl = tlayer.MultiHeadAttention(2, dropout=0.5, use_flash=True)
+    x = _tt(np.random.RandomState(0).randn(1, 3, 4).astype(np.float32))
+    plain = tl(x).numpy()
     tag.training = True
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl(_tt(np.zeros((1, 3, 4), np.float32)))
+        a, b = tl(x).numpy(), tl(x).numpy()
     finally:
         tag.training = False
+    assert a.shape == plain.shape and not np.array_equal(a, b)
+    np.testing.assert_array_equal(tl(x).numpy(), plain)
 
 
 class _Tiny(Model):

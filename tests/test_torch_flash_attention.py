@@ -253,12 +253,45 @@ def test_1xtf32_forward_misses_the_float32_tolerance(name):
     (torch.float16, torch.float16, torch.bfloat16),
     (torch.float64, torch.float64, torch.float64)])
 def test_operands_of_mixed_or_other_dtypes_raise(dtypes):
-    """q, k and v of one dtype in float32, bfloat16 or float16: anything
-    else raises TypeError naming the dtypes, on CPU tensors as on the
-    card."""
-    q, k, v = (torch.zeros(1, 1, 8, 16, dtype=dt) for dt in dtypes)
+    """The launchers take q, k and v of one dtype in float32, bfloat16 or
+    float16: anything else raises TypeError naming the dtypes, on CPU
+    tensors as on the card.  The entries promote mixed operands to their
+    common dtype first (:func:`test_mixed_operands_run_in_their_common_
+    dtype`), so there only a dtype outside the three raises."""
+    q, k, v = (torch.zeros(1, 8, 16, dtype=dt) for dt in dtypes)
+    plan = fa_mod._fwd_split_plan(1, 8, 8, False, n_sm=1 << 20)
     with pytest.raises(TypeError, match="one dtype"):
-        flash_attention(q, k, v)
+        fa_mod.flash_attention_fwd_partial(q, k, v, None, 0.25, "none",
+                                           False, plan)
+    if len(set(dtypes)) == 1:
+        with pytest.raises(TypeError, match="one dtype"):
+            flash_attention(q[None], k[None], v[None])
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.float16, torch.float16, torch.bfloat16)])
+def test_mixed_operands_run_in_their_common_dtype(dtypes):
+    """q, k and v of different dtypes: the reference's kernels upcast each
+    operand to float32 as they read it and write ``o`` in q's dtype
+    (pallas_kernels.py:106-145, :314), so the entries compute the call on
+    the operands promoted to their common dtype, bit for bit, and return
+    ``o`` in q's dtype; the gradients come back in each operand's
+    dtype."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(1, 2, 8, 16, generator=g).to(dt)
+               for dt in dtypes)
+    mask = torch.where(torch.rand(1, 1, 8, 8, generator=g) < 0.2, -1e9, 0.0)
+    common = functools.reduce(torch.promote_types, dtypes)
+    want = flash_attention(q.to(common), k.to(common), v.to(common), mask)
+    got = flash_attention(q, k, v, mask)
+    assert got.dtype == q.dtype
+    assert torch.equal(got, want.to(q.dtype))
+    assert torch.equal(fa_mod.flash_attention_reference(q, k, v, mask), got)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*leaves, mask).float().sum().backward()
+    assert [t.grad.dtype for t in leaves] == list(dtypes)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

@@ -61,6 +61,15 @@ def test_package_imports_without_jax():
             "import singa_tpu_torch.ops.elementwise\n"
             "import singa_tpu_torch.ops.rnn\n"
             "import singa_tpu_torch.examples.char_rnn\n"
+            "import singa_tpu_torch.logging, singa_tpu_torch.loss\n"
+            "import singa_tpu_torch.metric\n"
+            "import singa_tpu_torch.ops.convolution\n"
+            "import singa_tpu_torch.ops.batchnorm\n"
+            "import singa_tpu_torch.ops.pooling\n"
+            "import singa_tpu_torch.examples.mlp\n"
+            "import singa_tpu_torch.examples.cnn.train_cnn\n"
+            "from singa_tpu_torch.examples.cnn.model import (\n"
+            "    alexnet, cnn, mobilenet, resnet, vgg, xceptionnet)\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     env = dict(os.environ, PYTHONPATH=REPO)

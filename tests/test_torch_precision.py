@@ -678,3 +678,78 @@ def test_paged_decode_16bit_query_matches_jax(dtype, pages, scales):
                                     **tkw)
     assert got.dtype == tdt and want.dtype == jdt
     assert _ulps(got.float(), _np(want), bits) <= 1
+
+
+# ---- float32 cache rows under a bf16 policy ------------------------------
+
+MIXED_ROWS_MAG = 64.0
+MIXED_ULPS = 16
+
+
+@pytest.fixture(scope="module")
+def bf16_blocks():
+    """Layer 0's bf16 decode block of GPT tiny under the bf16 policy, JAX
+    and port from the same float32 masters."""
+    np.random.seed(11)
+    cfg = jgpt.GPTConfig.tiny(precision="bfloat16")
+    m = jgpt.GPT(cfg)
+    jgpt.ensure_decode_ready(m)
+    states = {k: np.asarray(v.data) for k, v in m.get_states().items()}
+    tm = tgpt.GPT.from_jax_states(
+        states, tgpt.GPTConfig.tiny(precision="bfloat16"), device="cpu")
+    return (cfg, m.decode_params()["blocks"][0],
+            tm.decode_params()["blocks"][0])
+
+
+@pytest.mark.parametrize("layout", ["paged", "slot"])
+def test_bf16_chunk_attends_float32_rows_unrounded(bf16_blocks, layout):
+    """``kv_dtype="float32"`` under a bf16 policy: the chunk's bf16
+    queries attend over the float32 cache rows as they are, as the
+    reference's flash does on mixed operands (each upcast as it is read,
+    ``o`` in q's dtype; models/gpt.py:655-661, :966-975); only int8 rows
+    are cast to q's dtype.  The block output against JAX's
+    ``_block_chunk_prefill[_paged](flash=True)`` on the same seeded bf16
+    chunk and float32 rows, within ``MIXED_ULPS`` units in the last place
+    of bf16.  The rows are drawn at magnitude ``MIXED_ROWS_MAG`` (64),
+    where the attention term dominates the block output: rounding the
+    rows to bf16 before attention (what the port did) reads 249.5 units
+    on pages and 240 on slots.  The sound path reads 2 and 4: each side
+    computes the bf16 q with its own matmul, which may differ by a unit,
+    and against keys of that magnitude a unit of q moves the sharp
+    softmax's weights by a few units of the output (up to 8 observed at
+    magnitude 128), so the limit is 16."""
+    cfg, jbp, tbp = bf16_blocks
+    H, D = cfg.n_heads, cfg.d_model
+    dh, P = D // H, 8
+    scale = 1.0 / np.sqrt(dh)
+    rng = np.random.RandomState(2)
+    C, off = 16, 8
+    h = rng.randn(1, C, D).astype(np.float32)
+    positions = off + np.arange(C)
+    if layout == "paged":
+        Ps = cfg.max_len // P
+        shape = (1 + 2 * Ps, H, P, dh)
+        row = np.arange(1, 1 + Ps).astype(np.int32)
+        where = (row,)
+        jfn, tfn = jgpt._block_chunk_prefill_paged, \
+            tgpt._block_chunk_prefill_paged
+    else:
+        shape = (3, H, cfg.max_len, dh)
+        where = (1, off)
+        jfn, tfn = jgpt._block_chunk_prefill, tgpt._block_chunk_prefill
+    kc, vc = (MIXED_ROWS_MAG * rng.randn(*shape).astype(np.float32)
+              for _ in range(2))
+    want = jfn(jbp, jnp.asarray(h, jnp.bfloat16), jnp.asarray(kc),
+               jnp.asarray(vc), *map(jnp.asarray, where),
+               jnp.asarray(positions), H, scale, cfg.use_rope,
+               cfg.rope_base, flash=True)
+    targs = [torch.from_numpy(np.asarray(w)) if isinstance(w, np.ndarray)
+             else w for w in where]
+    tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    got = tfn(tbp, torch.from_numpy(h).bfloat16(), tk, tv, *targs,
+              torch.from_numpy(positions), H, scale, cfg.use_rope,
+              cfg.rope_base)
+    assert got[0].dtype == torch.bfloat16 and want[0].dtype == jnp.bfloat16
+    assert tk.dtype == torch.float32 and got[1] is tk
+    assert _ulps(got[0].float(), _np(want[0]), 8) <= MIXED_ULPS
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(want[1]))
