@@ -23,12 +23,9 @@ import torch.nn.functional as F
 
 from .. import autograd
 from ..tensor import Tensor
+from .pooling import _pair
 
 __all__ = ["ConvHandle", "conv2d", "GpuConvForward"]
-
-
-def _pair(v):
-    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 class ConvHandle:
@@ -48,10 +45,6 @@ class ConvHandle:
         self.bias = bias
         self.groups = groups
         self.layout = layout
-
-    def padding_config(self):
-        ph, pw = self.padding
-        return ((ph, ph), (pw, pw))
 
 
 def _conv_fwd(x, w, b=None, *, handle: ConvHandle):
