@@ -228,6 +228,27 @@ Phases (any failure exits non-zero before the result lines print):
    then ``predict`` in eval mode captured against its eager first call.
    No kernel of the port lies on paths 15-19: every counter must read 0
    there;
+20. path ``resnet50_dist``: path 17's ResNet-50, weights and batches under
+   ``DistOpt`` in a world-1 NCCL group (``init_distributed`` at a free
+   local port; NCCL refuses two ranks on one card, see
+   ``--nccl-two-ranks``), ``dist_option`` ``plain`` and ``sharded``
+   (ZeRO-1, the plain per-grad path at world 1): each captured against
+   its eager twin bit for bit, then every loss and state against path
+   17's run bit for bit (a mean over one rank is exact); steady step,
+   images/s, peak memory, idle share, the collectives of one more step,
+   and the host time of the emission-order walk that DistOpt's backward
+   makes on every eager step;
+21. path ``dist_options``: path 16's MNIST CNN, weights and batches in the
+   same group through ``fp16`` (the bf16 all-reduce), ``partial``,
+   ``sparse`` (the zoo's options), the sparse ``indices`` encoding and
+   gradient accumulation (two step signatures, two captures): each
+   captured against its eager twin bit for bit; ``partial`` against
+   path 16's run bit for bit, the two sparse encodings against each
+   other, ``fp16``'s step-5 loss within 2 % of path 16's.  No kernel of
+   the port lies on paths 20-21: every counter must read 0 there;
+22. path ``dist_scripts``: ``train_multiprocess -w 1`` and ``train_cnn
+   --zero1 1`` as scripts (one NCCL rank each, 2 epochs of synthetic
+   MNIST at B 64): exit 0 and a falling epoch loss;
 3c. (with 3b) flash on mixed operands: bf16 queries over float32 keys and
    values (the float chunk under a bf16 policy over float32 cache rows)
    at the serving shape: one float32 launch, o in bf16 within one unit
@@ -238,10 +259,12 @@ Phases (any failure exits non-zero before the result lines print):
    twin (steady step, tokens/s, peak memory, replays; the predict
    errors), one for paths 15-19 (steady step, rate, peak memory,
    replays, idle share, the CPU and float32 comparisons, each beside its
-   eager twin), one ``kernels`` JSON line, then the result line.
+   eager twin), one for paths 20-22 (the same, the collectives a step,
+   the NCCL version, the scripts' epoch losses), one ``kernels`` JSON
+   line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
-7, 7a-7f, 8, 8b, 8c, 11, 13 and 15-19) and read just after it; a kernel's
+7, 7a-7f, 8, 8b, 8c, 11, 13, 15-19 and 20-21) and read just after it; a kernel's
 ``launches`` is the sum over them, ``launches_by_path`` splits it.  On
 a captured path a replay adds the launches its capture recorded (the
 capture itself launches nothing), so the counts are the kernels the
@@ -268,6 +291,12 @@ warm-up steps (on the captured
 path: the eager first step and the capture), once under ``torch.profiler`` (CPU and CUDA activity),
 and prints the device's busy and idle share over the run, device time by
 kernel group and the costliest kernels.
+
+    python3 chip_smoke.py --nccl-two-ranks
+
+runs phase 1 and then two ranks over NCCL through ``parallel.launch``
+(rank r on card r modulo the card count), one all-reduce, and prints its
+result or the group's error.
 
     python3 chip_smoke.py --compare-serve [layouts|precision|graphs]
 
@@ -302,6 +331,7 @@ bound of the same rows prints beside it.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -325,6 +355,9 @@ from singa_tpu_torch import opt as topt  # noqa: E402
 from singa_tpu_torch.examples import char_rnn  # noqa: E402
 from singa_tpu_torch.examples import mlp  # noqa: E402
 from singa_tpu_torch.examples.cnn import train_cnn as cnn_train  # noqa: E402
+from singa_tpu_torch import parallel as tparallel  # noqa: E402
+from singa_tpu_torch.examples.cnn.model import (  # noqa: E402
+    cnn as cnn_model)
 from singa_tpu_torch.examples.cnn.data import (  # noqa: E402
     synthetic as cnn_synthetic)
 from singa_tpu_torch.models import gpt as tgpt  # noqa: E402
@@ -2793,8 +2826,9 @@ def _read_launches():
 def _host_states(model):
     """Every parameter, buffer and optimizer state, copied to the host
     (optimizer entries under ``opt.``)."""
-    out = {n: t.data.detach().cpu() for n, t in model.get_states().items()}
-    out.update({f"opt.{t.name}": t.data.detach().cpu()
+    out = {n: t.data.detach().to("cpu", copy=True)
+           for n, t in model.get_states().items()}
+    out.update({f"opt.{t.name}": t.data.detach().to("cpu", copy=True)
                 for t in model.optimizer.state_tensors()})
     return out
 
@@ -2827,12 +2861,14 @@ def _same_states(label, a, b):
         raise AssertionError(f"{label}: {len(bad)} states differ")
 
 
-def _train_run(model, batches, label, after_step=None, unit="tokens"):
-    """One ``train_one_batch`` a batch, each ending in ``loss.item()``;
-    launch counters zeroed just before the steps and read just after;
-    ``after_step(s)`` runs between steps, outside the timed window.
-    The steady step is steps 2 and on: on the captured path step 0 runs
-    eagerly and step 1 captures, then replays.  The rate counts
+def _train_run(model, batches, label, after_step=None, unit="tokens",
+               warm=2):
+    """One ``train_one_batch(x, y, *rest)`` a batch ``(x, y, *rest)``,
+    each ending in ``loss.item()``; launch counters zeroed just before
+    the steps and read just after; ``after_step(s)`` runs between steps,
+    outside the timed window.  The steady step is steps ``warm`` and on:
+    on the captured path step 0 runs eagerly and step 1 captures, then
+    replays (a step of two signatures: ``warm`` 4).  The rate counts
     ``unit``: ``tokens`` (every id of a batch) or ``images`` (its first
     axis)."""
     gc.collect()
@@ -2840,9 +2876,9 @@ def _train_run(model, batches, label, after_step=None, unit="tokens"):
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     losses, walls = [], []
-    for s, (x, y) in enumerate(batches):
+    for s, (x, y, *rest) in enumerate(batches):
         t0 = time.perf_counter()
-        _, loss = model.train_one_batch(x, y)
+        _, loss = model.train_one_batch(x, y, *rest)
         lv = loss.item()                      # synchronises
         walls.append(time.perf_counter() - t0)
         losses.append(lv)
@@ -2851,7 +2887,7 @@ def _train_run(model, batches, label, after_step=None, unit="tokens"):
             after_step(s)
     torch.cuda.synchronize()
     launches = _read_launches()
-    steady = walls[2:]
+    steady = walls[warm:]
     per_step = batches[0][0].size if unit == "tokens" \
         else batches[0][0].shape[0]
     rate = f"{unit}_per_s"
@@ -2861,8 +2897,8 @@ def _train_run(model, batches, label, after_step=None, unit="tokens"):
              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
              "graph_replays": dict(model.graph_replays),
              "graph_captures": dict(model.graph_captures)}
-    _log(f"{label}: steady step {stats['steady_step_ms']:.2f} ms (steps 2-"
-         f"{len(batches) - 1}; steps 0, 1: {stats['step_ms'][0]:.1f}, "
+    _log(f"{label}: steady step {stats['steady_step_ms']:.2f} ms (steps "
+         f"{warm}-{len(batches) - 1}; steps 0, 1: {stats['step_ms'][0]:.1f}, "
          f"{stats['step_ms'][1]:.1f} ms), {stats[rate]:.0f} "
          f"{unit}/s, peak memory {stats['peak_memory_bytes']} bytes "
          f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); graph captures "
@@ -2872,13 +2908,16 @@ def _train_run(model, batches, label, after_step=None, unit="tokens"):
 
 
 def _graph_against_eager(label, g_launch, g_stats, e_launch, e_stats,
-                         g_states, e_states):
+                         g_states, e_states, captures=1, first_calls=None):
     """The captured run against its eager twin (the same seeded weights
     and batches): every loss and every state bit for bit (the same
     kernels on the same operands in the same order); the launch counts
-    the replays were credited equal the eager run's; one capture and
-    steps - 1 replays, so no eager step ran after the first."""
+    the replays were credited equal the eager run's; ``captures``
+    captures (one a step signature) and steps - ``first_calls`` replays
+    (``first_calls``: the eager calls, one a signature unless a call
+    creates state), so no eager step ran after those."""
     steps = len(g_stats["losses"])
+    replays = steps - (captures if first_calls is None else first_calls)
     u = g_stats["unit"]
     _log(f"{label} captured against eager: losses {g_stats['losses']} / "
          f"{e_stats['losses']}; steady step {g_stats['steady_step_ms']:.2f}"
@@ -2894,12 +2933,12 @@ def _graph_against_eager(label, g_launch, g_stats, e_launch, e_stats,
     if g_launch != e_launch:
         raise AssertionError(f"{label}: credited launches {g_launch} differ "
                              f"from the eager run's {e_launch}")
-    if g_stats["graph_captures"] != {"train": 1} \
-            or g_stats["graph_replays"] != {"train": steps - 1} \
+    if g_stats["graph_captures"] != {"train": captures} \
+            or g_stats["graph_replays"] != {"train": replays} \
             or e_stats["graph_replays"]:
         raise AssertionError(f"{label}: captures {g_stats['graph_captures']}"
-                             f", replays {g_stats['graph_replays']} (want 1 "
-                             f"and {steps - 1}); eager twin "
+                             f", replays {g_stats['graph_replays']} (want "
+                             f"{captures} and {replays}); eager twin "
                              f"{e_stats['graph_replays']}")
 
 
@@ -3770,17 +3809,22 @@ def _cnn_determinism():
 
 
 def _zoo_model(name, seed=0, use_graph=True, x=None, precision=None,
-               lr=R50_LR, **kw):
-    """A model of the port's CNN zoo on the card, its weights drawn from
-    the card's generator seeded ``seed`` (the dropout draws follow from
-    the same generator), with train_cnn.py's optimizer (SGD, momentum
-    0.9, weight decay 1e-5), compiled on ``x``."""
+               lr=R50_LR, comm=None, create=cnn_train.create_model, **kw):
+    """A model of the port's CNN zoo on the card (``create(name,
+    **kw)``), its weights drawn from the card's generator seeded
+    ``seed`` (the dropout draws follow from the same generator), with
+    train_cnn.py's optimizer (SGD, momentum 0.9, weight decay 1e-5; in a
+    ``DistOpt`` over ``comm`` when given), compiled on ``x`` (with
+    ``comm``)."""
     dev = tdevice.get_device("cuda")
     dev.set_rand_seed(seed)
-    m = cnn_train.create_model(name, **kw)
-    m.set_optimizer(topt.SGD(lr=lr, momentum=0.9, weight_decay=1e-5))
+    m = create(name, **kw)
+    sgd = topt.SGD(lr=lr, momentum=0.9, weight_decay=1e-5)
+    m.set_optimizer(sgd if comm is None
+                    else topt.DistOpt(sgd, communicator=comm))
     m.compile([TTensor(data=x, device=dev, requires_grad=False)],
-              is_train=True, use_graph=use_graph, precision=precision)
+              is_train=True, use_graph=use_graph, precision=precision,
+              communicator=comm)
     torch.cuda.synchronize()
     return m
 
@@ -3794,20 +3838,25 @@ def _no_kernels(label, launches):
 
 
 def _twins(label, make, batches, unit="images", profile=0, falls=False,
-           after_step=None):
+           after_step=None, captures=1, first_calls=None):
     """``make(use_graph)``'s eager twin, then its captured model, over
     ``batches`` through ``_train_run`` (``after_step(model, s)`` between
     the captured run's steps), held together by ``_graph_against_eager``
     (every loss and state, BatchNorm buffers and optimizer states
     included, bit for bit); the losses must be finite, and with
     ``falls`` the last below the first; with ``profile``, that many more
-    steps of each under ``torch.profiler`` give its idle share.  Returns
-    ``(captured model, launches, stats)``, the eager run's stats under
-    ``"eager"``."""
+    steps of each under ``torch.profiler`` give its idle share.
+    ``captures``: the step signatures among the batches (each is
+    captured once); ``first_calls``: the eager calls (one a signature
+    unless a call creates state, which makes another signature's next
+    call a first call again).  Returns ``(captured model, launches,
+    stats)``, the eager run's stats under ``"eager"``."""
     gc.collect()
+    first_calls = captures if first_calls is None else first_calls
+    warm = first_calls + captures
     eager = make(False)
     e_launch, e_stats = _train_run(eager, batches, f"{label}_eager",
-                                   unit=unit)
+                                   unit=unit, warm=warm)
     e_states = _host_states(eager)
     if profile:
         e_stats["idle_share"] = _idle_share(eager, batches[:profile])
@@ -3815,13 +3864,14 @@ def _twins(label, make, batches, unit="images", profile=0, falls=False,
     gc.collect()
     model = make(True)
     step = None if after_step is None else lambda s: after_step(model, s)
-    launches, stats = _train_run(model, batches, label, step, unit)
+    launches, stats = _train_run(model, batches, label, step, unit, warm)
     losses = stats["losses"]
     if not all(np.isfinite(losses)) or (falls and not losses[-1] < losses[0]):
         raise AssertionError(f"{label}: losses {losses} (must be finite"
                              + (" and fall)" if falls else ")"))
     _graph_against_eager(label, launches, stats, e_launch, e_stats,
-                         _host_states(model), e_states)
+                         _host_states(model), e_states, captures,
+                         first_calls)
     del e_states
     if profile:
         stats["idle_share"] = _idle_share(model, batches[:profile])
@@ -3852,8 +3902,8 @@ def _idle_share(model, batches):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for x, y in batches:
-            model.train_one_batch(x, y)
+        for x, y, *rest in batches:
+            model.train_one_batch(x, y, *rest)
         torch.cuda.synchronize()
     busy, window, _ = _busy(prof)
     return 1 - busy / window
@@ -3907,6 +3957,7 @@ def phase_cnn_train():
              make(False).get_states().items()}
     model, launches, stats = _twins("cnn_train", make, batches, falls=True)
     _no_kernels("cnn_train", launches)
+    stats["states"] = _host_states(model)
     card = _zoo_model("cnn", use_graph=False, x=x[:CNN_B], num_classes=10,
                       num_channels=1)
     card.set_states(start)
@@ -3958,6 +4009,8 @@ def phase_resnet50_train(batches, precision=None, f32_stats=None):
                           num_classes=1000)
 
     model, launches, stats = _twins(label, make, batches, profile=2)
+    if precision is None:               # path resnet50_dist holds to them
+        stats["states"] = _host_states(model)
     del model
     _no_kernels(label, launches)
     if f32_stats is not None:
@@ -4056,9 +4109,249 @@ def phase_zoo():
         gc.collect()
         st["seconds"] = time.perf_counter() - t0
         launches[name], stats[name] = launch, st
-    total = {k: sum(launch[k] for launch in launches.values())
-             for k in next(iter(launches.values()))}
-    return total, stats
+    return _sum_launches(launches), stats
+
+
+# paths resnet50_dist and dist_options: the data-parallel updates over a
+# world-1 NCCL group on the card (NCCL refuses two ranks on one card)
+DIST_R50_OPTIONS = ("plain", "sharded")
+DIST_OPTIONS = ("fp16", "partial", "sparse", "sparse_indices", "accum")
+# dist_scripts: the CNN examples' multi-process scripts at world 1
+DIST_SCRIPTS = {
+    "train_multiprocess": ["-m", "singa_tpu_torch.examples.cnn."
+                           "train_multiprocess", "cnn", "-w", "1", "-n",
+                           "512", "-b", "64", "-m", "2"],
+    "train_cnn_zero1": ["-m", "singa_tpu_torch.examples.cnn.train_cnn",
+                        "cnn", "--zero1", "1", "-n", "512", "-b", "64", "-m",
+                        "2"]}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _dist_group():
+    """A world-1 process group over the card (NCCL, at a free local port,
+    through ``init_distributed``) and its communicator."""
+    tparallel.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    comm = tparallel.Communicator.from_devices()
+    _log(f"process group: backend {torch.distributed.get_backend()}, world "
+         f"{comm.world_size}, device {comm.device}, NCCL "
+         f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    return comm
+
+
+def _per_step_collectives(model, comm, batch):
+    """One more step's collectives: the communicator's calls by op and
+    DistOpt's all-reduces (a replay is credited what its capture
+    issued)."""
+    before = comm.comm_stats()["calls"]
+    ar = model.optimizer.comm_stats()["allreduce_calls"]
+    model.train_one_batch(*batch)
+    torch.cuda.synchronize()
+    after = comm.comm_stats()["calls"]
+    return {"by_op": {f"{op}/{axis}": n - before.get((op, axis), 0)
+                      for (op, axis), n in after.items()
+                      if n != before.get((op, axis), 0)},
+            "distopt_allreduce": (model.optimizer.comm_stats()
+                                  ["allreduce_calls"] - ar)}
+
+
+def _against_plain(label, stats, states, ref_stats, ref_states):
+    """A world-1 data-parallel run against the plain SGD run from the same
+    weights and batches: every loss and state bit for bit (the mean over
+    one rank is exact), ``partial_idx`` aside."""
+    if stats["losses"] != ref_stats["losses"]:
+        raise AssertionError(f"{label}: losses {stats['losses']} differ from "
+                             f"the plain run's {ref_stats['losses']}")
+    states = {k: v for k, v in states.items() if k != "opt.partial_idx"}
+    _same_states(f"{label} against the plain run", states, ref_states)
+
+
+@contextlib.contextmanager
+def _timed_order_walk():
+    """The host seconds of each ``autograd._emission_order`` call made
+    inside the block (``DistOpt``'s backward walks the graph for its
+    order on every eager step; a replay runs no Python)."""
+    walks, walk = [], tautograd._emission_order
+
+    def timed(root):
+        t0 = time.perf_counter()
+        try:
+            return walk(root)
+        finally:
+            walks.append(time.perf_counter() - t0)
+
+    tautograd._emission_order = timed
+    try:
+        yield walks
+    finally:
+        tautograd._emission_order = walk
+
+
+def phase_resnet50_dist(batches, comm, r50_stats):
+    """Path ``resnet50_dist``: path 17's ResNet-50 (224x224, 1000
+    classes, B 32, its SGD) under ``DistOpt`` over the world-1 NCCL
+    group, ``dist_option`` ``plain`` and ``sharded`` (ZeRO-1, which takes
+    the plain per-grad path at world 1), each captured against its eager
+    twin bit for bit and, losses and every state, against path 17's run
+    from the same weights and batches; the steady step, images/s, idle
+    share, peak memory and collectives a step."""
+    launches, out = {}, {}
+    for option in DIST_R50_OPTIONS:
+        label = f"resnet50_dist {option}"
+
+        def make(use_graph):
+            return _zoo_model("resnet50", use_graph=use_graph,
+                              x=batches[0][0], num_classes=1000, comm=comm)
+
+        bt = [(x, y, option) for x, y in batches]
+        with _timed_order_walk() as walks:
+            model, launch, stats = _twins(label, make, bt, profile=2)
+        _no_kernels(label, launch)
+        stats["order_walk_ms"] = 1e3 * float(np.median(walks))
+        _log(f"{label}: the emission-order walk of DistOpt's backward, "
+             f"host {stats['order_walk_ms']:.3f} ms (median of "
+             f"{len(walks)} calls: eager steps and captures) against the "
+             f"eager steady step {stats['eager']['steady_step_ms']:.2f} ms")
+        _against_plain(label, stats, _host_states(model), r50_stats,
+                       r50_stats["states"])
+        stats["collectives_per_step"] = _per_step_collectives(model, comm,
+                                                              bt[0])
+        _log(f"{label}: collectives a step {stats['collectives_per_step']}")
+        del model
+        gc.collect()
+        launches[option], out[option] = launch, stats
+    return _sum_launches(launches), out
+
+
+class _DistCNN(cnn_model.CNN):
+    """The MNIST CNN with the two ``DistOpt`` updates the zoo's options
+    do not name: the sparse exchange's ``indices`` encoding and gradient
+    accumulation (``accumulate``, then ``accum_update`` with k 2)."""
+
+    def train_one_batch(self, x, y, dist_option="plain", spars=None):
+        if dist_option not in ("sparse_indices", "accumulate",
+                               "accum_update"):
+            return super().train_one_batch(x, y, dist_option, spars)
+        out = self.forward(x)
+        loss = self.softmax_cross_entropy(out, y)
+        if dist_option == "sparse_indices":
+            self.optimizer.backward_and_sparse_update(loss, spars=0.05,
+                                                      encoding="indices")
+        elif dist_option == "accumulate":
+            self.optimizer.backward_and_accumulate(loss)
+        else:
+            self.optimizer.backward_and_accum_update(loss, 2)
+        return out, loss
+
+
+def phase_dist_options(comm, cnn_stats):
+    """Path ``dist_options``: path 16's MNIST CNN (B 64, its weights and
+    batches) under ``DistOpt`` over the world-1 NCCL group through
+    ``fp16`` (the bf16 all-reduce), ``partial``, ``sparse`` (both
+    encodings) and gradient accumulation, each captured against its eager
+    twin bit for bit; ``partial`` equals path 16's plain run bit for bit
+    (one rank's mean is its gradient), the two sparse encodings equal
+    each other, and ``fp16``'s loss at step 5 lies within 2 % of the
+    plain run's."""
+    x, y = cnn_synthetic.load("mnist", num=CNN_B * CNN_STEPS, seed=0)
+    launches, out, states = {}, {}, {}
+    for option in DIST_OPTIONS:
+        label = f"dist_options {option}"
+        bt = [(x[s * CNN_B:(s + 1) * CNN_B], y[s * CNN_B:(s + 1) * CNN_B],
+               option if option != "accum"
+               else ("accumulate", "accum_update")[s % 2])
+              for s in range(CNN_STEPS)]
+
+        def make(use_graph):
+            return _zoo_model("cnn", use_graph=use_graph, x=x[:CNN_B],
+                              comm=comm, create=lambda n, **kw: _DistCNN(
+                                  **kw), num_classes=10, num_channels=1)
+
+        # accumulation: two signatures; the update's first call creates
+        # the momenta, so accumulate's next call is a first call again
+        accum = option == "accum"
+        model, launch, stats = _twins(label, make, bt,
+                                      captures=2 if accum else 1,
+                                      first_calls=3 if accum else None)
+        _no_kernels(label, launch)
+        states[option] = _host_states(model)
+        stats["collectives_per_step"] = _per_step_collectives(model, comm,
+                                                              bt[-1])
+        _log(f"{label}: collectives a step {stats['collectives_per_step']}")
+        del model
+        launches[option], out[option] = launch, stats
+    _against_plain("dist_options partial", out["partial"], states["partial"],
+                   cnn_stats, cnn_stats["states"])
+    if out["sparse"]["losses"] != out["sparse_indices"]["losses"]:
+        raise AssertionError("dist_options: the sparse encodings' losses "
+                             "differ")
+    _same_states("dist_options sparse dense against indices",
+                 states["sparse"], states["sparse_indices"])
+    out["fp16"]["loss_rel_plain"] = _tracks_f32(
+        "dist_options fp16", out["fp16"]["losses"][:5],
+        cnn_stats["losses"][:5])
+    return _sum_launches(launches), out
+
+
+def _two_rank_probe():
+    """One rank of ``--nccl-two-ranks``: an all-reduce over the group."""
+    comm = tparallel.Communicator.from_devices()
+    x = torch.full((4,), float(comm.global_rank + 1), device=comm.device)
+    y = comm.all_reduce(x)
+    torch.cuda.synchronize()
+    return y.tolist()
+
+
+def phase_nccl_two_ranks():
+    """``--nccl-two-ranks``: two ranks over NCCL on this host's cards
+    (rank r on card r modulo the count: both on the one card of a
+    one-card host) through ``launch``, one all-reduce; prints its result
+    or the error the group raised."""
+    n = torch.cuda.device_count()
+    try:
+        got = tparallel.launch(_two_rank_probe, 2, timeout=300)
+        _log(f"two NCCL ranks on {n} card(s): all_reduce gave {got} (want "
+             f"[3.0, 3.0, 3.0, 3.0])")
+    except (RuntimeError, TimeoutError) as e:
+        _log(f"two NCCL ranks on {n} card(s) failed: {e}")
+
+
+def _sum_launches(by_run):
+    return {k: sum(run[k] for run in by_run.values())
+            for k in next(iter(by_run.values()))}
+
+
+def phase_dist_scripts():
+    """Path ``dist_scripts``: ``train_multiprocess -w 1`` and
+    ``train_cnn --zero1 1`` as scripts (each launches one rank over NCCL
+    on the card; 2 epochs of synthetic MNIST, B 64): exit 0 and a falling
+    epoch loss.  Their processes' kernel counters are their own; the CNN
+    runs no kernel of the port."""
+    out = {}
+    for label, argv in DIST_SCRIPTS.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable] + argv, cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+        text = r.stdout + r.stderr
+        lines = [ln for ln in text.splitlines()
+                 if re.search(r"epoch \d+: loss=", ln)]
+        losses = [float(v) for v in
+                  re.findall(r"epoch \d+: loss=([0-9.]+)", text)]
+        seconds = time.perf_counter() - t0
+        _log(f"dist_scripts {label}: exit {r.returncode} in {seconds:.1f}s; "
+             + " | ".join(ln.strip() for ln in lines))
+        if r.returncode != 0 or len(losses) != 2 \
+                or not losses[1] < losses[0]:
+            raise AssertionError(f"dist_scripts {label}: exit "
+                                 f"{r.returncode}, epoch losses {losses}\n"
+                                 f"{text[-3000:]}")
+        out[label] = {"epoch_losses": losses, "seconds": seconds}
+    return out
 
 
 def _kernel_bucket(name):
@@ -4326,6 +4619,7 @@ def main(argv):
         return 2
     modes = {(): None, ("--profile",): lambda: phase_profile("serve"),
              ("--compare-serve",): phase_compare_serve,
+             ("--nccl-two-ranks",): phase_nccl_two_ranks,
              ("--compare-serve", "layouts"):
              lambda: phase_compare_serve(("paged", "slot", "mono"), 3),
              ("--compare-serve", "precision"):
@@ -4338,12 +4632,14 @@ def main(argv):
         modes["--profile", path] = lambda p=path: phase_profile(p)
     if tuple(argv) not in modes:
         print(f"usage: chip_smoke.py [--profile [{'|'.join(PROFILE_PATHS)}]"
-              f" | --compare-serve [layouts|precision|graphs]]",
+              f" | --compare-serve [layouts|precision|graphs] | "
+              f"--nccl-two-ranks]",
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     card = phase_card()
-    phase_build()
+    if tuple(argv) != ("--nccl-two-ranks",):     # it runs no kernel
+        phase_build()
     if modes[tuple(argv)] is not None:
         modes[tuple(argv)]()
         _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
@@ -4424,11 +4720,19 @@ def main(argv):
     r50_launches, r50_stats = phase_resnet50_train(r50_batches)
     r50b_launches, r50b_stats = phase_resnet50_train(
         r50_batches, "bfloat16", r50_stats)
-    del r50_batches
     zoo_launches, zoo_stats = phase_zoo()
     _log(f"MLP and CNN phases (15-19): {time.perf_counter() - t_cnn:.1f}s "
          f"(zoo " + ", ".join(f"{n} {st['seconds']:.1f}s"
                               for n, st in zoo_stats.items()) + ")")
+    t_d = time.perf_counter()
+    comm = _dist_group()
+    r50d_launches, r50d_stats = phase_resnet50_dist(r50_batches, comm,
+                                                    r50_stats)
+    del r50_batches
+    opts_launches, opts_stats = phase_dist_options(comm, cnn_stats)
+    torch.distributed.destroy_process_group()
+    script_stats = phase_dist_scripts()
+    _log(f"data-parallel phases (20-22): {time.perf_counter() - t_d:.1f}s")
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
                    "serve_int8": int8_launches[row["name"]],
@@ -4448,7 +4752,9 @@ def main(argv):
                    "cnn_train": cnn_launches[row["name"]],
                    "resnet50_train": r50_launches[row["name"]],
                    "resnet50_bf16": r50b_launches[row["name"]],
-                   "zoo": zoo_launches[row["name"]]}
+                   "zoo": zoo_launches[row["name"]],
+                   "resnet50_dist": r50d_launches[row["name"]],
+                   "dist_options": opts_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     _log("captured against eager: " + json.dumps({
@@ -4476,6 +4782,19 @@ def main(argv):
                           ("resnet50_train", r50_stats),
                           ("resnet50_bf16", r50b_stats))
         + tuple((f"zoo {n}", st) for n, st in zoo_stats.items())}))
+    keys = ("steady_step_ms", "images_per_s", "peak_memory_bytes",
+            "idle_share", "graph_replays", "collectives_per_step",
+            "loss_rel_plain", "order_walk_ms")
+    _log("data-parallel paths (world 1, NCCL "
+         + ".".join(map(str, torch.cuda.nccl.version()))
+         + ") captured against eager: " + json.dumps({
+             f"{label} {option}": {k: st[k] for k in keys if k in st}
+             | {"eager": {k: st["eager"][k] for k in keys
+                          if k in st["eager"]}}
+             for label, by_option in (("resnet50_dist", r50d_stats),
+                                      ("dist_options", opts_stats))
+             for option, st in by_option.items()}
+             | {"dist_scripts": script_stats}))
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
     _log(json.dumps({"kernels": [
         {k: r[k] for k in KEYS + ("launches_by_path",)}

@@ -34,12 +34,15 @@ are.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from .ops import elementwise, flash_attention, lstm_cell, paged_attention
 from .tensor import Tensor
 
-__all__ = ["captures_on", "launch_counts", "Graph", "GraphCache"]
+__all__ = ["captures_on", "launch_counts", "register_counters", "Graph",
+           "GraphCache"]
 
 # the modules whose ``launches*`` counters a replay credits
 KERNEL_MODULES = (flash_attention, paged_attention, lstm_cell, elementwise)
@@ -55,6 +58,28 @@ def launch_counts() -> dict:
     """Every kernel wrapper's ``launches*`` counter, by (module, name)."""
     return {(m, n): v for m in KERNEL_MODULES for n, v in vars(m).items()
             if n.startswith("launches") and isinstance(v, int)}
+
+
+# every dict of counts a replay credits, by its owner: each kernel
+# module's namespace (its ``launches*`` attributes are entries there) and
+# the ``counters`` of each registered owner (the communicators' and
+# DistOpt's collective counts).  A counter is an int entry; a capture
+# records the entries it changed (a module's constants never change)
+_COUNTERS = weakref.WeakKeyDictionary({m: vars(m) for m in KERNEL_MODULES})
+
+
+def register_counters(owner) -> None:
+    """Have every replay credit ``owner.counters`` (a dict of counts its
+    owner adds to as it issues work, such as a communicator's
+    collectives) with what the capture recorded, as the kernel
+    counters are credited."""
+    _COUNTERS[owner] = owner.counters
+
+
+def _counts() -> dict:
+    """Every counter of ``_COUNTERS``, by (owner, key)."""
+    return {(owner, k): v for owner, d in list(_COUNTERS.items())
+            for k, v in list(d.items()) if type(v) is int}
 
 
 def _torch_tensors(x):
@@ -93,8 +118,8 @@ class Graph:
 
     def replay(self):
         self.graph.replay()
-        for (mod, name), n in self.launches.items():
-            setattr(mod, name, getattr(mod, name) + n)
+        for (owner, name), n in self.launches.items():
+            _COUNTERS[owner][name] += n
 
 
 _COLD = object()
@@ -186,21 +211,21 @@ class GraphCache:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        before = launch_counts()
+        before = _counts()
         try:
             with torch.cuda.graph(graph, stream=self.side_stream(device)):
                 out = fn(*args)
         finally:
-            after = launch_counts()
-            for (mod, name), n in before.items():   # nothing ran yet
-                setattr(mod, name, n)
+            recorded = {c: n - before.get(c, 0)
+                        for c, n in _counts().items()
+                        if n != before.get(c, 0)}
+            for (owner, name), n in recorded.items():  # nothing ran yet
+                _COUNTERS[owner][name] -= n
         if state_fn() != state:
             raise RuntimeError(
                 "state was created or rebound while the step was captured: "
                 "the graph would hold storage its owner does not")
-        entry = Graph(graph, list(inputs), out, state,
-                      {c: after[c] - n for c, n in before.items()
-                       if after.get(c, n) != n})
+        entry = Graph(graph, list(inputs), out, state, recorded)
         self.graphs[key] = entry
         kind = key[0]
         self.captures[kind] = self.captures.get(kind, 0) + 1

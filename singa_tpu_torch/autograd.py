@@ -34,6 +34,8 @@ belongs to a later slice.
 
 from __future__ import annotations
 
+from collections import deque
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -63,14 +65,19 @@ training = False
 
 
 class Operation:
-    """Provenance of an op's outputs: the op's name and the parameter
-    leaves (``stores_grad`` tensors, by id) its inputs reach."""
+    """Provenance of an op's outputs: the op's name, the parameter leaves
+    (``stores_grad`` tensors, by id) its inputs reach, and ``src``: for
+    each Tensor input in argument order that is a parameter or an op's
+    output, ``(its creator or None, the Tensor when it is a parameter
+    or None)`` (the reference's ``Operation.src``, autograd.py:41-71,
+    less the ids), the graph :func:`backward` walks for its order."""
 
-    __slots__ = ("name", "leaves")
+    __slots__ = ("name", "leaves", "src")
 
-    def __init__(self, name: str, leaves: dict):
+    def __init__(self, name: str, leaves: dict, src=()):
         self.name = name
         self.leaves = leaves
+        self.src = src
 
 
 def op(name, fn, *xs):
@@ -88,7 +95,7 @@ def op(name, fn, *xs):
     outs = out if isinstance(out, tuple) else (out,)
     creator = None
     if training and any(o.requires_grad for o in outs):
-        leaves = {}
+        leaves, src = {}, []
         for x in xs:
             if not isinstance(x, Tensor):
                 continue
@@ -96,7 +103,9 @@ def op(name, fn, *xs):
                 leaves[id(x)] = x
             elif x.creator is not None:
                 leaves.update(x.creator.leaves)
-        creator = Operation(name, leaves)
+            if x.stores_grad or x.creator is not None:
+                src.append((x.creator, x if x.stores_grad else None))
+        creator = Operation(name, leaves, src)
     wrapped = tuple(
         Tensor(data=o, device=dev, requires_grad=o.requires_grad and
                creator is not None,
@@ -129,11 +138,52 @@ def _nograd(fn, *xs):
 # backward (parity: reference ``backward`` / ``gradients``)
 # --------------------------------------------------------------------------
 
-def backward(y: Tensor, dy=None):
+def _emission_order(root: Operation) -> list:
+    """The parameter leaves ``root`` reaches, in the order the
+    reference's backward emits their gradients (autograd.py:181-273): a
+    breadth-first walk from ``root`` that releases an op when its last
+    consumer has been walked, and a leaf when its last consuming op has.
+    ``DistOpt`` buckets and selects grads in this order, so it fixes the
+    layout of the ZeRO-1 state and the rotation of ``partial``; an
+    update of each parameter on its own needs no order and skips the
+    walk."""
+    counts, leaf_counts = {}, {}
+    queue, seen = deque([root]), {id(root)}
+    while queue:
+        for src_op, leaf in queue.popleft().src:
+            if leaf is not None:
+                leaf_counts[id(leaf)] = leaf_counts.get(id(leaf), 0) + 1
+            if src_op is None:
+                continue
+            counts[id(src_op)] = counts.get(id(src_op), 0) + 1
+            if id(src_op) not in seen:
+                seen.add(id(src_op))
+                queue.append(src_op)
+    order, ready, visited = [], deque([root]), set()
+    while ready:
+        cur = ready.popleft()
+        if id(cur) in visited:
+            continue
+        visited.add(id(cur))
+        for src_op, leaf in cur.src:
+            if leaf is not None:
+                leaf_counts[id(leaf)] -= 1
+                if leaf_counts[id(leaf)] == 0:
+                    order.append(leaf)
+            elif src_op is not None:
+                counts[id(src_op)] -= 1
+                if counts[id(src_op)] == 0:
+                    ready.append(src_op)
+    return order
+
+
+def backward(y: Tensor, dy=None, ordered: bool = False):
     """Gradients of ``y`` (with initial cotangent ``dy``, ones by
     default) for every parameter leaf ``y`` reaches: yields
-    ``(param, grad)`` pairs, as the reference does.  One call of
-    ``torch.autograd.grad``; leaves that get no gradient are skipped."""
+    ``(param, grad)`` pairs, with ``ordered`` in the reference's order
+    (:func:`_emission_order`), else in the order the forward first
+    reached each leaf.  One call of ``torch.autograd.grad``; leaves that
+    get no gradient are skipped."""
     if not training:
         raise RuntimeError("call autograd.backward() under training mode")
     if y.creator is None:
@@ -142,7 +192,8 @@ def backward(y: Tensor, dy=None):
         dy = torch.ones_like(y.data)
     elif isinstance(dy, Tensor):
         dy = dy.data
-    leaves = list(y.creator.leaves.values())
+    leaves = (_emission_order(y.creator) if ordered
+              else list(y.creator.leaves.values()))
     grads = torch.autograd.grad(y.data, [t.data for t in leaves],
                                 grad_outputs=torch.as_tensor(dy).to(y.data),
                                 allow_unused=True)

@@ -11,20 +11,29 @@ __all__ = ["Classifier"]
 
 
 class Classifier(Model):
-    """The zoo's training step (each reference model has its own copy):
-    logits, mean softmax cross-entropy, the optimizer, ``(out, loss)``.
-    ``dist_option`` other than ``"plain"`` names a ``DistOpt`` update
-    (fp16, partial, sparse, ZeRO-1), which belongs to a later slice of
-    the port (ROADMAP.md queue 1, item 12)."""
+    """The zoo's training step (each reference model has its own copy,
+    e.g. ``examples/cnn/model/resnet.py:148-166``): logits, mean softmax
+    cross-entropy, the update that ``dist_option`` names, ``(out,
+    loss)``.  ``"plain"`` (and any name not below) calls the optimizer
+    on the loss; under a ``DistOpt``: ``"fp16"`` the bf16 all-reduce
+    (``backward_and_update_half``), ``"partial"`` the rotating one-grad
+    sync, ``"sparse"`` the top-K exchange with ``spars`` (default 0.05),
+    ``"sharded"`` ZeRO-1."""
 
     softmax_cross_entropy = staticmethod(softmax_cross_entropy)
 
     def train_one_batch(self, x, y, dist_option="plain", spars=None):
-        if dist_option != "plain":
-            raise NotImplementedError(
-                f"dist_option {dist_option!r} needs DistOpt, which belongs "
-                f"to a later slice of the port (ROADMAP.md queue 1, item 12)")
         out = self.forward(x)
         loss = self.softmax_cross_entropy(out, y)
-        self.optimizer(loss)
+        if dist_option == "fp16":
+            self.optimizer.backward_and_update_half(loss)
+        elif dist_option == "partial":
+            self.optimizer.backward_and_partial_update(loss)
+        elif dist_option == "sparse":
+            self.optimizer.backward_and_sparse_update(
+                loss, spars=spars if spars is not None else 0.05)
+        elif dist_option == "sharded":
+            self.optimizer.backward_and_sharded_update(loss)
+        else:
+            self.optimizer(loss)
         return out, loss

@@ -15,11 +15,19 @@ the zip checkpoint (the reference's format, readable by the JAX
 package) after every epoch with the epoch in its aux states;
 ``--resume`` restores it and goes on at the next epoch.
 
-Not ported yet (each raises ``NotImplementedError``): ZeRO-1
-(``--zero1``, DistOpt) and the resilient step-granular checkpoints
-(``--ckpt-every``, ``resilience/``), both ROADMAP.md queue 1, item 12;
-``--ckpt-format snapshot`` raises in ``Model.save_states`` as that
-format does.
+``--zero1 N`` trains with ZeRO-1 over N ranks, one process a rank
+(:func:`~singa_tpu_torch.parallel.launch`; N cards, or gloo ranks with
+``--device cpu``): ``DistOpt(SGD)``, every step the ``"sharded"``
+update (the reference's flag, train_cnn.py:87), ``-b`` the global batch,
+which each rank's ``train_one_batch`` splits; the reference's
+single-process path (:140-165) takes the plain ``DistOpt`` update there,
+the same values up to float order.  Rank 0 logs and returns; every rank
+joins ``--ckpt``'s save and load.
+
+Not ported yet: the resilient step-granular checkpoints
+(``--ckpt-every``, ``resilience/``, ROADMAP.md queue 1, item 12) raise
+``NotImplementedError``; ``--ckpt-format snapshot`` raises in
+``Model.save_states`` as that format does.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import numpy as np
 from ... import opt, tensor
 from ...device import get_device
 from ...logging import INFO, InitLogging, LOG, SetVerbosity
+from ...parallel import Communicator, launch
 from .data import loader
 
 
@@ -58,6 +67,17 @@ def accuracy(pred, y):
     return float(np.mean(np.argmax(pred, axis=1) == y))
 
 
+def _global_rows(comm, pred) -> np.ndarray:
+    """A step's logits for the whole batch: the rank's rows gathered
+    from every rank under a communicator."""
+    data = pred.data if comm is None else comm.all_gather(pred.data)
+    return data.detach().cpu().numpy()
+
+
+def _quiet(*args):
+    """The log of a rank other than 0: nothing."""
+
+
 def _not_ported(flag, what):
     raise NotImplementedError(f"{flag}: {what} belongs to a later slice of "
                               f"the port (ROADMAP.md queue 1, item 12)")
@@ -66,30 +86,45 @@ def _not_ported(flag, what):
 def run(args):
     """Train as the flags say; returns ``{"loss": the last epoch's mean
     loss, "accuracy": its accuracy, "epoch_losses": [...],
-    "step_losses": [...]}``."""
-    InitLogging("train_cnn")
-    if args.zero1:
-        _not_ported("--zero1", "ZeRO-1 (DistOpt over a communicator)")
+    "step_losses": [...]}`` (rank 0's under ``--zero1``)."""
     if args.ckpt_every:
         _not_ported("--ckpt-every", "resilient checkpointing "
                     "(singa_tpu's resilience/)")
-    dev = get_device(args.device)
+    if args.zero1:
+        return launch(_run, args.zero1, args=(args,), device=args.device)
+    return _run(args)
+
+
+def _run(args):
+    """The training loop, in the process of one rank under ``--zero1``
+    (the process group is up)."""
+    InitLogging("train_cnn")
+    comm = None
+    if args.zero1:
+        comm = Communicator.from_devices()
+        if comm.global_rank == 0:
+            LOG(INFO, "ZeRO-1 group: %d ranks, axis %r", comm.world_size,
+                comm.data_axis)
+    log = LOG if comm is None or comm.global_rank == 0 else _quiet
+    dev = get_device(args.device if comm is None else comm.device)
     np.random.seed(args.seed)
     dev.set_rand_seed(args.seed)
 
     x, y, source = loader.load(args.data, num=args.num_samples,
                                seed=args.seed, data_dir=args.data_dir)
-    LOG(INFO, f"dataset {args.data}: {len(x)} samples from {source}")
+    log(INFO, f"dataset {args.data}: {len(x)} samples from {source}")
     num_classes = int(y.max()) + 1
     model = create_model(args.model, num_classes=num_classes,
                          num_channels=x.shape[1])
-    model.set_optimizer(opt.SGD(lr=args.lr, momentum=0.9, weight_decay=1e-5))
+    sgd = opt.SGD(lr=args.lr, momentum=0.9, weight_decay=1e-5)
+    model.set_optimizer(opt.DistOpt(sgd, communicator=comm)
+                        if comm is not None else sgd)
+    extra = ("sharded",) if comm is not None else ()
 
     bs = args.batch_size
     tx = tensor.Tensor(data=x[:bs], device=dev)
-    ty = tensor.Tensor(data=y[:bs], device=dev)
     model.compile([tx], is_train=True, use_graph=args.graph,
-                  sequential=False)
+                  sequential=False, communicator=comm)
     SetVerbosity(args.verbosity)
 
     start_epoch = 0
@@ -99,7 +134,7 @@ def run(args):
         # resume: params + optimizer state + epoch counter, no priming step
         aux = model.load_states(args.ckpt)
         start_epoch = int(aux.get("epoch", -1)) + 1
-        LOG(INFO, "resumed from %s at epoch %d", args.ckpt, start_epoch)
+        log(INFO, "resumed from %s at epoch %d", args.ckpt, start_epoch)
 
     nb = len(x) // bs
     out = {"loss": float("nan"), "accuracy": float("nan"),
@@ -110,17 +145,15 @@ def run(args):
         idx = np.random.RandomState(args.seed + epoch).permutation(len(x))
         for b in range(nb):
             sel = idx[b * bs:(b + 1) * bs]
-            tx.copy_from_numpy(x[sel])
-            ty.copy_from_numpy(y[sel])
-            pred, loss = model.train_one_batch(tx, ty)
+            pred, loss = model.train_one_batch(x[sel], y[sel], *extra)
             lv = float(loss.item())
             if args.log_steps:
-                LOG(INFO, "step %d: loss=%r", epoch * nb + b, lv)
+                log(INFO, "step %d: loss=%r", epoch * nb + b, lv)
             out["step_losses"].append(lv)
             tot_loss += lv
-            tot_acc += accuracy(pred.numpy(), y[sel])
+            tot_acc += accuracy(_global_rows(comm, pred), y[sel])
         dt = time.perf_counter() - t0
-        LOG(INFO, "epoch %d: loss=%.4f acc=%.4f %.1f img/s", epoch,
+        log(INFO, "epoch %d: loss=%.4f acc=%.4f %.1f img/s", epoch,
             tot_loss / nb, tot_acc / nb, nb * bs / dt)
         out["epoch_losses"].append(tot_loss / nb)
         out["loss"], out["accuracy"] = tot_loss / nb, tot_acc / nb
@@ -161,7 +194,8 @@ def parser():
     p.add_argument("--ckpt-every", type=int, default=0,
                    help="not ported yet: raises NotImplementedError")
     p.add_argument("--zero1", type=int, default=0,
-                   help="not ported yet: raises NotImplementedError")
+                   help="shard optimizer state ZeRO-1 style over N ranks, "
+                        "one process a rank")
     p.add_argument("--log-steps", action="store_true",
                    help="log every step's loss (full precision)")
     return p

@@ -83,8 +83,39 @@ casts float32 batch inputs to the compute dtype, runs the user's step,
 then ``end_step`` and casts the step's outputs to the output dtype, in
 eager and in graph mode alike; the parameters, the optimizer's state
 and the checkpoints stay float32.
-A ``communicator``, a ``mesh``, ``debug`` and ``lint`` raise
-``NotImplementedError`` naming their slice.
+Data parallelism (``compile(communicator=...)``, a
+:class:`~singa_tpu_torch.parallel.Communicator`; reference model.py:
+652-700, where the step is wrapped in ``shard_map``).  The port runs one
+process a rank, each with a full replica of the model:
+
+* every rank's ``train_one_batch`` receives the **global** batch, as
+  the reference's callers pass it, and takes its rows
+  ``[r * b, (r + 1) * b)`` of every array argument (a numpy array is
+  sliced before its upload, a tensor by a view); a batch that does not
+  divide by the world size raises ``ValueError``, as ``shard_map``
+  does;
+* scalar outputs (the loss) leave as the group's mean, all-reduced
+  inside the step (captured with it on the card); array outputs are the
+  rank's rows;
+* the state is each rank's own, as the reference's per-device shards:
+  ``DistOpt`` keeps the replicas equal where the reference's replicated
+  state is equal, the BatchNorm running statistics are each rank's
+  (the reference's host read gives device 0's), and so are the
+  unsynced parameters of ``partial``, the sparse residuals and the
+  ZeRO-1 shards.  "The model's state" is rank 0's;
+* ``save_states`` gathers on every rank (the ZeRO-1 state is a
+  collective: every rank calls it) and rank 0 writes; every rank
+  ``load_states`` the file;
+* a random step draws from each rank's own device generator (the
+  reference folds the rank into its key): seed them differently for
+  different dropout masks;
+* eager (``use_graph=False``) and captured steps alike take the rows and
+  issue the collectives; a step captured on the card holds its
+  collectives (its eager first call brings the NCCL communicator up
+  first), and a capture that fails raises.
+
+A ``mesh``, ``debug`` and ``lint`` raise ``NotImplementedError`` naming
+their slice.
 """
 
 from __future__ import annotations
@@ -102,6 +133,7 @@ from .device import get_device
 from .layer import Layer
 from . import _graphs
 from ._graphs import GraphCache, launch_counts as _launch_counts
+from .parallel.communicator import Communicator
 from .tensor import _NARROW, Tensor
 
 __all__ = ["Model"]
@@ -136,6 +168,7 @@ class Model(Layer):
         self.graph_mode = False
         self._user_tob = None
         self.precision_policy = None   # a precision.Policy or None
+        self.communicator = None       # a parallel.Communicator or None
         # (kind, signature) -> graph; the keys' eager first calls (state
         # ids after call 1); the side stream; captures and replays by
         # kind ("train", "predict")
@@ -225,10 +258,14 @@ class Model(Layer):
         step on the card and keeps the step's boundary on the CPU (see
         the module docstring); ``sequential`` is ignored.
         ``precision``, when given, is installed by
-        :meth:`set_precision_policy`.  Drops the captured steps.
-        Returns the placeholder pass's output."""
-        if communicator is not None:
-            _not_ported("a communicator (DistOpt)", "item 12")
+        :meth:`set_precision_policy`.  ``communicator``: the data-parallel
+        group this rank trains in (see the module docstring).  Drops the
+        captured steps.  Returns the placeholder pass's output."""
+        if communicator is not None and \
+                not isinstance(communicator, Communicator):
+            raise TypeError(f"communicator must be a singa_tpu_torch."
+                            f"parallel.Communicator, not "
+                            f"{type(communicator).__name__}")
         if mesh is not None:
             _not_ported("a mesh", "item 12")
         if debug or lint:
@@ -239,6 +276,7 @@ class Model(Layer):
         self.device = (first.device if isinstance(first, Tensor)
                        else get_device(self.device))
         self.graph_mode = use_graph
+        self.communicator = communicator
         if precision is not None:
             self.set_precision_policy(precision)
         xs = [self._as_input(x) for x in inputs]
@@ -264,6 +302,8 @@ class Model(Layer):
         return self.device is not None and self.device.lang == "cuda"
 
     def _dispatch_tob(self, *xs):
+        if self.communicator is not None:
+            xs = self._rank_rows(xs)
         if self.graph_mode and self._on_card():
             return self._graph_call("train", self._graph_step,
                                     _raw_inputs(xs), self._registry,
@@ -273,6 +313,35 @@ class Model(Layer):
     def _graph_step(self, xs):
         return self._step(xs, True)
 
+    def _rank_rows(self, xs) -> list:
+        """This rank's rows of every array argument (numpy: a slice
+        before the upload; a tensor or Tensor: a view)."""
+        n, r = self.communicator.world_size, self.communicator.global_rank
+        out = []
+        for x in xs:
+            arr = x.data if isinstance(x, Tensor) else x
+            if isinstance(arr, (np.ndarray, torch.Tensor)):
+                if arr.ndim == 0 or arr.shape[0] % n:
+                    raise ValueError(
+                        f"a batch of shape {tuple(arr.shape)} does not split"
+                        f" over {n} ranks on its first axis")
+                b = arr.shape[0] // n
+                arr = arr[r * b:(r + 1) * b]
+                x = (Tensor(data=arr, device=x.device, requires_grad=False)
+                     if isinstance(x, Tensor) else arr)
+            out.append(x)
+        return out
+
+    def _group_mean(self, out):
+        """Scalar Tensor outputs as the group's mean (a collective);
+        anything else as it is."""
+        if isinstance(out, Tensor) and out.data.dim() == 0:
+            return Tensor(data=self.communicator.all_reduce_mean(
+                out.data.detach()), device=out.device, requires_grad=False)
+        if isinstance(out, (tuple, list)):
+            return type(out)(self._group_mean(v) for v in out)
+        return out
+
     def _step(self, xs, cut: bool):
         """The user's step on Tensor inputs, under the policy's master
         swap and casts when one is active; ``cut``: inputs enter and
@@ -281,14 +350,20 @@ class Model(Layer):
         pol = self.precision_policy
         if pol is None or not pol.active:
             if not cut:
-                return self._user_tob(*xs)
-            return _cut(self._user_tob(*[_cut(x) for x in xs]))
-        token = pol.begin_step(self.get_states().values(), self.optimizer)
-        try:
-            out = self._user_tob(*[_cut(x, pol.cast_input) for x in xs])
-        finally:
-            pol.end_step(token, self.optimizer)
-        return _cut(out, pol.cast_output)
+                out = self._user_tob(*xs)
+            else:
+                out = _cut(self._user_tob(*[_cut(x) for x in xs]))
+        else:
+            token = pol.begin_step(self.get_states().values(),
+                                   self.optimizer)
+            try:
+                out = self._user_tob(*[_cut(x, pol.cast_input) for x in xs])
+            finally:
+                pol.end_step(token, self.optimizer)
+            out = _cut(out, pol.cast_output)
+        if self.communicator is not None:
+            out = self._group_mean(out)
+        return out
 
     def run_k_steps(self, k: int, *xs):
         """``k`` training steps on the same batch; returns the last
@@ -303,6 +378,8 @@ class Model(Layer):
         if self._user_tob is None:
             raise RuntimeError("run_k_steps needs a compiled model with a "
                                "train_one_batch")
+        if self.communicator is not None:
+            xs = self._rank_rows(xs)
         if self._on_card():
             return self._graph_call("train", self._graph_step,
                                     _raw_inputs(xs), self._registry, k,
@@ -412,6 +489,10 @@ class Model(Layer):
             _not_ported(f"the {format} checkpoint format",
                         "item 12 (snapshot.py and its codec)")
         states = self._gather_states()
+        comm = self.communicator
+        if comm is not None and comm.global_rank != 0:
+            comm.barrier()            # rank 0 writes; the rest wait for it
+            return
         aux = {k: v.numpy() if isinstance(v, Tensor) else np.asarray(v)
                for k, v in (aux_states or {}).items()}
         os.makedirs(os.path.dirname(fpath) or ".", exist_ok=True)
@@ -423,6 +504,8 @@ class Model(Layer):
                 np.savez(buf, **payload)
                 zf.writestr(name, buf.getvalue())
         _atomic_publish(tmp, fpath)
+        if comm is not None:
+            comm.barrier()
 
     def load_states(self, fpath: str) -> dict:
         """Restore a zip checkpoint in place, by name (the port's or the

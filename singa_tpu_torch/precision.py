@@ -130,14 +130,14 @@ class DynamicLossScale:
     def update(self, reducer=None):
         """Advance the schedule once per optimizer step, on the device and
         in place (the three scalars keep their storage, so a captured
-        step's next replay reads the new values).  ``reducer`` (a
-        mesh-wide vote) belongs to the ``DistOpt`` slice and stays None
-        here."""
-        if reducer is not None:
-            raise NotImplementedError(
-                "a mesh-wide overflow vote belongs to the DistOpt slice of "
-                "the port (ROADMAP.md queue 1, item 12)")
+        step's next replay reads the new values).  ``reducer``: an
+        all-reduce, so every rank backs off when any rank overflowed and
+        the ranks' scales stay equal (a device tensor, no host sync), as
+        the reference's.  ``Optimizer.step`` passes none: under
+        ``DistOpt`` its ``found_inf`` already holds the group's vote."""
         inf = self.found_inf.data
+        if reducer is not None:
+            inf = reducer(inf.to(torch.float32)) > 0
         scale, good = self.scale.data, self.good_steps.data
         grown = good + 1 >= self.growth_interval
         new_scale = torch.where(
@@ -146,7 +146,7 @@ class DynamicLossScale:
         new_good = torch.where(inf | grown, torch.zeros_like(good), good + 1)
         scale.copy_(new_scale)
         good.copy_(new_good)
-        inf.zero_()
+        self.found_inf.data.zero_()
 
 
 class Policy:

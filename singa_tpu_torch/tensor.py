@@ -86,7 +86,13 @@ class Tensor:
 
     # ---- conversion ----------------------------------------------------
     def numpy(self) -> np.ndarray:
-        return self.data.detach().cpu().numpy()
+        """A host copy of the values: a snapshot, as the reference's
+        (a CPU tensor's own buffer would change with its next in-place
+        update)."""
+        data = self.data.detach()
+        if data.device.type == "cpu":
+            return data.numpy().copy()
+        return data.cpu().numpy()
 
     def __array__(self, dtype=None, copy=None):
         arr = self.numpy()

@@ -249,9 +249,13 @@ def test_model_compile_names_and_places_the_state():
     assert all(t.name == k and t.data.device.type == "cpu"
                for k, t in states.items())
     assert not tag.training
-    for bad in (dict(communicator=object()), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.compile([_tt(np.zeros((2, 5), np.float32))], **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.compile([_tt(np.zeros((2, 5), np.float32))], mesh=object())
+    # a communicator is ported (tests/test_torch_dist.py); a foreign
+    # object is refused
+    with pytest.raises(TypeError, match="Communicator"):
+        m.compile([_tt(np.zeros((2, 5), np.float32))],
+                  communicator=object())
     # a precision policy is installed (the mixed-precision slice)
     m.compile([_tt(np.zeros((2, 5), np.float32))], precision="bfloat16")
     assert m.precision_policy.compute_dtype == torch.bfloat16

@@ -260,7 +260,8 @@ def test_zip_checkpoints_cross_both_ways(tmp_path):
 def test_train_cnn_trains_resumes_and_raises(tmp_path):
     """``train_cnn.run`` on the CPU: the loss falls over two epochs; with
     ``--ckpt`` and ``--resume`` a third epoch continues from the saved
-    one; ``--zero1`` and ``--ckpt-every`` raise naming their slice."""
+    one; ``--ckpt-every`` raises naming its slice (``--zero1`` runs:
+    ``tests/test_torch_dist_cnn.py``)."""
     ckpt = str(tmp_path / "cnn.zip")
     args = ["cnn", "--device", "cpu", "-n", "256", "-b", "32", "--ckpt",
             ckpt]
@@ -270,6 +271,43 @@ def test_train_cnn_trains_resumes_and_raises(tmp_path):
     resumed = train_cnn.main(args + ["-m", "3", "--resume"])
     assert len(resumed["epoch_losses"]) == 1
     assert resumed["loss"] < first["epoch_losses"][0]
-    for flag in (["--zero1", "2"], ["--ckpt-every", "5"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            train_cnn.main(["cnn", "--device", "cpu"] + flag)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        train_cnn.main(["cnn", "--device", "cpu", "--ckpt-every", "5"])
+
+
+@pytest.mark.parametrize("name", ["alexnet", "cnn", "resnet18", "vgg16"])
+def test_emission_order_equals_jax(name):
+    """``autograd.backward(ordered=True)`` (what ``DistOpt`` buckets and
+    selects by) yields the parameters in the order the JAX package's
+    backward does, from one training forward of each model (the JAX
+    side runs eagerly, op by op, so resnet18 runs at 32x32)."""
+    from singa_tpu import autograd as jautograd
+    from singa_tpu_torch import autograd as tautograd
+
+    class JOrder(jopt.SGD):
+        def __call__(self, loss):
+            self.order = [id(p) for p, _ in jautograd.backward(loss)]
+
+    class TOrder(topt.SGD):
+        def __call__(self, loss):
+            self.order = [id(p) for p, _ in
+                          tautograd.backward(loss, ordered=True)]
+
+    hw, c, _ = STEP[name]
+    x, y = _batch(c, min(hw, 32) if name == "resnet18" else hw)
+    jm = _jax_model(name, num_classes=10, num_channels=c)
+    _cut(name, jm)
+    jm.set_optimizer(JOrder(lr=LR))
+    jm.compile([jtensor.from_numpy(x)], is_train=True, use_graph=False)
+    jm.train_one_batch(jtensor.from_numpy(x), jtensor.from_numpy(y))
+    tm = train_cnn.create_model(name, num_classes=10, num_channels=c)
+    _cut(name, tm)
+    tm.set_optimizer(TOrder(lr=LR))
+    tx = Tensor(data=x, device="cpu")
+    tm.compile([tx], is_train=True, use_graph=False)
+    tm.train_one_batch(tx, Tensor(data=y, device="cpu"))
+    jnames = {id(t): k for k, t in jm.get_params().items()}
+    tnames = {id(t): k for k, t in tm.get_params().items()}
+    want = [jnames[i] for i in jm.optimizer.order]
+    assert [tnames[i] for i in tm.optimizer.order] == want
+    assert len(want) == len(jnames)

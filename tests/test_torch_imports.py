@@ -54,6 +54,9 @@ def test_package_imports_without_jax():
             "import singa_tpu_torch.layer, singa_tpu_torch.model\n"
             "import singa_tpu_torch.opt, singa_tpu_torch.device\n"
             "import singa_tpu_torch.precision\n"
+            "import singa_tpu_torch.parallel\n"
+            "import singa_tpu_torch.examples.cnn.train_multiprocess\n"
+            "import singa_tpu_torch.examples.cnn.train_mpi\n"
             "import singa_tpu_torch.ops.flash_attention\n"
             "import singa_tpu_torch.ops.paged_attention\n"
             "import singa_tpu_torch.ops._build\n"

@@ -111,6 +111,25 @@ def test_dynamic_loss_scale_matches_jax_step_for_step():
     assert float(t.scale.data) == 2.0        # the floor, then one growth
 
 
+def test_dynamic_loss_scale_update_votes_through_a_reducer():
+    """``update(reducer=)`` backs off when the reduced overflow flag is
+    set, as the JAX object's: the reducer here adds a second rank's flag
+    (overflowed at steps 1 and 3), this rank's overflows at step 2."""
+    j = jprecision.DynamicLossScale(initial=8.0, growth_interval=2)
+    t = tprecision.DynamicLossScale(initial=8.0, growth_interval=2)
+    other = [False, True, False, True, False, False]
+    mine = [False, False, True, False, False, False]
+    for i, (o, m) in enumerate(zip(other, mine)):
+        j.record(jnp.asarray(m))
+        t.record(torch.tensor(m))
+        j.update(lambda v, o=o: v + float(o))
+        t.update(lambda v, o=o: v + float(o))
+        assert float(t.scale.data) == float(j.scale.data), i
+        assert int(t.good_steps.data) == int(j.good_steps.data), i
+        assert not bool(t.found_inf.data)
+    assert float(t.scale.data) == 2.0   # three backoffs to the floor, a growth
+
+
 @pytest.mark.parametrize("spec", ["float32", "bfloat16", "float16", None])
 def test_get_policy_and_fields_match_jax(spec):
     j, t = jprecision.get_policy(spec), tprecision.get_policy(spec)
