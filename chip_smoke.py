@@ -249,6 +249,27 @@ Phases (any failure exits non-zero before the result lines print):
 22. path ``dist_scripts``: ``train_multiprocess -w 1`` and ``train_cnn
    --zero1 1`` as scripts (one NCCL rank each, 2 epochs of synthetic
    MNIST at B 64): exit 0 and a falling epoch loss;
+23. path ``tensor_surface``: every function of ``tensor.py`` (every name
+   of its ``__all__``) and the Tensor methods and operators on CUDA
+   tensors against the same calls on CPU tensors, over float32, int32
+   and bool operands: float32 within ``SURFACE_TOL``, integers and bools
+   exactly, each result on its input's device, an exception where the
+   CPU raises; the in-place methods keep ``data_ptr()``; the random
+   fills' range, moments and seeding on the card;
+24. path ``profiling``: ``train_cnn.py resnet50 -d imagenet -b 32 -v 1``
+   and ``-v 2``, captured and eager, in this process: the step-time line
+   and flop table of ``Device.PrintTimeProfiling``, agreeing with the
+   device's records, the ``-v 1`` median step within ``PROF_STEP_REL``
+   (10 %) of a reference on the same path (captured: path 17's steady
+   step; eager: an eager ResNet-50 run timed just before, on the same
+   batches with the same Sync each step), a ``torch.profiler`` trace
+   with the card's kernels at ``-v 2``; ``DeviceMemPool`` against
+   ``torch.cuda``, ``Platform`` against ``nvidia-smi``, ``Sync`` against
+   a queued spin; ``Model.on_device`` to the CPU and back between two
+   captured MNIST CNN steps, bit for bit with the uninterrupted run (2
+   captures against 1); ``Device.set_rng_state`` between replays of a
+   captured step with dropout, giving the eager step's mask.  No kernel
+   of the port lies on paths 23-24: every counter must read 0 there;
 3c. (with 3b) flash on mixed operands: bf16 queries over float32 keys and
    values (the float chunk under a bf16 policy over float32 cache rows)
    at the serving shape: one float32 launch, o in bf16 within one unit
@@ -264,7 +285,7 @@ Phases (any failure exits non-zero before the result lines print):
    line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
-7, 7a-7f, 8, 8b, 8c, 11, 13, 15-19 and 20-21) and read just after it; a kernel's
+7, 7a-7f, 8, 8b, 8c, 11, 13, 15-19, 20-21 and 23-24) and read just after it; a kernel's
 ``launches`` is the sum over them, ``launches_by_path`` splits it.  On
 a captured path a replay adds the launches its capture recorded (the
 capture itself launches nothing), so the counts are the kernels the
@@ -368,6 +389,7 @@ from singa_tpu_torch.ops import lstm_cell as lc  # noqa: E402
 from singa_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from singa_tpu_torch.serving import ServingEngine  # noqa: E402
 from singa_tpu_torch.serving.engine import _to_device  # noqa: E402
+from singa_tpu_torch import tensor as ttensor  # noqa: E402
 from singa_tpu_torch.tensor import Tensor as TTensor  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
@@ -4354,6 +4376,712 @@ def phase_dist_scripts():
     return out
 
 
+# path tensor_surface: every function and method of the port's tensor.py
+# on CUDA tensors against the same call on CPU tensors (float32 within
+# SURFACE_TOL, integers and bools exactly)
+SURFACE_TOL = 1e-5
+SURFACE_DTYPES = ("float32", "int32", "bool")
+SURFACE_UNARY = ("Abs", "Exp", "Log", "Sign", "Sqrt", "Square", "ReLU",
+                 "Sigmoid", "Tanh", "Cos", "Sin", "Tan", "Cosh", "Sinh",
+                 "Acos", "Asin", "Atan", "Acosh", "Asinh", "Atanh", "Ceil",
+                 "Floor", "Round", "Reciprocal", "Erf", "Gelu", "SoftPlus",
+                 "SoftSign", "Neg")
+SURFACE_DOMAIN = {"Log": (0.1, 4.0), "Sqrt": (0.1, 4.0), "Exp": (-2.0, 1.3),
+                  "Acos": (-0.9, 0.9), "Asin": (-0.9, 0.9),
+                  "Atanh": (-0.9, 0.9), "Acosh": (1.0, 4.0),
+                  "Tan": (-1.2, 1.2), "Reciprocal": (0.5, 2.0)}
+SURFACE_BINARY = ("Add", "Sub", "EltwiseMult", "Div", "Pow", "Mod", "Atan2",
+                  "Maximum", "Minimum", "LT", "LE", "GT", "GE", "EQ", "NE")
+SURFACE_REDUCE = {"Sum": ({}, {"axis": 1}, {"axis": (0, 1)},
+                          {"axis": 0, "keepdims": True}),
+                  "Average": ({}, {"axis": 1}), "Max": ({}, {"axis": 0}),
+                  "Min": ({}, {"axis": (0, 1), "keepdims": True}),
+                  "Prod": ({}, {"axis": 1}), "ArgMax": ({}, {"axis": 0}),
+                  "ArgMin": ({}, {"axis": None}), "SumAll": ({},),
+                  "MaxAll": ({},), "MinAll": ({},), "Norm": ({},),
+                  "SumRows": ({},), "SumColumns": ({},),
+                  "AverageRows": ({},), "AverageColumns": ({},),
+                  "L2Norm": ({},), "L1Norm": ({},)}
+SURFACE_DRAWS = 20_000
+
+
+def _kept(t, op):
+    """``op(t)``, which must keep ``t``'s storage (an in-place method);
+    returns ``t``."""
+    ptr = t.data.data_ptr()
+    op(t)
+    if t.data.data_ptr() != ptr:
+        raise AssertionError("an in-place method moved its tensor")
+    return t
+
+
+def _surface_dtype_calls(d):
+    """The calls of ``_surface_calls`` on operands of dtype ``d``."""
+    def a(x):
+        return x("a", d, (3, 4), -0.5, 0.5)
+
+    def b(x):
+        return x("b", d, (4, 5), -0.5, 0.5)
+
+    def p(x):
+        return ttensor.SoftMax(x("p", "float32", (6, 5)))
+
+    def ids(x):
+        return x("ids", "int32", (6,), 0.5, 1.5)
+
+    return (
+        ("Mult", lambda T, x: T.Mult(a(x), b(x))),
+        ("Mult vector", lambda T, x: T.Mult(a(x), x("v", d, (4,)))),
+        ("GEMM", lambda T, x: T.GEMM(a(x), b(x), x("c", d, (3, 5)),
+                                     alpha=0.5, beta=2.0)),
+        ("GEMM trans", lambda T, x: T.GEMM(
+            x("at", d, (4, 3)), x("bt", d, (5, 4)), transA=True,
+            transB=True)),
+        ("GEMV", lambda T, x: T.GEMV(a(x), x("v", d, (4,)),
+                                     x("w", d, (3,)), beta=0.5)),
+        ("Dot", lambda T, x: T.Dot(a(x), x("a2", d, (3, 4)))),
+        ("Einsum", lambda T, x: T.Einsum("bij,jk->bik", x(
+            "batch", d, (2, 3, 4)), b(x))),
+        ("einsum", lambda T, x: T.einsum("ii->i", x("sq", d,
+                                                    (3, 3)))),
+        ("SoftMax", lambda T, x: T.SoftMax(a(x))),
+        ("LogSoftMax", lambda T, x: T.LogSoftMax(a(x), axis=0)),
+        ("Clamp", lambda T, x: T.Clamp(a(x), -0.25, 0.25)),
+        ("Threshold", lambda T, x: T.Threshold(a(x), 0.1)),
+        ("Reshape", lambda T, x: T.Reshape(a(x), (4, 3))),
+        ("Transpose", lambda T, x: T.Transpose(x("c3", d, (2, 3, 4)))),
+        ("Broadcast", lambda T, x: T.Broadcast(x("r", d, (1, 4)),
+                                               (3, 4))),
+        ("ConcatOn", lambda T, x: T.ConcatOn([a(x), a(x)], 1)),
+        ("SliceOn", lambda T, x: T.SliceOn(a(x), 1, 3, 1)),
+        ("ConcatenateRows", lambda T, x: T.ConcatenateRows(
+            [a(x), a(x)])),
+        ("ConcatenateColumns", lambda T, x: T.ConcatenateColumns(
+            [a(x), a(x)])),
+        ("CopyRows", lambda T, x: T.CopyRows(a(x), 0, 2)),
+        ("CopyColumns", lambda T, x: T.CopyColumns(a(x), 1, 4)),
+        ("Stack", lambda T, x: T.Stack([a(x), a(x)], 1)),
+        ("Repeat", lambda T, x: T.Repeat(a(x), 2, 1)),
+        ("Tile", lambda T, x: T.Tile(a(x), (2, 1))),
+        ("Squeeze", lambda T, x: T.Squeeze(x("r", d, (1, 4)))),
+        ("Unsqueeze", lambda T, x: T.Unsqueeze(a(x), -1)),
+        ("Flatten", lambda T, x: T.Flatten(x("c3", d, (2, 3, 4)))),
+        ("Gather", lambda T, x: T.Gather(a(x), [0, -1, 7, -3])),
+        ("zeros_like", lambda T, x: T.zeros_like(a(x))),
+        ("ones_like", lambda T, x: T.ones_like(a(x))),
+        ("from_raw_tensor", lambda T, x: T.from_raw_tensor(
+            a(x).data)),
+        ("as_array", lambda T, x: T.from_raw_tensor(T.as_array(
+            a(x)))),
+        ("to_numpy", lambda T, x: T.to_numpy(a(x)).tolist()),
+        ("getitem", lambda T, x: a(x)[1:, ::2]),
+        ("transpose", lambda T, x: a(x).T),
+        ("reshape", lambda T, x: a(x).reshape((2, 6))),
+        ("as_type", lambda T, x: a(x).as_type(T.float64)),
+        ("clone", lambda T, x: a(x).clone()),
+        ("operators", lambda T, x: (a(x) + 1, 2.5 - a(x), a(x) * 3,
+                                    a(x) / 2, a(x) ** 2,
+                                    a(x) < 0.1, a(x) @ b(x))),
+        ("size", lambda T, x: (a(x).size(), a(x).memsize(),
+                               a(x).ndim, len(a(x)))),
+        ("to_host", lambda T, x: a(x).to_host()),
+        ("CrossEntropyFwd", lambda T, x: T.CrossEntropyFwd(p(x), ids(x))),
+        ("SoftmaxCrossEntropyBwd", lambda T, x: T.SoftmaxCrossEntropyBwd(
+            p(x), ids(x))))
+
+
+def _surface_calls():
+    """``(label, fn(T, x))``: ``T`` is the port's tensor module, ``x(key,
+    dtype, shape, lo, hi)`` a seeded Tensor on the device under test;
+    the label's first word names the function or method called."""
+    calls = []
+
+    def add(label, fn):
+        calls.append((label, fn))
+
+    for n in SURFACE_UNARY:
+        lo, hi = SURFACE_DOMAIN.get(n, (-2.0, 2.0))
+        for d in SURFACE_DTYPES:
+            add(f"{n} {d}", lambda T, x, n=n, d=d, lo=lo, hi=hi:
+                getattr(T, n)(x(n, d, (3, 4), lo, hi)))
+    for n in SURFACE_BINARY:
+        for d in SURFACE_DTYPES:
+            lo, hi = (0.5, 2.0) if n == "Pow" else (-2.0, 2.0)
+            for s in (2, 0.5, True):
+                add(f"{n} {d} {s!r}", lambda T, x, n=n, d=d, s=s, lo=lo,
+                    hi=hi: getattr(T, n)(x(n, d, (3, 4), lo, hi), s))
+            for e in SURFACE_DTYPES:
+                add(f"{n} {d} {e}", lambda T, x, n=n, d=d, e=e, lo=lo, hi=hi:
+                    getattr(T, n)(x(n, d, (3, 4), lo, hi),
+                                  x(n + "b", e, (3, 4), 0.5, 1.5)))
+    for n, kws in SURFACE_REDUCE.items():
+        for d in SURFACE_DTYPES:
+            for k, kw in enumerate(kws):
+                add(f"{n} {d} {k}", lambda T, x, n=n, d=d, kw=kw:
+                    getattr(T, n)(x(n, d, (3, 4), -0.25, 0.25), **kw))
+    for d in SURFACE_DTYPES:
+        for label, fn in _surface_dtype_calls(d):
+            add(f"{label} {d}", fn)
+    for label, fn in (
+            ("Axpy", lambda T, t, o: T.Axpy(0.5, o, t)),
+            ("Scale", lambda T, t, o: T.Scale(1.5, t)),
+            ("set_value", lambda T, t, o: t.set_value(0.25)),
+            ("Fill", lambda T, t, o: T.Fill(t, -1.0)),
+            ("copy_data", lambda T, t, o: t.copy_data(o)),
+            ("copy_from_numpy", lambda T, t, o: t.copy_from_numpy(
+                np.full((3, 4), 3.0))),
+            ("reset_like", lambda T, t, o: t.reset_like(o)),
+            ("setitem", lambda T, t, o: t.__setitem__((slice(None), 1), 9.0)),
+            ("iadd", lambda T, t, o: t.__iadd__(o)),
+            ("isub", lambda T, t, o: t.__isub__(0.5)),
+            ("imul", lambda T, t, o: t.__imul__(o)),
+            ("itruediv", lambda T, t, o: t.__itruediv__(2.0)),
+            ("AddColumn", lambda T, t, o: T.AddColumn(o[:, 0], t)),
+            ("SubColumn", lambda T, t, o: T.SubColumn(o[:, 1], t)),
+            ("MultColumn", lambda T, t, o: T.MultColumn(o[:, 2], t)),
+            ("DivColumn", lambda T, t, o: T.DivColumn(T.Abs(o[:, 3]) + 1,
+                                                      t)),
+            ("AddRow", lambda T, t, o: T.AddRow(o[0], t)),
+            ("SubRow", lambda T, t, o: T.SubRow(o[1], t)),
+            ("MultRow", lambda T, t, o: T.MultRow(o[2], t)),
+            ("DivRow", lambda T, t, o: T.DivRow(T.Abs(o[0]) + 1, t))):
+        add(f"{label} in place", lambda T, x, label=label, fn=fn: _kept(
+            x("p" + label, "float32", (3, 4)),
+            lambda t: fn(T, t, x("o" + label, "float32", (3, 4)))))
+    for d in ("float32", "int32"):
+        add(f"zeros {d}", lambda T, x, d=d: T.zeros((2, 3), dtype=d,
+                                                    device=x.device))
+        add(f"ones {d}", lambda T, x, d=d: T.ones((2, 3), dtype=d,
+                                                  device=x.device))
+        add(f"full {d}", lambda T, x, d=d: T.full((2,), 7, dtype=d,
+                                                  device=x.device))
+        add(f"arange {d}", lambda T, x, d=d: T.arange(1, 9, 2, dtype=d,
+                                                      device=x.device))
+        add(f"eye {d}", lambda T, x, d=d: T.eye(3, dtype=d,
+                                                device=x.device))
+        add(f"from_numpy {d}", lambda T, x, d=d: T.from_numpy(
+            np.arange(4.0).astype(d), device=x.device))
+    return calls
+
+
+def _surface_run(device, calls):
+    """Every call on seeded Tensors on ``device``: its result, or the
+    exception it raised."""
+    import zlib
+    dev = tdevice.get_device(device)
+
+    def x(key, dtype, shape=(3, 4), lo=-2.0, hi=2.0):
+        rng = np.random.RandomState(
+            zlib.crc32(repr((key, dtype, shape)).encode()))
+        if dtype == "bool":
+            arr = rng.rand(*shape) < 0.5
+        elif dtype == "int32":      # no negative ints for a positive range
+            arr = rng.randint(0 if lo >= 0 else -3, 4, shape).astype(
+                np.int32)
+        else:
+            arr = rng.uniform(lo, hi, shape).astype(np.float32)
+        return TTensor(data=torch.from_numpy(arr).to(dev.torch_device),
+                       device=dev)
+    x.device = dev
+    out = {}
+    for label, fn in calls:
+        try:
+            out[label] = fn(ttensor, x)
+        except Exception as e:      # held against the CPU's outcome
+            out[label] = e
+    return out
+
+
+def _surface_err(label, got, want, device):
+    """The largest difference of a result on the card from the CPU's
+    (0 for exact kinds); raises where they disagree in kind, dtype,
+    shape, exact values or device."""
+    if isinstance(want, Exception) or isinstance(got, Exception):
+        if not (isinstance(want, Exception) and isinstance(got, Exception)):
+            raise AssertionError(f"tensor_surface {label}: card {got!r}, "
+                                 f"CPU {want!r}")
+        return 0.0
+    if isinstance(want, (tuple, list)):
+        return max([_surface_err(label, g, w, device)
+                    for g, w in zip(got, want)] or [0.0])
+    if isinstance(want, (int, bool)):
+        if got != want:
+            raise AssertionError(f"tensor_surface {label}: {got} != {want}")
+        return 0.0
+    if isinstance(want, float):
+        err = abs(got - want)
+        if not (err <= SURFACE_TOL or (np.isnan(got) and np.isnan(want))):
+            raise AssertionError(f"tensor_surface {label}: {got} != {want}")
+        return err
+    on = "cpu" if label.startswith("to_host") else device
+    if got.data.device.type != on or got.device.torch_device.type != on:
+        raise AssertionError(f"tensor_surface {label}: result on "
+                             f"{got.data.device}, not {on}")
+    g, w = got.data.detach().cpu(), want.data.detach()
+    if g.dtype != w.dtype or g.shape != w.shape:
+        raise AssertionError(f"tensor_surface {label}: {g.dtype} "
+                             f"{tuple(g.shape)} != {w.dtype} "
+                             f"{tuple(w.shape)}")
+    if not g.is_floating_point():
+        if not torch.equal(g, w):
+            raise AssertionError(f"tensor_surface {label}: values differ")
+        return 0.0
+    if not torch.equal(g.isnan(), w.isnan()):
+        raise AssertionError(f"tensor_surface {label}: NaNs differ")
+    fin = w.isfinite()
+    if not torch.equal(g[~fin & ~w.isnan()], w[~fin & ~w.isnan()]):
+        raise AssertionError(f"tensor_surface {label}: infinities differ")
+    err = float((g[fin].double() - w[fin].double()).abs().max()) \
+        if fin.any() else 0.0
+    if not err <= SURFACE_TOL:
+        raise AssertionError(f"tensor_surface {label}: max |delta| {err}")
+    return err
+
+
+def _surface_draws(device):
+    """The random fills on ``device``: in place, the dtype and shape
+    kept, the range and moments of SURFACE_DRAWS draws (5 sigma), one
+    seed one sequence."""
+    for fill, args, mean, std in (("Uniform", (-1.0, 3.0), 1.0,
+                                   4 / np.sqrt(12)),
+                                  ("Gaussian", (0.5, 2.0), 0.5, 2.0),
+                                  ("Bernoulli", (0.3,), 0.3,
+                                   np.sqrt(0.21))):
+        draws = []
+        for seed in (5, 5, 6):
+            dev = tdevice.Device(device, seed=seed)
+            t = TTensor(shape=(SURFACE_DRAWS,), device=dev)
+            _kept(t, lambda t: getattr(ttensor, fill)(*args, t))
+            draws.append(t.data.double().cpu())
+        x = draws[0]
+        if not (torch.equal(x, draws[1]) and not torch.equal(x, draws[2])):
+            raise AssertionError(f"tensor_surface {fill}: not seeded")
+        m, s = float(x.mean()), float(x.std())
+        if abs(m - mean) > 5 * std / np.sqrt(SURFACE_DRAWS) or \
+                abs(s - std) > 0.05 * std:
+            raise AssertionError(f"tensor_surface {fill}: mean {m}, std {s}")
+        if fill == "Uniform" and not (-1 <= float(x.min()) and
+                                      float(x.max()) <= 3):
+            raise AssertionError("tensor_surface Uniform: out of range")
+        if fill == "Bernoulli" and set(x.unique().tolist()) - {0.0, 1.0}:
+            raise AssertionError("tensor_surface Bernoulli: not 0/1")
+
+
+def phase_tensor_surface():
+    """Path ``tensor_surface``: every function of the port's tensor.py
+    (every name of its ``__all__``) and the Tensor methods and operators
+    on CUDA tensors against the same calls on CPU tensors, over float32,
+    int32 and bool operands: float32 within ``SURFACE_TOL``, integers and
+    bools exactly, the same dtype and shape, each result on its input's
+    device (the CPU for ``to_host``), an exception where the CPU raises;
+    the in-place methods keep ``data_ptr()``; the random fills' range,
+    moments and seeding on the card.  No kernel of the port lies on it:
+    every counter must read 0."""
+    t0 = time.perf_counter()
+    calls = _surface_calls()
+    names = {label.split()[0] for label, _ in calls}
+    wanted = {n for n in ttensor.__all__ if callable(getattr(ttensor, n))
+              and n != "Tensor"} - {"Uniform", "Gaussian", "Bernoulli"}
+    if wanted - names:
+        raise AssertionError(f"tensor_surface: not called "
+                             f"{sorted(wanted - names)}")
+    want = _surface_run("cpu", calls)
+    torch.cuda.synchronize()
+    _zero_launches()
+    got = _surface_run("cuda", calls)
+    _surface_draws("cuda")
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    _no_kernels("tensor_surface", launches)
+    errs = {label: _surface_err(label, got[label], want[label], "cuda")
+            for label, _ in calls}
+    raised = sum(isinstance(v, Exception) for v in want.values())
+    worst = max(errs, key=errs.get)
+    stats = {"calls": len(calls), "functions": len(names),
+             "raised_on_both": raised, "max_abs_err": errs[worst],
+             "worst": worst, "seconds": time.perf_counter() - t0}
+    _log(f"tensor_surface: {len(calls)} calls of {len(names)} functions "
+         f"and methods on the card against the CPU ({raised} raise on "
+         f"both), float32 max |delta| {errs[worst]:.3e} ({worst}; tol "
+         f"{SURFACE_TOL:g}), integers and bools exact, results on their "
+         f"input's device, in-place methods in place, the fills seeded; "
+         f"{stats['seconds']:.1f}s")
+    return launches, stats
+
+
+# path profiling: train_cnn.py -v 1 / -v 2 on ResNet-50 at B 32,
+# captured and eager (-v 1 over PROF_V1_STEPS steps, -v 2 over
+# PROF_V2_STEPS), then the device surface and Model.on_device
+PROF_V1_STEPS, PROF_V2_STEPS = 5, 2
+# a -v 1 run's median step against a reference on the same path, within
+# PROF_STEP_REL: train_cnn.py also uploads each numpy batch inside the
+# timed step (19 MB).  Captured, the reference is resnet50_train's steady
+# step (the card's time: +2.6 to +4.9 % on an H100).  Eager, the step is
+# the host's (idle share ~0.24) and drifts with the host's load (-4.8 to
+# +19 % of resnet50_train's eager step across three calls of the same
+# code), so its reference is an eager ResNet-50 run timed in this phase,
+# just before it, on the same batches with the same Sync each step
+PROF_STEP_REL = 0.1
+# FlopCounterMode's count of one ResNet-50 step at B 32 (forward, and
+# backward without the input's gradient): about 3 x 8.2 GFLOP an image
+PROF_FLOPS = (6e11, 1e12)
+ON_DEVICE_STEPS = 6
+
+
+def _memoised(load):
+    """``load`` remembering its results by arguments: the runs of one
+    phase draw the same synthetic images once."""
+    seen = {}
+
+    def call(*args, **kw):
+        key = (args, tuple(sorted(kw.items())))
+        if key not in seen:
+            seen[key] = load(*args, **kw)
+        return seen[key]
+    return call
+
+
+def _train_cnn_profiled(verbosity, graph, steps):
+    """``train_cnn.py resnet50 -d imagenet -b 32 -v verbosity`` (``-g``
+    when not ``graph``) in this process, from a scratch directory (its
+    ``./profile_traces``): the printed table, the device's step times and
+    flop tables, and the trace files it wrote (the trace stops when the
+    verbosity drops to 0)."""
+    import io
+    import tempfile
+    dev = tdevice.get_device("cuda")
+    dev.Reset()
+    argv = ["resnet50", "-d", "imagenet", "-b", str(R50_B), "-m", "1",
+            "-n", str(R50_B * steps), "-v", str(verbosity)]
+    argv += [] if graph else ["-g"]
+    out = io.StringIO()
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as scratch:
+        os.chdir(scratch)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                res = cnn_train.main(argv)
+        finally:
+            dev.SetVerbosity(0)
+            os.chdir(here)
+        wall = time.perf_counter() - t0
+        traces = []
+        for path in dev.trace_files:
+            if path.startswith(scratch):
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+                traces.append({"bytes": os.path.getsize(path),
+                               "kernels": sum(1 for e in events
+                                              if e.get("cat") == "kernel")})
+        dev.trace_files = []
+    table = out.getvalue()
+    for line in table.splitlines():
+        _log(f"  | {line}")
+    return {"table": table, "times": list(dev._step_times_ms),
+            "costs": dict(dev._cost_tables), "traces": traces,
+            "losses": res["step_losses"], "wall_s": wall}
+
+
+def _eager_reference(steps):
+    """The median step of ``steps`` eager ResNet-50 steps at B 32 from
+    train_cnn.py's seed, model and optimizer, on the first batches of
+    the data a ``-v 1`` run of as many steps loads, each timed as
+    ``Model`` times a step at verbosity 1: from before
+    ``train_one_batch`` (the numpy batch's upload included) to after
+    ``Device.Sync()``."""
+    dev = tdevice.get_device("cuda")
+    x, y, _ = cnn_train.loader.load(
+        "imagenet", num=R50_B * steps, seed=0,
+        data_dir=os.environ.get("SINGA_DATA_DIR"))
+    m = _zoo_model("resnet50", use_graph=False, x=x[:R50_B],
+                   num_classes=1000)
+    times = []
+    for s in range(steps):
+        xb, yb = x[s * R50_B:(s + 1) * R50_B], y[s * R50_B:(s + 1) * R50_B]
+        t0 = time.perf_counter()
+        m.train_one_batch(xb, yb)
+        dev.Sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del m
+    gc.collect()
+    _log(f"profiling eager reference: steps {times} ms")
+    return sorted(times)[steps // 2]
+
+
+def _check_profiled(label, run, steps, steady=None, rel=0.0):
+    """The table's step-time line and flop table; the step times against
+    the device's records and (``steady``) a reference step on the same
+    path, the median within ``rel`` of it."""
+    m = re.search(r"compiled steps timed: (\d+)  mean ([0-9.]+) ms  "
+                  r"p50 ([0-9.]+) ms  max ([0-9.]+) ms", run["table"])
+    if m is None or int(m.group(1)) != steps or len(run["times"]) != steps:
+        raise AssertionError(f"{label}: no step-time line for {steps} "
+                             f"steps:\n{run['table']}")
+    ts = sorted(run["times"])
+    p50 = float(m.group(3))
+    if abs(p50 - ts[steps // 2]) > 1e-3 or \
+            abs(float(m.group(2)) - sum(ts) / steps) > 1e-3:
+        raise AssertionError(f"{label}: the table disagrees with the "
+                             f"recorded step times {ts}")
+    if not sum(ts) / 1e3 < run["wall_s"]:
+        raise AssertionError(f"{label}: steps timed longer than the run")
+    if len(run["costs"]) != 1:
+        raise AssertionError(f"{label}: {len(run['costs'])} flop tables")
+    cost = next(iter(run["costs"].values()))
+    if not PROF_FLOPS[0] < cost["flops"] < PROF_FLOPS[1] or \
+            any(k.startswith("launches") for k in cost) or \
+            "flop count" not in run["table"]:
+        raise AssertionError(f"{label}: flop table {cost}")
+    if steady is not None and abs(p50 - steady) > rel * steady:
+        raise AssertionError(f"{label}: median step {p50:.2f} ms, the "
+                             f"reference step {steady:.2f} ms (tol "
+                             f"{rel:g})")
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"{label}: losses {run['losses']}")
+    return {"steps_ms": run["times"], "p50_ms": p50,
+            "mean_ms": float(m.group(2)), "flops": cost["flops"],
+            "reference_step_ms": steady, "wall_s": run["wall_s"]}
+
+
+def _on_device_round_trip():
+    """The MNIST CNN, captured, ON_DEVICE_STEPS steps: ``on_device`` to
+    the CPU and back to the card between steps 2 and 3 (no step on the
+    CPU) against the uninterrupted run: every loss and state bit for bit;
+    every state and optimizer state is on the CPU in between and back on
+    the card as a leaf after, and the next step is a first call again,
+    then a capture (2 captures against 1)."""
+    x, y = cnn_synthetic.load("mnist", num=CNN_B * ON_DEVICE_STEPS, seed=0)
+    batches = [(x[s * CNN_B:(s + 1) * CNN_B], y[s * CNN_B:(s + 1) * CNN_B])
+               for s in range(ON_DEVICE_STEPS)]
+
+    def run(move):
+        m = _zoo_model("cnn", x=x[:CNN_B], num_classes=10, num_channels=1)
+        losses = []
+        for s, (xb, yb) in enumerate(batches):
+            if move and s == 2:
+                m.on_device("cpu")
+                if any(t.data.device.type != "cpu" or t.device.lang != "cpp"
+                       for t in m._registry()) or m._graphs:
+                    raise AssertionError("on_device: a state stayed on the "
+                                         "card")
+                m.on_device("cuda")
+                if any(t.data.device.type != "cuda" or
+                       (t.stores_grad and not t.data.is_leaf)
+                       for t in m._registry()):
+                    raise AssertionError("on_device: a state did not come "
+                                         "back as a leaf on the card")
+            losses.append(m.train_one_batch(xb, yb)[1].item())
+        return m, losses
+
+    whole, lw = run(False)
+    sw = _host_states(whole)
+    counts = (dict(whole.graph_captures), dict(whole.graph_replays))
+    del whole
+    moved, lm = run(True)
+    if lm != lw:
+        raise AssertionError(f"on_device: losses {lm} against {lw}")
+    _same_states("on_device round trip", _host_states(moved), sw)
+    got = (dict(moved.graph_captures), dict(moved.graph_replays))
+    n = ON_DEVICE_STEPS
+    if counts != ({"train": 1}, {"train": n - 1}) or \
+            got != ({"train": 2}, {"train": n - 2}):
+        raise AssertionError(f"on_device: captures and replays {got}, "
+                             f"uninterrupted {counts}")
+    _log(f"on_device round trip (MNIST CNN, B {CNN_B}, card -> CPU -> card "
+         f"between steps 2 and 3): {n} losses and every state bit for bit "
+         f"with the uninterrupted run; captures / replays {got} against "
+         f"{counts}")
+    return {"losses": lm, "captures": got[0], "replays": got[1],
+            "uninterrupted": {"captures": counts[0], "replays": counts[1]}}
+
+
+class _DropNet(tmodel.Model):
+    """Linear 256, ReLU, Dropout 0.5, Linear 10: a step that draws."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc1 = tlayer.Linear(256)
+        self.relu = tlayer.ReLU()
+        self.drop = tlayer.Dropout(0.5)
+        self.fc2 = tlayer.Linear(10)
+
+    def forward(self, x):
+        return self.fc2(self.drop(self.relu(self.fc1(x))))
+
+    def train_one_batch(self, x, y):
+        out = self.forward(x)
+        loss = tautograd.softmax_cross_entropy(out, y)
+        self.optimizer(loss)
+        return out, loss
+
+
+def _rng_state_replays():
+    """``Device.set_rng_state`` between replays of a captured step with
+    dropout: the state taken before a replay, put back (with the model's
+    states), gives that replay's mask again, and the eager step from the
+    same state and states gives it too, bit for bit; a replay without
+    the restore draws another mask."""
+    dev = tdevice.get_device("cuda")
+    x, y = mlp.synthetic_mnist(n=MLP_B, seed=0)
+
+    def make(use_graph):
+        dev.set_rand_seed(0)
+        m = _DropNet()
+        m.set_optimizer(topt.SGD(lr=MLP_LR, momentum=0.9))
+        m.compile([TTensor(data=x, device=dev, requires_grad=False)],
+                  is_train=True, use_graph=use_graph)
+        return m
+
+    g = make(True)
+    for _ in range(2):                 # the eager first call, the capture
+        g.train_one_batch(x, y)
+    saved = _device_states(g)
+    state = dev.get_rng_state()
+    out_a, loss_a = g.train_one_batch(x, y)
+    states_a = _host_states(g)
+    _restore(g, saved)
+    dev.set_rng_state(state)
+    out_b, _ = g.train_one_batch(x, y)
+    out_c, _ = g.train_one_batch(x, y)
+    if g.graph_replays != {"train": 4}:
+        raise AssertionError(f"rng state: replays {g.graph_replays}")
+    if not torch.equal(out_a.data, out_b.data):
+        raise AssertionError("rng state: the restored replay drew another "
+                             "mask")
+    if torch.equal(out_b.data, out_c.data):
+        raise AssertionError("rng state: two replays drew one mask")
+    e = make(False)
+    e.train_one_batch(x, y)            # its optimizer state exists
+    _restore(e, saved)
+    dev.set_rng_state(state)
+    out_e, loss_e = e.train_one_batch(x, y)
+    if not torch.equal(out_e.data, out_a.data) or \
+            loss_e.item() != loss_a.item():
+        raise AssertionError("rng state: the eager step from the same "
+                             "state drew another mask")
+    _same_states("rng state: eager against the replay", _host_states(e),
+                 states_a)
+    _log("rng state: a replay after set_rng_state repeats its mask (and "
+         "the eager step from that state equals it bit for bit); the next "
+         "replay draws a fresh one")
+    return {"restored_replay_equal": True, "eager_equal": True}
+
+
+def _smi(query):
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    return [ln.strip() for ln in r.stdout.strip().splitlines()]
+
+
+def _device_surface():
+    """``DeviceMemPool`` against ``torch.cuda``, ``Platform`` against
+    ``nvidia-smi``, and ``Sync`` against a queued spin."""
+    dev = tdevice.get_device("cuda")
+    pool = tdevice.DeviceMemPool(dev)
+    torch.cuda.synchronize()
+    got = (pool.used_bytes(), pool.peak_bytes(), pool.stats())
+    want = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated(),
+            dict(torch.cuda.memory_stats()))
+    if got != want:
+        raise AssertionError("DeviceMemPool: counters differ from "
+                             "torch.cuda's")
+    free, total = pool.GetMemUsage()
+    t_free, t_total = torch.cuda.mem_get_info()
+    smi_n = len(_smi("index"))
+    smi_total, smi_free = (int(v) * 2 ** 20 for v in
+                           _smi("memory.total,memory.free")[0].split(","))
+    n = tdevice.Platform.GetNumGPUs()
+    g_free, g_total = tdevice.Platform.GetGPUMemSize(0)
+    if total != t_total or abs(free - t_free) > 64 << 20 or \
+            g_total != total or n != smi_n or \
+            len(tdevice.Platform.accelerator_devices()) != n or \
+            not 0.95 * smi_total <= g_total <= 1.01 * smi_total or \
+            not 0 < g_free <= g_total:
+        raise AssertionError(
+            f"DeviceMemPool / Platform: pool ({free}, {total}), torch "
+            f"({t_free}, {t_total}), GetGPUMemSize ({g_free}, {g_total}), "
+            f"nvidia-smi {smi_n} card(s), total {smi_total}, free "
+            f"{smi_free}; GetNumGPUs {n}")
+    if len(tdevice.Platform.CreateCudaGPUs(n)) != n:
+        raise AssertionError("Platform.CreateCudaGPUs")
+    try:
+        tdevice.create_cuda_gpu_on(n)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"create_cuda_gpu_on({n}) did not raise")
+    spin = torch.cuda.Event()
+    torch.cuda._sleep(200_000_000)      # about 0.1 s of device time
+    spin.record()
+    queued = not spin.query()
+    dev.Sync()
+    if not (queued and spin.query()):
+        raise AssertionError(f"Sync: the spin was queued {queued}, done "
+                             f"after Sync {spin.query()}")
+    out = {"GetNumGPUs": n, "nvidia_smi_cards": smi_n,
+           "GetGPUMemSize": [g_free, g_total],
+           "nvidia_smi_total_bytes": smi_total,
+           "nvidia_smi_free_bytes": smi_free,
+           "pool_used_bytes": got[0], "pool_peak_bytes": got[1]}
+    _log("device surface: " + json.dumps(out) + "; Sync waits for a queued "
+         "0.1 s spin")
+    return out
+
+
+def phase_profiling(r50_stats):
+    """Path ``profiling``: ``train_cnn.py resnet50 -d imagenet -b 32`` at
+    ``-v 1`` (PROF_V1_STEPS steps) and ``-v 2`` (PROF_V2_STEPS), captured
+    and eager, in this process: the reference's step-time line and flop
+    table printed by ``Device.PrintTimeProfiling`` and agreeing with the
+    device's records, the ``-v 1`` median step within PROF_STEP_REL of
+    a reference on the same path (captured: path 17's steady step; eager:
+    ``_eager_reference``, timed just before), and at ``-v 2`` a trace file
+    with the card's kernels in it; ``DeviceMemPool``, ``Platform`` and
+    ``Sync`` (``_device_surface``); the ``on_device`` round trip and
+    ``set_rng_state`` between replays.  No kernel of the port lies on
+    it: every counter must read 0."""
+    t0 = time.perf_counter()
+    load = cnn_train.loader.load
+    cnn_train.loader.load = _memoised(load)
+    torch.cuda.synchronize()
+    _zero_launches()
+    runs = {}
+    try:
+        for v, steps in ((1, PROF_V1_STEPS), (2, PROF_V2_STEPS)):
+            for graph in (True, False):
+                label = f"profiling -v {v} {'captured' if graph else 'eager'}"
+                steady = None
+                if v == 1:
+                    steady = (r50_stats["steady_step_ms"] if graph
+                              else _eager_reference(steps))
+                run = _train_cnn_profiled(v, graph, steps)
+                runs[label] = _check_profiled(label, run, steps, steady,
+                                              PROF_STEP_REL)
+                if v == 2:
+                    if len(run["traces"]) != 1 or \
+                            not run["traces"][0]["kernels"] > 0:
+                        raise AssertionError(f"{label}: traces "
+                                             f"{run['traces']}")
+                    runs[label]["trace"] = run["traces"][0]
+                elif run["traces"]:
+                    raise AssertionError(f"{label}: a trace at -v 1")
+                _log(f"{label}: " + json.dumps(runs[label]))
+                gc.collect()
+    finally:
+        cnn_train.loader.load = load
+    stats = {"train_cnn": runs, "device": _device_surface(),
+             "on_device": _on_device_round_trip(),
+             "rng_state": _rng_state_replays()}
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    _no_kernels("profiling", launches)
+    stats["seconds"] = time.perf_counter() - t0
+    _log(f"profiling phase: {stats['seconds']:.1f}s")
+    return launches, stats
+
+
 def _kernel_bucket(name):
     if "lstm_cell" in name:
         bwd = ", true>" in name or "Lb1E" in name
@@ -4733,6 +5461,11 @@ def main(argv):
     torch.distributed.destroy_process_group()
     script_stats = phase_dist_scripts()
     _log(f"data-parallel phases (20-22): {time.perf_counter() - t_d:.1f}s")
+    t_p = time.perf_counter()
+    surface_launches, surface_stats = phase_tensor_surface()
+    prof_launches, prof_stats = phase_profiling(r50_stats)
+    _log(f"tensor surface and profiling phases (23-24): "
+         f"{time.perf_counter() - t_p:.1f}s")
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
                    "serve_int8": int8_launches[row["name"]],
@@ -4754,7 +5487,9 @@ def main(argv):
                    "resnet50_bf16": r50b_launches[row["name"]],
                    "zoo": zoo_launches[row["name"]],
                    "resnet50_dist": r50d_launches[row["name"]],
-                   "dist_options": opts_launches[row["name"]]}
+                   "dist_options": opts_launches[row["name"]],
+                   "tensor_surface": surface_launches[row["name"]],
+                   "profiling": prof_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     _log("captured against eager: " + json.dumps({
@@ -4795,6 +5530,11 @@ def main(argv):
                                       ("dist_options", opts_stats))
              for option, st in by_option.items()}
              | {"dist_scripts": script_stats}))
+    _log("tensor surface and profiling: " + json.dumps(
+        {"tensor_surface": surface_stats}
+        | {"profiling": {k: prof_stats[k] for k in
+                         ("train_cnn", "device", "on_device", "rng_state",
+                          "seconds")}}))
     _log(f"total {time.perf_counter() - t0:.1f}s on {card}")
     _log(json.dumps({"kernels": [
         {k: r[k] for k in KEYS + ("launches_by_path",)}

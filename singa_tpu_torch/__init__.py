@@ -27,6 +27,24 @@ convolution, batch-norm and pooling ops and layers with the rest of
 :mod:`singa_tpu_torch.examples.cnn`), with hand-written CUDA kernels for
 flash-attention forward and backward, paged decode attention, the fused
 LSTM cell and the elementwise catalogue (:mod:`singa_tpu_torch.ops`).
+
+The framework core's public surface follows the reference's names:
+:mod:`~singa_tpu_torch.tensor`'s free functions (constructors, the
+elementwise, comparison and reduction families, the BLAS face, the
+shape family, the random fills, the row and column ops) and ``Tensor``
+methods and operators, with ``jnp``'s result dtypes;
+:mod:`~singa_tpu_torch.device`'s ``get_default_device`` /
+``set_default_device``, ``create_cpu_device``, ``create_cuda_gpu_on``,
+``Platform``, ``DeviceMemPool``, and the ``Device`` methods ``Sync``,
+``EnableGraph``/``RunGraph``, ``Reset``, ``get_rng_state`` /
+``set_rng_state`` and the profiling knob ``SetVerbosity`` /
+``PrintTimeProfiling`` (step times, a flop table, a ``torch.profiler``
+trace); and ``Model.on_device`` / ``Model.graph``.  Three divergences
+are deliberate: the default device is the card (``get_default_device()``
+raises without CUDA; ``set_default_device(create_cpu_device())`` names
+the CPU), ``Platform.CreateCudaGPUs`` and ``create_cuda_gpu_on`` raise
+instead of falling back to the CPU, and ``Tensor.to_host()`` goes to
+the CPU, not to the default device.
 """
 
 from .device import resolve_device, seeded_generator

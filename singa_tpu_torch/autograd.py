@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from .tensor import Tensor, _host_to_torch
+from .tensor import Tensor, _host_to_torch, _take
 
 __all__ = ["training", "Operation", "backward", "gradients", "op",
            "add", "sub", "mul", "div", "pow_", "negative", "abs_", "exp",
@@ -452,33 +452,12 @@ def gather(x, indices, axis=0):
     the last row); an id outside ``[-n, n)`` gives a row of NaN (of the
     dtype's minimum for signed integers, its maximum for unsigned ones,
     True for booleans), and no gradient flows from that row to any row
-    of ``x``.  All of it on the tensor's device, with no host sync: the
-    negatives are wrapped, the ids clamped for ``index_select`` and the
-    invalid rows replaced by ``torch.where`` against the validity mask,
-    so no id ever reaches a bound check.  The gradient sums repeated ids
+    of ``x``; on the tensor's device with no host sync (``tensor._take``,
+    the same take as ``tensor.Gather``).  The gradient sums repeated ids
     in a fixed order (:class:`_Take`), so a training step gives the same
     result run after run."""
-    def fn(v, i):
-        i = torch.as_tensor(i, device=v.device).long()
-        ax = axis if axis >= 0 else v.dim() + axis
-        n = v.shape[ax]
-        valid = (i >= -n) & (i < n)
-        safe = torch.where(i < 0, i + n, i).clamp(0, max(n - 1, 0))
-        out = _Take.apply(v, ax, safe.reshape(-1))
-        out = out.reshape(v.shape[:ax] + i.shape + v.shape[ax + 1:])
-        mask = valid.reshape((1,) * ax + i.shape + (1,) * (v.dim() - ax - 1))
-        return torch.where(mask, out, _fill_value(v.dtype))
-    return op("Gather", fn, x, indices)
-
-
-def _fill_value(dtype):
-    """``jnp.take``'s fill for an id out of range."""
-    if dtype.is_floating_point or dtype.is_complex:
-        return float("nan")
-    if dtype == torch.bool:
-        return True
-    info = torch.iinfo(dtype)
-    return info.min if info.min < 0 else info.max
+    return op("Gather", lambda v, i: _take(v, i, axis, _Take.apply), x,
+              indices)
 
 
 def tile(x, reps):

@@ -13,7 +13,11 @@ order of ``RandomState(seed + epoch).permutation``, as the reference's,
 and logs its mean loss, accuracy and images/s.  ``--ckpt PATH`` saves
 the zip checkpoint (the reference's format, readable by the JAX
 package) after every epoch with the epoch in its aux states;
-``--resume`` restores it and goes on at the next epoch.
+``--resume`` restores it and goes on at the next epoch.  ``-v 1`` times
+every step and banks the step's flop table, ``-v 2`` also writes a
+``torch.profiler`` trace into ``./profile_traces``
+(``Device.SetVerbosity``, after ``compile``, as the reference's :171);
+the table prints at the end (``Device.PrintTimeProfiling``, :210-211).
 
 ``--zero1 N`` trains with ZeRO-1 over N ranks, one process a rank
 (:func:`~singa_tpu_torch.parallel.launch`; N cards, or gloo ranks with
@@ -40,7 +44,7 @@ import numpy as np
 
 from ... import opt, tensor
 from ...device import get_device
-from ...logging import INFO, InitLogging, LOG, SetVerbosity
+from ...logging import INFO, InitLogging, LOG
 from ...parallel import Communicator, launch
 from .data import loader
 
@@ -125,7 +129,7 @@ def _run(args):
     tx = tensor.Tensor(data=x[:bs], device=dev)
     model.compile([tx], is_train=True, use_graph=args.graph,
                   sequential=False, communicator=comm)
-    SetVerbosity(args.verbosity)
+    dev.SetVerbosity(args.verbosity)
 
     start_epoch = 0
     ckpt_exists = args.ckpt and (os.path.exists(args.ckpt)
@@ -161,6 +165,8 @@ def _run(args):
             model.save_states(args.ckpt,
                               aux_states={"epoch": np.asarray(epoch)},
                               format=args.ckpt_format)
+    if args.verbosity:
+        dev.PrintTimeProfiling()
     return out
 
 

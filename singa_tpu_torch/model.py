@@ -75,6 +75,24 @@ raise ``NotImplementedError``.
 ``sequential`` is accepted and ignored, as in the reference, which stores
 it and reads it nowhere.
 
+``on_device(device)`` (reference :123) moves every state and the
+optimizer's state to ``device`` and drops the captured steps and the
+banked signatures: a move makes fresh leaves at new addresses, so the
+next step on the card is a first call again, then a capture.
+``graph(mode, sequential)`` (:129) sets ``graph_mode`` (``sequential``
+is stored and ignored).
+
+Profiling (reference :344-357): while the model's device is at
+``SetVerbosity(>= 1)``, every ``train_one_batch`` is timed, blocking,
+from before its dispatch to after ``Device.Sync()``, on the eager and
+the captured path alike (``Device.record_step_time``), and once per
+input signature an eager call (never a capture) runs under
+``torch.utils.flop_counter.FlopCounterMode``: its flops by op, and the
+kernel launches the call made, go to ``Device.record_cost_analysis``.
+The reference banks XLA's cost analysis there.  The hand-written
+kernels, launched through ``ctypes``, are not in the flop count; their
+launch counters stand for them.
+
 Mixed precision (``compile(precision=...)`` or
 :meth:`Model.set_precision_policy`; reference model.py:108, :288-310,
 :626-651): under an active policy every ``train_one_batch`` call runs
@@ -122,6 +140,7 @@ from __future__ import annotations
 
 import io
 import os
+import time
 import zipfile
 
 import numpy as np
@@ -169,6 +188,9 @@ class Model(Layer):
         self._user_tob = None
         self.precision_policy = None   # a precision.Policy or None
         self.communicator = None       # a parallel.Communicator or None
+        self.sequential = False
+        # input signatures whose flop table is banked (verbosity >= 1)
+        self._cost_keys: set = set()
         # (kind, signature) -> graph; the keys' eager first calls (state
         # ids after call 1); the side stream; captures and replays by
         # kind ("train", "predict")
@@ -204,6 +226,23 @@ class Model(Layer):
         if self.optimizer is not None and self.precision_policy is not None:
             self.optimizer.attach_precision_policy(self.precision_policy)
         self._drop_graphs()
+
+    def on_device(self, device):
+        """Move every state, and the optimizer's, to ``device`` (see the
+        module docstring); returns ``self``."""
+        dev = get_device(device)
+        self.device = dev
+        tensors = list(self.get_states().values())
+        if self.optimizer is not None:
+            tensors += self.optimizer.state_tensors()
+        for t in tensors:
+            t.to_device(dev)
+        self._drop_graphs()
+        return self
+
+    def graph(self, mode: bool = True, sequential: bool = False):
+        self.graph_mode = mode
+        self.sequential = sequential
 
     def train(self, mode: bool = True):
         self.training = mode
@@ -302,6 +341,16 @@ class Model(Layer):
         return self.device is not None and self.device.lang == "cuda"
 
     def _dispatch_tob(self, *xs):
+        dev = self.device
+        if dev is None or dev.verbosity < 1:
+            return self._run_tob(xs)
+        t0 = time.perf_counter()
+        out = self._run_tob(xs)
+        dev.Sync()
+        dev.record_step_time((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _run_tob(self, xs):
         if self.communicator is not None:
             xs = self._rank_rows(xs)
         if self.graph_mode and self._on_card():
@@ -347,6 +396,37 @@ class Model(Layer):
         swap and casts when one is active; ``cut``: inputs enter and
         outputs leave as fresh Tensors (always so under a policy, as in
         the reference)."""
+        dev = self.device
+        if dev is not None and dev.verbosity >= 1 and not (
+                self._on_card() and torch.cuda.is_current_stream_capturing()):
+            key = _signature(_raw_inputs(xs))
+            if key not in self._cost_keys:     # once per input signature
+                return self._bank_cost(key, lambda: self._step_body(xs, cut))
+        return self._step_body(xs, cut)
+
+    def _bank_cost(self, key, step):
+        """``step()`` under ``FlopCounterMode``; its flops by op and the
+        kernel launches it made go to the device's cost tables."""
+        from torch.utils.flop_counter import FlopCounterMode
+        before = _launch_counts()
+        with FlopCounterMode(display=False) as counter:
+            out = step()
+        cost = {"flops": counter.get_total_flops()}
+        for op, n in counter.get_flop_counts().get("Global", {}).items():
+            cost[f"flops {op}"] = n
+        for (mod, name), n in _launch_counts().items():
+            if n != before.get((mod, name), 0):
+                cost[f"launches {mod.__name__.rsplit('.', 1)[-1]}.{name}"] \
+                    = n - before.get((mod, name), 0)
+        self._cost_keys.add(key)
+        shapes = ", ".join(f"{tuple(k[1])} {str(k[2]).replace('torch.', '')}"
+                           for k in key[1:] if len(k) == 3
+                           and isinstance(k[1], tuple))
+        self.device.record_cost_analysis(
+            f"{type(self).__name__}.train_one_batch[{shapes}]", cost)
+        return out
+
+    def _step_body(self, xs, cut: bool):
         pol = self.precision_policy
         if pol is None or not pol.active:
             if not cut:
@@ -409,6 +489,7 @@ class Model(Layer):
     # ------------------------------------------------------------------
     def _drop_graphs(self):
         self._gc.drop()
+        self._cost_keys = set()
 
     def _generators(self) -> tuple:
         """The generators a training step may draw from: the device's,

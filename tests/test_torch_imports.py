@@ -53,6 +53,11 @@ def test_package_imports_without_jax():
             "import singa_tpu_torch.tensor, singa_tpu_torch.autograd\n"
             "import singa_tpu_torch.layer, singa_tpu_torch.model\n"
             "import singa_tpu_torch.opt, singa_tpu_torch.device\n"
+            "from singa_tpu_torch.device import (\n"
+            "    DeviceMemPool, Platform, get_default_device,\n"
+            "    set_default_device, create_cpu_device, create_cuda_gpu_on)\n"
+            "from singa_tpu_torch.tensor import (\n"
+            "    Einsum, GEMM, Gather, SoftMax, Uniform, float64)\n"
             "import singa_tpu_torch.precision\n"
             "import singa_tpu_torch.parallel\n"
             "import singa_tpu_torch.examples.cnn.train_multiprocess\n"

@@ -432,3 +432,109 @@ def test_fixed_order_take_matches_index_select():
         assert torch.equal(a, b)
         np.testing.assert_allclose(ga.numpy(), gb.numpy(), rtol=0,
                                    atol=1e-6, err_msg=f"axis {ax}")
+
+
+# ---- on_device, graph and the device's profiling ----------------------------
+
+@pytest.mark.parametrize("opt", ["sgd_momentum", "adam"])
+def test_on_device_mid_training_matches_jax_and_the_uninterrupted_run(opt):
+    """Two steps, ``on_device`` to a second CPU device (the JAX model to
+    its second virtual CPU device), two more steps: every state, the
+    optimizer's included, is on the new device, and the losses and
+    states equal the uninterrupted port run exactly and JAX's within
+    atol 1e-5.  The reference's ``on_device`` leaves the optimizer's
+    state where it was, and its next step then mixes two devices; the
+    port moves it, so the JAX side moves it too (``Tensor.to_device``),
+    and the second device's RNG key, which JAX made on the first."""
+    from singa_tpu import device as jdevice
+    from singa_tpu_torch import device as tdevice
+    jm = _jax_net(opt)
+    init = _init(jm)
+    whole = _port_net(init, opt)
+    moved = _port_net(init, opt)
+    batches = [_data(s) for s in range(4)]
+    other, jother = tdevice.create_cpu_device(seed=1), jdevice.CppCPU(1)
+    assert jother.jax_device != jm.device.jax_device
+    for s, (x, y) in enumerate(batches):
+        if s == 2:
+            assert moved.on_device(other) is moved
+            jm.on_device(jother)
+            for t in jm.optimizer.state_tensors():
+                t.to_device(jother)
+            jother.set_rng_state(jother.put(jother.get_rng_state()))
+            assert moved.device is other and moved._graphs == {}
+            for t in list(moved.get_states().values()) + \
+                    moved.optimizer.state_tensors():
+                assert t.device is other, t.name
+            params = moved.get_params().values()
+            assert all(p.data.is_leaf and p.data.requires_grad
+                       for p in params)
+        _, lw = whole.train_one_batch(x, y)
+        _, lm = moved.train_one_batch(x, y)
+        _, lj = jm.train_one_batch(jtensor.from_numpy(x, jm.device),
+                                   jtensor.from_numpy(y, jm.device))
+        assert lm.item() == lw.item()
+        np.testing.assert_allclose(lm.item(), float(lj.data), rtol=0,
+                                   atol=ATOL)
+    sw, sm, sj = _states(whole), _states(moved), _states(jm)
+    assert set(sm) == set(sw) == set(sj)
+    for name in sm:
+        np.testing.assert_array_equal(sm[name], sw[name], err_msg=name)
+        np.testing.assert_allclose(sm[name], sj[name], rtol=0, atol=ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("use_graph", [True, False])
+def test_graph_sets_the_mode_as_jax(use_graph):
+    jm = _jax_net()
+    tm = _port_net(_init(jm), use_graph=use_graph)
+    x, y = _data()
+    for mode, seq in ((not use_graph, True), (use_graph, False)):
+        jm.graph(mode, seq)
+        tm.graph(mode, seq)
+        assert (tm.graph_mode, tm.sequential) == (jm.graph_mode,
+                                                  jm.sequential)
+        _, lj = jm.train_one_batch(jtensor.from_numpy(x),
+                                   jtensor.from_numpy(y))
+        out, lt = tm.train_one_batch(x, y)
+        # graph mode cuts the step's outputs from its graph
+        assert (out.creator is None) == mode
+        np.testing.assert_allclose(lt.item(), float(lj.data), rtol=0,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("use_graph", [True, False])
+def test_verbosity_times_every_step_and_banks_one_flop_table(use_graph):
+    """At ``SetVerbosity(1)`` every ``train_one_batch`` is timed (JAX's
+    compiled steps too), and the flop table is banked once per input
+    signature: the products of the Net's two Linear layers, forward and
+    backward (4 B I H + 6 B H O: no gradient for the input)."""
+    from singa_tpu_torch import device as tdevice
+    jm = _jax_net()
+    tm = _port_net(_init(jm), use_graph=use_graph)
+    dev = tdevice.create_cpu_device(seed=0)
+    tm.on_device(dev)
+    x, y = _data()
+    half = (x[:4], y[:4])
+    jm.device.Reset()               # the JAX default device is shared
+    dev.SetVerbosity(1)
+    jm.device.SetVerbosity(1)
+    try:
+        for xb, yb in ((x, y), (x, y), half, (x, y)):
+            tm.train_one_batch(xb, yb)
+            jm.train_one_batch(jtensor.from_numpy(xb), jtensor.from_numpy(yb))
+    finally:
+        dev.SetVerbosity(0)
+        jm.device.SetVerbosity(0)
+    assert len(dev._step_times_ms) == 4 == len(jm.device._step_times_ms)
+    assert all(t > 0 for t in dev._step_times_ms)
+    tables = dev._cost_tables
+    assert len(tables) == 2, list(tables)      # two input signatures
+    for (B, _), cost in zip(((8, 0), (4, 0)), tables.values()):
+        I, H, O = 12, 16, 4
+        assert cost["flops"] == 4 * B * I * H + 6 * B * H * O, cost
+        assert not any(k.startswith("launches") for k in cost)
+    table = dev.PrintTimeProfiling()
+    assert "compiled steps timed: 4" in table
+    assert "TNet.train_one_batch[(8, 12) float32, (8,) int32]" in table
+    assert "ctypes" in table
