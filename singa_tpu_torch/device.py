@@ -20,9 +20,10 @@ the profiling knob:
   signature (:meth:`record_cost_analysis`); at ``v >= 2`` a
   ``torch.profiler`` trace runs into ``trace_dir`` (default
   ``./profile_traces``), written when the verbosity drops below 2 or at
-  exit.  :meth:`PrintTimeProfiling` prints and returns the table.  The
-  reference's ``train_step_time_ms`` telemetry histogram waits for the
-  port's copy of the telemetry registry (ROADMAP.md queue 1, item 9).
+  exit.  :meth:`PrintTimeProfiling` prints and returns the table.  Each
+  timed step also lands in the default telemetry registry's
+  ``train_step_time_ms`` histogram (labelled ``device="<lang>:<id>"``),
+  as the reference's does.
 
 The port has one rule where the JAX package picks a backend implicitly:
 entry points run on the CUDA card unless the caller asks for the CPU by
@@ -226,8 +227,14 @@ class Device:
 
     def record_step_time(self, ms: float) -> None:
         """A training step's blocking wall time (``Model`` calls it at
-        verbosity >= 1)."""
+        verbosity >= 1), also observed by the default registry's
+        ``train_step_time_ms`` histogram."""
         self._step_times_ms.append(ms)
+        from .telemetry.registry import default_registry
+        default_registry().histogram(
+            "train_step_time_ms",
+            help="blocking compiled-step wall time (SetVerbosity >= 1)",
+            device=f"{self.lang}:{self.id}").observe(ms)
 
     def record_cost_analysis(self, label: str, cost: dict) -> None:
         """``Model`` banks a step's flop table (by op, from

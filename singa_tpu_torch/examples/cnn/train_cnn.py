@@ -26,12 +26,22 @@ update (the reference's flag, train_cnn.py:87), ``-b`` the global batch,
 which each rank's ``train_one_batch`` splits; the reference's
 single-process path (:140-165) takes the plain ``DistOpt`` update there,
 the same values up to float order.  Rank 0 logs and returns; every rank
-joins ``--ckpt``'s save and load.
+joins ``--ckpt``'s save and load.  ``--ckpt-format snapshot`` saves the
+BinFile format instead of the zip.
 
-Not ported yet: the resilient step-granular checkpoints
-(``--ckpt-every``, ``resilience/``, ROADMAP.md queue 1, item 12) raise
-``NotImplementedError``; ``--ckpt-format snapshot`` raises in
-``Model.save_states`` as that format does.
+The resilient mode (``--ckpt DIR --ckpt-every N``, the reference's
+``run_resilient``, :77-129 and :173-176) trains step by step through
+:mod:`singa_tpu_torch.resilience`: async atomic checkpoints every N
+steps into the directory (``--ckpt-keep`` of them, ``--ckpt-sync`` to
+write on the training thread), a cursor-carrying
+:class:`~singa_tpu_torch.data.DataLoader` (the same batches as the plain
+path's), the non-finite watchdog (``--watchdog skip|rollback|raise``),
+shard-aware saves under ``--zero1``, and deterministic chaos
+(``--chaos-nan-step``, ``--chaos-kill-step``, ``--chaos-kill-save`` at
+``--chaos-kill-phase``) for kill-and-resume drills.  ``--resume``
+restores the newest valid checkpoint (one the JAX package wrote too)
+and replays the exact batch order, so the per-step losses
+(``--log-steps``) equal an uninterrupted run's.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import time
 import numpy as np
 
 from ... import opt, tensor
+from ...data import ArrayDataset, DataLoader
 from ...device import get_device
 from ...logging import INFO, InitLogging, LOG
 from ...parallel import Communicator, launch
@@ -82,18 +93,29 @@ def _quiet(*args):
     """The log of a rank other than 0: nothing."""
 
 
-def _not_ported(flag, what):
-    raise NotImplementedError(f"{flag}: {what} belongs to a later slice of "
-                              f"the port (ROADMAP.md queue 1, item 12)")
+def build_fault_plan(args):
+    """The chaos flags as a TrainFaultPlan (None when none is set)."""
+    from ...resilience import (CrashAtStep, KillMidCheckpointWrite,
+                               NaNGrads, TrainFaultPlan)
+    faults = []
+    if args.chaos_nan_step is not None:
+        faults.append(NaNGrads(args.chaos_nan_step))
+    if args.chaos_kill_step is not None:
+        faults.append(CrashAtStep(args.chaos_kill_step))
+    if args.chaos_kill_save:
+        faults.append(KillMidCheckpointWrite(args.chaos_kill_save,
+                                             phase=args.chaos_kill_phase))
+    return TrainFaultPlan(*faults) if faults else None
 
 
 def run(args):
     """Train as the flags say; returns ``{"loss": the last epoch's mean
     loss, "accuracy": its accuracy, "epoch_losses": [...],
-    "step_losses": [...]}`` (rank 0's under ``--zero1``)."""
-    if args.ckpt_every:
-        _not_ported("--ckpt-every", "resilient checkpointing "
-                    "(singa_tpu's resilience/)")
+    "step_losses": [...]}`` (rank 0's under ``--zero1``); the resilient
+    mode adds ``"steps"``, the ``(step index, loss)`` of every step this
+    run took."""
+    if args.ckpt_every and not args.ckpt:
+        raise SystemExit("--ckpt-every needs --ckpt DIR")
     if args.zero1:
         return launch(_run, args.zero1, args=(args,), device=args.device)
     return _run(args)
@@ -130,6 +152,8 @@ def _run(args):
     model.compile([tx], is_train=True, use_graph=args.graph,
                   sequential=False, communicator=comm)
     dev.SetVerbosity(args.verbosity)
+    if args.ckpt_every:
+        return run_resilient(args, model, x, y, comm, log)
 
     start_epoch = 0
     ckpt_exists = args.ckpt and (os.path.exists(args.ckpt)
@@ -170,6 +194,66 @@ def _run(args):
     return out
 
 
+def run_resilient(args, model, x, y, comm, log):
+    """Step-granular training through :mod:`singa_tpu_torch.resilience`
+    (the reference's ``run_resilient``): checkpoints every
+    ``--ckpt-every`` steps into the ``--ckpt`` directory, the loader
+    cursor and the generator state in its manifest, the watchdog on the
+    loss the host reads."""
+    from ...resilience import CheckpointManager, ResilientTrainer
+
+    bs = args.batch_size
+    extra = ("sharded",) if comm is not None else ()
+    dl = DataLoader(ArrayDataset(x, y), bs, seed=args.seed, prefetch=2)
+    faults = build_fault_plan(args)
+    ck = CheckpointManager(model, args.ckpt, keep=args.ckpt_keep,
+                           fmt=args.ckpt_format,
+                           async_save=False if args.ckpt_sync else None,
+                           shard_aware=comm is not None, faults=faults)
+    trainer = ResilientTrainer(model, checkpoint=ck, loader=dl,
+                               save_every=args.ckpt_every,
+                               nonfinite_policy=args.watchdog,
+                               faults=faults)
+    if args.resume:
+        meta = trainer.resume()
+        if meta is not None:
+            log(INFO, "resumed from %s at step %d (epoch %d, batch %d)",
+                args.ckpt, trainer.step_index, dl.epoch,
+                dl.state_dict()["pos"])
+
+    out = {"loss": float("nan"), "accuracy": float("nan"),
+           "epoch_losses": [], "step_losses": [], "steps": []}
+    with ck:
+        while dl.epoch < args.max_epoch:
+            epoch = dl.epoch
+            t0 = time.perf_counter()
+            tot_loss, tot_acc, nbatch, rolled = 0.0, 0.0, 0, False
+            for xb, yb in dl:
+                pred, _ = trainer.step(xb, yb, *extra)
+                rep = trainer.last
+                if args.log_steps:
+                    log(INFO, "step %d: loss=%r", rep.index, rep.loss)
+                out["step_losses"].append(rep.loss)
+                out["steps"].append((rep.index, rep.loss))
+                tot_loss += rep.loss
+                tot_acc += accuracy(_global_rows(comm, pred), yb)
+                nbatch += 1
+                if rep.rolled_back:
+                    rolled = True
+                    break  # the cursor was rewound: re-enter the loader
+            if rolled or not nbatch:
+                continue
+            dt = time.perf_counter() - t0
+            log(INFO, "epoch %d: loss=%.4f acc=%.4f %.1f img/s", epoch,
+                tot_loss / nbatch, tot_acc / nbatch, nbatch * bs / dt)
+            out["epoch_losses"].append(tot_loss / nbatch)
+            out["loss"], out["accuracy"] = (tot_loss / nbatch,
+                                            tot_acc / nbatch)
+    if args.verbosity:
+        model.device.PrintTimeProfiling()
+    return out
+
+
 def parser():
     p = argparse.ArgumentParser()
     p.add_argument("model", nargs="?", default="cnn",
@@ -197,13 +281,32 @@ def parser():
                    help="resume from --ckpt if it exists")
     p.add_argument("--ckpt-format", default="zip",
                    choices=["zip", "snapshot"])
+    # resilient mode (singa_tpu_torch.resilience): --ckpt is a directory
     p.add_argument("--ckpt-every", type=int, default=0,
-                   help="not ported yet: raises NotImplementedError")
+                   help="checkpoint every N steps via CheckpointManager "
+                        "(0 = per-epoch save_states)")
+    p.add_argument("--ckpt-keep", type=int, default=3,
+                   help="keep-last-K retention (resilient mode)")
+    p.add_argument("--ckpt-sync", action="store_true",
+                   help="block the training thread on checkpoint writes")
+    p.add_argument("--watchdog", default="skip",
+                   choices=["skip", "rollback", "raise"],
+                   help="non-finite loss policy (resilient mode)")
     p.add_argument("--zero1", type=int, default=0,
                    help="shard optimizer state ZeRO-1 style over N ranks, "
                         "one process a rank")
     p.add_argument("--log-steps", action="store_true",
-                   help="log every step's loss (full precision)")
+                   help="log every step's loss (full precision, for "
+                        "bit-exact resume checks)")
+    p.add_argument("--chaos-nan-step", type=int, default=None,
+                   help="poison the batch of this step with NaNs")
+    p.add_argument("--chaos-kill-step", type=int, default=None,
+                   help="SIGKILL self at the top of this step")
+    p.add_argument("--chaos-kill-save", type=int, default=0,
+                   help="SIGKILL self during the Nth checkpoint write")
+    p.add_argument("--chaos-kill-phase", default="staged",
+                   choices=["staged", "published"],
+                   help="where inside the write --chaos-kill-save fires")
     return p
 
 

@@ -68,10 +68,18 @@ captured per input signature on the card in the same way, eagerly on
 the CPU; it leaves the training flag as it found it.
 ``save_states`` / ``load_states`` (:790-903) write and read the
 reference's zip of ``tensor_dict.npz`` (the model's states and, under
-``opt.``, the optimizer's) and ``states_attr.npz`` (aux states), so a
-checkpoint crosses between the two packages by name; the write is
-staged, fsynced and renamed into place.  The snapshot and orbax formats
-raise ``NotImplementedError``.
+``opt.``, the optimizer's) and ``states_attr.npz`` (aux states), or with
+``format="snapshot"`` its BinFile of TensorProto records
+(:mod:`~singa_tpu_torch.snapshot`; aux states under ``__aux__``, the
+file at the prefix + ``.bin``), so a checkpoint crosses between the two
+packages by name; every write is staged, fsynced and renamed into place,
+and ``load_states`` tells the formats apart by the file's magic word.
+Both restore through ``_apply_states``: in place, by name, into the
+tensors a captured step reads; ``reset_caches=True`` (a load) also drops
+the captured steps, as a fresh process would start, and
+``reset_caches=False`` (the resilience rollback) keeps them, so the
+next replay runs on the restored values with no new capture.  The orbax
+format raises ``NotImplementedError``.
 ``sequential`` is accepted and ignored, as in the reference, which stores
 it and reads it nowhere.
 
@@ -153,6 +161,8 @@ from .layer import Layer
 from . import _graphs
 from ._graphs import GraphCache, launch_counts as _launch_counts
 from .parallel.communicator import Communicator
+from .snapshot import (FILE_MAGIC, CorruptCheckpointError, Snapshot,
+                       atomic_publish, read_records, write_records)
 from .tensor import _NARROW, Tensor
 
 __all__ = ["Model"]
@@ -163,21 +173,10 @@ def _not_ported(what: str, where: str):
                               f"port (ROADMAP.md queue 1, {where})")
 
 
-def _atomic_publish(tmp: str, final: str) -> None:
-    """Durably publish ``tmp`` as ``final``: fsync the staged bytes, then
-    rename over the previous version (the port's copy of
-    ``singa_tpu/snapshot.py`` ``atomic_publish``)."""
-    fd = os.open(tmp, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-    os.replace(tmp, final)
-
-
 class Model(Layer):
     TENSOR_DICT = "tensor_dict.npz"
     STATES_ATTR = "states_attr.npz"
+    AUX_PREFIX = "__aux__"
 
     def __init__(self, name=None):
         super().__init__(name)
@@ -562,13 +561,14 @@ class Model(Layer):
     def save_states(self, fpath: str, aux_states: dict | None = None,
                     format: str = "zip"):
         """Checkpoint params, buffers and optimizer state as the
-        reference's zip of npz members (see the module docstring)."""
+        reference's zip of npz members or, with ``format="snapshot"``,
+        its BinFile at ``fpath`` (a prefix; ``.bin`` added) (see the
+        module docstring)."""
         if format not in ("zip", "snapshot", "orbax"):
             raise ValueError(f"unknown checkpoint format {format!r} "
                              f"(zip | snapshot | orbax)")
-        if format != "zip":
-            _not_ported(f"the {format} checkpoint format",
-                        "item 12 (snapshot.py and its codec)")
+        if format == "orbax":
+            _not_ported("the orbax checkpoint format", "item 12")
         states = self._gather_states()
         comm = self.communicator
         if comm is not None and comm.global_rank != 0:
@@ -576,41 +576,91 @@ class Model(Layer):
             return
         aux = {k: v.numpy() if isinstance(v, Tensor) else np.asarray(v)
                for k, v in (aux_states or {}).items()}
-        os.makedirs(os.path.dirname(fpath) or ".", exist_ok=True)
-        tmp = fpath + ".tmp"
-        with zipfile.ZipFile(tmp, "w") as zf:
-            for name, payload in ((self.TENSOR_DICT, states),
-                                  (self.STATES_ATTR, aux)):
-                buf = io.BytesIO()
-                np.savez(buf, **payload)
-                zf.writestr(name, buf.getvalue())
-        _atomic_publish(tmp, fpath)
+        if format == "snapshot" and not fpath.endswith(Snapshot.SUFFIX):
+            fpath += Snapshot.SUFFIX
+        self._write_states_file(fpath, format, states, aux)
         if comm is not None:
             comm.barrier()
 
     def load_states(self, fpath: str) -> dict:
-        """Restore a zip checkpoint in place, by name (the port's or the
-        JAX package's); returns the aux states."""
+        """Restore a zip or snapshot checkpoint (the port's or the JAX
+        package's; the format from the file's magic word) in place, by
+        name; returns the aux states.  Drops the captured steps."""
         # a snapshot is named by its prefix and stored as prefix + ".bin",
         # as the reference resolves it (Snapshot.SUFFIX)
-        path = fpath if os.path.exists(fpath) else fpath + ".bin"
+        path = fpath if os.path.exists(fpath) else fpath + Snapshot.SUFFIX
         if not os.path.exists(path):
             raise FileNotFoundError(fpath)
-        if os.path.isdir(path) or not zipfile.is_zipfile(path):
-            _not_ported(f"{fpath!r}: only the zip checkpoint format is "
-                        f"read; the snapshot and orbax formats",
-                        "item 12 (snapshot.py and its codec)")
-        with zipfile.ZipFile(path, "r") as zf:
-            states = dict(np.load(io.BytesIO(zf.read(self.TENSOR_DICT)),
-                                  allow_pickle=False))
-            aux = dict(np.load(io.BytesIO(zf.read(self.STATES_ATTR)),
-                               allow_pickle=False))
+        if os.path.isdir(path):
+            _not_ported(f"{fpath!r}: the orbax checkpoint format (a "
+                        f"directory)", "item 12")
+        states, aux = self._read_states_file(path)
+        return self._apply_states(states, aux)
+
+    @classmethod
+    def _write_states_file(cls, path: str, fmt: str, states: dict,
+                           aux: dict) -> None:
+        """The one writer of the checkpoint layout (``save_states`` and
+        ``resilience.CheckpointManager``): ``states`` and ``aux`` (name
+        -> array) as a zip of the two npz members or, with ``fmt ==
+        "snapshot"``, one BinFile with the aux records under
+        ``AUX_PREFIX``; staged and published atomically at ``path``."""
+        if fmt == "snapshot":
+            records = dict(states)
+            records.update((cls.AUX_PREFIX + k, v) for k, v in aux.items())
+            write_records(path, records)
+            return
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with zipfile.ZipFile(tmp, "w") as zf:
+            for name, payload in ((cls.TENSOR_DICT, states),
+                                  (cls.STATES_ATTR, aux)):
+                buf = io.BytesIO()
+                np.savez(buf, **payload)
+                zf.writestr(name, buf.getvalue())
+        atomic_publish(tmp, path)
+
+    @classmethod
+    def _read_states_file(cls, path: str) -> tuple:
+        """``(states, aux)`` from a file of :meth:`_write_states_file`'s
+        layout (the port's or the JAX package's), the format from its
+        magic word; :class:`CorruptCheckpointError` when it does not
+        decode."""
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        if magic == FILE_MAGIC:
+            states, aux = {}, {}
+            for k, v in read_records(path).items():
+                if k.startswith(cls.AUX_PREFIX):
+                    aux[k[len(cls.AUX_PREFIX):]] = v
+                else:
+                    states[k] = v
+            return states, aux
+        try:
+            with zipfile.ZipFile(path, "r") as zf:
+                return tuple(dict(np.load(io.BytesIO(zf.read(member)),
+                                          allow_pickle=False))
+                             for member in (cls.TENSOR_DICT,
+                                            cls.STATES_ATTR))
+        except (zipfile.BadZipFile, KeyError, ValueError) as e:
+            raise CorruptCheckpointError(path, f"unreadable zip "
+                                         f"checkpoint ({e})") from e
+
+    def _apply_states(self, states: dict, aux: dict,
+                      reset_caches: bool = True) -> dict:
+        """The restore tail of every format (reference model.py:879):
+        copy each state by name in place (the optimizer's under
+        ``opt.``); ``reset_caches`` drops the captured steps, while
+        without it a captured step replays on the restored values (see
+        the module docstring).  Returns ``aux``."""
         self.set_states(states)
         if self.optimizer is not None:
             prefix = f"opt{Layer.sep}"
             self.optimizer.set_states({k[len(prefix):]: v
                                        for k, v in states.items()
                                        if k.startswith(prefix)})
+        if reset_caches:
+            self._drop_graphs()
         return aux
 
 

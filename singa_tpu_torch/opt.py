@@ -692,9 +692,22 @@ class DistOpt:
                 "allreduce_bytes": self.counters["allreduce_bytes"]}
 
     def publish_metrics(self, registry=None, **labels):
-        raise NotImplementedError(
-            "publish_metrics needs the port of the telemetry registry, "
-            "which belongs to a later slice (ROADMAP.md queue 1, item 9)")
+        """Publish :meth:`comm_stats` as the ``distopt_allreduce_calls``
+        and ``distopt_allreduce_bytes`` gauges, and the communicator's
+        per-op breakdown, into a telemetry
+        :class:`~singa_tpu_torch.telemetry.MetricsRegistry` (the default
+        one when ``registry`` is None); gauges set to the cumulative
+        totals, so repeated publishes are idempotent.  Returns the
+        registry."""
+        from .telemetry.registry import default_registry
+        reg = default_registry() if registry is None else registry
+        stats = self.comm_stats()
+        reg.gauge("distopt_allreduce_calls", **labels).set(
+            stats["allreduce_calls"])
+        reg.gauge("distopt_allreduce_bytes", **labels).set(
+            stats["allreduce_bytes"])
+        self.communicator.publish_metrics(reg, **labels)
+        return reg
 
     def _mean(self, raw):
         return self.all_reduce(raw) / self.world_size

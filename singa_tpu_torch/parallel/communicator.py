@@ -35,10 +35,11 @@ the group's backend raises.
   and their bytes: per **step** (every eager call and every replay of a
   captured step; a replay credits what its capture recorded, as the
   kernel launch counters are credited, ``_graphs.register_counters``),
-  where the reference counts per trace.  ``publish_metrics`` and the
-  telemetry registry counters wait for the port of the telemetry
-  modules (ROADMAP.md queue 1, item 9); ``serving_submeshes`` belongs to
-  sharded serving (item 12).
+  where the reference counts per trace.  ``publish_metrics`` sets them
+  as the reference's ``comm_calls`` / ``comm_bytes`` gauges by ``(op,
+  axis)`` in a telemetry registry (the reference's per-trace
+  ``comm_collectives_total`` counters have no counterpart: nothing is
+  traced); ``serving_submeshes`` belongs to sharded serving (item 12).
 """
 
 from __future__ import annotations
@@ -360,9 +361,20 @@ class Communicator:
         return out
 
     def publish_metrics(self, registry=None, **labels):
-        raise NotImplementedError(
-            "publish_metrics needs the port of the telemetry registry, "
-            "which belongs to a later slice (ROADMAP.md queue 1, item 9)")
+        """Publish :meth:`comm_stats` into a telemetry
+        :class:`~singa_tpu_torch.telemetry.MetricsRegistry` (the default
+        one when ``registry`` is None) as ``comm_calls`` and
+        ``comm_bytes`` gauges by ``(op, axis)``: set to the cumulative
+        totals, so repeated publishes are idempotent.  Returns the
+        registry."""
+        from ..telemetry.registry import default_registry
+        reg = default_registry() if registry is None else registry
+        stats = self.comm_stats()
+        for (op, axis), n in stats["calls"].items():
+            reg.gauge("comm_calls", op=op, axis=axis, **labels).set(n)
+        for (op, axis), n in stats["bytes"].items():
+            reg.gauge("comm_bytes", op=op, axis=axis, **labels).set(n)
+        return reg
 
     # ---- collectives ----------------------------------------------------
     def all_reduce(self, raw, axis: str | None = None):

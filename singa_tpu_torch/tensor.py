@@ -68,9 +68,13 @@ Where the port must differ from the reference, it does so here:
 * ``device=None`` is :func:`~singa_tpu_torch.device.get_default_device`
   (the card unless ``set_default_device`` named another), and
   ``to_host()`` goes to the CPU.
-* An integer index past the end raises (``jnp`` clamps it), and
-  ``clone()`` keeps a bool tensor bool (the reference's ``data + 0``
-  makes it int32).
+
+Indexing is ``jnp``'s: a Python integer index past either end of its
+axis clamps into it on read (``t[5]`` of 3 rows is row 2, ``t[-5]`` row
+0), and a write through one drops the update, as ``.at[].set`` does;
+both are decided on the host, so the card never sees an index out of
+range.  ``clone()`` is the reference's ``data + 0``: a bool tensor's
+clone is int32.
 """
 
 from __future__ import annotations
@@ -265,9 +269,12 @@ class Tensor:
         return self.to_device(get_device("cpu"))
 
     def clone(self) -> "Tensor":
-        """Reference: ``Tensor::Clone`` — a deep copy."""
+        """Reference: ``Tensor::Clone`` — a deep copy, as ``data + 0``
+        (a bool tensor's is int32)."""
+        data = self.data.detach()
         with torch.no_grad():
-            return self._like(self.data.clone(), name=self.name)
+            return self._like(data.to(torch.int32) if data.dtype == bool_
+                              else data.clone(), name=self.name)
 
     def reset_like(self, t: "Tensor") -> "Tensor":
         """Reference: ``Tensor::ResetLike`` — zeros of ``t``'s shape and
@@ -348,14 +355,17 @@ class Tensor:
                 f"device={self.device.lang})")
 
     def __getitem__(self, idx):
+        idx, _ = _index(idx, self.shape)
         with torch.no_grad():
-            return Tensor(data=_own(self.data[_index(idx)]),
-                          device=self.device,
+            return Tensor(data=_own(self.data[idx]), device=self.device,
                           requires_grad=self.requires_grad)
 
     def __setitem__(self, idx, value):
+        idx, outside = _index(idx, self.shape)
+        if outside:
+            return                       # jnp drops the update
         with torch.no_grad():
-            self.data[_index(idx)] = _operand(value, self.data.device)
+            self.data[idx] = _operand(value, self.data.device)
 
     # arithmetic — raw math, not recorded by autograd (the reference's
     # tensor.py; autograd records in autograd.py's ops)
@@ -427,11 +437,42 @@ def _raw(x):
     return x.data if isinstance(x, Tensor) else x
 
 
-def _index(idx):
-    """An index with its Tensors unwrapped."""
-    if isinstance(idx, tuple):
-        return tuple(_raw(i) for i in idx)
-    return _raw(idx)
+def _index(idx, shape):
+    """An index with its Tensors unwrapped and its Python integers
+    clamped into their axes, and whether any integer lay outside its
+    axis (see the module docstring)."""
+    entries = [_raw(i) for i in (idx if isinstance(idx, tuple) else (idx,))]
+    ell = next((k for k, i in enumerate(entries) if i is Ellipsis),
+               len(entries))
+    axes = {}
+    axis = 0
+    for k in range(ell):                 # left of an Ellipsis: from axis 0
+        axes[k] = axis
+        axis += _index_width(entries[k])
+    axis = len(shape)
+    for k in range(len(entries) - 1, ell, -1):   # right of it: from the end
+        axis -= _index_width(entries[k])
+        axes[k] = axis
+    outside = False
+    for k, i in enumerate(entries):
+        if (isinstance(i, (int, np.integer))
+                and not isinstance(i, (bool, np.bool_))
+                and 0 <= axes.get(k, -1) < len(shape)):
+            n = shape[axes[k]]
+            if not -n <= i < n:
+                outside = True
+                entries[k] = min(max(int(i), -n), n - 1)
+    return (tuple(entries) if isinstance(idx, tuple) else entries[0]), outside
+
+
+def _index_width(i) -> int:
+    """The axes an index entry consumes."""
+    if i is None or i is Ellipsis:
+        return 0
+    if isinstance(i, (np.ndarray, torch.Tensor)) and i.dtype in (
+            np.bool_, torch.bool):
+        return i.ndim
+    return 1
 
 
 def _own(x: torch.Tensor) -> torch.Tensor:

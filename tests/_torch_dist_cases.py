@@ -294,3 +294,34 @@ def zoo_cases(specs, batches, inits, lr):
                   for x, y in batches[name]]
         out[key] = {"losses": losses, "states": states(m)}
     return out
+
+
+def resilience_zero1(x, y, init, ckpt_dir, steps):
+    """``CheckpointManager(shard_aware=True)`` under ZeRO-1 at world 2:
+    the port saves after ``steps`` sharded steps (every rank gathers,
+    rank 0 writes ``port_mgr``) and takes one more step; a fresh model
+    restores the JAX package's ``jax_mgr`` through ``restore_latest`` and
+    takes one step; the DistOpt's metrics published into a registry."""
+    from singa_tpu_torch.resilience import CheckpointManager
+    from singa_tpu_torch.telemetry import MetricsRegistry
+    comm = Communicator.from_devices()
+    case = {"variant": "sharded"}
+    m = build(case, comm, x, init)
+    ck = CheckpointManager(m, f"{ckpt_dir}/port_mgr", shard_aware=True,
+                           async_save=True)
+    train(m, [(x, y)] * steps)
+    ck.save(steps, aux={"step": steps})
+    ck.wait()
+    res = {"port_next_loss": train(m, [(x, y)])[0], "port_next": states(m)}
+    fresh = build(case, comm, x, init)
+    meta = CheckpointManager(fresh, f"{ckpt_dir}/jax_mgr",
+                             shard_aware=True).restore_latest()
+    res["jax_meta_step"] = meta["step"]
+    res["jax_loaded_loss"] = train(fresh, [(x, y)])[0]
+    res["jax_loaded"] = states(fresh)
+    reg = MetricsRegistry()
+    m.optimizer.publish_metrics(reg, run="zero1")
+    res["prometheus"] = reg.to_prometheus()
+    res["distopt_stats"] = m.optimizer.comm_stats()
+    res["comm_stats"] = comm.comm_stats()
+    return res

@@ -260,8 +260,9 @@ def test_zip_checkpoints_cross_both_ways(tmp_path):
 def test_train_cnn_trains_resumes_and_raises(tmp_path):
     """``train_cnn.run`` on the CPU: the loss falls over two epochs; with
     ``--ckpt`` and ``--resume`` a third epoch continues from the saved
-    one; ``--ckpt-every`` raises naming its slice (``--zero1`` runs:
-    ``tests/test_torch_dist_cnn.py``)."""
+    one; ``--ckpt-every`` without ``--ckpt DIR`` raises, as the
+    reference's (``--zero1`` runs: ``tests/test_torch_dist_cnn.py``; the
+    resilient mode: ``tests/test_torch_checkpoint_resume.py``)."""
     ckpt = str(tmp_path / "cnn.zip")
     args = ["cnn", "--device", "cpu", "-n", "256", "-b", "32", "--ckpt",
             ckpt]
@@ -271,7 +272,7 @@ def test_train_cnn_trains_resumes_and_raises(tmp_path):
     resumed = train_cnn.main(args + ["-m", "3", "--resume"])
     assert len(resumed["epoch_losses"]) == 1
     assert resumed["loss"] < first["epoch_losses"][0]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(SystemExit, match="--ckpt DIR"):
         train_cnn.main(["cnn", "--device", "cpu", "--ckpt-every", "5"])
 
 

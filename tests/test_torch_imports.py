@@ -1,6 +1,8 @@
 """The port stands alone: no module of singa_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package (singa_tpu); the package
-imports with jax made unimportable."""
+chip_smoke.py, imports jax, the JAX package (singa_tpu), google.protobuf
+or ml_dtypes; the package imports with jax made unimportable, and its
+protobuf codec and snapshots work with google.protobuf and ml_dtypes
+made unimportable."""
 
 import ast
 import os
@@ -26,7 +28,7 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib") or root == "singa_tpu"
+    return root in ("jax", "jaxlib", "singa_tpu", "google", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -78,8 +80,49 @@ def test_package_imports_without_jax():
             "import singa_tpu_torch.examples.cnn.train_cnn\n"
             "from singa_tpu_torch.examples.cnn.model import (\n"
             "    alexnet, cnn, mobilenet, resnet, vgg, xceptionnet)\n"
+            "import singa_tpu_torch.proto, singa_tpu_torch.proto.wire\n"
+            "import singa_tpu_torch.proto.core, singa_tpu_torch.snapshot\n"
+            "import singa_tpu_torch.data\n"
+            "import singa_tpu_torch.telemetry.tracer\n"
+            "import singa_tpu_torch.telemetry.registry\n"
+            "from singa_tpu_torch.telemetry import (\n"
+            "    SpanTracer, MetricsRegistry, default_registry)\n"
+            "import singa_tpu_torch.resilience.checkpoint\n"
+            "import singa_tpu_torch.resilience.trainer\n"
+            "import singa_tpu_torch.resilience.faults\n"
+            "from singa_tpu_torch.resilience import (\n"
+            "    CheckpointManager, ResilientTrainer, TrainFaultPlan)\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_codec_and_snapshot_import_without_protobuf_or_ml_dtypes(tmp_path):
+    """``singa_tpu_torch.proto`` and ``singa_tpu_torch.snapshot`` encode,
+    write, read and decode a bfloat16 record with google.protobuf and
+    ml_dtypes unimportable, and load neither."""
+    code = ("import sys\n"
+            "for m in ('google.protobuf', 'ml_dtypes', 'jax', 'singa_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "from singa_tpu_torch.proto import TensorProto\n"
+            "from singa_tpu_torch.snapshot import Snapshot\n"
+            "t = TensorProto(shape=[2, 300], data_type=6, data=b'ab')\n"
+            "assert t.SerializeToString() == \\\n"
+            "    b'\\n\\x03\\x02\\xac\\x02\\x10\\x06\\x1a\\x02ab'\n"
+            f"sn = Snapshot({str(tmp_path / 'snap')!r}, True)\n"
+            "sn.write('w', torch.tensor([1.5, -2.0]).bfloat16())\n"
+            "sn.done()\n"
+            f"got = Snapshot({str(tmp_path / 'snap')!r}, False).read()['w']\n"
+            "assert got.dtype == torch.bfloat16\n"
+            "assert got.float().tolist() == [1.5, -2.0]\n"
+            "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
+            "       and (m.startswith('google.protobuf')\n"
+            "            or m.split('.')[0] in ('ml_dtypes', 'jax'))]\n"
+            "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)

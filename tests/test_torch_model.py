@@ -351,20 +351,29 @@ def test_checkpoint_members_and_names_match_jax(tmp_path):
 
 @pytest.mark.parametrize("fmt", ["snapshot", "orbax"])
 def test_other_checkpoint_formats_raise(tmp_path, fmt):
+    """orbax raises NotImplementedError naming its ROADMAP item, on save
+    and on a directory; a snapshot saves, and a corrupt one raises
+    ``CorruptCheckpointError`` by its path and by its prefix; an unknown
+    format and a missing file raise."""
+    from singa_tpu_torch.snapshot import CorruptCheckpointError
     tm = _port_net(_init(_jax_net()))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.save_states(str(tmp_path / "ckpt"), format=fmt)
     with pytest.raises(ValueError):
         tm.save_states(str(tmp_path / "ckpt"), format="pickle")
-    (tmp_path / "ckpt.bin").write_bytes(b"SGBF" + bytes(12))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.load_states(str(tmp_path / "ckpt.bin"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.load_states(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.load_states(str(tmp_path / "ckpt"))      # the snapshot's prefix
     with pytest.raises(FileNotFoundError):
         tm.load_states(str(tmp_path / "missing.zip"))
+    if fmt == "orbax":
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tm.save_states(str(tmp_path / "ckpt"), format=fmt)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tm.load_states(str(tmp_path))
+        return
+    tm.save_states(str(tmp_path / "good"), format=fmt)
+    assert tm.load_states(str(tmp_path / "good")) == {}
+    (tmp_path / "ckpt.bin").write_bytes(b"SGBF" + bytes(12))
+    with pytest.raises(CorruptCheckpointError):
+        tm.load_states(str(tmp_path / "ckpt.bin"))
+    with pytest.raises(CorruptCheckpointError):
+        tm.load_states(str(tmp_path / "ckpt"))      # the snapshot's prefix
 
 
 # ---- the captured step's bookkeeping (the capture itself needs the card) --

@@ -81,9 +81,9 @@ def test_tensor_metadata_and_conversions_match_jax(dtype):
     _same(j.transpose((2, 0, 1)), t.transpose((2, 0, 1)))
     _same(j.reshape((6, 4)), t.reshape((6, 4)))
     c = t.clone()
-    if dtype != "bool":    # the reference's clone, data + 0, makes it int32
-        _same(j.clone(), c)
-    assert c.dtype == t.dtype and torch.equal(c.data, t.data)
+    _same(j.clone(), c)    # the reference's data + 0: a bool's is int32
+    assert c.dtype == (torch.int32 if dtype == "bool" else t.dtype)
+    assert torch.equal(c.data, t.data.to(c.dtype))
     assert c.data.data_ptr() != t.data.data_ptr()
 
 
@@ -97,8 +97,10 @@ def test_to_host_goes_to_the_cpu_and_to_device_keeps_a_leaf():
     assert p.device is other and p.data is leaf
 
 
+# the last five lie past an end of their (3, 4) axes: jnp clamps them
 INDICES = ((1,), (slice(None), 2), (slice(0, 2), slice(1, 3)), (-1,),
-           (np.array([0, 2]),), (Ellipsis, 1), (None, 0))
+           (np.array([0, 2]),), (Ellipsis, 1), (None, 0),
+           (5,), (-5,), (slice(None), 9), (1, -9), (None, Ellipsis, 7))
 
 
 @pytest.mark.parametrize("dtype", ("float32", "int32", "bool"))
@@ -112,8 +114,10 @@ def test_getitem_and_setitem_match_jax(dtype):
     ji, ti = _pair(np.array([2, 0], np.int32), "int32")
     j, t = _pair(arr, dtype)
     _same(j[ji.data], t[ti])           # the port takes a Tensor index too
+    # the last two write past an end: jnp drops the update
     for idx, value in (((0, 1), 5), ((slice(None), 0), 0.5),
-                       ((1,), np.array([1, 0, 1, 0])), ((2, 3), True)):
+                       ((1,), np.array([1, 0, 1, 0])), ((2, 3), True),
+                       ((4,), 1), ((slice(None), -5), 0.5)):
         j, t = _pair(arr, dtype)
         ptr = t.data.data_ptr()
         j[idx] = value
