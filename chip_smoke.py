@@ -150,6 +150,21 @@ Phases (any failure exits non-zero before the result lines print):
    planted fault in the prefill attention (P rounded to bf16, each
    query's own key dropped) print their readings, and the logit check
    must fail the dropped key;
+7g. path ``preempt``: preemption with restore and cancel on the chunked
+   engine at GPT-2-small widths (phase 6's weights and prompts 0, 2 and
+   4, 32 new tokens each), captured, five cases: page pressure on
+   float32 pages, slot scarcity on slots, page pressure on int8 pages,
+   page pressure with every request sampled, and a live slot cancelled
+   and taken by the next request.  Each against the same requests on a
+   roomy engine that never preempts: sampled tokens identical, greedy
+   ones under the margin rule, the victim against the port on the CPU;
+   one preemption, one restore and one kill upload a case; no graph key
+   beyond the uninterrupted run's; no upload after the last
+   re-admission; the flash forward and paged decode (its int8 variant
+   on int8 pages) launched from the restore's start on; the cancelled
+   slot inactive on the card after the next step and silent.  The
+   preempting step's and the restore's wall ms print on each case's
+   line;
 8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
    of ``train_one_batch`` with Adam at B 8, T 1024, first eagerly
    (``use_graph=False``), then captured as a CUDA graph
@@ -308,7 +323,7 @@ Phases (any failure exits non-zero before the result lines print):
    one for path 25, one ``kernels`` JSON line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
-7, 7a-7f, 8, 8b, 8c, 11, 13, 15-19, 20-21 and 23-25) and read just after it; a kernel's
+7, 7a-7g, 8, 8b, 8c, 11, 13, 15-19, 20-21 and 23-25) and read just after it; a kernel's
 ``launches`` is the sum over them, ``launches_by_path`` splits it.  On
 a captured path a replay adds the launches its capture recorded (the
 capture itself launches nothing), so the counts are the kernels the
@@ -2795,6 +2810,219 @@ def phase_serve_slot_int8(setup):
     if ratio != (dh + 2) / (2 * dh):
         raise AssertionError(f"int8 slot cache byte ratio {ratio}")
     return launches, stats
+
+
+# the preemption path: two low-priority requests, then a high-priority
+# one that cannot be admitted beside them (prompts of phase 6's stream,
+# all greedy there)
+PRE_LO, PRE_HI = (0, 2), 4
+# the sampled case's draws
+PRE_SAMPLED = dict(temperature=0.8, top_k=40)
+
+
+def _pre_pages(kw, prompts):
+    """``kv_pages`` that holds both low-priority requests and less than
+    the high-priority one beside them: page pressure."""
+    P = kw["page_tokens"]
+    need = [-(-(prompts[i].size + NEW) // P) for i in PRE_LO + (PRE_HI,)]
+    return 1 + need[0] + need[1] + (need[2] - 1)     # page 0 reserved
+
+
+def _pre_drive(eng, prompts, sampling, cancel=False):
+    """The preemption stream on ``eng``: the two low-priority requests
+    until both have a token, then the high-priority one (with
+    ``cancel``: the first low-priority request cancelled live first, the
+    high-priority one then taking its slot and pages, at priority 0);
+    every (re-)admission driven out, then the tail run on its own.
+    Returns the rids, the results and the run's figures: wall time, the
+    preempting step's and the restore's wall ms, the restore's prompt
+    and cached tokens, the tail's uploads and the launch counts at the
+    restore's start."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(prompts[i], NEW, **sampling[i]) for i in PRE_LO]
+    while not all(eng.requests[r].tokens for r in rids):
+        eng.step()
+    st = {}
+    if cancel:
+        victim = eng.requests[rids[0]]
+        slot = eng._slot_req.index(victim)
+        st["cancelled_tokens"] = len(victim.tokens)
+        if not eng.cancel(rids[0]):
+            raise AssertionError("preempt cancel: cancel of a live request "
+                                 "returned False")
+        eng.step()
+        st["killed_slot_active"] = bool(eng._dstate["active"][slot])
+    rids.append(eng.submit(prompts[PRE_HI], NEW,
+                           priority=0 if cancel else 1,
+                           **sampling[PRE_HI]))
+    mark = t_rs = None
+    victim = eng.requests[rids[1]]
+    while eng.queue or eng._lane is not None:
+        p0, r0 = eng.metrics.preemptions, eng.metrics.restores
+        hits = eng.metrics._prefix_hit_tokens
+        before = _read_launches()
+        ts = time.perf_counter()
+        eng.step()
+        te = time.perf_counter()
+        if eng.metrics.preemptions > p0:
+            st["preempt_step_ms"] = (te - ts) * 1e3
+            st["restore_tokens"] = victim.prompt.size + len(victim.tokens)
+        if eng.metrics.restores > r0:
+            mark, t_rs = before, ts
+            st["restore_cached"] = eng.metrics._prefix_hit_tokens - hits
+        if t_rs is not None and "restore_ms" not in st \
+                and eng._lane is None:
+            st["restore_ms"] = (te - t_rs) * 1e3
+    up0 = eng.metrics.host_uploads
+    res = eng.run()
+    torch.cuda.synchronize()
+    st["wall_s"] = time.perf_counter() - t0
+    st["tail_uploads"] = eng.metrics.host_uploads - up0
+    st["restore_start_launches"] = mark
+    return rids, res, st
+
+
+def phase_preempt_alone():
+    """Path ``preempt`` on its own (``--preempt``): phase 6's seeded
+    model, engine arguments and prompts, then phase 7g."""
+    cfg, tree, model, kw, prompts = _slice_setup()
+    del model
+    cpu_model = tgpt.GPT.from_jax_decode_params(tree, cfg, device="cpu")
+    phase_preempt({"cfg": cfg, "tree": tree, "kw": kw, "prompts": prompts,
+                   "cpu_model": cpu_model})
+
+
+def phase_preempt(setup):
+    """Path ``preempt``: preemption with restore and cancel on the card,
+    GPT-2-small with phase 6's seeded weights, each case captured on an
+    engine with ``preemption=True`` beside the same requests on a roomy
+    engine that never preempts (the uninterrupted run): page pressure on
+    float32 pages (``kv_pages`` fits both low-priority requests and not
+    the high-priority one), slot scarcity on slots (2 slots), page
+    pressure on int8 pages, page pressure with every request sampled,
+    and a cancel of a live slot whose slot and pages the next request
+    takes.  Checks: one preemption a case, the victim PREEMPTED_RESTORED
+    and each kill one kill upload; sampled tokens identical to the
+    uninterrupted run's, greedy ones under the margin rule and the
+    victim's against the port on the CPU;
+    no graph key the uninterrupted run does not use, one capture a key
+    at most; nothing uploaded after the last re-admission; from the
+    restore's start on, the flash forward (the restore's chunks) and
+    paged decode launched on the float pages, the int8 variant on int8
+    pages; the cancelled request emits nothing more and its slot is
+    inactive on the card after the next step."""
+    cfg, prompts, cpu_model = setup["cfg"], setup["prompts"], \
+        setup["cpu_model"]
+    model = _card_model(setup)
+    base = dict(page_tokens=PAGE, chunk_tokens=CHUNK, decode_horizon=HORIZON)
+    tight = _pre_pages(base, prompts)
+    greedy = {i: {} for i in PRE_LO + (PRE_HI,)}
+    sampled = {i: dict(PRE_SAMPLED, seed=20 + i) for i in greedy}
+    cases = [("pages", dict(base, n_slots=4, kv_pages=tight), greedy),
+             ("slots", dict(base, n_slots=2, paged=False), greedy),
+             ("pages_int8", dict(base, n_slots=4, kv_pages=tight,
+                                 kv_dtype="int8"), greedy),
+             ("sampled", dict(base, n_slots=4, kv_pages=tight), sampled),
+             ("cancel", dict(base, n_slots=2), greedy)]
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    victim_cpu = cpu_model.generate(prompts[PRE_LO[1]][None], NEW)[0]
+    t_cpu = time.perf_counter() - t_phase
+    gc.collect()
+    total = dict.fromkeys(_read_launches(), 0)
+    stats = {}
+    for label, kw, sampling in cases:
+        cancel = label == "cancel"
+        # the uninterrupted run: a roomy pool, a slot for each request
+        ref_kw = {k: v for k, v in kw.items() if k != "kv_pages"}
+        if not cancel:
+            ref_kw["n_slots"] = 4
+        ref = ServingEngine(model, **ref_kw)
+        t0 = time.perf_counter()
+        if cancel:
+            r = ref.submit(prompts[PRE_HI], NEW, **sampling[PRE_HI])
+            want = [None, None, ref.run()[r]]
+        else:
+            rr = [ref.submit(prompts[i], NEW, **sampling[i])
+                  for i in PRE_LO + (PRE_HI,)]
+            out = ref.run()
+            want = [out[r] for r in rr]
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        eng = ServingEngine(model, preemption=not cancel, **kw)
+        _zero_launches()
+        rids, res, st = _pre_drive(eng, prompts, sampling, cancel)
+        end = _read_launches()
+        for k in total:
+            total[k] += end[k]
+        snap = eng.metrics.snapshot()
+        st.update(ref_wall_s=ref_wall, **{k: snap[k] for k in (
+            "preemption_count", "restore_count", "host_kill_uploads",
+            "preempted_restored_count", "cancelled_count")},
+            graph_captures=dict(eng.graph_captures),
+            ref_graph_captures=dict(ref.graph_captures))
+        mark = st.pop("restore_start_launches")
+        if mark is not None:
+            st["restore_launches"] = {k: end[k] - mark[k] for k in end
+                                      if end[k] != mark[k]}
+        stats[label] = st
+        _log(f"preempt {label}: " + json.dumps(st))
+        _check_graphs(f"preempt {label}", eng)
+        if not set(eng.trace_log) <= set(ref.trace_log):
+            raise AssertionError(f"preempt {label}: keys {eng.trace_log} "
+                                 f"beyond the uninterrupted run's "
+                                 f"{ref.trace_log}")
+        if st["tail_uploads"] != 0:
+            raise AssertionError(f"preempt {label}: {st['tail_uploads']} "
+                                 f"uploads after the last re-admission")
+        if cancel:
+            if (st["cancelled_count"] != 1 or st["host_kill_uploads"] != 1
+                    or st["killed_slot_active"]
+                    or len(eng.requests[rids[0]].tokens)
+                    != st["cancelled_tokens"] or rids[0] in res):
+                raise AssertionError(f"preempt cancel: {st}")
+        else:
+            status = eng.statuses()
+            if (st["preemption_count"] != 1 or st["restore_count"] != 1
+                    or st["host_kill_uploads"] != 1
+                    or status[rids[1]] != "PREEMPTED_RESTORED"
+                    or "restore_ms" not in st):
+                raise AssertionError(f"preempt {label}: {st}, {status}")
+            rl = st["restore_launches"]
+            need = (("paged_decode_attention_q8",) if label == "pages_int8"
+                    else ("paged_decode_attention", "flash_attention_fwd")
+                    if label != "slots" else ("flash_attention_fwd",))
+            for name in need:
+                if rl.get(name, 0) <= 0:
+                    raise AssertionError(f"preempt {label}: {name} did not "
+                                         f"launch on the restore: {rl}")
+        for j, (r, w) in enumerate(zip(rids, want)):
+            if w is None:
+                continue
+            got = res[r]
+            if sampling is sampled:
+                if not np.array_equal(got, w):
+                    raise AssertionError(
+                        f"preempt {label} request {j}: sampled tokens "
+                        f"{got} against the uninterrupted {w}")
+            else:
+                i = (PRE_LO + (PRE_HI,))[j]
+                _margin_check(f"preempt {label} request {j} against the "
+                              f"uninterrupted run", cpu_model, prompts[i],
+                              got, w)
+        if sampling is sampled:
+            _log(f"preempt {label}: 3 sampled requests identical to the "
+                 f"uninterrupted run")
+        if label in ("pages", "slots"):
+            _margin_check(f"preempt {label} victim against the CPU",
+                          cpu_model, prompts[PRE_LO[1]], res[rids[1]],
+                          victim_cpu)
+        del eng, ref
+    _log(f"preempt phase (7g): {time.perf_counter() - t_phase:.1f}s (the "
+         f"victim on the CPU {t_cpu:.1f}s); launches "
+         + json.dumps({k: v for k, v in total.items() if v}))
+    return total, stats
 
 
 def synthetic_stream(vocab, n, seed=0):
@@ -5888,6 +6116,7 @@ def main(argv):
     modes = {(): None, ("--profile",): lambda: phase_profile("serve"),
              ("--compare-serve",): phase_compare_serve,
              ("--nccl-two-ranks",): phase_nccl_two_ranks,
+             ("--preempt",): phase_preempt_alone,
              ("--compare-serve", "layouts"):
              lambda: phase_compare_serve(("paged", "slot", "mono"), 3),
              ("--compare-serve", "precision"):
@@ -5901,7 +6130,7 @@ def main(argv):
     if tuple(argv) not in modes:
         print(f"usage: chip_smoke.py [--profile [{'|'.join(PROFILE_PATHS)}]"
               f" | --compare-serve [layouts|precision|graphs] | "
-              f"--nccl-two-ranks]",
+              f"--nccl-two-ranks | --preempt]",
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
@@ -5944,6 +6173,7 @@ def main(argv):
     serve16_launches, serve16_stats = phase_serve_bf16(setup, serve_stats)
     gen16_launches, gen16_stats = phase_generate_bf16(setup)
     _log(f"bf16 serving phases (7e-7f): {time.perf_counter() - t_s:.1f}s")
+    pre_launches, pre_stats = phase_preempt(setup)
     keys = ("tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms",
             "peak_memory_bytes")
     _log("serving captured against eager: " + json.dumps({
@@ -6016,6 +6246,7 @@ def main(argv):
                    "serve_slot_int8": slot8_launches[row["name"]],
                    "serve_bf16": serve16_launches[row["name"]],
                    "generate_bf16": gen16_launches[row["name"]],
+                   "preempt": pre_launches[row["name"]],
                    "train": train_launches[row["name"]],
                    "train_bf16": train16_launches[row["name"]],
                    "train_fp16": trainf16_launches[row["name"]],

@@ -4,12 +4,12 @@ over slots) with its KV caches, sampling and metrics."""
 
 from .engine import (DEFAULT_CHUNK_TOKENS, DEFAULT_DECODE_HORIZON,
                      MAX_STOP_TOKENS, EngineStalledError, Request,
-                     RequestStatus, ServingEngine)
+                     RequestStatus, ServingEngine, TERMINAL_STATUSES)
 from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache, SlotKVCache
 from .metrics import ServingMetrics
 from .sampling import SamplingParams, sample_logits, sample_logits_per_row
 
-__all__ = ["ServingEngine", "Request", "RequestStatus",
+__all__ = ["ServingEngine", "Request", "RequestStatus", "TERMINAL_STATUSES",
            "EngineStalledError", "SlotKVCache", "PagedKVCache",
            "ServingMetrics",
            "SamplingParams", "sample_logits", "sample_logits_per_row",

@@ -86,12 +86,35 @@ quality contract is the reference's: drift under its committed
 tolerances against the float engine, and same-seed determinism — not a
 bit-match.
 
+Priorities, preemption and cancellation (the chunked engine): the
+queue is ordered by ``submit(priority=)``, higher first and FIFO by rid
+within a priority (all-default priorities keep the plain FIFO
+schedule).  With ``preemption=True`` a queue head that cannot be
+admitted preempts the running request of lowest priority below its
+own: the victim's slot and pages are released, it re-queues ahead of
+later arrivals at its priority, and it restores through the ordinary
+chunked prefill of its prompt plus the tokens it already emitted (its
+full prompt pages mapped from the prefix index on pages), finishing as
+``PREEMPTED_RESTORED`` with the tokens of an uninterrupted run; a
+sampled victim's restore starts both the admission's and its new
+slot's generator from the state its old slot's generator had at the
+preemption, so its draws continue where they stopped.  ``cancel(rid)``
+ends a queued, prefilling or live request as ``CANCELLED``.  A live
+slot is stopped on the device by one masked in-place write to the
+device active mask (the "kill", one upload counted in
+``host_kill_uploads``), issued on the engine's stream after the
+pipelined horizons are drained and before the next step, so the slot
+writes nothing more before its rows or pages reach a new owner; while
+a kill is pending or a preemption is wanted the engine leaves the
+horizon.  The monolithic engine ignores ``preemption=True``, as the
+reference does.
+
 Constructor arguments that select other engines or features raise
 ``NotImplementedError`` naming the ROADMAP.md slice that will port them.
 The defaults differ from the reference's (``paged=False,
 admit_lanes=2, preemption=True`` there): the port's are ``paged=True,
-admit_lanes=1, preemption=False`` until multi-lane admission and
-preemption are ported.
+admit_lanes=1, preemption=False`` until multi-lane admission is ported,
+which flips them together.
 """
 
 from __future__ import annotations
@@ -113,8 +136,8 @@ from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache, SlotKVCache
 from .metrics import ServingMetrics
 from .sampling import SamplingParams, sample_logits, sample_logits_per_row
 
-__all__ = ["Request", "RequestStatus", "ServingEngine",
-           "EngineStalledError", "DEFAULT_CHUNK_TOKENS",
+__all__ = ["Request", "RequestStatus", "TERMINAL_STATUSES",
+           "ServingEngine", "EngineStalledError", "DEFAULT_CHUNK_TOKENS",
            "DEFAULT_DECODE_HORIZON", "DEFAULT_STALL_LIMIT",
            "MAX_STOP_TOKENS"]
 
@@ -133,7 +156,6 @@ MAX_STOP_TOKENS = 8
 DEFAULT_STALL_LIMIT = 512
 
 _SLICES = {
-    7: "slot serving engine",
     9: "serving lifecycle, faults and telemetry",
     11: "speculative and multi-lane decoding",
     12: "the rest of the framework: tensor parallel and disaggregated "
@@ -149,12 +171,27 @@ def _not_ported(what: str, slice_no: int):
 
 class RequestStatus(str, enum.Enum):
     """Lifecycle of a submitted request (the statuses this engine can
-    reach; preemption, deadlines, rejection and cancellation arrive with
-    the lifecycle slice)."""
+    reach; rejection and deadline eviction arrive with the rest of the
+    lifecycle slice).  QUEUED, RUNNING and PREEMPTED are transient (a
+    preempted request re-queues at once and reads QUEUED while it
+    waits, as in the reference); the rest are terminal: a request
+    reaches exactly one, and ``on_done(rid, status)`` fires then.
+    ``done`` (and a place in
+    :meth:`ServingEngine.results`) is kept for the two that produced a
+    whole output: COMPLETED and PREEMPTED_RESTORED (completed after at
+    least one preemption)."""
     QUEUED = "QUEUED"
     RUNNING = "RUNNING"
+    PREEMPTED = "PREEMPTED"
     COMPLETED = "COMPLETED"
+    PREEMPTED_RESTORED = "PREEMPTED_RESTORED"
     FAILED = "FAILED"
+    CANCELLED = "CANCELLED"
+
+
+TERMINAL_STATUSES = frozenset({
+    RequestStatus.COMPLETED, RequestStatus.PREEMPTED_RESTORED,
+    RequestStatus.FAILED, RequestStatus.CANCELLED})
 
 
 class EngineStalledError(RuntimeError):
@@ -171,13 +208,21 @@ class Request:
     on_token: object = None
     tokens: list = field(default_factory=list)
     done: bool = False
+    priority: int = 0
     on_done: object = None
     status: RequestStatus = RequestStatus.QUEUED
+    preemptions: int = 0
+    # the state of the victim slot's generator at the last preemption
+    # (the reference's ``restore_key``): a restore's first draws start
+    # from it
+    restore_state: torch.Tensor | None = None
 
 
 @dataclass
 class _Prefill:
-    """Host-side state of the in-flight chunked admission."""
+    """Host-side state of the in-flight chunked admission.  ``prompt``
+    and ``n_new`` are the effective values: for a restore, the prompt
+    followed by the tokens already emitted, and the budget left."""
     req: Request
     slot: int
     off: int                    # next chunk starts here
@@ -367,10 +412,12 @@ class ServingEngine:
     ``kv_dtype`` (``"int8"`` quantizes; ``"bfloat16"``/``"float32"``
     override the cache's storage dtype), ``weight_dtype`` (``"int8"``)
     and ``scale_dtype`` (bfloat16 or float32) are the reference's
-    quantized-serving arguments (see the module docstring).  On the card
-    the steps run as CUDA graphs; ``_capture=False`` is a check hook
-    that runs them eagerly there (the twin a check holds the graphs
-    against), not a setting.
+    quantized-serving arguments (see the module docstring).
+    ``preemption=True`` (chunked engine), ``submit(priority=)``,
+    :meth:`cancel` and :meth:`statuses` are the reference's (see the
+    module docstring).  On the card the steps run as CUDA graphs;
+    ``_capture=False`` is a check hook that runs them eagerly there (the
+    twin a check holds the graphs against), not a setting.
     """
 
     def __init__(self, model, n_slots: int = 8, max_len: int | None = None,
@@ -411,13 +458,13 @@ class ServingEngine:
             _not_ported("faults", 9)
         if tracer is not None:
             _not_ported("tracer", 9)
-        if preemption:
-            _not_ported("preemption=True", 9)
         if max_queue is not None:
             _not_ported("max_queue", 9)
         if step_budget_ms is not None:
             _not_ported("step_budget_ms", 9)
         self.chunked, self.paged = bool(chunked), bool(paged)
+        # the monolithic baseline has no restore path: it ignores the flag
+        self.preemption = bool(preemption) and self.chunked
         if self.paged and not self.chunked:
             raise ValueError("paged=True requires the chunked engine (the "
                              "monolithic baseline keeps the slot layout)")
@@ -484,6 +531,7 @@ class ServingEngine:
         # at most one pipelined horizon; monolithic: the authority)
         self._active = np.zeros(S, bool)
         self._lane: _Prefill | None = None
+        self._kill: set[int] = set()       # slots to stop on the device
         # the steps' graphs (the card), the labels in order of first use
         self._capture = bool(_capture) and _graphs.captures_on(dev)
         self._gc = _graphs.GraphCache()
@@ -517,6 +565,8 @@ class ServingEngine:
         # step's input buffer), written by one upload an admission step
         self._adm_buf = torch.zeros(C + Ps + M + len(_ADM_SCALARS),
                                     dtype=torch.int32, device=dev)
+        # the kill's upload: the slots that stay live (no graph reads it)
+        self._keep_buf = torch.ones(S, dtype=torch.bool, device=dev)
         # the device-resident scheduler state: allocated once here (no
         # host copy: zeros/fill run on the device) and only ever updated
         # in place by the step and horizon functions
@@ -584,10 +634,9 @@ class ServingEngine:
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                stop_tokens=(), on_token=None, priority: int = 0,
                deadline_ms: float | None = None, on_done=None) -> int:
-        """Queue one generation request (FIFO); returns its rid.
-        Malformed requests raise ``ValueError``."""
-        if priority != 0:
-            _not_ported("priority", 9)
+        """Queue one generation request (higher ``priority`` first, FIFO
+        within a priority); returns its rid.  Malformed requests raise
+        ``ValueError``."""
         if deadline_ms is not None:
             _not_ported("deadline_ms", 9)
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -618,19 +667,70 @@ class ServingEngine:
         req = Request(next(self._rid), prompt, int(max_new_tokens),
                       SamplingParams(float(temperature), int(top_k or 0),
                                      int(seed)),
-                      stops, on_token, on_done=on_done)
+                      stops, on_token, priority=int(priority),
+                      on_done=on_done)
         self.requests[req.rid] = req
         self.metrics.record_submit(req.rid)
-        self.queue.append(req)
+        self._enqueue(req)
         return req.rid
+
+    def _enqueue(self, req: Request) -> None:
+        """Priority-ordered insert: higher priority first, FIFO (by rid)
+        within a priority, so all-default priorities keep the FIFO
+        schedule and a preempted request (old rid) re-queues ahead of
+        later arrivals at its priority."""
+        q = self.queue
+        key = (-req.priority, req.rid)
+        i = len(q)
+        while i > 0 and (-q[i - 1].priority, q[i - 1].rid) > key:
+            i -= 1
+        q.insert(i, req)
+        req.status = RequestStatus.QUEUED
 
     # ---- lifecycle -------------------------------------------------------
     def _terminal(self, req: Request, status: RequestStatus) -> None:
+        """Move a request to its terminal status (once) and fire
+        ``on_done``; a completion after a preemption is
+        PREEMPTED_RESTORED."""
+        if status is RequestStatus.COMPLETED and req.preemptions:
+            status = RequestStatus.PREEMPTED_RESTORED
         req.status = status
-        req.done = status is RequestStatus.COMPLETED
+        req.done = status in (RequestStatus.COMPLETED,
+                              RequestStatus.PREEMPTED_RESTORED)
         self.metrics.record_terminal(status.value)
         if req.on_done is not None:
             req.on_done(req.rid, status.value)
+
+    def statuses(self) -> dict:
+        """``{rid: status string}`` for every request ever submitted."""
+        return {r.rid: r.status.value for r in self.requests.values()}
+
+    def cancel(self, rid: int, cause: str | None = None) -> bool:
+        """End ``rid`` as ``CANCELLED`` wherever it is: queued,
+        mid-prefill, or live in a slot (after draining the pipelined
+        horizons, so the mirrors are exact; the slot stops on the device
+        before the next step).  Returns False for an unknown rid or one
+        already terminal.  ``cause`` is the reference's; this slice has
+        no flight recorder to keep it in."""
+        req = self.requests.get(rid)
+        if req is None or req.status in TERMINAL_STATUSES:
+            return False
+        if req in self.queue:
+            self.queue.remove(req)
+            self._terminal(req, RequestStatus.CANCELLED)
+            return True
+        if self._lane is not None and self._lane.req is req:
+            self._abort_prefill(RequestStatus.CANCELLED)
+            return True
+        if req in self._slot_req:
+            if self.chunked:
+                self._drain_horizon()
+            if req not in self._slot_req:   # the drained blocks ended it
+                return req.status is RequestStatus.CANCELLED
+            self._evict_running(self._slot_req.index(req),
+                                RequestStatus.CANCELLED)
+            return True
+        return False
 
     def _emit(self, req: Request, tok: int, t) -> None:
         req.tokens.append(tok)
@@ -668,26 +768,117 @@ class ServingEngine:
         active mask; release the slot and end the request FAILED."""
         self._terminal(self._free_slot(slot), RequestStatus.FAILED)
 
+    def _evict_running(self, slot: int, status: RequestStatus) -> None:
+        """End a live slot's request on the host now and arm its kill
+        (chunked engine): the slot stops on the device before the next
+        step, so before any of its rows or pages can be granted again.
+        The monolithic engine uploads its host mask every step."""
+        req = self._free_slot(slot)
+        if self.chunked:
+            self._kill.add(slot)
+        self._terminal(req, status)
+
+    def _abort_prefill(self, status: RequestStatus) -> None:
+        """Drop the in-flight admission before it went live: no kill,
+        since the slot was never committed into the device active mask;
+        whatever its chunks wrote, the next owner's prefill overwrites
+        before it is attended."""
+        pf, self._lane = self._lane, None
+        self.kv.release(pf.slot)
+        self._terminal(pf.req, status)
+
+    def _apply_kill(self) -> bool:
+        """Stop the armed slots on the device: one upload of the mask of
+        slots that stay live and an in-place AND into the device active
+        mask, on the engine's stream, so it runs after every step
+        already issued and before every later one.  Returns whether a
+        kill was issued."""
+        if not self._kill:
+            return False
+        keep = np.ones(self.kv.n_slots, bool)
+        keep[sorted(self._kill)] = False
+        self._kill.clear()
+        self._upload(self._keep_buf, keep)
+        self._dstate["active"].logical_and_(self._keep_buf)
+        self.metrics.record_kill_upload(1)
+        return True
+
+    # ---- preemption --------------------------------------------------------
+    def _preempt_victim(self):
+        """The victim: lowest priority, then the most recently admitted
+        (its restore prefill is the shortest).  ``(key, slot)`` or
+        None."""
+        best = None
+        for slot, req in enumerate(self._slot_req):
+            if req is None or not self._active[slot]:
+                continue
+            key = (req.priority, -req.rid)
+            if best is None or key < best[0]:
+                best = (key, slot)
+        return best
+
+    def _preemption_wanted(self) -> bool:
+        """Does the queue head outrank a running request it cannot be
+        admitted beside?"""
+        if (not self.preemption or not self.queue
+                or self._lane is not None):
+            return False
+        v = self._preempt_victim()
+        if (v is None
+                or self._slot_req[v[1]].priority >= self.queue[0].priority):
+            return False
+        return not self._admission_possible()
+
+    def _maybe_preempt(self) -> None:
+        """Free room for a higher-priority queue head by preempting
+        running victims: keep the victim slot's generator state (the
+        only device state a restore needs: the K/V is recomputed by the
+        restore prefill), release its slot and pages, re-queue it and
+        arm its kill.  Runs on drained mirrors."""
+        while self._preemption_wanted():
+            _, slot = self._preempt_victim()
+            req = self._free_slot(slot)
+            req.restore_state = self._slot_gens[slot].get_state()
+            req.preemptions += 1
+            self._kill.add(slot)
+            req.status = RequestStatus.PREEMPTED
+            self._enqueue(req)              # reads QUEUED while it waits
+            self.metrics.record_preempt()
+
+    def _effective(self, req: Request):
+        """``(prompt, n_new)`` as the admission sees them: a restore's
+        prompt is followed by the tokens already emitted and its budget
+        shrinks by them, so the ordinary chunked prefill reproduces the
+        uninterrupted run (the limit is unchanged: (tp + k) + (n - k) -
+        1 = tp + n - 1)."""
+        if req.preemptions and req.tokens:
+            return (np.concatenate(
+                        [req.prompt, np.asarray(req.tokens, np.int32)]),
+                    req.max_new_tokens - len(req.tokens))
+        return req.prompt, req.max_new_tokens
+
     # ---- admission -------------------------------------------------------
     def _admission_possible(self) -> bool:
         """Could an admission start right now?  A free slot; on pages the
-        queue HEAD must also fit (FIFO order is kept)."""
+        queue HEAD must also fit (queue order is kept)."""
         if not self.queue:
             return False
         if not self.paged:
             return bool(self.kv.free_slots)
-        req = self.queue[0]
-        total = min(req.prompt.size + req.max_new_tokens, self.max_len)
-        return self.kv.can_admit(req.prompt, total)
+        prompt, n_new = self._effective(self.queue[0])
+        return self.kv.can_admit(prompt,
+                                 min(prompt.size + n_new, self.max_len))
 
     def _start_admission(self) -> None:
         """Grant the queue head a slot (and on pages its pages, mapping
         cached prefix pages: its prefill then starts at the first
-        uncached position)."""
+        uncached position).  A restore admits its effective prompt (see
+        :meth:`_effective`), so its prompt pages come from the prefix
+        index."""
         if self._lane is not None or not self.queue:
             return
         req = self.queue[0]
-        prompt, n_new = req.prompt, req.max_new_tokens
+        prompt, n_new = self._effective(req)
         if self.paged:
             adm = self.kv.admit(prompt,
                                 min(prompt.size + n_new, self.max_len))
@@ -702,6 +893,8 @@ class ServingEngine:
         self.queue.popleft()
         self._lane = _Prefill(req, slot, cached, prompt, n_new)
         req.status = RequestStatus.RUNNING
+        if req.preemptions:
+            self.metrics.record_restore()
         self.metrics.record_admitted(req.rid)
 
     def _lane_chunk(self, pf: _Prefill):
@@ -756,12 +949,20 @@ class ServingEngine:
         K = self.decode_horizon
         # steady-state decode: no admission in flight and none could
         # start -> one horizon.  The mirrors trail the device by at most
-        # one horizon; a stale positive costs one no-op horizon.
+        # one horizon; a stale positive costs one no-op horizon.  An
+        # armed kill or a wanted preemption leaves the horizon, so it
+        # cannot wait behind an endless stream of them.
         if (K > 1 and self._lane is None and self._active.any()
-                and not self._admission_possible()):
+                and not self._kill
+                and not self._admission_possible()
+                and not self._preemption_wanted()):
             return self._step_horizon()
         self._drain_horizon()                  # mirrors exact from here
+        self._maybe_preempt()
         self._start_admission()
+        # before any step that could hand a killed slot's rows or pages
+        # to a new owner
+        killed = self._apply_kill()
         n_dec = int(self._active.sum())
         if self._lane is None and n_dec and K > 1:
             return self._step_horizon()
@@ -775,7 +976,7 @@ class ServingEngine:
             budget_tokens=self.chunk_tokens + self.kv.n_slots)
         self._record_kv()
         if meta is None and n_dec == 0:
-            return False
+            return killed
         sampled = self._sampled()
         gens = self._decode_gens(sampled)
         tag = self._qtag + (":sampled" if sampled else "")
@@ -790,9 +991,14 @@ class ServingEngine:
         else:
             pf, _, _, last = meta
             if last:
-                # the request's draws start at 0 on both generators
-                self._adm_gen.manual_seed(pf.req.params.seed)
-                self._slot_gens[pf.slot].manual_seed(pf.req.params.seed)
+                # the request's draws start at 0 on both generators; a
+                # restore's where its old slot's generator stood
+                rs = pf.req.restore_state
+                for g in (self._adm_gen, self._slot_gens[pf.slot]):
+                    if rs is None:
+                        g.manual_seed(pf.req.params.seed)
+                    else:
+                        g.set_state(rs)
             self._run("unified", f"unified:C{self.chunk_tokens}{tag}",
                       self._step_fn,
                       (self.params, self.kv.caches, self._dstate, gens,

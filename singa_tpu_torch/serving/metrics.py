@@ -1,8 +1,9 @@
 """Serving metrics: TTFT, inter-token latency, throughput, occupancy,
 KV and prefix gauges, host<->device crossings.
 Counterpart: ``singa_tpu/serving/metrics.py`` (the fields this engine
-records; the robustness, speculative, lane and tenant accounting arrive
-with their slices).
+records: preemption, restore, cancellation and the kill uploads among
+them; the deadline, goodput, speculative, lane and tenant accounting
+arrive with their slices).
 
 Pure host-side accounting: the engine calls ``record_*`` where it
 touches the host anyway.  ``snapshot()`` returns a flat JSON-ready dict.
@@ -38,11 +39,15 @@ class ServingMetrics:
         self._ttft = []               # seconds
         self._itl = []                # seconds, per token gap
         self._queue_wait = []         # seconds, submit -> admission
+        self._admitted = set()        # rids with a queue-wait sample
         self._occupancy = []          # active/n_slots per step
         self._queue_depth = []        # queued requests per step
         self._budget_occ = []         # (prefill+decode toks)/budget per step
         self.host_syncs = 0           # device->host fetches (blocking)
         self.host_uploads = 0         # host->device copies
+        self.host_kill_uploads = 0    # of which: kill masks
+        self.preemptions = 0
+        self.restores = 0
         self._hz_emitted = []         # tokens emitted per horizon block
         self._hz_capacity = []        # K * n_slots per horizon block
         self._kv_committed = 0        # bytes pinned by the page pool
@@ -67,7 +72,12 @@ class ServingMetrics:
         self._t_last = t
 
     def record_admitted(self, rid, t=None) -> None:
-        """``rid`` won the admission lane: one queue-wait sample."""
+        """``rid`` won the admission lane: one queue-wait sample, for its
+        first admission only (a restore re-admits a request whose queue
+        wait already happened)."""
+        if rid in self._admitted:
+            return
+        self._admitted.add(rid)
         t = self._clock() if t is None else t
         self._queue_wait.append(t - self._submit_t.get(rid, t))
         self._t_last = t
@@ -112,6 +122,19 @@ class ServingMetrics:
         """The engine copied ``n`` host arrays to the device (admission
         only; steady-state decode keeps this at 0)."""
         self.host_uploads += n
+
+    def record_kill_upload(self, n: int = 1) -> None:
+        """A cancel or a preemption shipped a kill mask: counted in
+        ``host_uploads`` too, and apart, so a steady-state zero-upload
+        probe can discount events the host started."""
+        self.host_uploads += n
+        self.host_kill_uploads += n
+
+    def record_preempt(self) -> None:
+        self.preemptions += 1
+
+    def record_restore(self) -> None:
+        self.restores += 1
 
     def record_kv(self, committed: int, live: int, util: float) -> None:
         self._kv_committed = committed
@@ -174,5 +197,11 @@ class ServingMetrics:
             "prefix_cache_hit_rate":
             round(self._prefix_hit_tokens / self._prefix_query_tokens, 4)
             if self._prefix_query_tokens else 0.0,
+            "host_kill_uploads": self.host_kill_uploads,
             "failed_count": self.status_counts.get("FAILED", 0),
+            "cancelled_count": self.status_counts.get("CANCELLED", 0),
+            "preempted_restored_count":
+            self.status_counts.get("PREEMPTED_RESTORED", 0),
+            "preemption_count": self.preemptions,
+            "restore_count": self.restores,
         }

@@ -210,15 +210,29 @@ def _tree_of(tm):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(paged=False, tp_degree=2), dict(chunked=False, preemption=True),
-    dict(admit_lanes=2),
+    dict(paged=False, tp_degree=2), dict(admit_lanes=2),
     dict(speculative=True), dict(tp_degree=2), dict(prefill_only=True),
-    dict(faults=object()), dict(tracer=object()), dict(preemption=True),
+    dict(faults=object()), dict(tracer=object()),
     dict(max_queue=4), dict(step_budget_ms=5.0)])
 def test_out_of_slice_arguments_raise(served, kw):
     _, tm, _ = served
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         TorchEngine(tm, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw, on", [
+    (dict(preemption=True), True),
+    (dict(paged=False, chunked=False, preemption=True), False)],
+    ids=["chunked", "mono"])
+def test_preemption_flag(served, kw, on):
+    """``preemption=True`` is taken by the chunked engine and ignored by
+    the monolithic one, as the reference's ``bool(preemption) and
+    self.chunked``; either engine still serves."""
+    _, tm, cfg = served
+    eng = TorchEngine(tm, device="cpu", **dict(ENGINE_KW, **kw))
+    assert eng.preemption is on
+    rid = eng.submit(_stream(cfg.vocab_size, 5), 4)
+    assert len(eng.run()[rid]) == 4
 
 
 def test_paged_monolithic_raises(served):
@@ -227,12 +241,24 @@ def test_paged_monolithic_raises(served):
         TorchEngine(tm, device="cpu", paged=True, chunked=False)
 
 
-@pytest.mark.parametrize("kw", [dict(priority=1), dict(deadline_ms=50.0)])
-def test_out_of_slice_submit_arguments_raise(served, kw):
+def test_out_of_slice_submit_arguments_raise(served):
     _, tm, cfg = served
     eng = TorchEngine(tm, device="cpu", **ENGINE_KW)
     with pytest.raises(NotImplementedError, match="slice 9"):
-        eng.submit(_stream(cfg.vocab_size, 4), 4, **kw)
+        eng.submit(_stream(cfg.vocab_size, 4), 4, deadline_ms=50.0)
+
+
+def test_submit_priority_is_queued_in_order(served):
+    """``submit(priority=)`` is accepted and ordered: higher first, FIFO
+    within a priority."""
+    _, tm, cfg = served
+    eng = TorchEngine(tm, device="cpu", **ENGINE_KW)
+    p = _stream(cfg.vocab_size, 4)
+    rids = [eng.submit(p, 4, priority=k) for k in (0, 1, 1, 0)]
+    assert [r.rid for r in eng.queue] == [rids[1], rids[2], rids[0],
+                                         rids[3]]
+    assert [eng.requests[r].priority for r in rids] == [0, 1, 1, 0]
+    assert set(eng.run()) == set(rids)
 
 
 class _Plain(TModel):
