@@ -165,6 +165,27 @@ Phases (any failure exits non-zero before the result lines print):
    slot inactive on the card after the next step and silent.  The
    preempting step's and the restore's wall ms print on each case's
    line;
+7h. path ``admission``: admission control on the chunked engine at
+   GPT-2-small widths (phase 6's weights and prompts, 32 new tokens
+   each), captured, each case on a fresh engine beside the same requests
+   on an uninterrupted engine, a clock the phase moves injected: a
+   deadline while decoding on float32 pages (a pool the evicted
+   request's pages complete for the next owner) and on slots, the
+   request evicted ``EVICTED_DEADLINE`` through one kill upload and its
+   slot and pages taken by the next request; a deadline while queued
+   and one in prefill; ``max_queue=2`` shedding (one refusal, one shed,
+   both ``REJECTED`` without a token); the step-budget watchdog (a clock
+   that moves 10 ms a read: a five-chunk admission ``FAILED`` at its
+   fourth strike); evacuate and adopt on float32 and int8 pages (every
+   adopted request restored, ``PREEMPTED_RESTORED``); deadlines armed
+   but far on phase 6's stream (the same tokens, horizons, steps and
+   captures as without; the ITL p50 of both).  Greedy tokens under the
+   margin rule against the uninterrupted run, statuses and causes the
+   reference's, no graph key beyond the uninterrupted run's, no upload
+   after the last admission, the flash forward, its combine and paged
+   decode (int8 on int8 pages) launched by the adopter's restores.  The
+   evicting step's, evacuate's and adopt-to-commit wall ms and the
+   restores' prefix-index tokens print on each case's line;
 8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
    of ``train_one_batch`` with Adam at B 8, T 1024, first eagerly
    (``use_graph=False``), then captured as a CUDA graph
@@ -323,7 +344,8 @@ Phases (any failure exits non-zero before the result lines print):
    one for path 25, one ``kernels`` JSON line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
-7, 7a-7g, 8, 8b, 8c, 11, 13, 15-19, 20-21 and 23-25) and read just after it; a kernel's
+7, 7a-7h, 8, 8b, 8c, 11, 13, 15-19, 20-21 and 23-25; each case of 7g and
+7h) and read just after it; a kernel's
 ``launches`` is the sum over them, ``launches_by_path`` splits it.  On
 a captured path a replay adds the launches its capture recorded (the
 capture itself launches nothing), so the counts are the kernels the
@@ -2234,14 +2256,15 @@ SAMPLED = {3: dict(temperature=0.8, top_k=40, seed=3),
            7: dict(temperature=0.7, top_k=8, seed=7)}
 
 
-def _serve(eng, prompts):
+def _serve(eng, prompts, deadline_ms=None):
     """The staggered stream: four requests, two steps, four more, run to
     the end; requests 3, 5 and 7 sample (``SAMPLED``), the rest are
-    greedy.  The steps that admit come first (until the queue and the
-    admission lane are empty), then the steady state, whose uploads,
-    syncs and horizons are counted.  Returns ``(rids, results,
-    steady)``."""
-    sampling = [SAMPLED.get(i, {}) for i in range(len(prompts))]
+    greedy; every request carries ``deadline_ms``.  The steps that admit
+    come first (until the queue and the admission lane are empty), then
+    the steady state, whose uploads, syncs and horizons are counted.
+    Returns ``(rids, results, steady)``."""
+    sampling = [dict(SAMPLED.get(i, {}), deadline_ms=deadline_ms)
+                for i in range(len(prompts))]
     rids = [eng.submit(p, NEW, **kw_i)
             for p, kw_i in zip(prompts[:4], sampling[:4])]
     eng.step()
@@ -3022,6 +3045,425 @@ def phase_preempt(setup):
     _log(f"preempt phase (7g): {time.perf_counter() - t_phase:.1f}s (the "
          f"victim on the CPU {t_cpu:.1f}s); launches "
          + json.dumps({k: v for k, v in total.items() if v}))
+    return total, stats
+
+
+# the admission path: the requests of each case (indices into phase 6's
+# prompts, all greedy); ADM_LIVE's third is evicted live and ADM_NEXT
+# takes its slot and pages, ADM_EVAC's first two share a 64-token prefix
+ADM_LIVE, ADM_NEXT = (2, 7, 3), 4
+ADM_EVAC = (1, 6, 2, 3)
+ADM_WEDGED, ADM_AFTER = 1, 2        # 296 tokens: five 64-token chunks
+
+
+class AdmClock:
+    """The metrics clock of the admission path: moved by hand, and with
+    ``jump`` set moved on by ``jump`` seconds at every read."""
+
+    def __init__(self):
+        self.t = 0.0
+        self.jump = 0.0
+
+    def __call__(self):
+        self.t += self.jump
+        return self.t
+
+
+def _adm_ref(model, kw, prompts, idx):
+    """The uninterrupted run: ``idx``'s prompts, greedy, NEW tokens each,
+    on a fresh engine with ``kw``.  Returns ``(tokens, engine)``."""
+    ref = ServingEngine(model, **kw)
+    rids = [ref.submit(prompts[i], NEW) for i in idx]
+    res = ref.run()
+    torch.cuda.synchronize()
+    return [res[r] for r in rids], ref
+
+
+def _adm_same(label, cpu_model, prompts, idx, got, want):
+    for i, a, b in zip(idx, got, want):
+        _margin_check(f"admission {label} request {i} against the "
+                      f"uninterrupted run", cpu_model, prompts[i], a, b)
+
+
+def _adm_until_admitted(eng):
+    """Step until the queue and the admission lane are empty."""
+    while eng.queue or eng._lane is not None:
+        eng.step()
+
+
+def _adm_deadline_live(model, cpu_model, prompts, kw, label):
+    """Three greedy requests, the second with a 50 ms deadline, all live
+    and in steady-state horizons; the clock moves 1 s and a fourth
+    request, waiting for a slot (and on pages for the pages), is
+    admitted into the evicted request's slot and pages.  Returns the
+    case's figures."""
+    idx = ADM_LIVE + (ADM_NEXT,)
+    want, ref = _adm_ref(model, dict(kw, kv_pages=None), prompts, idx)
+    clk = AdmClock()
+    eng = ServingEngine(model, clock=clk, **kw)
+    _zero_launches()
+    rids = [eng.submit(prompts[i], NEW,
+                       deadline_ms=50.0 if i == ADM_LIVE[1] else None)
+            for i in ADM_LIVE]
+    while not all(eng.requests[r].tokens for r in rids):
+        eng.step()
+    for _ in range(2):
+        eng.step()
+    victim = eng.requests[rids[1]]
+    slot = eng._slot_req.index(victim)
+    pages = set(eng.kv.table_row(slot).tolist()) - {0} if eng.paged \
+        else set()
+    clk.t += 1.0
+    rids.append(eng.submit(prompts[ADM_NEXT], NEW))
+    t0 = time.perf_counter()
+    eng.step()                      # drain, sweep, kill, first chunk
+    evict_ms = (time.perf_counter() - t0) * 1e3
+    killed = not bool(eng._dstate["active"][slot])
+    _adm_until_admitted(eng)
+    nxt = eng.requests[rids[3]]
+    taken = (eng._slot_req[slot] is nxt,
+             len(pages & set(eng.kv.table_row(slot).tolist()))
+             if eng.paged else 0)
+    up0 = eng.metrics.host_uploads
+    res = eng.run()
+    torch.cuda.synchronize()
+    st = {"evict_step_ms": evict_ms,
+          "tail_uploads": eng.metrics.host_uploads - up0,
+          "host_kill_uploads": eng.metrics.host_kill_uploads,
+          "evicted_tokens": len(victim.tokens),
+          "next_owner_in_slot": taken[0],
+          "next_owner_pages_of_evicted": taken[1],
+          "graph_captures": dict(eng.graph_captures),
+          "ref_graph_captures": dict(ref.graph_captures),
+          "statuses": [eng.requests[r].status.value for r in rids],
+          "cause": eng.postmortem(rids[1])["cause"]}
+    _log(f"admission {label}: " + json.dumps(st))
+    if (st["statuses"] != ["COMPLETED", "EVICTED_DEADLINE", "COMPLETED",
+                           "COMPLETED"]
+            or st["cause"] != "deadline exceeded while decoding "
+                              "(overdue 950.0ms)"
+            or st["host_kill_uploads"] != 1 or st["tail_uploads"] != 0
+            or not killed or rids[1] in res or not taken[0]
+            or (eng.paged and taken[1] < 1)
+            or st["graph_captures"] != st["ref_graph_captures"]):
+        raise AssertionError(f"admission {label}: {st}")
+    if not set(eng.trace_log) <= set(ref.trace_log):
+        raise AssertionError(f"admission {label}: keys {eng.trace_log} "
+                             f"beyond the uninterrupted run's "
+                             f"{ref.trace_log}")
+    keep = [0, 2, 3]
+    _adm_same(label, cpu_model, prompts, [idx[j] for j in keep],
+              [res[rids[j]] for j in keep], [want[j] for j in keep])
+    if not np.array_equal(victim.tokens, want[1][:len(victim.tokens)]):
+        _margin_check(f"admission {label} evicted request's tokens",
+                      cpu_model, prompts[ADM_LIVE[1]],
+                      np.asarray(victim.tokens),
+                      want[1][:len(victim.tokens)])
+    return st
+
+
+def _adm_queued_prefill(model, cpu_model, prompts, kw):
+    """One slot: a request overdue while queued behind a live one, then
+    the 296-token prompt overdue after its first chunk, then a request
+    served after both."""
+    want, _ = _adm_ref(model, dict(kw, n_slots=1), prompts,
+                       (ADM_LIVE[0], ADM_AFTER))
+    clk = AdmClock()
+    eng = ServingEngine(model, clock=clk, **dict(kw, n_slots=1))
+    _zero_launches()
+    ra = eng.submit(prompts[ADM_LIVE[0]], NEW)
+    rq = eng.submit(prompts[ADM_LIVE[1]], NEW, deadline_ms=50.0)
+    while not eng.requests[ra].tokens:
+        eng.step()
+    clk.t += 1.0
+    eng.run()
+    rp = eng.submit(prompts[ADM_WEDGED], NEW, deadline_ms=50.0)
+    eng.step()
+    in_lane = eng._lane is not None and eng._lane.req.rid == rp
+    clk.t += 1.0
+    eng.step()
+    rz = eng.submit(prompts[ADM_AFTER], NEW)
+    res = eng.run()
+    torch.cuda.synchronize()
+    st = {"statuses": [eng.requests[r].status.value
+                       for r in (ra, rq, rp, rz)],
+          "causes": [eng.postmortem(r)["cause"] for r in (rq, rp)],
+          "tokens": [len(eng.requests[r].tokens) for r in (rq, rp)],
+          "host_kill_uploads": eng.metrics.host_kill_uploads,
+          "in_lane": in_lane}
+    _log("admission queued_prefill: " + json.dumps(st))
+    if (st["statuses"] != ["COMPLETED", "EVICTED_DEADLINE",
+                           "EVICTED_DEADLINE", "COMPLETED"]
+            or st["causes"] != [
+                "deadline exceeded while queued (overdue 950.0ms)",
+                "deadline exceeded while in prefill (overdue 950.0ms)"]
+            or st["tokens"] != [0, 0] or st["host_kill_uploads"] != 0
+            or not in_lane):
+        raise AssertionError(f"admission queued_prefill: {st}")
+    _adm_same("queued_prefill", cpu_model, prompts,
+              (ADM_LIVE[0], ADM_AFTER), [res[ra], res[rz]], want)
+    return st
+
+
+def _adm_shed(model, cpu_model, prompts, kw):
+    """The reference's bounded-queue flow at ``max_queue=2`` on one
+    slot: the third arrival refused, a higher-priority fourth shedding
+    the newest low-priority request."""
+    idx = (ADM_LIVE[0], ADM_LIVE[2])
+    want, _ = _adm_ref(model, dict(kw, n_slots=1), prompts, idx)
+    eng = ServingEngine(model, max_queue=2, **dict(kw, n_slots=1))
+    _zero_launches()
+    a = eng.submit(prompts[idx[0]], NEW)
+    b = eng.submit(prompts[ADM_LIVE[1]], NEW)
+    c = eng.submit(prompts[ADM_LIVE[1]], NEW)
+    d = eng.submit(prompts[idx[1]], NEW, priority=1)
+    res = eng.run()
+    torch.cuda.synchronize()
+    rej = (b, c)
+    st = {"statuses": [eng.requests[r].status.value for r in (a, b, c, d)],
+          "causes": [eng.postmortem(r)["cause"] for r in rej],
+          "tokens": [len(eng.requests[r].tokens) for r in rej],
+          "rejected_count": eng.metrics.snapshot()["rejected_count"]}
+    _log("admission max_queue: " + json.dumps(st))
+    if (st["statuses"] != ["COMPLETED", "REJECTED", "REJECTED",
+                           "COMPLETED"]
+            or st["causes"] != [f"admission overload: shed for "
+                                f"higher-priority rid{d}",
+                                "admission overload: queue full"]
+            or st["tokens"] != [0, 0] or st["rejected_count"] != 2):
+        raise AssertionError(f"admission max_queue: {st}")
+    _adm_same("max_queue", cpu_model, prompts, idx, [res[a], res[d]], want)
+    return st
+
+
+def _adm_watchdog(model, cpu_model, prompts, kw):
+    """``step_budget_ms=5`` on a clock that moves 10 ms at every read:
+    the 296-token prompt's admission (five chunks) is struck at every
+    step and ends FAILED at its fourth strike; then, the clock still,
+    the next request is served."""
+    want, _ = _adm_ref(model, kw, prompts, (ADM_AFTER,))
+    clk = AdmClock()
+    eng = ServingEngine(model, clock=clk, step_budget_ms=5.0, **kw)
+    _zero_launches()
+    clk.jump = 0.01
+    rw = eng.submit(prompts[ADM_WEDGED], NEW)
+    steps = 0
+    while eng.requests[rw].status.value in ("QUEUED", "RUNNING"):
+        eng.step()
+        steps += 1
+        if steps > 8:
+            break
+    clk.jump = 0.0
+    rz = eng.submit(prompts[ADM_AFTER], NEW)
+    res = eng.run()
+    torch.cuda.synchronize()
+    st = {"status": eng.requests[rw].status.value, "steps": steps,
+          "strikes": eng.requests[rw].slow_strikes,
+          "cause": eng.postmortem(rw)["cause"],
+          "slow_steps": eng.metrics.slow_steps}
+    _log("admission watchdog: " + json.dumps(st))
+    if (st["status"] != "FAILED" or steps != 4 or st["strikes"] != 4
+            or st["cause"] != "stall watchdog: 4 steps over the 5ms budget"
+            or rw in res):
+        raise AssertionError(f"admission watchdog: {st}")
+    _adm_same("watchdog", cpu_model, prompts, (ADM_AFTER,), [res[rz]], want)
+    return st
+
+
+def _adm_evacuate(model, cpu_model, prompts, kw, label):
+    """Engine A: ADM_EVAC's four requests live, two horizons, then
+    ``evacuate()``; engine B adopts each stranded request (a restore of
+    its prompt and emitted tokens through the chunked prefill) and runs
+    to the end.  Returns the case's figures."""
+    want, ref = _adm_ref(model, kw, prompts, ADM_EVAC)
+    a = ServingEngine(model, **kw)
+    _zero_launches()
+    rids = [a.submit(prompts[i], NEW) for i in ADM_EVAC]
+    while not all(a.requests[r].tokens for r in rids):
+        a.step()
+    for _ in range(2):
+        a.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stranded = a.evacuate()
+    evac_ms = (time.perf_counter() - t0) * 1e3
+    emitted = [len(r.tokens) for r in stranded]
+    records = [a.postmortem(r)["status"] for r in rids]
+    b = ServingEngine(model, **kw)
+    mark = _read_launches()
+    t0 = time.perf_counter()
+    new = [b.adopt(r) for r in stranded]
+    _adm_until_admitted(b)
+    torch.cuda.synchronize()
+    adopt_ms = (time.perf_counter() - t0) * 1e3
+    restore = {k: v - mark[k] for k, v in _read_launches().items()
+               if v != mark[k]}
+    up0 = b.metrics.host_uploads
+    res = b.run()
+    torch.cuda.synchronize()
+    del a
+    st = {"evacuate_ms": evac_ms, "adopt_to_commit_ms": adopt_ms,
+          "emitted": emitted,
+          "restore_tokens": sum(p.size for p in (prompts[i]
+                                                 for i in ADM_EVAC))
+          + sum(emitted),
+          "restore_cached": b.metrics._prefix_hit_tokens,
+          "restore_count": b.metrics.restores,
+          "tail_uploads": b.metrics.host_uploads - up0,
+          "records": records,
+          "statuses": [b.requests[r].status.value for r in new],
+          "restore_launches": restore,
+          "graph_captures": dict(b.graph_captures),
+          "ref_graph_captures": dict(ref.graph_captures)}
+    _log(f"admission {label}: " + json.dumps(st))
+    # the int8 chunk prefill attends through the reference's einsum
+    need = (("paged_decode_attention_q8", "paged_decode_merge")
+            if kw.get("kv_dtype") else
+            ("paged_decode_attention", "paged_decode_merge",
+             "flash_attention_fwd", "flash_attention_fwd_combine"))
+    if (set(records) != {"REROUTED"} or min(emitted) < 1
+            or st["statuses"] != ["PREEMPTED_RESTORED"] * 4
+            or st["restore_count"] != 4 or st["tail_uploads"] != 0
+            or any(restore.get(k, 0) <= 0 for k in need)):
+        raise AssertionError(f"admission {label}: {st}")
+    if not set(b.trace_log) <= set(ref.trace_log):
+        raise AssertionError(f"admission {label}: keys {b.trace_log} "
+                             f"beyond the uninterrupted run's "
+                             f"{ref.trace_log}")
+    _adm_same(label, cpu_model, prompts, ADM_EVAC, [res[r] for r in new],
+              want)
+    return st
+
+
+def _timed_probe(eng, name, acc):
+    """Wrap ``eng``'s method ``name`` on the instance: ``acc`` gains its
+    calls and host seconds."""
+    fn = getattr(eng, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc[name + "_calls"] += 1
+            acc[name + "_ms"] += (time.perf_counter() - t0) * 1e3
+    setattr(eng, name, timed)
+
+
+def _adm_far(model, prompts, kw):
+    """Phase 6's eight-request stream on two fresh engines, without
+    deadlines and with a 1e6 ms one on every request: the same tokens,
+    horizons, steps and captures.  The deadlines' host cost is timed
+    where it is paid: the horizon gate's probe ``_deadline_overdue``
+    and the sweep, summed over the run's steps.  The ITL p50 of both
+    runs is printed too; it is 0 where most gaps fall inside a horizon,
+    whose tokens share one emission time."""
+    runs = []
+    probe = {}
+    _zero_launches()
+    for dl in (None, 1e6):
+        eng = ServingEngine(model, **kw)
+        if dl is not None:
+            probe = dict.fromkeys(("_deadline_overdue_calls",
+                                   "_deadline_overdue_ms",
+                                   "_sweep_deadlines_calls",
+                                   "_sweep_deadlines_ms"), 0)
+            _timed_probe(eng, "_deadline_overdue", probe)
+            _timed_probe(eng, "_sweep_deadlines", probe)
+        rids, res, steady = _serve(eng, prompts, deadline_ms=dl)
+        torch.cuda.synchronize()
+        snap = eng.metrics.snapshot()
+        runs.append(([res[r] for r in rids], dict(eng.graph_captures),
+                     eng.trace_log, steady, snap))
+        del eng
+    st = {k: [r[4][k] for r in runs] for k in (
+        "itl_p50_ms", "steps", "horizon_blocks", "deadline_requests",
+        "evicted_deadline_count")}
+    st["deadline_ms"] = [None, 1e6]
+    st["steady"] = runs[0][3]
+    st.update(probe)
+    st["probe_ms_per_step"] = ((probe["_deadline_overdue_ms"]
+                                + probe["_sweep_deadlines_ms"])
+                               / runs[1][4]["steps"])
+    _log("admission deadline_far: " + json.dumps(st))
+    (t0, c0, k0, s0, n0), (t1, c1, k1, s1, n1) = runs
+    if (not all(np.array_equal(a, b) for a, b in zip(t0, t1))
+            or c0 != c1 or k0 != k1 or s0 != s1
+            or n0["steps"] != n1["steps"]
+            or n0["horizon_blocks"] != n1["horizon_blocks"]):
+        raise AssertionError(f"admission deadline_far: {st}")
+    if (st["deadline_requests"] != [0, len(prompts)]
+            or any(st["evicted_deadline_count"])
+            or not probe["_sweep_deadlines_calls"]):
+        raise AssertionError(f"admission deadline_far: {st}")
+    return st
+
+
+def phase_admission_alone():
+    """Path ``admission`` on its own (``--admission``): phase 6's seeded
+    model, engine arguments and prompts, then phase 7h."""
+    cfg, tree, model, kw, prompts = _slice_setup()
+    del model
+    cpu_model = tgpt.GPT.from_jax_decode_params(tree, cfg, device="cpu")
+    phase_admission({"cfg": cfg, "tree": tree, "kw": kw,
+                     "prompts": prompts, "cpu_model": cpu_model})
+
+
+def phase_admission(setup):
+    """Path ``admission``: deadlines, the bounded queue, the step-budget
+    watchdog and evacuate/adopt on the card, GPT-2-small with phase 6's
+    seeded weights, captured, each case on a fresh engine beside the
+    same requests on an uninterrupted one, an injected clock moved by
+    the phase: a deadline while decoding on float32 pages (a pool that
+    the evicted request's pages complete for the next owner) and on
+    slots; a deadline while queued and one in prefill; ``max_queue=2``
+    shedding; the watchdog; evacuate and adopt on float32 and int8
+    pages; deadlines armed but far on phase 6's stream.  Greedy tokens
+    under the margin rule against the uninterrupted run; statuses and
+    causes the reference's; one kill upload a live eviction and none
+    after the last admission; no graph key beyond the uninterrupted
+    run's; from the adopter's first restore on, the flash forward, its
+    combine and paged decode (int8 on int8 pages) launched."""
+    prompts, cpu_model = setup["prompts"], setup["cpu_model"]
+    model = _card_model(setup)
+    base = dict(n_slots=3, page_tokens=PAGE, chunk_tokens=CHUNK,
+                decode_horizon=HORIZON)
+    need = [-(-(prompts[i].size + NEW) // PAGE) for i in ADM_LIVE]
+    tight = dict(base, kv_pages=1 + sum(need), prefix_cache=False)
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    gc.collect()
+    total = dict.fromkeys(_read_launches(), 0)
+    stats = {}
+    cases = [
+        ("deadline_pages", lambda: _adm_deadline_live(
+            model, cpu_model, prompts, tight, "deadline_pages")),
+        ("deadline_slots", lambda: _adm_deadline_live(
+            model, cpu_model, prompts, dict(base, paged=False),
+            "deadline_slots")),
+        ("queued_prefill", lambda: _adm_queued_prefill(
+            model, cpu_model, prompts, base)),
+        ("max_queue", lambda: _adm_shed(model, cpu_model, prompts, base)),
+        ("watchdog", lambda: _adm_watchdog(model, cpu_model, prompts,
+                                           base)),
+        ("evacuate_pages", lambda: _adm_evacuate(
+            model, cpu_model, prompts, dict(base, n_slots=4),
+            "evacuate_pages")),
+        ("evacuate_int8", lambda: _adm_evacuate(
+            model, cpu_model, prompts, dict(base, n_slots=4,
+                                            kv_dtype="int8"),
+            "evacuate_int8")),
+        ("deadline_far", lambda: _adm_far(model, prompts, setup["kw"]))]
+    for label, case in cases:
+        t0 = time.perf_counter()
+        stats[label] = case()
+        stats[label]["case_s"] = time.perf_counter() - t0
+        end = _read_launches()
+        for k in total:
+            total[k] += end[k]
+        gc.collect()
+    _log(f"admission phase (7h): {time.perf_counter() - t_phase:.1f}s; "
+         f"launches " + json.dumps({k: v for k, v in total.items() if v}))
     return total, stats
 
 
@@ -6117,6 +6559,7 @@ def main(argv):
              ("--compare-serve",): phase_compare_serve,
              ("--nccl-two-ranks",): phase_nccl_two_ranks,
              ("--preempt",): phase_preempt_alone,
+             ("--admission",): phase_admission_alone,
              ("--compare-serve", "layouts"):
              lambda: phase_compare_serve(("paged", "slot", "mono"), 3),
              ("--compare-serve", "precision"):
@@ -6130,7 +6573,7 @@ def main(argv):
     if tuple(argv) not in modes:
         print(f"usage: chip_smoke.py [--profile [{'|'.join(PROFILE_PATHS)}]"
               f" | --compare-serve [layouts|precision|graphs] | "
-              f"--nccl-two-ranks | --preempt]",
+              f"--nccl-two-ranks | --preempt | --admission]",
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
@@ -6174,6 +6617,7 @@ def main(argv):
     gen16_launches, gen16_stats = phase_generate_bf16(setup)
     _log(f"bf16 serving phases (7e-7f): {time.perf_counter() - t_s:.1f}s")
     pre_launches, pre_stats = phase_preempt(setup)
+    adm_launches, adm_stats = phase_admission(setup)
     keys = ("tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms",
             "peak_memory_bytes")
     _log("serving captured against eager: " + json.dumps({
@@ -6247,6 +6691,7 @@ def main(argv):
                    "serve_bf16": serve16_launches[row["name"]],
                    "generate_bf16": gen16_launches[row["name"]],
                    "preempt": pre_launches[row["name"]],
+                   "admission": adm_launches[row["name"]],
                    "train": train_launches[row["name"]],
                    "train_bf16": train16_launches[row["name"]],
                    "train_fp16": trainf16_launches[row["name"]],

@@ -109,6 +109,25 @@ a kill is pending or a preemption is wanted the engine leaves the
 horizon.  The monolithic engine ignores ``preemption=True``, as the
 reference does.
 
+Admission control (the reference's): ``submit(deadline_ms=)`` (chunked
+engine) sets a completion deadline on the metrics clock; a sweep after
+the pipelined horizons are drained and before any preemption or
+admission ends every overdue request ``EVICTED_DEADLINE``, queued, in
+prefill or live (a live one through the kill above), and an overdue
+request leaves the horizon as a pending kill does.  ``max_queue=``
+bounds the queue: a full queue sheds its lowest-priority, newest request
+for an arrival that outranks it and otherwise refuses the arrival, both
+``REJECTED`` (``submit`` still returns the rid).  ``step_budget_ms=``
+times each step on the metrics clock: a slow step strikes the in-flight
+admission, which ends ``FAILED`` after more than ``max_slow_steps``
+strikes.  ``evacuate()`` strands every request of an engine taken as
+lost and ``adopt(req)`` re-queues one on another engine, its emitted
+tokens replayed through the restore path.  A raising ``on_token`` or
+``on_done`` is counted in ``callback_errors`` and never stops the
+engine.  Every terminal closes the request's record in the engine's
+:class:`~singa_tpu_torch.telemetry.FlightRecorder` with the cause the
+reference names (:meth:`ServingEngine.postmortem`).
+
 Constructor arguments that select other engines or features raise
 ``NotImplementedError`` naming the ROADMAP.md slice that will port them.
 The defaults differ from the reference's (``paged=False,
@@ -132,6 +151,7 @@ from .. import _graphs
 from .. import precision as _precision
 from ..device import resolve_device
 from ..models import gpt as _gpt
+from ..telemetry.flight import FlightRecorder
 from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache, SlotKVCache
 from .metrics import ServingMetrics
 from .sampling import SamplingParams, sample_logits, sample_logits_per_row
@@ -158,8 +178,8 @@ DEFAULT_STALL_LIMIT = 512
 _SLICES = {
     9: "serving lifecycle, faults and telemetry",
     11: "speculative and multi-lane decoding",
-    12: "the rest of the framework: tensor parallel and disaggregated "
-        "serving",
+    12: "the rest of the framework: tensor parallel, disaggregated "
+        "serving and the analysis passes",
 }
 
 
@@ -170,9 +190,8 @@ def _not_ported(what: str, slice_no: int):
 
 
 class RequestStatus(str, enum.Enum):
-    """Lifecycle of a submitted request (the statuses this engine can
-    reach; rejection and deadline eviction arrive with the rest of the
-    lifecycle slice).  QUEUED, RUNNING and PREEMPTED are transient (a
+    """Lifecycle of a submitted request.  QUEUED, RUNNING and PREEMPTED
+    are transient (a
     preempted request re-queues at once and reads QUEUED while it
     waits, as in the reference); the rest are terminal: a request
     reaches exactly one, and ``on_done(rid, status)`` fires then.
@@ -184,13 +203,16 @@ class RequestStatus(str, enum.Enum):
     RUNNING = "RUNNING"
     PREEMPTED = "PREEMPTED"
     COMPLETED = "COMPLETED"
+    REJECTED = "REJECTED"
+    EVICTED_DEADLINE = "EVICTED_DEADLINE"
     PREEMPTED_RESTORED = "PREEMPTED_RESTORED"
     FAILED = "FAILED"
     CANCELLED = "CANCELLED"
 
 
 TERMINAL_STATUSES = frozenset({
-    RequestStatus.COMPLETED, RequestStatus.PREEMPTED_RESTORED,
+    RequestStatus.COMPLETED, RequestStatus.REJECTED,
+    RequestStatus.EVICTED_DEADLINE, RequestStatus.PREEMPTED_RESTORED,
     RequestStatus.FAILED, RequestStatus.CANCELLED})
 
 
@@ -209,6 +231,7 @@ class Request:
     tokens: list = field(default_factory=list)
     done: bool = False
     priority: int = 0
+    deadline_t: float | None = None    # absolute, on the metrics clock
     on_done: object = None
     status: RequestStatus = RequestStatus.QUEUED
     preemptions: int = 0
@@ -216,6 +239,7 @@ class Request:
     # (the reference's ``restore_key``): a restore's first draws start
     # from it
     restore_state: torch.Tensor | None = None
+    slow_strikes: int = 0              # over-budget steps in admission
 
 
 @dataclass
@@ -414,8 +438,12 @@ class ServingEngine:
     and ``scale_dtype`` (bfloat16 or float32) are the reference's
     quantized-serving arguments (see the module docstring).
     ``preemption=True`` (chunked engine), ``submit(priority=)``,
-    :meth:`cancel` and :meth:`statuses` are the reference's (see the
-    module docstring).  On the card the steps run as CUDA graphs;
+    :meth:`cancel` and :meth:`statuses` are the reference's, and so are
+    the admission controls ``max_queue``, ``step_budget_ms``,
+    ``max_slow_steps``, ``submit(deadline_ms=)``, :meth:`evacuate`,
+    :meth:`adopt` and the flight recorder (``flight_events``,
+    ``flight_retain``, :meth:`postmortem`; see the module docstring).
+    On the card the steps run as CUDA graphs;
     ``_capture=False`` is a check hook that runs them eagerly there (the
     twin a check holds the graphs against), not a setting.
     """
@@ -435,9 +463,12 @@ class ServingEngine:
                  max_queue: int | None = None,
                  preemption: bool = False,
                  step_budget_ms: float | None = None,
+                 max_slow_steps: int = 3,
                  stall_limit: int = DEFAULT_STALL_LIMIT,
                  faults=None,
                  tracer=None,
+                 flight_events: int = FlightRecorder.DEFAULT_PER_REQUEST,
+                 flight_retain: int = FlightRecorder.DEFAULT_RETAIN,
                  tp_degree: int = 1,
                  kv_dtype=None,
                  weight_dtype=None,
@@ -458,10 +489,12 @@ class ServingEngine:
             _not_ported("faults", 9)
         if tracer is not None:
             _not_ported("tracer", 9)
-        if max_queue is not None:
-            _not_ported("max_queue", 9)
-        if step_budget_ms is not None:
-            _not_ported("step_budget_ms", 9)
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.max_queue = max_queue
+        self.step_budget_s = (None if step_budget_ms is None
+                              else float(step_budget_ms) / 1e3)
+        self.max_slow_steps = int(max_slow_steps)
         self.chunked, self.paged = bool(chunked), bool(paged)
         # the monolithic baseline has no restore path: it ignores the flag
         self.preemption = bool(preemption) and self.chunked
@@ -522,6 +555,11 @@ class ServingEngine:
                                   scale_dtype=pol.scale_dtype)
         self.metrics = (ServingMetrics(clock=clock) if clock is not None
                         else ServingMetrics())
+        # always on: a few notes a request, what postmortem(rid) reads
+        self.flight = FlightRecorder(per_request=flight_events,
+                                     retain=flight_retain)
+        self._last_hz_occ = None           # last horizon block's fill
+        self._any_deadline = False
         self.queue: deque[Request] = deque()
         self.requests: dict[int, Request] = {}
         self._rid = itertools.count()
@@ -636,9 +674,13 @@ class ServingEngine:
                deadline_ms: float | None = None, on_done=None) -> int:
         """Queue one generation request (higher ``priority`` first, FIFO
         within a priority); returns its rid.  Malformed requests raise
-        ``ValueError``."""
-        if deadline_ms is not None:
-            _not_ported("deadline_ms", 9)
+        ``ValueError``.  Overload is not a caller's fault: with
+        ``max_queue`` set and the queue full, the lowest-priority,
+        newest queued request is shed if this one outranks it, else this
+        one is refused; the loser ends ``REJECTED`` (its ``on_done``
+        fires) and ``submit`` still returns the rid.  ``deadline_ms`` is
+        a completion deadline on the metrics clock, relative to now; a
+        request still unfinished after it ends ``EVICTED_DEADLINE``."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -651,6 +693,11 @@ class ServingEngine:
         if prompt.size + max_new_tokens > self.max_len:
             raise ValueError(f"{prompt.size}+{max_new_tokens} exceeds "
                              f"max_len {self.max_len}")
+        if deadline_ms is not None and deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
+        if deadline_ms is not None and not self.chunked:
+            raise ValueError("deadlines require the chunked engine (the "
+                             "monolithic baseline has no eviction path)")
         if self.paged:
             need = self.kv.pages_needed(prompt.size + max_new_tokens)
             if need > self.kv.usable_pages:
@@ -669,8 +716,31 @@ class ServingEngine:
                                      int(seed)),
                       stops, on_token, priority=int(priority),
                       on_done=on_done)
+        if deadline_ms is not None:
+            req.deadline_t = self.metrics.now() + float(deadline_ms) / 1e3
+            self._any_deadline = True
         self.requests[req.rid] = req
-        self.metrics.record_submit(req.rid)
+        t = self.metrics.now()
+        self.metrics.record_submit(req.rid, t)
+        self.flight.note(
+            req.rid, "submit",
+            f"prompt={prompt.size} max_new={max_new_tokens} "
+            f"priority={req.priority}"
+            + (f" deadline_ms={deadline_ms:g}" if deadline_ms else ""),
+            t=t)
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            # shed the lowest-priority (newest among equals) queued
+            # request if this one outranks it, else refuse this one
+            victim = min(self.queue, key=lambda r: (r.priority, -r.rid))
+            if victim.priority < req.priority:
+                self.queue.remove(victim)
+                self._terminal(victim, RequestStatus.REJECTED,
+                               cause="admission overload: shed for "
+                                     f"higher-priority rid{req.rid}")
+            else:
+                self._terminal(req, RequestStatus.REJECTED,
+                               cause="admission overload: queue full")
+                return req.rid
         self._enqueue(req)
         return req.rid
 
@@ -688,18 +758,42 @@ class ServingEngine:
         req.status = RequestStatus.QUEUED
 
     # ---- lifecycle -------------------------------------------------------
-    def _terminal(self, req: Request, status: RequestStatus) -> None:
-        """Move a request to its terminal status (once) and fire
-        ``on_done``; a completion after a preemption is
-        PREEMPTED_RESTORED."""
+    def _terminal(self, req: Request, status: RequestStatus,
+                  cause: str | None = None) -> None:
+        """Move a request to its terminal status (once; a completion
+        after a preemption is PREEMPTED_RESTORED), record it in the
+        metrics, close its flight record with ``cause`` and the engine's
+        state, and fire ``on_done`` (a raising one is counted, not
+        propagated)."""
         if status is RequestStatus.COMPLETED and req.preemptions:
             status = RequestStatus.PREEMPTED_RESTORED
         req.status = status
         req.done = status in (RequestStatus.COMPLETED,
                               RequestStatus.PREEMPTED_RESTORED)
-        self.metrics.record_terminal(status.value)
+        now = self.metrics.now()
+        # a cancelled request leaves the deadline population: the caller
+        # abandoned the answer, the engine did not miss it
+        had_deadline = (req.deadline_t is not None
+                        and status is not RequestStatus.CANCELLED)
+        self.metrics.record_terminal(
+            status.value, len(req.tokens), req.done,
+            req.deadline_t is None or now <= req.deadline_t, had_deadline)
+        if cause is None:
+            cause = ("completed after preemption/restore"
+                     if status is RequestStatus.PREEMPTED_RESTORED
+                     else status.value.lower())
+        self.flight.close(
+            req.rid, status.value, cause, t=now,
+            tokens_emitted=len(req.tokens), preemptions=req.preemptions,
+            last_horizon_occupancy=self._last_hz_occ,
+            kv_bytes_live=self.kv.live_bytes(),
+            page_utilization=self.kv.page_utilization(),
+            queue_depth=len(self.queue))
         if req.on_done is not None:
-            req.on_done(req.rid, status.value)
+            try:
+                req.on_done(req.rid, status.value)
+            except Exception:
+                self.metrics.record_callback_error()
 
     def statuses(self) -> dict:
         """``{rid: status string}`` for every request ever submitted."""
@@ -710,17 +804,19 @@ class ServingEngine:
         mid-prefill, or live in a slot (after draining the pipelined
         horizons, so the mirrors are exact; the slot stops on the device
         before the next step).  Returns False for an unknown rid or one
-        already terminal.  ``cause`` is the reference's; this slice has
-        no flight recorder to keep it in."""
+        already terminal.  ``cause`` names it in the postmortem
+        (default ``"cancelled by client"``); a cancel is never a
+        deadline miss."""
         req = self.requests.get(rid)
         if req is None or req.status in TERMINAL_STATUSES:
             return False
+        cause = cause or "cancelled by client"
         if req in self.queue:
             self.queue.remove(req)
-            self._terminal(req, RequestStatus.CANCELLED)
+            self._terminal(req, RequestStatus.CANCELLED, cause=cause)
             return True
         if self._lane is not None and self._lane.req is req:
-            self._abort_prefill(RequestStatus.CANCELLED)
+            self._abort_prefill(RequestStatus.CANCELLED, cause=cause)
             return True
         if req in self._slot_req:
             if self.chunked:
@@ -728,18 +824,104 @@ class ServingEngine:
             if req not in self._slot_req:   # the drained blocks ended it
                 return req.status is RequestStatus.CANCELLED
             self._evict_running(self._slot_req.index(req),
-                                RequestStatus.CANCELLED)
+                                RequestStatus.CANCELLED, cause=cause)
             return True
         return False
+
+    def postmortem(self, rid: int):
+        """The flight-recorder record of ``rid``: terminal status, the
+        cause that ended it, its events, and the engine's state at the
+        terminal (last horizon occupancy, KV bytes, page utilization,
+        queue depth).  None for an unknown or dropped rid."""
+        return self.flight.postmortem(rid)
+
+    def publish_metrics(self, registry=None, **labels):
+        """:attr:`metrics` into a telemetry ``MetricsRegistry`` (see
+        :meth:`ServingMetrics.publish`); returns the registry."""
+        return self.metrics.publish(registry, **labels)
+
+    def attach_tracer(self, tracer):
+        """The reference's request spans (``tracer=``)."""
+        _not_ported("attach_tracer", 9)
+
+    def steady_state_arg_spec(self):
+        """The contract of the reference's steady-state upload analysis
+        pass."""
+        _not_ported("steady_state_arg_spec", 12)
+
+    # ---- evacuate and adopt ------------------------------------------------
+    def evacuate(self, cause: str = "replica lost") -> list:
+        """Strand every unfinished request of an engine taken as lost,
+        for :meth:`adopt` on another: the pending horizon blocks are
+        dropped (their tokens are recomputed by the adopter's restore),
+        the queue, the admission and the slots are released, and each
+        request's flight record closes ``REROUTED`` with ``cause``.
+        Returns the stranded requests in rid order; the engine must not
+        be stepped again."""
+        if not self.chunked:
+            raise ValueError("evacuate() requires the chunked engine")
+        self._hz_pending.clear()
+        stranded = list(self.queue)
+        self.queue.clear()
+        if self._lane is not None:
+            pf, self._lane = self._lane, None
+            self.kv.release(pf.slot)
+            stranded.append(pf.req)
+        for slot, req in enumerate(self._slot_req):
+            if req is not None:
+                self._slot_req[slot] = None
+                self.kv.release(slot)
+                stranded.append(req)
+        self._active[:] = False
+        self._kill.clear()
+        stranded.sort(key=lambda r: r.rid)
+        t = self.metrics.now()
+        for req in stranded:
+            self.flight.note(req.rid, "evacuate", cause, t=t)
+            self.flight.close(req.rid, "REROUTED", cause, t=t,
+                              tokens_emitted=len(req.tokens))
+        return stranded
+
+    def adopt(self, req: Request) -> int:
+        """Queue a request stranded by another engine's
+        :meth:`evacuate` as a fresh one here (new rid, new flight
+        record) with its prompt, budget, sampling, callbacks, priority,
+        deadline and the tokens it already emitted; with tokens it
+        restores through :meth:`_effective`'s replay, so greedy tokens
+        equal an uninterrupted run's.  The lost slot's generator state
+        is gone: a sampled restore draws from ``manual_seed(seed)``
+        again.  Bypasses ``max_queue`` (the request was admitted once
+        already).  Returns the new rid."""
+        nr = Request(next(self._rid), req.prompt, req.max_new_tokens,
+                     req.params, req.stop_tokens, req.on_token,
+                     tokens=list(req.tokens), priority=req.priority,
+                     deadline_t=req.deadline_t, on_done=req.on_done,
+                     preemptions=req.preemptions + bool(req.tokens))
+        if nr.deadline_t is not None:
+            self._any_deadline = True
+        self.requests[nr.rid] = nr
+        t = self.metrics.now()
+        self.metrics.record_submit(nr.rid, t)
+        self.flight.note(
+            nr.rid, "adopt",
+            f"re-routed after replica loss with {len(nr.tokens)} "
+            f"emitted tokens", t=t)
+        self._enqueue(nr)
+        return nr.rid
 
     def _emit(self, req: Request, tok: int, t) -> None:
         req.tokens.append(tok)
         if len(req.tokens) == 1:
             self.metrics.record_first_token(req.rid, t)
+            self.flight.note(req.rid, "first_token", f"tok={tok}", t=t)
         else:
             self.metrics.record_token(req.rid, t)
         if req.on_token is not None:
-            req.on_token(req.rid, tok)
+            try:
+                req.on_token(req.rid, tok)
+            except Exception:
+                # a consumer's fault must not stop every other stream
+                self.metrics.record_callback_error()
 
     def _record_kv(self) -> None:
         kv = self.kv
@@ -763,12 +945,19 @@ class ServingEngine:
             self.metrics.record_finish(req.rid)
             self._terminal(req, RequestStatus.COMPLETED)
 
-    def _fail(self, slot: int) -> None:
-        """Non-finite logits: the device already dropped the row from its
-        active mask; release the slot and end the request FAILED."""
-        self._terminal(self._free_slot(slot), RequestStatus.FAILED)
+    def _fail(self, slot: int, where: str) -> None:
+        """Non-finite logits ``where`` (``"while decoding"``, ``"in
+        prefill"``, ``"mid-horizon"``): the device already dropped the
+        row from its active mask; release the slot and end the request
+        FAILED."""
+        req = self._free_slot(slot)
+        self.flight.note(req.rid, "evict", f"slot={slot}",
+                         t=self.metrics.now())
+        self._terminal(req, RequestStatus.FAILED,
+                       cause=f"nan watchdog: non-finite logits {where}")
 
-    def _evict_running(self, slot: int, status: RequestStatus) -> None:
+    def _evict_running(self, slot: int, status: RequestStatus,
+                       cause: str | None = None) -> None:
         """End a live slot's request on the host now and arm its kill
         (chunked engine): the slot stops on the device before the next
         step, so before any of its rows or pages can be granted again.
@@ -776,16 +965,19 @@ class ServingEngine:
         req = self._free_slot(slot)
         if self.chunked:
             self._kill.add(slot)
-        self._terminal(req, status)
+        self.flight.note(req.rid, "evict", f"slot={slot}",
+                         t=self.metrics.now())
+        self._terminal(req, status, cause=cause)
 
-    def _abort_prefill(self, status: RequestStatus) -> None:
+    def _abort_prefill(self, status: RequestStatus,
+                       cause: str | None = None) -> None:
         """Drop the in-flight admission before it went live: no kill,
         since the slot was never committed into the device active mask;
         whatever its chunks wrote, the next owner's prefill overwrites
         before it is attended."""
         pf, self._lane = self._lane, None
         self.kv.release(pf.slot)
-        self._terminal(pf.req, status)
+        self._terminal(pf.req, status, cause=cause)
 
     def _apply_kill(self) -> bool:
         """Stop the armed slots on the device: one upload of the mask of
@@ -803,16 +995,59 @@ class ServingEngine:
         self.metrics.record_kill_upload(1)
         return True
 
+    # ---- deadlines ---------------------------------------------------------
+    @staticmethod
+    def _overdue(req: Request, now: float) -> bool:
+        return req.deadline_t is not None and now > req.deadline_t
+
+    def _sweep_deadlines(self) -> None:
+        """End every request past its deadline ``EVICTED_DEADLINE``:
+        queued, in prefill, or live (its kill armed).  Runs on drained
+        mirrors."""
+        if not self._any_deadline:
+            return
+        now = self.metrics.now()
+
+        def cause(r, where):
+            return (f"deadline exceeded while {where} "
+                    f"(overdue {(now - r.deadline_t) * 1e3:.1f}ms)")
+
+        for req in [r for r in self.queue if self._overdue(r, now)]:
+            self.queue.remove(req)
+            self._terminal(req, RequestStatus.EVICTED_DEADLINE,
+                           cause=cause(req, "queued"))
+        pf = self._lane
+        if pf is not None and self._overdue(pf.req, now):
+            self._abort_prefill(RequestStatus.EVICTED_DEADLINE,
+                                cause=cause(pf.req, "in prefill"))
+        for slot, req in enumerate(self._slot_req):
+            if (req is not None and self._active[slot]
+                    and self._overdue(req, now)):
+                self._evict_running(slot, RequestStatus.EVICTED_DEADLINE,
+                                    cause=cause(req, "decoding"))
+
+    def _deadline_overdue(self) -> bool:
+        """The horizon gate's probe: is a queued or live request past
+        its deadline?  (It leaves the horizon so the sweep runs on
+        drained mirrors.)"""
+        now = self.metrics.now()
+        return (any(self._overdue(r, now) for r in self.queue)
+                or any(r is not None and self._overdue(r, now)
+                       for r in self._slot_req))
+
     # ---- preemption --------------------------------------------------------
     def _preempt_victim(self):
-        """The victim: lowest priority, then the most recently admitted
-        (its restore prefill is the shortest).  ``(key, slot)`` or
-        None."""
+        """The victim: lowest priority, then the most overdue, then the
+        most recently admitted (its restore prefill is the shortest).
+        ``(key, slot)`` or None."""
         best = None
+        now = self.metrics.now() if self._any_deadline else 0.0
         for slot, req in enumerate(self._slot_req):
             if req is None or not self._active[slot]:
                 continue
-            key = (req.priority, -req.rid)
+            over = (now - req.deadline_t if req.deadline_t is not None
+                    else float("-inf"))
+            key = (req.priority, -over, -req.rid)
             if best is None or key < best[0]:
                 best = (key, slot)
         return best
@@ -844,6 +1079,10 @@ class ServingEngine:
             req.status = RequestStatus.PREEMPTED
             self._enqueue(req)              # reads QUEUED while it waits
             self.metrics.record_preempt()
+            self.flight.note(
+                req.rid, "preempt",
+                f"slot={slot} for rid{self.queue[0].rid} "
+                f"after {len(req.tokens)} tokens", t=self.metrics.now())
 
     def _effective(self, req: Request):
         """``(prompt, n_new)`` as the admission sees them: a restore's
@@ -895,7 +1134,13 @@ class ServingEngine:
         req.status = RequestStatus.RUNNING
         if req.preemptions:
             self.metrics.record_restore()
-        self.metrics.record_admitted(req.rid)
+        t = self.metrics.now()
+        self.metrics.record_admitted(req.rid, t=t)
+        self.flight.note(
+            req.rid, "admitted", f"slot={slot}"
+            + (f" cached_prefix={cached}" if cached else "")
+            + (f" restore#{req.preemptions}" if req.preemptions else ""),
+            t=t)
 
     def _lane_chunk(self, pf: _Prefill):
         """Host-side view of the lane's current chunk:
@@ -950,14 +1195,16 @@ class ServingEngine:
         # steady-state decode: no admission in flight and none could
         # start -> one horizon.  The mirrors trail the device by at most
         # one horizon; a stale positive costs one no-op horizon.  An
-        # armed kill or a wanted preemption leaves the horizon, so it
-        # cannot wait behind an endless stream of them.
+        # armed kill, a wanted preemption or an overdue deadline leaves
+        # the horizon, so it cannot wait behind an endless stream of them.
         if (K > 1 and self._lane is None and self._active.any()
                 and not self._kill
                 and not self._admission_possible()
-                and not self._preemption_wanted()):
+                and not self._preemption_wanted()
+                and not (self._any_deadline and self._deadline_overdue())):
             return self._step_horizon()
         self._drain_horizon()                  # mirrors exact from here
+        self._sweep_deadlines()
         self._maybe_preempt()
         self._start_admission()
         # before any step that could hand a killed slot's rows or pages
@@ -1013,7 +1260,7 @@ class ServingEngine:
         for slot in np.flatnonzero(self._active):
             tok = int(row[slot])
             if tok < 0:             # non-finite logits
-                self._fail(slot)
+                self._fail(slot, "while decoding")
                 continue
             self._emit(self._slot_req[slot], tok, t)
             emitted.append(slot)
@@ -1030,7 +1277,7 @@ class ServingEngine:
                 self._active[slot] = True
                 tok = int(row[slot])
                 if tok < 0:
-                    self._fail(slot)
+                    self._fail(slot, "in prefill")
                 else:
                     self._emit(req, tok, self.metrics.now())
                     self._maybe_finish(slot)
@@ -1084,7 +1331,7 @@ class ServingEngine:
             for slot in np.flatnonzero(self._active):
                 tok = int(blk[k, slot])
                 if tok < 0:         # non-finite logits mid-horizon
-                    self._fail(slot)
+                    self._fail(slot, "mid-horizon")
                     continue
                 self._emit(self._slot_req[slot], tok, t)
                 ok.append(slot)
@@ -1092,6 +1339,7 @@ class ServingEngine:
             for slot in ok:
                 self._maybe_finish(slot)
         self.metrics.record_horizon(emitted, K, S)
+        self._last_hz_occ = round(emitted / (K * S), 4)
 
     # ---- monolithic path (the baseline, chunked=False) ---------------------
     def _admit(self) -> int:
@@ -1166,21 +1414,46 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self) -> bool:
-        """One scheduler iteration; False when there was nothing to do."""
-        return self._step_chunked() if self.chunked \
+        """One scheduler iteration; False when there was nothing to do.
+        Never raises for a per-request problem: those end in a terminal
+        status.  With ``step_budget_ms`` a step over the budget (on the
+        metrics clock) strikes the in-flight admission, the one piece of
+        per-request work a step can be wedged on; after more than
+        ``max_slow_steps`` strikes it ends FAILED."""
+        t0 = self.metrics.now()
+        ok = self._step_chunked() if self.chunked \
             else self._step_monolithic()
+        if (self.step_budget_s is not None
+                and self.metrics.now() - t0 > self.step_budget_s):
+            self.metrics.record_slow_step()
+            pf = self._lane
+            if pf is not None:
+                pf.req.slow_strikes += 1
+                if pf.req.slow_strikes > self.max_slow_steps:
+                    self._abort_prefill(
+                        RequestStatus.FAILED,
+                        cause=f"stall watchdog: {pf.req.slow_strikes}"
+                              f" steps over the "
+                              f"{self.step_budget_s * 1e3:g}ms budget")
+        return ok
+
+    @property
+    def inflight_admissions(self) -> int:
+        """Admissions carrying a prefill (0 or 1: one lane)."""
+        return int(self._lane is not None)
 
     def _progress_sig(self):
         return (self.metrics.total_tokens, len(self.queue),
                 self.kv.active_slots, self.metrics.completed,
-                sum(self.metrics.status_counts.values()),
+                self.metrics.terminal_count,
                 self._lane.off if self._lane is not None else -1)
 
     def run(self, max_steps: int | None = None) -> dict:
         """Drive :meth:`step` until the queue and all slots drain (or
         ``max_steps``); returns :meth:`results`.  Raises
         :class:`EngineStalledError` after ``stall_limit`` steps with no
-        observable progress."""
+        observable progress, having first closed the flight record of
+        every unfinished request with the stall as its cause."""
         steps = stagnant = 0
         sig = None
         while self.queue or self.kv.active_slots or self._lane is not None:
@@ -1192,13 +1465,26 @@ class ServingEngine:
             else:
                 stagnant += 1
                 if stagnant >= self.stall_limit:
-                    raise EngineStalledError(
-                        f"no scheduler progress in {stagnant} steps "
-                        f"(queue={len(self.queue)}, "
-                        f"active={self.kv.active_slots})")
+                    msg = (f"no scheduler progress in {stagnant} steps "
+                           f"(queue={len(self.queue)}, "
+                           f"active={self.kv.active_slots})")
+                    for req in self.requests.values():
+                        if req.status not in TERMINAL_STATUSES:
+                            self.flight.note(req.rid, "stall", msg)
+                            self.flight.close(
+                                req.rid, req.status.value,
+                                f"stall watchdog: {msg}",
+                                tokens_emitted=len(req.tokens),
+                                preemptions=req.preemptions,
+                                last_horizon_occupancy=self._last_hz_occ)
+                    raise EngineStalledError(msg)
             if max_steps is not None and steps >= max_steps:
                 break
         return self.results()
+
+    def drain(self, max_steps: int | None = None) -> dict:
+        """:meth:`run` under another name, as the reference's."""
+        return self.run(max_steps)
 
     def results(self) -> dict:
         """``{rid: np.int32 tokens}`` for every completed request."""

@@ -1,12 +1,13 @@
 """Serving metrics: TTFT, inter-token latency, throughput, occupancy,
-KV and prefix gauges, host<->device crossings.
-Counterpart: ``singa_tpu/serving/metrics.py`` (the fields this engine
-records: preemption, restore, cancellation and the kill uploads among
-them; the deadline, goodput, speculative, lane and tenant accounting
-arrive with their slices).
+KV and prefix gauges, host<->device crossings, and the robustness
+accounting: terminal statuses, preemptions, restores, slow steps,
+callback errors, goodput and the deadline-miss rate.
+Counterpart: ``singa_tpu/serving/metrics.py`` (the speculative, lane
+and tenant accounting arrive with their slices).
 
 Pure host-side accounting: the engine calls ``record_*`` where it
-touches the host anyway.  ``snapshot()`` returns a flat JSON-ready dict.
+touches the host anyway.  ``snapshot()`` returns a flat JSON-ready dict
+and ``publish()`` writes it into a :class:`MetricsRegistry`.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ class ServingMetrics:
         self._ttft = []               # seconds
         self._itl = []                # seconds, per token gap
         self._queue_wait = []         # seconds, submit -> admission
-        self._admitted = set()        # rids with a queue-wait sample
+        self._admit_t = {}            # rid -> FIRST admission time
+        self._prefill_time = []       # seconds, first admission -> token
         self._occupancy = []          # active/n_slots per step
         self._queue_depth = []        # queued requests per step
         self._budget_occ = []         # (prefill+decode toks)/budget per step
@@ -48,6 +50,11 @@ class ServingMetrics:
         self.host_kill_uploads = 0    # of which: kill masks
         self.preemptions = 0
         self.restores = 0
+        self.slow_steps = 0           # steps over the wall-clock budget
+        self.callback_errors = 0      # raising on_token/on_done callbacks
+        self.goodput_tokens = 0       # tokens of in-deadline completions
+        self._deadline_total = 0      # terminals that carried a deadline
+        self._deadline_missed = 0
         self._hz_emitted = []         # tokens emitted per horizon block
         self._hz_capacity = []        # K * n_slots per horizon block
         self._kv_committed = 0        # bytes pinned by the page pool
@@ -58,6 +65,7 @@ class ServingMetrics:
         self.status_counts = {}       # terminal status string -> count
         self._t0 = None               # first submit
         self._t_last = None           # last recorded event
+        self._pub_idx = {"ttft": 0, "itl": 0}   # publish() watermarks
 
     def now(self) -> float:
         return self._clock()
@@ -75,16 +83,18 @@ class ServingMetrics:
         """``rid`` won the admission lane: one queue-wait sample, for its
         first admission only (a restore re-admits a request whose queue
         wait already happened)."""
-        if rid in self._admitted:
+        if rid in self._admit_t:
             return
-        self._admitted.add(rid)
         t = self._clock() if t is None else t
+        self._admit_t[rid] = t
         self._queue_wait.append(t - self._submit_t.get(rid, t))
         self._t_last = t
 
     def record_first_token(self, rid, t=None) -> None:
         t = self._clock() if t is None else t
         self._ttft.append(t - self._submit_t.get(rid, t))
+        if rid in self._admit_t:
+            self._prefill_time.append(t - self._admit_t[rid])
         self._last_tok_t[rid] = t
         self.total_tokens += 1
         self._t_last = t
@@ -102,8 +112,25 @@ class ServingMetrics:
         self.completed += 1
         self._t_last = self._clock() if t is None else t
 
-    def record_terminal(self, status: str) -> None:
+    def record_terminal(self, status: str, n_tokens: int, done: bool,
+                        in_deadline: bool, had_deadline: bool) -> None:
+        """A request reached its terminal status.  Goodput counts the
+        tokens of completions that met their deadline (no deadline is
+        always met); the deadline-miss rate is over the terminals that
+        carried a deadline.  (The reference's ``rid=`` keys its tenant
+        accounting, which this port does not have yet.)"""
         self.status_counts[status] = self.status_counts.get(status, 0) + 1
+        if had_deadline:
+            self._deadline_total += 1
+            if not (done and in_deadline):
+                self._deadline_missed += 1
+        if done and in_deadline:
+            self.goodput_tokens += n_tokens
+        self._t_last = self._clock()
+
+    @property
+    def terminal_count(self) -> int:
+        return sum(self.status_counts.values())
 
     def record_step(self, active: int, n_slots: int, queued: int,
                     used_tokens: int | None = None,
@@ -124,7 +151,8 @@ class ServingMetrics:
         self.host_uploads += n
 
     def record_kill_upload(self, n: int = 1) -> None:
-        """A cancel or a preemption shipped a kill mask: counted in
+        """A cancel, a deadline eviction or a preemption shipped a kill
+        mask: counted in
         ``host_uploads`` too, and apart, so a steady-state zero-upload
         probe can discount events the host started."""
         self.host_uploads += n
@@ -135,6 +163,12 @@ class ServingMetrics:
 
     def record_restore(self) -> None:
         self.restores += 1
+
+    def record_slow_step(self) -> None:
+        self.slow_steps += 1
+
+    def record_callback_error(self) -> None:
+        self.callback_errors += 1
 
     def record_kv(self, committed: int, live: int, util: float) -> None:
         self._kv_committed = committed
@@ -157,6 +191,7 @@ class ServingMetrics:
                 and self._t_last > self._t0) else 0.0
         occ, qd = self._occupancy, self._queue_depth
         ttft, itl, qw = self._ttft, self._itl, self._queue_wait
+        pft = self._prefill_time
 
         def avg(xs):
             return sum(xs) / len(xs) if xs else 0.0
@@ -170,11 +205,15 @@ class ServingMetrics:
             "ttft_mean_ms": round(ms * avg(ttft), 3),
             "ttft_p50_ms": round(ms * _pctl(ttft, 0.5), 3),
             "ttft_p99_ms": round(ms * _pctl(ttft, 0.99), 3),
+            "ttft_max_ms": round(ms * max(ttft), 3) if ttft else 0.0,
             "queue_wait_p50_ms": round(ms * _pctl(qw, 0.5), 3),
             "queue_wait_p99_ms": round(ms * _pctl(qw, 0.99), 3),
+            "prefill_time_p50_ms": round(ms * _pctl(pft, 0.5), 3),
+            "prefill_time_p99_ms": round(ms * _pctl(pft, 0.99), 3),
             "itl_mean_ms": round(ms * avg(itl), 3),
             "itl_p50_ms": round(ms * _pctl(itl, 0.5), 3),
             "itl_p99_ms": round(ms * _pctl(itl, 0.99), 3),
+            "itl_max_ms": round(ms * max(itl), 3) if itl else 0.0,
             "mean_occupancy": round(avg(occ), 4),
             "mean_token_budget_occupancy": round(avg(self._budget_occ), 4),
             "mean_queue_depth": round(avg(qd), 2),
@@ -198,10 +237,47 @@ class ServingMetrics:
             round(self._prefix_hit_tokens / self._prefix_query_tokens, 4)
             if self._prefix_query_tokens else 0.0,
             "host_kill_uploads": self.host_kill_uploads,
+            "rejected_count": self.status_counts.get("REJECTED", 0),
             "failed_count": self.status_counts.get("FAILED", 0),
+            "evicted_deadline_count":
+            self.status_counts.get("EVICTED_DEADLINE", 0),
             "cancelled_count": self.status_counts.get("CANCELLED", 0),
             "preempted_restored_count":
             self.status_counts.get("PREEMPTED_RESTORED", 0),
             "preemption_count": self.preemptions,
             "restore_count": self.restores,
+            "slow_steps": self.slow_steps,
+            "callback_errors": self.callback_errors,
+            "goodput_tokens": self.goodput_tokens,
+            "goodput_tokens_per_s": round(self.goodput_tokens / elapsed, 1)
+            if elapsed else 0.0,
+            "deadline_requests": self._deadline_total,
+            "deadline_miss_rate":
+            round(self._deadline_missed / self._deadline_total, 4)
+            if self._deadline_total else 0.0,
         }
+
+    # ---- telemetry bridge ------------------------------------------------
+    def publish(self, registry=None, **labels):
+        """Publish into a :class:`~singa_tpu_torch.telemetry.MetricsRegistry`
+        (the process default when None): every numeric ``snapshot()``
+        field as a ``serving_<field>`` gauge, the terminal statuses as
+        ``serving_terminal_requests{status=...}``, and the TTFT and ITL
+        samples into the ``serving_ttft_ms`` / ``serving_itl_ms``
+        histograms.  The histograms are watermarked, so a scrape loop
+        that publishes again never observes a sample twice.  Returns
+        the registry."""
+        from ..telemetry.registry import default_registry
+        reg = default_registry() if registry is None else registry
+        for name, value in self.snapshot().items():
+            if isinstance(value, (int, float)):
+                reg.gauge("serving_" + name, **labels).set(value)
+        for status, n in self.status_counts.items():
+            reg.gauge("serving_terminal_requests",
+                      status=status, **labels).set(n)
+        for key, samples in (("ttft", self._ttft), ("itl", self._itl)):
+            hist = reg.histogram(f"serving_{key}_ms", **labels)
+            for v in samples[self._pub_idx[key]:]:
+                hist.observe(v * 1e3)
+            self._pub_idx[key] = len(samples)
+        return reg

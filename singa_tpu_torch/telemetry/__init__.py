@@ -1,5 +1,5 @@
-"""The port's telemetry, training half.  Counterpart:
-``singa_tpu/telemetry/`` (its tracer and registry).
+"""The port's telemetry.  Counterpart: ``singa_tpu/telemetry/`` (its
+tracer, registry and flight recorder).
 
 * :class:`SpanTracer` — a bounded ring of spans and instants, exported
   as Chrome-trace JSON and mergeable with a ``torch.profiler`` trace
@@ -10,10 +10,13 @@
   the one ``Device.record_step_time`` (``train_step_time_ms``), the
   checkpoint manager and the watchdogs publish into, and
   ``Communicator``/``DistOpt.publish_metrics`` default to.
+* :class:`FlightRecorder` — bounded per-request event histories and
+  the postmortems ``ServingEngine.postmortem(rid)`` returns: each
+  terminal's status, cause and the engine's state at the time.
 
-Host-side Python only: nothing here touches the card.  The serving half
-(``flight.py``, ``ServingEngine(tracer=)``) and ``profiling.py`` belong
-to later slices (ROADMAP.md queue 1, items 9 and 12).
+Host-side Python only: nothing here touches the card.  The request
+spans of ``ServingEngine(tracer=)`` and ``profiling.py`` belong to later
+slices (ROADMAP.md queue 1, items 9a and 12).
 """
 
 from .tracer import (  # noqa: F401
@@ -25,6 +28,7 @@ from .tracer import (  # noqa: F401
     merge_chrome_traces,
     uninstall,
 )
+from .flight import FlightRecorder  # noqa: F401
 from .registry import (  # noqa: F401
     DEFAULT_BUCKETS_MS,
     Counter,
@@ -40,4 +44,5 @@ __all__ = [
     "PID_HOST", "PID_REQUESTS",
     "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "default_registry", "reset_default_registry", "DEFAULT_BUCKETS_MS",
+    "FlightRecorder",
 ]

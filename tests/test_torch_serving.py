@@ -212,12 +212,29 @@ def _tree_of(tm):
 @pytest.mark.parametrize("kw", [
     dict(paged=False, tp_degree=2), dict(admit_lanes=2),
     dict(speculative=True), dict(tp_degree=2), dict(prefill_only=True),
-    dict(faults=object()), dict(tracer=object()),
-    dict(max_queue=4), dict(step_budget_ms=5.0)])
+    dict(faults=object()), dict(tracer=object())])
 def test_out_of_slice_arguments_raise(served, kw):
     _, tm, _ = served
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         TorchEngine(tm, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(max_queue=4), dict(step_budget_ms=5.0)],
+                         ids=["max_queue", "step_budget_ms"])
+def test_admission_control_arguments_serve(served, kw):
+    """The admission controls are taken by the chunked engine, which
+    still serves a stream under them: a queue of 4 refuses nothing here,
+    and a 5 ms budget on a clock that never moves strikes nothing."""
+    _, tm, cfg = served
+    eng = TorchEngine(tm, device="cpu", clock=lambda: 0.0,
+                      **dict(ENGINE_KW, **kw))
+    rids = [eng.submit(_stream(cfg.vocab_size, n, seed=i), 4)
+            for i, n in enumerate((5, 9, 3))]
+    res = eng.run()
+    assert [len(res[r]) for r in rids] == [4, 4, 4]
+    snap = eng.metrics.snapshot()
+    assert snap["rejected_count"] == 0 and snap["slow_steps"] == 0
+    assert eng.max_queue == kw.get("max_queue")
 
 
 @pytest.mark.parametrize("kw, on", [
@@ -242,10 +259,22 @@ def test_paged_monolithic_raises(served):
 
 
 def test_out_of_slice_submit_arguments_raise(served):
+    """``submit(deadline_ms=)`` as the reference validates it: a deadline
+    must be positive, and the monolithic engine, which has no eviction
+    path, refuses one naming the chunked engine."""
     _, tm, cfg = served
+    p = _stream(cfg.vocab_size, 4)
     eng = TorchEngine(tm, device="cpu", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        eng.submit(_stream(cfg.vocab_size, 4), 4, deadline_ms=50.0)
+    for bad in (0.0, -5.0):
+        with pytest.raises(ValueError, match="deadline_ms must be > 0"):
+            eng.submit(p, 4, deadline_ms=bad)
+    mono = TorchEngine(tm, device="cpu", n_slots=2, paged=False,
+                       chunked=False)
+    with pytest.raises(ValueError, match="chunked"):
+        mono.submit(p, 4, deadline_ms=50.0)
+    assert not eng.requests and not mono.requests
+    rid = eng.submit(p, 4, deadline_ms=1e6)
+    assert len(eng.run()[rid]) == 4
 
 
 def test_submit_priority_is_queued_in_order(served):
