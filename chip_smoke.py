@@ -186,6 +186,27 @@ Phases (any failure exits non-zero before the result lines print):
    decode (int8 on int8 pages) launched by the adopter's restores.  The
    evicting step's, evacuate's and adopt-to-commit wall ms and the
    restores' prefix-index tokens print on each case's line;
+7i. path ``telemetry``: the request spans and fault injection on the
+   chunked engine at GPT-2-small widths (phase 6's weights and prompts),
+   captured: phase 6's stream on one warm engine untraced and traced
+   (``attach_tracer(SpanTracer())``), with the same
+   tokens, graph keys, captures, uploads and syncs, every request's
+   whole lifecycle in the trace, the trace's Chrome JSON read back, and
+   the tracer's host cost a steady step (the median step's wall ms
+   traced less untraced, and the time inside the tracer's calls); then,
+   each on a fresh traced engine beside the same requests on an
+   uninterrupted untraced one, with the clock the phase moves injected:
+   ``NaNLogits`` delivered by a horizon block on float32 pages whose
+   pool the next request needs (the victim ``FAILED`` with the injected
+   cause through one kill upload, the ``fault`` instant on its lane and
+   in its postmortem, the next owner in its slot and pages),
+   ``ExhaustAllocator`` (three refused attempts, then served),
+   ``LatencySpike`` under ``step_budget_ms`` (the admission in flight
+   ``FAILED`` at its fourth strike) and ``DropCallback`` (the consumer
+   misses one token, the engine's record is whole).  Greedy tokens
+   under the margin rule against the uninterrupted run, no graph key
+   beyond its, no upload after the last admission but the kill, the
+   flash forward, its combine, paged decode and its merge launched;
 8. the training path: ``GPTConfig.small(use_flash=True)`` trains 5 steps
    of ``train_one_batch`` with Adam at B 8, T 1024, first eagerly
    (``use_graph=False``), then captured as a CUDA graph
@@ -201,8 +222,11 @@ Phases (any failure exits non-zero before the result lines print):
    it is credited with, 12; the state is restored after them);
 8a. the rest of the Model API there: the checkpoint saved after step 2
    (``save_states``, the zip of npz members) loads into a fresh captured
-   model, whose steps 3-5 equal the uninterrupted run's bit for bit;
-   ``run_k_steps(4)`` (four replays) equals four ``train_one_batch``
+   model, whose steps 3-5 equal the uninterrupted run's bit for bit,
+   taken under an installed ``SpanTracer``: one ``dispatch`` span a
+   step and one ``trace_compile`` for the signature, from within step
+   3's (the eager warm-up) to within step 4's (the capture), no capture
+   beyond the one; ``run_k_steps(4)`` (four replays) equals four ``train_one_batch``
    calls from the same state, restored in place; the captured
    ``predict`` equals its eager first call bit for bit;
 9. one full-width training step (B 1, T 128) from the trained weights on
@@ -344,8 +368,8 @@ Phases (any failure exits non-zero before the result lines print):
    one for path 25, one ``kernels`` JSON line, then the result line.
 
 The kernels' launch counters are zeroed just before each path (5b, 6,
-7, 7a-7h, 8, 8b, 8c, 11, 13, 15-19, 20-21 and 23-25; each case of 7g and
-7h) and read just after it; a kernel's
+7, 7a-7i, 8, 8b, 8c, 11, 13, 15-19, 20-21 and 23-25; each case of 7g,
+7h and 7i) and read just after it; a kernel's
 ``launches`` is the sum over them, ``launches_by_path`` splits it.  On
 a captured path a replay adds the launches its capture recorded (the
 capture itself launches nothing), so the counts are the kernels the
@@ -372,6 +396,10 @@ warm-up steps (on the captured
 path: the eager first step and the capture), once under ``torch.profiler`` (CPU and CUDA activity),
 and prints the device's busy and idle share over the run, device time by
 kernel group and the costliest kernels.
+
+    python3 chip_smoke.py --preempt | --admission | --telemetry
+
+runs phases 1-2 and then path 7g, 7h or 7i alone.
 
     python3 chip_smoke.py --nccl-two-ranks
 
@@ -419,6 +447,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -448,6 +477,11 @@ from singa_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from singa_tpu_torch.ops import lstm_cell as lc  # noqa: E402
 from singa_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from singa_tpu_torch.serving import ServingEngine  # noqa: E402
+from singa_tpu_torch.serving import (  # noqa: E402
+    DropCallback, ExhaustAllocator, FaultPlan, LatencySpike, NaNLogits)
+from singa_tpu_torch.telemetry import (  # noqa: E402
+    PID_HOST, PID_REQUESTS, SpanTracer)
+from singa_tpu_torch.telemetry import tracer as ttracer  # noqa: E402
 from singa_tpu_torch.serving.engine import _to_device  # noqa: E402
 from singa_tpu_torch import tensor as ttensor  # noqa: E402
 from singa_tpu_torch.tensor import Tensor as TTensor  # noqa: E402
@@ -3079,9 +3113,9 @@ def _adm_ref(model, kw, prompts, idx):
     return [res[r] for r in rids], ref
 
 
-def _adm_same(label, cpu_model, prompts, idx, got, want):
+def _adm_same(label, cpu_model, prompts, idx, got, want, path="admission"):
     for i, a, b in zip(idx, got, want):
-        _margin_check(f"admission {label} request {i} against the "
+        _margin_check(f"{path} {label} request {i} against the "
                       f"uninterrupted run", cpu_model, prompts[i], a, b)
 
 
@@ -3467,6 +3501,370 @@ def phase_admission(setup):
     return total, stats
 
 
+# the telemetry path: case 2's victim (ADM_LIVE[1]) fails at token
+# TEL_NAN_AT, the third of the first horizon block it is in (its prefill
+# gives token 0, the unified steps of the next prefill 1-3), while the
+# other two are live; TEL_DROP_AT is the token whose delivery case 5
+# drops
+TEL_NAN_AT, TEL_DROP_AT = 6, 5
+
+
+def _tel_counted(tr):
+    """Wrap ``tr``'s recording methods on the instance: the returned dict
+    gains their calls and host seconds."""
+    acc = {"tracer_calls": 0, "tracer_s": 0.0}
+    for name in ("span", "instant"):
+        fn = getattr(tr, name)
+
+        def timed(*a, _fn=fn, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                acc["tracer_calls"] += 1
+                acc["tracer_s"] += time.perf_counter() - t0
+        setattr(tr, name, timed)
+    return acc
+
+
+def _tel_stream(eng, prompts):
+    """Phase 6's stream once on ``eng``, counted from drained mirrors (a
+    run can end with a no-op horizon block in flight): ``(tokens, uploads,
+    syncs, steady step host ms, steps)``.  A steady step is one after
+    the last admission; its host ms is ``step()``'s wall time."""
+    eng._drain_horizon()
+    torch.cuda.synchronize()
+    up, sy = eng.metrics.host_uploads, eng.metrics.host_syncs
+    step, steady = eng.step, []
+
+    def timed():
+        admitting = bool(eng.queue) or eng._lane is not None
+        t0 = time.perf_counter()
+        out = step()
+        if not admitting:
+            steady.append((time.perf_counter() - t0) * 1e3)
+        return out
+    eng.step = timed
+    try:
+        rids, res, _ = _serve(eng, prompts)
+    finally:
+        del eng.step
+    torch.cuda.synchronize()
+    return ([res[r] for r in rids], eng.metrics.host_uploads - up,
+            eng.metrics.host_syncs - sy, steady)
+
+
+def _tel_traced(model, prompts, kw):
+    """Phase 6's stream on one engine: a warm run, a run untraced, then
+    ``attach_tracer(SpanTracer())`` and a run traced: the same tokens,
+    graph keys, captures, uploads and syncs; the trace holds every
+    request's whole lifecycle and loads back from its Chrome JSON; what
+    the tracer costs the host a steady step prints (the median steady
+    step traced less untraced, and the time inside the tracer's
+    calls)."""
+    eng = ServingEngine(model, **kw)
+    _zero_launches()
+    _tel_stream(eng, prompts)
+    keys, caps = list(eng.trace_log), dict(eng.graph_captures)
+    plain = _tel_stream(eng, prompts)
+    tr = SpanTracer()
+    acc = _tel_counted(tr)
+    eng.attach_tracer(tr)
+    traced = _tel_stream(eng, prompts)
+    with tempfile.TemporaryDirectory() as d:
+        with open(tr.export(os.path.join(d, "trace.json"))) as f:
+            events = json.load(f)["traceEvents"]
+    lanes = {}
+    for e in events:
+        if e.get("pid") == PID_REQUESTS and e["ph"] != "M":
+            lanes.setdefault(e["tid"], set()).add(e["name"])
+    rids = sorted(lanes)
+    whole = all({"queued", "admitted", "prefill_chunk", "first_token",
+                 "token", "terminal", f"req{r}"} <= lanes[r] for r in rids)
+    spans = sorted({e["name"] for e in events
+                    if e["ph"] == "X" and e.get("pid") == PID_HOST})
+    med = [float(np.median(run[3])) for run in (plain, traced)]
+    n_steps = len(traced[3])
+    st = {"tokens_identical": all(np.array_equal(a, b) for a, b in
+                                  zip(plain[0], traced[0])),
+          "uploads": [plain[1], traced[1]],
+          "syncs": [plain[2], traced[2]],
+          "keys": eng.trace_log, "keys_before": keys,
+          "graph_captures": dict(eng.graph_captures),
+          "captures_before": caps, "events": tr.n_events,
+          "requests_traced": len(rids), "whole_lifecycle": whole,
+          "host_spans": spans,
+          "steady_step_host_ms_median": med,
+          "tracer_cost_ms_per_step": med[1] - med[0],
+          "tracer_calls_per_step": acc["tracer_calls"] / n_steps,
+          "tracer_call_ms_per_step": acc["tracer_s"] * 1e3 / n_steps}
+    _log("telemetry traced: " + json.dumps(st))
+    greedy = [i for i in range(len(prompts)) if i not in SAMPLED]
+    if (not all(np.array_equal(plain[0][i], traced[0][i]) for i in greedy)
+            or eng.trace_log != keys or dict(eng.graph_captures) != caps
+            or plain[1] != traced[1] or plain[2] != traced[2]
+            or len(rids) != len(prompts) or not whole
+            or not set(spans) <= {
+                "unified_step", "decode_horizon"}
+            or "decode_horizon" not in spans):
+        raise AssertionError(f"telemetry traced: {st}")
+    return st
+
+
+def _tel_nan(model, cpu_model, prompts, kw):
+    """ADM_LIVE's three requests live on a pool that holds them and no
+    more, ADM_NEXT queued behind them; ``NaNLogits`` on the second at
+    token TEL_NAN_AT, which a horizon block delivers: it ends FAILED
+    with the injected cause through one kill, and ADM_NEXT takes its
+    slot and pages and decodes the uninterrupted run's tokens."""
+    idx = ADM_LIVE + (ADM_NEXT,)
+    want, ref = _adm_ref(model, dict(kw, kv_pages=None), prompts, idx)
+    tr = SpanTracer()
+    plan = FaultPlan(NaNLogits(rid=1, at_token=TEL_NAN_AT))
+    eng = ServingEngine(model, faults=plan, tracer=tr, **kw)
+    _zero_launches()
+    rids = [eng.submit(prompts[i], NEW) for i in idx]
+    victim = eng.requests[rids[1]]
+    emit_block, in_block = eng._emit_block, []
+
+    def watched(pending):
+        n = len(plan.events)
+        emit_block(pending)
+        in_block.append(len(plan.events) > n)
+    eng._emit_block = watched
+    slot = pages = None
+    steps = 0
+    while victim.status.value != "FAILED":
+        if victim in eng._slot_req:
+            slot = eng._slot_req.index(victim)
+            pages = set(eng.kv.table_row(slot).tolist()) - {0}
+        eng.step()
+        steps += 1
+        if steps > 200 or victim.status.value == "COMPLETED":
+            raise AssertionError(f"telemetry nan_logits: the fault did not "
+                                 f"fire ({plan.events}, {victim.status})")
+    del eng._emit_block
+    t0 = time.perf_counter()
+    eng.step()                      # drain, the grant, the kill, a chunk
+    grant_ms = (time.perf_counter() - t0) * 1e3
+    killed = not bool(eng._dstate["active"][slot])
+    nxt = eng.requests[rids[3]]
+    pf = eng._lane
+    taken = (bool(pf is not None and pf.req is nxt and pf.slot == slot),
+             len(pages & set(eng.kv.table_row(slot).tolist())))
+    _adm_until_admitted(eng)
+    up0 = eng.metrics.host_uploads
+    res = eng.run()
+    torch.cuda.synchronize()
+    faults = [e for e in tr.to_chrome()["traceEvents"]
+              if e["name"] == "fault"]
+    pm = eng.postmortem(rids[1])
+    st = {"statuses": [eng.requests[r].status.value for r in rids],
+          "cause": pm["cause"], "victim_tokens": len(victim.tokens),
+          "fired_in_horizon_block": any(in_block),
+          "events": plan.events,
+          "fault_instants": [(e["pid"], e["tid"], e["args"]["fault"])
+                             for e in faults],
+          "postmortem_fault": [e["detail"] for e in pm["events"]
+                               if e["kind"] == "fault"],
+          "plan_postmortems": [p["rid"] for p in plan.postmortems],
+          "host_kill_uploads": eng.metrics.host_kill_uploads,
+          "tail_uploads": eng.metrics.host_uploads - up0,
+          "next_owner_in_slot": taken[0],
+          "next_owner_pages_of_victim": taken[1],
+          "victim_pages": len(pages), "grant_step_ms": grant_ms,
+          "graph_captures": dict(eng.graph_captures),
+          "ref_graph_captures": dict(ref.graph_captures)}
+    _log("telemetry nan_logits: " + json.dumps(st))
+    tag = f"nan_logits:rid{rids[1]}:tok{TEL_NAN_AT}"
+    if (st["statuses"] != ["COMPLETED", "FAILED", "COMPLETED", "COMPLETED"]
+            or st["cause"] != f"injected fault: nan_logits at token "
+                              f"{TEL_NAN_AT}"
+            or st["victim_tokens"] != TEL_NAN_AT
+            or not st["fired_in_horizon_block"] or plan.events != [tag]
+            or st["fault_instants"] != [(PID_REQUESTS, rids[1], tag)]
+            or st["postmortem_fault"] != [tag]
+            or st["plan_postmortems"] != [rids[1]]
+            or st["host_kill_uploads"] != 1 or st["tail_uploads"] != 0
+            or not killed or not taken[0] or taken[1] < 1
+            or st["graph_captures"] != st["ref_graph_captures"]):
+        raise AssertionError(f"telemetry nan_logits: {st}")
+    if not set(eng.trace_log) <= set(ref.trace_log):
+        raise AssertionError(f"telemetry nan_logits: keys {eng.trace_log} "
+                             f"beyond the uninterrupted run's "
+                             f"{ref.trace_log}")
+    keep = [0, 2, 3]
+    _adm_same("nan_logits", cpu_model, prompts, [idx[j] for j in keep],
+              [res[rids[j]] for j in keep], [want[j] for j in keep],
+              path="telemetry")
+    if not np.array_equal(victim.tokens, want[1][:TEL_NAN_AT]):
+        _margin_check("telemetry nan_logits victim's tokens", cpu_model,
+                      prompts[ADM_LIVE[1]], np.asarray(victim.tokens),
+                      want[1][:TEL_NAN_AT])
+    return st
+
+
+def _tel_exhaust(model, cpu_model, prompts, kw):
+    """``ExhaustAllocator(at_admission=2, count=3)``: the first request
+    admitted, the next three admission attempts refused while the queue
+    waits with slots free, then every request served with the
+    uninterrupted run's tokens."""
+    idx = ADM_LIVE
+    want, ref = _adm_ref(model, kw, prompts, idx)
+    plan = FaultPlan(ExhaustAllocator(at_admission=2, count=3))
+    eng = ServingEngine(model, faults=plan, tracer=SpanTracer(), **kw)
+    _zero_launches()
+    rids = [eng.submit(prompts[i], NEW) for i in idx]
+    waited = 0
+    while eng.queue:
+        if eng._lane is None and eng.kv.free_slots and len(eng.queue) == 2:
+            waited += 1
+        eng.step()
+    res = eng.run()
+    torch.cuda.synchronize()
+    st = {"events": plan.events, "attempts": plan.attempts,
+          "steps_queue_waited": waited,
+          "statuses": [eng.requests[r].status.value for r in rids],
+          "graph_captures": dict(eng.graph_captures),
+          "ref_graph_captures": dict(ref.graph_captures)}
+    _log("telemetry exhaust_allocator: " + json.dumps(st))
+    if (plan.events != [f"alloc_exhausted:attempt{i}" for i in (2, 3, 4)]
+            or st["statuses"] != ["COMPLETED"] * 3 or waited < 3
+            or plan.postmortems
+            or not set(eng.trace_log) <= set(ref.trace_log)):
+        raise AssertionError(f"telemetry exhaust_allocator: {st}")
+    _adm_same("exhaust_allocator", cpu_model, prompts, idx,
+              [res[r] for r in rids], want, path="telemetry")
+    return st
+
+
+def _tel_spike(model, cpu_model, prompts, kw):
+    """``LatencySpike(at_step=0, ms=10, count=4)`` slept on the injected
+    clock under ``step_budget_ms=5``: the 296-token prompt's admission
+    (five chunks) is struck at each of its first four steps and ends
+    FAILED with the watchdog's cause; the next request is served."""
+    want, ref = _adm_ref(model, kw, prompts, (ADM_AFTER,))
+    clk = AdmClock()
+    plan = FaultPlan(LatencySpike(at_step=0, ms=10.0, count=4),
+                     sleep=lambda s: setattr(clk, "t", clk.t + s))
+    eng = ServingEngine(model, clock=clk, step_budget_ms=5.0, faults=plan,
+                        tracer=SpanTracer(), **kw)
+    _zero_launches()
+    rw = eng.submit(prompts[ADM_WEDGED], NEW)
+    rz = eng.submit(prompts[ADM_AFTER], NEW)
+    res = eng.run()
+    torch.cuda.synchronize()
+    st = {"statuses": [eng.requests[r].status.value for r in (rw, rz)],
+          "cause": eng.postmortem(rw)["cause"], "events": plan.events,
+          "strikes": eng.requests[rw].slow_strikes,
+          "slow_steps": eng.metrics.slow_steps,
+          "plan_postmortems": [p["rid"] for p in plan.postmortems]}
+    _log("telemetry latency_spike: " + json.dumps(st))
+    if (st["statuses"] != ["FAILED", "COMPLETED"]
+            or st["cause"] != "stall watchdog: 4 steps over the 5ms budget"
+            or plan.events != [f"latency_spike:step{i}" for i in range(4)]
+            or st["strikes"] != 4 or st["plan_postmortems"] != [rw]
+            or not set(eng.trace_log) <= set(ref.trace_log)):
+        raise AssertionError(f"telemetry latency_spike: {st}")
+    _adm_same("latency_spike", cpu_model, prompts, (ADM_AFTER,),
+              [res[rz]], want, path="telemetry")
+    return st
+
+
+def _tel_drop(model, cpu_model, prompts, kw):
+    """``DropCallback`` on the first of two requests at token
+    TEL_DROP_AT: its consumer misses exactly that token, the engine's
+    record is whole and the uninterrupted run's."""
+    idx = ADM_LIVE[:2]
+    want, ref = _adm_ref(model, kw, prompts, idx)
+    plan = FaultPlan(DropCallback(rid=0, at_token=TEL_DROP_AT))
+    eng = ServingEngine(model, faults=plan, tracer=SpanTracer(), **kw)
+    _zero_launches()
+    seen = {}
+    rids = [eng.submit(prompts[i], NEW,
+                       on_token=lambda r, t: seen.setdefault(r, []).append(t))
+            for i in idx]
+    res = eng.run()
+    torch.cuda.synchronize()
+    toks = [list(eng.requests[r].tokens) for r in rids]
+    st = {"events": plan.events, "seen": [len(seen[r]) for r in rids],
+          "tokens": [len(t) for t in toks],
+          "statuses": [eng.requests[r].status.value for r in rids]}
+    _log("telemetry drop_callback: " + json.dumps(st))
+    if (plan.events != [f"callback_dropped:rid{rids[0]}:tok{TEL_DROP_AT}"]
+            or seen[rids[0]] != toks[0][:TEL_DROP_AT]
+            + toks[0][TEL_DROP_AT + 1:]
+            or seen[rids[1]] != toks[1] or st["tokens"] != [NEW, NEW]
+            or st["statuses"] != ["COMPLETED"] * 2
+            or not set(eng.trace_log) <= set(ref.trace_log)):
+        raise AssertionError(f"telemetry drop_callback: {st}")
+    _adm_same("drop_callback", cpu_model, prompts, idx,
+              [res[r] for r in rids], want, path="telemetry")
+    return st
+
+
+def phase_telemetry_alone():
+    """Path ``telemetry`` on its own (``--telemetry``): phase 6's seeded
+    model, engine arguments and prompts, then phase 7i."""
+    cfg, tree, model, kw, prompts = _slice_setup()
+    del model
+    cpu_model = tgpt.GPT.from_jax_decode_params(tree, cfg, device="cpu")
+    phase_telemetry({"cfg": cfg, "tree": tree, "kw": kw,
+                     "prompts": prompts, "cpu_model": cpu_model})
+
+
+def phase_telemetry(setup):
+    """Path ``telemetry``: the request spans and fault injection on the
+    card, GPT-2-small with phase 6's seeded weights, captured: phase 6's
+    stream traced against untraced on one warm engine (the same tokens,
+    graph keys, captures, uploads and syncs; every request's lifecycle
+    in the trace; the tracer's host cost a steady step), then four fault
+    plans, each on a fresh traced engine beside the same requests on an
+    uninterrupted untraced one: ``NaNLogits`` mid-horizon on float32
+    pages that the next request takes (one kill upload, the next
+    owner's tokens the uninterrupted run's), ``ExhaustAllocator``,
+    ``LatencySpike`` under ``step_budget_ms`` and ``DropCallback``.
+    Greedy tokens under the margin rule, statuses and causes the
+    reference's, no graph key beyond the uninterrupted run's, the flash
+    forward, its combine, paged decode and its merge launched."""
+    prompts, cpu_model = setup["prompts"], setup["cpu_model"]
+    model = _card_model(setup)
+    base = dict(n_slots=3, page_tokens=PAGE, chunk_tokens=CHUNK,
+                decode_horizon=HORIZON)
+    need = [-(-(prompts[i].size + NEW) // PAGE) for i in ADM_LIVE]
+    tight = dict(base, kv_pages=1 + sum(need), prefix_cache=False)
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    gc.collect()
+    total = dict.fromkeys(_read_launches(), 0)
+    stats = {}
+    cases = [
+        ("traced", lambda: _tel_traced(model, prompts, setup["kw"])),
+        ("nan_logits", lambda: _tel_nan(model, cpu_model, prompts, tight)),
+        ("exhaust_allocator", lambda: _tel_exhaust(model, cpu_model,
+                                                   prompts, base)),
+        ("latency_spike", lambda: _tel_spike(model, cpu_model, prompts,
+                                             base)),
+        ("drop_callback", lambda: _tel_drop(model, cpu_model, prompts,
+                                            base))]
+    for label, case in cases:
+        t0 = time.perf_counter()
+        stats[label] = case()
+        stats[label]["case_s"] = time.perf_counter() - t0
+        end = _read_launches()
+        for k in total:
+            total[k] += end[k]
+        gc.collect()
+    path_kernels = ("flash_attention_fwd", "flash_attention_fwd_combine",
+                    "paged_decode_attention", "paged_decode_merge")
+    _log(f"telemetry phase (7i): {time.perf_counter() - t_phase:.1f}s; "
+         f"launches " + json.dumps({k: v for k, v in total.items() if v}))
+    if any(total[k] <= 0 for k in path_kernels):
+        raise AssertionError(f"telemetry: a kernel of the path was not "
+                             f"launched: {total}")
+    return total, stats
+
+
 def synthetic_stream(vocab, n, seed=0):
     """Deterministic next-token structure, the rule of the JAX package's
     ``examples/transformer/train.py``: x[t+1] = (3*x[t] + 7) % vocab,
@@ -3815,18 +4213,39 @@ def phase_graph_api(model, stats, batches, ckpt):
     ``run_k_steps(4)`` (four replays) against four ``train_one_batch``
     calls from the same state, restored in place (the graph reads the
     restored storage); ``predict`` captured against its eager first
-    call."""
+    call.  Steps 3-5 run under an installed ``SpanTracer``: one
+    ``dispatch`` a step, and one ``trace_compile`` that starts in step
+    3's dispatch (the eager warm-up) and ends in step 4's (the
+    capture)."""
     cfg, fresh, _ = _train_setup()
     t0 = time.perf_counter()
     aux = fresh.load_states(ckpt)
     load_s = time.perf_counter() - t0
     size = os.path.getsize(ckpt)
     os.remove(ckpt)
-    resumed = [fresh.train_one_batch(x, y)[1].item() for x, y in batches[2:]]
+    tr = ttracer.install(SpanTracer())
+    try:
+        resumed = [fresh.train_one_batch(x, y)[1].item()
+                   for x, y in batches[2:]]
+    finally:
+        ttracer.uninstall()
+    disp, comp = tr.spans("dispatch"), tr.spans("trace_compile")
     _log(f"checkpoint: {size} bytes, loaded in {load_s:.2f}s (aux {aux}); "
-         f"steps 3-5 resumed {resumed} against {stats['losses'][2:]}")
+         f"steps 3-5 resumed {resumed} against {stats['losses'][2:]}; "
+         f"traced: {len(disp)} dispatch, {len(comp)} trace_compile "
+         f"({[round(d * 1e3, 1) for _, _, d in comp]} ms), captures "
+         f"{fresh.graph_captures}, keys {[k[0] for k in fresh._graphs]}")
     if resumed != stats["losses"][2:]:
         raise AssertionError("the resumed run's losses differ")
+    if len(disp) != len(resumed) or len(comp) != 1 \
+            or fresh.graph_captures != {"train": 1} \
+            or len(fresh._graphs) != 1:
+        raise AssertionError("traced training: want a dispatch a step, one "
+                             "trace_compile and one capture")
+    (_, c0, cd), (_, d0, dd), (_, d1, d1d) = comp[0], disp[0], disp[1]
+    if not (d0 <= c0 <= d0 + dd and d1 <= c0 + cd <= d1 + d1d):
+        raise AssertionError("trace_compile does not run from the warm-up "
+                             "step into the capturing step")
     _same_states("checkpoint resumed against uninterrupted",
                  _host_states(fresh), _host_states(model))
     x, y = batches[0]
@@ -6560,6 +6979,7 @@ def main(argv):
              ("--nccl-two-ranks",): phase_nccl_two_ranks,
              ("--preempt",): phase_preempt_alone,
              ("--admission",): phase_admission_alone,
+             ("--telemetry",): phase_telemetry_alone,
              ("--compare-serve", "layouts"):
              lambda: phase_compare_serve(("paged", "slot", "mono"), 3),
              ("--compare-serve", "precision"):
@@ -6573,7 +6993,7 @@ def main(argv):
     if tuple(argv) not in modes:
         print(f"usage: chip_smoke.py [--profile [{'|'.join(PROFILE_PATHS)}]"
               f" | --compare-serve [layouts|precision|graphs] | "
-              f"--nccl-two-ranks | --preempt | --admission]",
+              f"--nccl-two-ranks | --preempt | --admission | --telemetry]",
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
@@ -6618,6 +7038,7 @@ def main(argv):
     _log(f"bf16 serving phases (7e-7f): {time.perf_counter() - t_s:.1f}s")
     pre_launches, pre_stats = phase_preempt(setup)
     adm_launches, adm_stats = phase_admission(setup)
+    tel_launches, tel_stats = phase_telemetry(setup)
     keys = ("tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms",
             "peak_memory_bytes")
     _log("serving captured against eager: " + json.dumps({
@@ -6692,6 +7113,7 @@ def main(argv):
                    "generate_bf16": gen16_launches[row["name"]],
                    "preempt": pre_launches[row["name"]],
                    "admission": adm_launches[row["name"]],
+                   "telemetry": tel_launches[row["name"]],
                    "train": train_launches[row["name"]],
                    "train_bf16": train16_launches[row["name"]],
                    "train_fp16": trainf16_launches[row["name"]],

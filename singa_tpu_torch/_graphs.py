@@ -34,6 +34,7 @@ are.
 
 from __future__ import annotations
 
+import time
 import weakref
 
 import torch
@@ -127,12 +128,15 @@ _COLD = object()
 
 class GraphCache:
     """The graphs of one owner by key, the keys whose eager first call
-    ran (``warm``: key -> the owner's state identity then), the side
-    stream, and the captures and replays by kind (a key's first item)."""
+    ran (``warm``: key -> the owner's state identity then), the start of
+    the eager first call of the keys not yet captured (``building``),
+    the side stream, and the captures and replays by kind (a key's
+    first item)."""
 
     def __init__(self):
         self.graphs: dict = {}
         self.warm: dict = {}
+        self.building: dict = {}
         self.captures: dict = {}
         self.replays: dict = {}
         self._stream = None
@@ -141,14 +145,16 @@ class GraphCache:
         """Forget every graph and first call (the counts stay)."""
         self.graphs = {}
         self.warm = {}
+        self.building = {}
 
     def forget(self, key):
         """Forget the graph and the first call of ``key``."""
         self.graphs.pop(key, None)
         self.warm.pop(key, None)
+        self.building.pop(key, None)
 
     def call(self, key, device, fn, args, state_fn, generators=(), k=1,
-             own_inputs=False, warm_id=None):
+             own_inputs=False, warm_id=None, on_built=None):
         """``fn(*args)`` as the step ``key``, ``k`` times in a row: a
         graph whose storage (``state_fn()``) moved is dropped; a key with
         no graph runs its first call eagerly (again when ``warm_id()``,
@@ -158,8 +164,10 @@ class GraphCache:
         ``own_inputs`` the tensors among ``args`` are copied into the
         graph's own buffers before each replay (inputs that change from
         call to call); otherwise the graph reads ``args`` where they lie.
-        Returns the eager call's output or the graph's own output
-        buffers."""
+        ``on_built(t0)`` is called once a key's graph is captured after
+        an eager first call, with the ``time.perf_counter()`` at that
+        call's start (the key's build: warm-up and capture).  Returns
+        the eager call's output or the graph's own output buffers."""
         entry = self.graphs.get(key)
         if entry is not None and entry.state != state_fn():
             del self.graphs[key]
@@ -167,6 +175,7 @@ class GraphCache:
         if entry is None:
             ident = warm_id() if warm_id is not None else None
             if self.warm.get(key, _COLD) != ident:
+                self.building.setdefault(key, time.perf_counter())
                 out = self.eager(device, fn, *args)
                 self.warm[key] = warm_id() if warm_id is not None else None
                 k -= 1
@@ -178,6 +187,9 @@ class GraphCache:
             entry = self.capture(key, device, fn,
                                  args if bufs is None else bufs, state_fn,
                                  inputs=bufs or (), generators=generators)
+            t0 = self.building.pop(key, None)
+            if t0 is not None and on_built is not None:
+                on_built(t0)
         entry.load(args)
         self.replay(entry, key[0], k)
         return entry.outputs

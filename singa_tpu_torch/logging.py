@@ -8,19 +8,23 @@ the ``singa_tpu_torch`` logger (so host applications can reconfigure its
 handlers); ``FATAL`` raises after logging, like the reference's abort.
 ``VLOG(v, ...)`` logs at ``INFO`` when ``v`` is at most the verbosity
 that :func:`SetVerbosity` set.  ``CHECK*`` raise :class:`CheckError`
-with the formatted operands.
+with the formatted operands.  Every line is also mirrored onto the
+process-global span tracer (``telemetry.tracer.current()``, when one is
+installed) as a ``log`` instant, cat ``log``, with its ``level`` and the
+first 200 characters of its ``msg``, as the reference's
+``_trace_instant`` does.
 
-Left out of the copy: the reference mirrors every log line onto the
-process-global span tracer (``_trace_instant``), which the port does not
-have yet (ROADMAP.md queue 1, item 9: the telemetry modules), and its
-``LINT`` channel renders graph-lint findings, which belong to the
-analysis passes (item 12).
+Left out of the copy: the reference's ``LINT`` channel renders
+graph-lint findings, which belong to the analysis passes (ROADMAP.md
+queue 1, item 12).
 """
 
 from __future__ import annotations
 
 import logging as _pylogging
 import sys
+
+from .telemetry.tracer import current as _tracer_current
 
 __all__ = ["INFO", "WARNING", "ERROR", "FATAL", "LOG", "VLOG", "CHECK",
            "CHECK_EQ", "CHECK_NE", "CHECK_LT", "CHECK_LE", "CHECK_GT",
@@ -57,10 +61,25 @@ def SetVerbosity(v: int) -> None:
     _verbosity = int(v)
 
 
+def _trace_instant(name: str, level_name: str, msg, args) -> None:
+    """Mirror a log line onto the process-global span tracer (if one is
+    installed), so log events land on the exported timeline."""
+    tr = _tracer_current()
+    if tr is None:
+        return
+    try:
+        text = msg % args if args else str(msg)
+    except Exception:
+        text = str(msg)
+    tr.instant(name, cat="log",
+               args={"level": level_name, "msg": text[:200]})
+
+
 def LOG(level: int, msg, *args) -> None:
     if not _logger.handlers:
         InitLogging()
     _logger.log(level, msg, *args)
+    _trace_instant("log", _pylogging.getLevelName(level), msg, args)
     if level >= FATAL:
         raise CheckError(msg % args if args else str(msg))
 

@@ -101,6 +101,15 @@ The reference banks XLA's cost analysis there.  The hand-written
 kernels, launched through ``ctypes``, are not in the flop count; their
 launch counters stand for them.
 
+Telemetry (reference :310-362): with a process-global tracer installed
+(``telemetry.tracer.install``), every ``train_one_batch`` records a
+``dispatch`` span (at verbosity >= 1, ``dispatch`` up to the
+``Device.Sync()`` and ``block`` over it), and each new input signature
+under ``use_graph=True`` one ``trace_compile`` span: on the CPU over
+its first eager call, on the card over the graph cache's miss (the
+warm-up call and the capture).  The spans are host time around the
+step; none is inside the captured step.
+
 Mixed precision (``compile(precision=...)`` or
 :meth:`Model.set_precision_policy`; reference model.py:108, :288-310,
 :626-651): under an active policy every ``train_one_batch`` call runs
@@ -163,6 +172,7 @@ from ._graphs import GraphCache, launch_counts as _launch_counts
 from .parallel.communicator import Communicator
 from .snapshot import (FILE_MAGIC, CorruptCheckpointError, Snapshot,
                        atomic_publish, read_records, write_records)
+from .telemetry import tracer as _tracer
 from .tensor import _NARROW, Tensor
 
 __all__ = ["Model"]
@@ -340,13 +350,25 @@ class Model(Layer):
         return self.device is not None and self.device.lang == "cuda"
 
     def _dispatch_tob(self, *xs):
+        """One training step; with a tracer installed, a ``dispatch``
+        span over it (at verbosity >= 1: ``dispatch`` up to the
+        ``Device.Sync()``, then ``block`` over the sync)."""
         dev = self.device
-        if dev is None or dev.verbosity < 1:
+        tr = _tracer.current()      # telemetry spans; None costs nothing
+        timed = dev is not None and dev.verbosity >= 1
+        if tr is None and not timed:
             return self._run_tob(xs)
         t0 = time.perf_counter()
         out = self._run_tob(xs)
-        dev.Sync()
-        dev.record_step_time((time.perf_counter() - t0) * 1e3)
+        t1 = time.perf_counter()
+        if timed:
+            dev.Sync()
+            t2 = time.perf_counter()
+            dev.record_step_time((t2 - t0) * 1e3)
+        if tr is not None:
+            tr.span("dispatch", t0, t1, cat="train")
+            if timed:
+                tr.span("block", t1, t2, cat="train")
         return out
 
     def _run_tob(self, xs):
@@ -355,8 +377,19 @@ class Model(Layer):
         if self.graph_mode and self._on_card():
             return self._graph_call("train", self._graph_step,
                                     _raw_inputs(xs), self._registry,
-                                    generators=self._generators())
-        return self._step([self._as_input(x) for x in xs], self.graph_mode)
+                                    generators=self._generators(),
+                                    on_built=_trace_compile)
+        if not self.graph_mode:
+            return self._step([self._as_input(x) for x in xs], False)
+        # the CPU runs graph mode eagerly: a signature's first call is its
+        # build, and ``warm`` the record of the signatures that ran
+        key = ("train",) + _signature(_raw_inputs(xs))
+        t0 = time.perf_counter()
+        out = self._step([self._as_input(x) for x in xs], True)
+        if key not in self._gc.warm:
+            self._gc.warm[key] = None
+            _trace_compile(t0)
+        return out
 
     def _graph_step(self, xs):
         return self._step(xs, True)
@@ -496,18 +529,20 @@ class Model(Layer):
         all on the model's device)."""
         return (self.device.generator,)
 
-    def _graph_call(self, kind, fn, raw, registry_fn, k=1, generators=()):
+    def _graph_call(self, kind, fn, raw, registry_fn, k=1, generators=(),
+                    on_built=None):
         """``fn`` on ``raw`` through the graph of its signature, ``k``
         times (see the module docstring): the first call of a signature,
         or of a new set of state tensors, runs eagerly on the side
         stream; a graph whose state storage moved is captured again,
-        with ``generators`` registered.  The outputs are fresh
-        tensors."""
+        with ``generators`` registered; ``on_built`` as
+        :meth:`GraphCache.call`'s.  The outputs are fresh tensors."""
         return _fresh(self._gc.call(
             (kind,) + _signature(raw), self.device.torch_device,
             lambda *r: fn(_wrap(r, self.device)), raw,
             lambda: _graphs.addresses(registry_fn()), generators=generators,
-            k=k, own_inputs=True, warm_id=lambda: _ids(registry_fn())))
+            k=k, own_inputs=True, warm_id=lambda: _ids(registry_fn()),
+            on_built=on_built))
 
     # ------------------------------------------------------------------
     # inference
@@ -701,6 +736,14 @@ def _raw_inputs(xs) -> list:
                 x.astype(_NARROW.get(x.dtype, x.dtype), copy=False)))
         out.append(x)
     return out
+
+
+def _trace_compile(t0: float):
+    """A ``trace_compile`` span from ``t0`` to now on the installed
+    tracer, if any."""
+    tr = _tracer.current()
+    if tr is not None:
+        tr.span("trace_compile", t0, time.perf_counter(), cat="train")
 
 
 def _wrap(raw, device) -> list:

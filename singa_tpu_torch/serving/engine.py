@@ -128,6 +128,28 @@ engine.  Every terminal closes the request's record in the engine's
 :class:`~singa_tpu_torch.telemetry.FlightRecorder` with the cause the
 reference names (:meth:`ServingEngine.postmortem`).
 
+Telemetry and fault injection (the reference's): ``tracer=`` (else the
+process-global ``telemetry.tracer.current()``) or :meth:`attach_tracer`
+records each request's lifecycle on its lane of the requests process
+(``queued``, ``admitted``, ``prefill_chunk`` spans, ``first_token`` with
+its TTFT, ``token``, ``preempted``, ``terminal`` and a ``req<rid>``
+span over its life) and one span a step on the host lane
+(``unified_step``, ``decode_horizon``, ``mono_step``), every time on the
+metrics clock.  The probes are host code around ``_run``, never inside
+a step function, so a tracer adds no graph key, upload or sync; a
+horizon's span covers its enqueue and the previous block's fetch.  The
+reference's roofline/MFU gauges under a tracer wait for
+``telemetry/profiling.py`` (ROADMAP.md queue 1, item 12).
+``faults=`` (a :class:`~singa_tpu_torch.serving.faults.FaultPlan`, the
+chunked engine) threads the plan's seams through the engine: admission
+attempts the allocator refuses, tokens delivered as the non-finite
+sentinel (an injected one ends its request ``FAILED`` through the kill,
+since the device row is still live), latency at the top of a step, and
+``on_token`` deliveries dropped.  Each fired fault lands in the plan's
+``events``, on the tracer and in the flight recorder, and every
+casualty's postmortem on ``plan.postmortems``.  The fleet faults wait
+for ``serving/sharded.py`` (item 12).
+
 Constructor arguments that select other engines or features raise
 ``NotImplementedError`` naming the ROADMAP.md slice that will port them.
 The defaults differ from the reference's (``paged=False,
@@ -151,6 +173,7 @@ from .. import _graphs
 from .. import precision as _precision
 from ..device import resolve_device
 from ..models import gpt as _gpt
+from ..telemetry import tracer as _trace
 from ..telemetry.flight import FlightRecorder
 from .kv_cache import DEFAULT_PAGE_TOKENS, PagedKVCache, SlotKVCache
 from .metrics import ServingMetrics
@@ -176,7 +199,6 @@ MAX_STOP_TOKENS = 8
 DEFAULT_STALL_LIMIT = 512
 
 _SLICES = {
-    9: "serving lifecycle, faults and telemetry",
     11: "speculative and multi-lane decoding",
     12: "the rest of the framework: tensor parallel, disaggregated "
         "serving and the analysis passes",
@@ -443,6 +465,9 @@ class ServingEngine:
     ``max_slow_steps``, ``submit(deadline_ms=)``, :meth:`evacuate`,
     :meth:`adopt` and the flight recorder (``flight_events``,
     ``flight_retain``, :meth:`postmortem`; see the module docstring).
+    ``tracer`` (and :meth:`attach_tracer`) records the reference's
+    request spans; ``faults`` (chunked engine) takes a ``FaultPlan``
+    (see the module docstring).
     On the card the steps run as CUDA graphs;
     ``_capture=False`` is a check hook that runs them eagerly there (the
     twin a check holds the graphs against), not a setting.
@@ -485,10 +510,6 @@ class ServingEngine:
             _not_ported(f"tp_degree={tp_degree}", 12)
         if prefill_only:
             _not_ported("prefill_only=True", 12)
-        if faults is not None:
-            _not_ported("faults", 9)
-        if tracer is not None:
-            _not_ported("tracer", 9)
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.max_queue = max_queue
@@ -558,6 +579,19 @@ class ServingEngine:
         # always on: a few notes a request, what postmortem(rid) reads
         self.flight = FlightRecorder(per_request=flight_events,
                                      retain=flight_retain)
+        # opt-in request spans: the given tracer, else the process-global
+        # one (read between steps, never inside a captured one); the
+        # reference's roofline/MFU gauges under a tracer wait for
+        # telemetry/profiling.py (ROADMAP.md queue 1, item 12)
+        self.tracer = tracer if tracer is not None else _trace.current()
+        if faults is not None and not self.chunked:
+            raise ValueError("fault injection requires the chunked "
+                             "engine (the seams live in the unified "
+                             "step path)")
+        self._faults = faults
+        if faults is not None:
+            faults.bind(tracer=self.tracer, recorder=self.flight)
+        self._step_idx = 0
         self._last_hz_occ = None           # last horizon block's fill
         self._any_deadline = False
         self.queue: deque[Request] = deque()
@@ -728,6 +762,9 @@ class ServingEngine:
             f"priority={req.priority}"
             + (f" deadline_ms={deadline_ms:g}" if deadline_ms else ""),
             t=t)
+        if self.tracer is not None:
+            self.tracer.instant("queued", t=t, tid=req.rid,
+                                pid=_trace.PID_REQUESTS, cat="request")
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             # shed the lowest-priority (newest among equals) queued
             # request if this one outranks it, else refuse this one
@@ -789,6 +826,20 @@ class ServingEngine:
             kv_bytes_live=self.kv.live_bytes(),
             page_utilization=self.kv.page_utilization(),
             queue_depth=len(self.queue))
+        tr = self.tracer
+        if tr is not None:
+            args = {"status": status.value, "cause": cause,
+                    "tokens": len(req.tokens)}
+            tr.instant("terminal", t=now, tid=req.rid,
+                       pid=_trace.PID_REQUESTS, cat="request", args=args)
+            t_sub = self.metrics.submit_time(req.rid)
+            if t_sub is not None:
+                # one span over the request's whole life, on its lane
+                tr.span(f"req{req.rid}", t_sub, now, tid=req.rid,
+                        pid=_trace.PID_REQUESTS, cat="request", args=args)
+        if self._faults is not None and not req.done:
+            # a chaos run keeps every casualty's postmortem on the plan
+            self._faults.postmortems.append(self.postmortem(req.rid))
         if req.on_done is not None:
             try:
                 req.on_done(req.rid, status.value)
@@ -840,9 +891,14 @@ class ServingEngine:
         :meth:`ServingMetrics.publish`); returns the registry."""
         return self.metrics.publish(registry, **labels)
 
-    def attach_tracer(self, tracer):
-        """The reference's request spans (``tracer=``)."""
-        _not_ported("attach_tracer", 9)
+    def attach_tracer(self, tracer) -> None:
+        """Attach (or with None, detach) a span tracer on a live engine.
+        Host-side only: no graph key, no upload and no sync is added;
+        the warm graphs keep replaying, now with spans around them.  A
+        fault plan's fired faults follow the tracer."""
+        self.tracer = tracer
+        if self._faults is not None:
+            self._faults.bind(tracer=tracer, recorder=self.flight)
 
     def steady_state_arg_spec(self):
         """The contract of the reference's steady-state upload analysis
@@ -906,22 +962,61 @@ class ServingEngine:
             nr.rid, "adopt",
             f"re-routed after replica loss with {len(nr.tokens)} "
             f"emitted tokens", t=t)
+        if self.tracer is not None:
+            self.tracer.instant("queued", t=t, tid=nr.rid,
+                                pid=_trace.PID_REQUESTS, cat="request")
         self._enqueue(nr)
         return nr.rid
 
     def _emit(self, req: Request, tok: int, t) -> None:
         req.tokens.append(tok)
-        if len(req.tokens) == 1:
+        first = len(req.tokens) == 1
+        if first:
             self.metrics.record_first_token(req.rid, t)
-            self.flight.note(req.rid, "first_token", f"tok={tok}", t=t)
         else:
             self.metrics.record_token(req.rid, t)
-        if req.on_token is not None:
+        tr = self.tracer
+        if tr is not None:
+            if first:
+                t_sub = self.metrics.submit_time(req.rid)
+                tr.instant("first_token", t=t, tid=req.rid,
+                           pid=_trace.PID_REQUESTS, cat="request",
+                           args=None if t_sub is None
+                           else {"ttft_ms": round((t - t_sub) * 1e3, 3)})
+            else:
+                tr.instant("token", t=t, tid=req.rid,
+                           pid=_trace.PID_REQUESTS, cat="request")
+        if first:
+            self.flight.note(req.rid, "first_token", f"tok={tok}", t=t)
+        if req.on_token is not None and (
+                self._faults is None or self._faults.deliver_callback(
+                    req.rid, len(req.tokens) - 1)):
             try:
                 req.on_token(req.rid, tok)
             except Exception:
                 # a consumer's fault must not stop every other stream
                 self.metrics.record_callback_error()
+
+    def _filter(self, req: Request, tok: int):
+        """``(tok, cause)``: the token as the fault plan delivers it,
+        and the injection's cause when the plan poisoned it."""
+        if self._faults is None:
+            return tok, None
+        ftok = self._faults.filter_token(req.rid, len(req.tokens), tok)
+        if ftok == tok:
+            return tok, None
+        return ftok, f"injected fault: nan_logits at token {len(req.tokens)}"
+
+    def _nonfinite(self, slot: int, where: str, cause) -> None:
+        """End a slot whose token is the non-finite sentinel.  A real
+        one (``cause`` None): the device already dropped the row.  An
+        injected one is a host-side fact, the device row still live: it
+        ends through the kill, so the slot stops before its rows or
+        pages reach a new owner."""
+        if cause is None:
+            self._fail(slot, where)
+        else:
+            self._evict_running(slot, RequestStatus.FAILED, cause=cause)
 
     def _record_kv(self) -> None:
         kv = self.kv
@@ -1079,10 +1174,15 @@ class ServingEngine:
             req.status = RequestStatus.PREEMPTED
             self._enqueue(req)              # reads QUEUED while it waits
             self.metrics.record_preempt()
+            t = self.metrics.now()
             self.flight.note(
                 req.rid, "preempt",
                 f"slot={slot} for rid{self.queue[0].rid} "
-                f"after {len(req.tokens)} tokens", t=self.metrics.now())
+                f"after {len(req.tokens)} tokens", t=t)
+            if self.tracer is not None:
+                self.tracer.instant("preempted", t=t, tid=req.rid,
+                                    pid=_trace.PID_REQUESTS, cat="request",
+                                    args={"slot": slot})
 
     def _effective(self, req: Request):
         """``(prompt, n_new)`` as the admission sees them: a restore's
@@ -1116,6 +1216,9 @@ class ServingEngine:
         index."""
         if self._lane is not None or not self.queue:
             return
+        if (self._faults is not None
+                and not self._faults.admission_allowed()):
+            return                      # injected allocator exhaustion
         req = self.queue[0]
         prompt, n_new = self._effective(req)
         if self.paged:
@@ -1141,6 +1244,9 @@ class ServingEngine:
             + (f" cached_prefix={cached}" if cached else "")
             + (f" restore#{req.preemptions}" if req.preemptions else ""),
             t=t)
+        if self.tracer is not None:
+            self.tracer.instant("admitted", t=t, tid=req.rid,
+                                pid=_trace.PID_REQUESTS, cat="request")
 
     def _lane_chunk(self, pf: _Prefill):
         """Host-side view of the lane's current chunk:
@@ -1203,6 +1309,10 @@ class ServingEngine:
                 and not self._preemption_wanted()
                 and not (self._any_deadline and self._deadline_overdue())):
             return self._step_horizon()
+        # the spans are host time on the metrics clock, around the
+        # steps' graphs and never inside them
+        tr = self.tracer
+        ts0 = self.metrics.now() if tr is not None else 0.0
         self._drain_horizon()                  # mirrors exact from here
         self._sweep_deadlines()
         self._maybe_preempt()
@@ -1258,11 +1368,12 @@ class ServingEngine:
         t = self.metrics.now()
         emitted = []
         for slot in np.flatnonzero(self._active):
-            tok = int(row[slot])
-            if tok < 0:             # non-finite logits
-                self._fail(slot, "while decoding")
+            req = self._slot_req[slot]
+            tok, cause = self._filter(req, int(row[slot]))
+            if tok < 0:             # non-finite logits (real or injected)
+                self._nonfinite(slot, "while decoding", cause)
                 continue
-            self._emit(self._slot_req[slot], tok, t)
+            self._emit(req, tok, t)
             emitted.append(slot)
         for slot in emitted:
             self._maybe_finish(slot)
@@ -1275,14 +1386,24 @@ class ServingEngine:
                 self._lane = None
                 self._slot_req[slot] = req
                 self._active[slot] = True
-                tok = int(row[slot])
+                tok, cause = self._filter(req, int(row[slot]))
                 if tok < 0:
-                    self._fail(slot, "in prefill")
+                    self._nonfinite(slot, "in prefill", cause)
                 else:
                     self._emit(req, tok, self.metrics.now())
                     self._maybe_finish(slot)
             else:
                 pf.off += self.chunk_tokens
+        if tr is not None:
+            t1 = self.metrics.now()
+            tr.span("unified_step", ts0, t1, cat="serve",
+                    args={"decode_slots": n_dec,
+                          "chunk_tokens": total_valid})
+            if meta is not None:
+                pf, woff, valid, _ = meta
+                tr.span("prefill_chunk", ts0, t1, tid=pf.req.rid,
+                        pid=_trace.PID_REQUESTS, cat="request",
+                        args={"off": int(woff), "tokens": int(valid)})
         return True
 
     def _step_horizon(self) -> bool:
@@ -1291,6 +1412,8 @@ class ServingEngine:
         emitted."""
         K = self.decode_horizon
         n_act = int(self._active.sum())
+        tr = self.tracer
+        ts0 = self.metrics.now() if tr is not None else 0.0
         self.metrics.record_step(self.kv.active_slots, self.kv.n_slots,
                                  len(self.queue), used_tokens=K * n_act,
                                  budget_tokens=K * self.kv.n_slots)
@@ -1306,6 +1429,10 @@ class ServingEngine:
         self._hz_pending.append(_to_host_async(block))
         if len(self._hz_pending) > 1:
             self._emit_block(self._hz_pending.pop(0))
+        if tr is not None:
+            # the enqueue and the previous block's fetch: no sync of its own
+            tr.span("decode_horizon", ts0, self.metrics.now(), cat="serve",
+                    args={"K": K, "active": n_act})
         return True
 
     def _drain_horizon(self) -> None:
@@ -1328,12 +1455,14 @@ class ServingEngine:
         emitted = 0
         for k in range(K):
             ok = []
+            # a slot ended earlier in the block has left the mirror
             for slot in np.flatnonzero(self._active):
-                tok = int(blk[k, slot])
+                req = self._slot_req[slot]
+                tok, cause = self._filter(req, int(blk[k, slot]))
                 if tok < 0:         # non-finite logits mid-horizon
-                    self._fail(slot, "mid-horizon")
+                    self._nonfinite(slot, "mid-horizon", cause)
                     continue
-                self._emit(self._slot_req[slot], tok, t)
+                self._emit(req, tok, t)
                 ok.append(slot)
             emitted += len(ok)
             for slot in ok:
@@ -1382,6 +1511,8 @@ class ServingEngine:
         """Admit what fits, then advance every slot one token: the host
         state goes up as five arrays, the tokens come back in one
         fetch."""
+        tr = self.tracer
+        ts0 = self.metrics.now() if tr is not None else 0.0
         admitted = self._admit()
         n_active = self.kv.active_slots
         self.metrics.record_step(n_active, self.kv.n_slots, len(self.queue))
@@ -1410,6 +1541,10 @@ class ServingEngine:
             self._emit(self._slot_req[slot], int(nxt[slot]), t)
         for slot in was_active:
             self._maybe_finish(slot)
+        if tr is not None:
+            tr.span("mono_step", ts0, self.metrics.now(), cat="serve",
+                    args={"decode_slots": int(len(was_active)),
+                          "admitted": admitted})
         return True
 
     @torch.no_grad()
@@ -1421,6 +1556,9 @@ class ServingEngine:
         per-request work a step can be wedged on; after more than
         ``max_slow_steps`` strikes it ends FAILED."""
         t0 = self.metrics.now()
+        if self._faults is not None:
+            self._faults.on_step(self._step_idx)
+        self._step_idx += 1
         ok = self._step_chunked() if self.chunked \
             else self._step_monolithic()
         if (self.step_budget_s is not None
@@ -1446,7 +1584,8 @@ class ServingEngine:
         return (self.metrics.total_tokens, len(self.queue),
                 self.kv.active_slots, self.metrics.completed,
                 self.metrics.terminal_count,
-                self._lane.off if self._lane is not None else -1)
+                self._lane.off if self._lane is not None else -1,
+                self._faults.attempts if self._faults is not None else 0)
 
     def run(self, max_steps: int | None = None) -> dict:
         """Drive :meth:`step` until the queue and all slots drain (or

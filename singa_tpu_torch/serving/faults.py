@@ -1,0 +1,234 @@
+"""Deterministic fault injection for the port's serving engine.
+Counterpart: ``singa_tpu/serving/faults.py``, whose specs, seams, plans
+and fired-fault strings it keeps letter for letter.
+
+A :class:`FaultPlan` is a seed-driven script of faults threaded through
+the engine's seams (``ServingEngine(faults=plan)``, the chunked engine):
+
+* :class:`ExhaustAllocator` — the allocator refuses admission attempts
+  N..N+k-1 (the queue backs up as if the page pool or the slot table
+  were exhausted, without a pool that small);
+* :class:`NaNLogits` — request ``rid``'s token ``at_token`` arrives at
+  the host as :data:`~singa_tpu_torch.models.gpt.NONFINITE_TOKEN`; the
+  request ends FAILED through the engine's kill (the device row is still
+  live: only the host saw the fault);
+* :class:`LatencySpike` — ``plan.sleep(ms)`` at the top of steps
+  N..N+k-1, tripping the per-step budget;
+* :class:`DropCallback` — request ``rid``'s ``on_token`` for token
+  ``at_token`` is swallowed (a flaky consumer), while the engine's own
+  token record stays complete.
+
+Every fault fires at a deterministic point (admission ordinal, step
+index, or (rid, token index)), so a failing chaos test replays exactly.
+The plan records every fired fault in ``events`` and, once bound, on
+the engine's tracer and in its flight recorder.  Every seam is host
+code the engine calls between its steps, never inside a captured one.
+
+:class:`ReplicaLoss` and :class:`ReplicaStall` and the fleet seams
+``replica_lost`` / ``replica_stalled`` are host logic only: nothing in
+the port calls them until ``serving/sharded.py`` is ported (ROADMAP.md
+queue 1, item 12).
+
+``FaultPlan.random(seed, ...)`` draws a reproducible multi-fault plan
+for soak runs; ``split_seeds`` and ``random_fleet`` derive per-replica
+plans from one fleet seed.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..models.gpt import NONFINITE_TOKEN
+
+__all__ = ["FaultPlan", "ExhaustAllocator", "NaNLogits", "LatencySpike",
+           "DropCallback", "ReplicaLoss", "ReplicaStall"]
+
+
+@dataclass(frozen=True)
+class ExhaustAllocator:
+    """Refuse admission attempts ``at_admission .. at_admission+count-1``
+    (1-based ordinal over the engine's admission attempts)."""
+    at_admission: int
+    count: int = 1
+
+
+@dataclass(frozen=True)
+class NaNLogits:
+    """Deliver request ``rid``'s token index ``at_token`` (0-based) as
+    the non-finite sentinel."""
+    rid: int
+    at_token: int = 0
+
+
+@dataclass(frozen=True)
+class LatencySpike:
+    """Sleep ``ms`` at the top of steps ``at_step .. at_step+count-1``
+    (0-based engine step index)."""
+    at_step: int
+    ms: float
+    count: int = 1
+
+
+@dataclass(frozen=True)
+class DropCallback:
+    """Swallow the ``on_token`` delivery for request ``rid``'s token
+    index ``at_token`` (0-based)."""
+    rid: int
+    at_token: int = 0
+
+
+@dataclass(frozen=True)
+class ReplicaLoss:
+    """Kill fleet replica ``replica`` at fleet step ``at_step``
+    (0-based).  A fleet-level fault: no engine reads it."""
+    replica: int
+    at_step: int
+
+
+@dataclass(frozen=True)
+class ReplicaStall:
+    """Freeze fleet replica ``replica`` for fleet steps
+    ``at_step .. at_step+steps-1``."""
+    replica: int
+    at_step: int
+    steps: int = 1
+
+
+class FaultPlan:
+    """An ordered collection of fault specs plus the firing log.
+
+    ``sleep`` is injectable so tests can drive :class:`LatencySpike`
+    against a fake metrics clock instead of real wall time.
+    """
+
+    def __init__(self, *faults, sleep=time.sleep):
+        self.faults = list(faults)
+        self.sleep = sleep
+        self.attempts = 0             # admission attempts observed
+        self.events: list[str] = []
+        self.postmortems: list[dict] = []  # engine-dumped flight records
+        self._tracer = None
+        self._recorder = None
+
+    def bind(self, tracer=None, recorder=None) -> None:
+        """Attach telemetry sinks (the engine calls this at construction
+        and in ``attach_tracer``): every fired fault then also lands as
+        an instant on the victim's tracer lane and as a flight-recorder
+        note."""
+        self._tracer = tracer
+        self._recorder = recorder
+
+    def _fire(self, tag: str, rid=None) -> None:
+        """Log a fired fault in ``events`` and on the bound sinks."""
+        self.events.append(tag)
+        if self._recorder is not None and rid is not None:
+            self._recorder.note(rid, "fault", tag)
+        tr = self._tracer
+        if tr is not None:
+            from ..telemetry.tracer import PID_HOST, PID_REQUESTS
+            if rid is not None:
+                tr.instant("fault", tid=rid, pid=PID_REQUESTS, cat="fault",
+                           args={"fault": tag})
+            else:
+                tr.instant("fault", pid=PID_HOST, cat="fault",
+                           args={"fault": tag})
+
+    @classmethod
+    def random(cls, seed: int, n_requests: int, n_steps: int,
+               n_faults: int = 4, max_tokens: int = 8, **kw) -> "FaultPlan":
+        """A reproducible mixed plan for soak runs: ``n_faults`` faults
+        drawn uniformly over the four engine kinds, targeting the given
+        request / step ranges."""
+        rng = np.random.RandomState(seed)
+        faults = []
+        for _ in range(n_faults):
+            kind = int(rng.randint(4))
+            if kind == 0:
+                faults.append(ExhaustAllocator(
+                    int(rng.randint(1, max(2, n_requests + 1))),
+                    int(rng.randint(1, 4))))
+            elif kind == 1:
+                faults.append(NaNLogits(int(rng.randint(n_requests)),
+                                        int(rng.randint(max_tokens))))
+            elif kind == 2:
+                faults.append(LatencySpike(int(rng.randint(n_steps)),
+                                           float(1 + rng.randint(4)),
+                                           int(rng.randint(1, 3))))
+            else:
+                faults.append(DropCallback(int(rng.randint(n_requests)),
+                                           int(rng.randint(max_tokens))))
+        return cls(*faults, **kw)
+
+    @classmethod
+    def split_seeds(cls, seed: int, n: int) -> list[int]:
+        """``n`` disjoint child seeds derived from one fleet seed (through
+        ``np.random.SeedSequence.spawn``), so per-replica plans draw from
+        independent streams and the whole fleet replays from one seed."""
+        ss = np.random.SeedSequence(int(seed))
+        return [int(child.generate_state(1)[0]) for child in ss.spawn(n)]
+
+    @classmethod
+    def random_fleet(cls, seed: int, replicas: int, n_requests: int,
+                     n_steps: int, **kw) -> list["FaultPlan"]:
+        """One reproducible engine plan per fleet replica, seeded from
+        disjoint :meth:`split_seeds` streams."""
+        return [cls.random(s, n_requests, n_steps, **kw)
+                for s in cls.split_seeds(seed, replicas)]
+
+    # ---- fleet seams (host logic; no caller until serving/sharded.py) ---
+    def replica_lost(self, replica: int, step_idx: int) -> bool:
+        """True when a :class:`ReplicaLoss` for ``replica`` has matured
+        at fleet step ``step_idx``."""
+        for f in self.faults:
+            if (isinstance(f, ReplicaLoss) and f.replica == replica
+                    and step_idx >= f.at_step):
+                self._fire(f"replica_loss:r{replica}:step{step_idx}")
+                return True
+        return False
+
+    def replica_stalled(self, replica: int, step_idx: int) -> bool:
+        """True while ``replica`` sits inside a :class:`ReplicaStall`
+        window (fires per stalled step)."""
+        for f in self.faults:
+            if (isinstance(f, ReplicaStall) and f.replica == replica
+                    and f.at_step <= step_idx < f.at_step + f.steps):
+                self._fire(f"replica_stall:r{replica}:step{step_idx}")
+                return True
+        return False
+
+    # ---- engine seams (each O(#faults)) --------------------------------
+    def admission_allowed(self) -> bool:
+        self.attempts += 1
+        for f in self.faults:
+            if (isinstance(f, ExhaustAllocator)
+                    and f.at_admission <= self.attempts
+                    < f.at_admission + f.count):
+                self._fire(f"alloc_exhausted:attempt{self.attempts}")
+                return False
+        return True
+
+    def filter_token(self, rid: int, idx: int, tok: int) -> int:
+        for f in self.faults:
+            if isinstance(f, NaNLogits) and f.rid == rid \
+                    and f.at_token == idx:
+                self._fire(f"nan_logits:rid{rid}:tok{idx}", rid=rid)
+                return NONFINITE_TOKEN
+        return tok
+
+    def on_step(self, step_idx: int) -> None:
+        for f in self.faults:
+            if (isinstance(f, LatencySpike)
+                    and f.at_step <= step_idx < f.at_step + f.count):
+                self._fire(f"latency_spike:step{step_idx}")
+                self.sleep(f.ms / 1e3)
+
+    def deliver_callback(self, rid: int, idx: int) -> bool:
+        for f in self.faults:
+            if isinstance(f, DropCallback) and f.rid == rid \
+                    and f.at_token == idx:
+                self._fire(f"callback_dropped:rid{rid}:tok{idx}", rid=rid)
+                return False
+        return True

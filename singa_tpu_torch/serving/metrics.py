@@ -70,6 +70,11 @@ class ServingMetrics:
     def now(self) -> float:
         return self._clock()
 
+    def submit_time(self, rid):
+        """Submit time of ``rid`` (None if unknown): the tracer anchors
+        a request's lifetime span and its TTFT argument on it."""
+        return self._submit_t.get(rid)
+
     # ---- event hooks (engine calls these) -----------------------------
     def record_submit(self, rid, t=None) -> None:
         t = self._clock() if t is None else t

@@ -14,9 +14,15 @@ tracer, registry and flight recorder).
   the postmortems ``ServingEngine.postmortem(rid)`` returns: each
   terminal's status, cause and the engine's state at the time.
 
-Host-side Python only: nothing here touches the card.  The request
-spans of ``ServingEngine(tracer=)`` and ``profiling.py`` belong to later
-slices (ROADMAP.md queue 1, items 9a and 12).
+The tracer's probes: ``ServingEngine(tracer=)`` / ``attach_tracer``
+(each request's lifecycle on its lane, one span a step), ``Model``'s
+``trace_compile`` / ``dispatch`` / ``block`` spans, each ``logging``
+line as a ``log`` instant, the checkpoint spans and the fault plans'
+``fault`` instants.
+
+Host-side Python only: nothing here touches the card.  ``profiling.py``
+(the cost catalog, the roofline/MFU gauges) and the ``python -m``
+command line belong to a later slice (ROADMAP.md queue 1, item 12).
 """
 
 from .tracer import (  # noqa: F401

@@ -90,6 +90,10 @@ def test_package_imports_without_jax():
             "import singa_tpu_torch.resilience.checkpoint\n"
             "import singa_tpu_torch.resilience.trainer\n"
             "import singa_tpu_torch.resilience.faults\n"
+            "import singa_tpu_torch.serving.faults\n"
+            "from singa_tpu_torch.serving import (\n"
+            "    FaultPlan, ExhaustAllocator, NaNLogits, LatencySpike,\n"
+            "    DropCallback, ReplicaLoss, ReplicaStall)\n"
             "from singa_tpu_torch.resilience import (\n"
             "    CheckpointManager, ResilientTrainer, TrainFaultPlan)\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"

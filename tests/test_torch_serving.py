@@ -20,8 +20,9 @@ from singa_tpu_torch.layer import Linear as TLinear
 from singa_tpu_torch.model import Model as TModel
 from singa_tpu_torch.tensor import Tensor as TTensor
 from singa_tpu_torch.models import gpt as tgpt
-from singa_tpu_torch.serving import PagedKVCache, SlotKVCache
+from singa_tpu_torch.serving import FaultPlan, PagedKVCache, SlotKVCache
 from singa_tpu_torch.serving import ServingEngine as TorchEngine
+from singa_tpu_torch.telemetry import SpanTracer
 
 torch.set_num_threads(1)
 
@@ -211,12 +212,39 @@ def _tree_of(tm):
 
 @pytest.mark.parametrize("kw", [
     dict(paged=False, tp_degree=2), dict(admit_lanes=2),
-    dict(speculative=True), dict(tp_degree=2), dict(prefill_only=True),
-    dict(faults=object()), dict(tracer=object())])
+    dict(speculative=True), dict(tp_degree=2), dict(prefill_only=True)])
 def test_out_of_slice_arguments_raise(served, kw):
     _, tm, _ = served
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         TorchEngine(tm, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(tracer=SpanTracer()), dict(faults=FaultPlan())],
+    ids=["tracer", "faults"])
+def test_tracer_and_faults_arguments_serve(served, kw):
+    """A tracer and an empty fault plan are taken by the chunked engine,
+    which serves the stream with the tokens of an engine without them."""
+    _, tm, cfg = served
+    runs = []
+    for extra in ({}, kw):
+        eng = TorchEngine(tm, device="cpu", **dict(ENGINE_KW, **extra))
+        rids = [eng.submit(_stream(cfg.vocab_size, n, seed=i), 4)
+                for i, n in enumerate((5, 9, 3))]
+        res = eng.run()
+        runs.append([res[r].tolist() for r in rids])
+    assert runs[0] == runs[1]
+    assert eng.tracer is kw.get("tracer")
+    if "faults" in kw:
+        assert kw["faults"].events == [] and kw["faults"].attempts == 3
+
+
+def test_faults_need_the_chunked_engine(served):
+    _, tm, _ = served
+    with pytest.raises(ValueError, match="fault injection requires the "
+                                         "chunked engine"):
+        TorchEngine(tm, device="cpu", paged=False, chunked=False,
+                    faults=FaultPlan())
 
 
 @pytest.mark.parametrize("kw", [dict(max_queue=4), dict(step_budget_ms=5.0)],

@@ -30,7 +30,8 @@ from singa_tpu.telemetry.flight import FlightRecorder as JaxFlight
 from singa_tpu_torch.models import gpt as tgpt
 from singa_tpu_torch.serving import EngineStalledError
 from singa_tpu_torch.serving import ServingEngine as TorchEngine
-from singa_tpu_torch.telemetry import FlightRecorder, MetricsRegistry
+from singa_tpu_torch.telemetry import (FlightRecorder, MetricsRegistry,
+                                       SpanTracer)
 
 torch.set_num_threads(1)
 
@@ -510,15 +511,34 @@ def test_evacuate_adopt_matches_jax(port_runs, jax_runs, layout):
 
 
 @pytest.mark.parametrize("call, slice_no", [
-    (lambda e: e.attach_tracer(object()), 9),
     (lambda e: e.steady_state_arg_spec(), 12)],
-    ids=["attach_tracer", "steady_state_arg_spec"])
+    ids=["steady_state_arg_spec"])
 def test_later_slices_raise(rig, call, slice_no):
-    """The request spans and the analysis pass's contract belong to
-    later slices and say which."""
+    """The analysis pass's contract belongs to a later slice and says
+    which."""
     eng = TorchEngine(rig[1], device="cpu", n_slots=1, **BASE)
     with pytest.raises(NotImplementedError, match=f"slice {slice_no} "):
         call(eng)
+
+
+def test_attach_tracer_none_detaches(rig):
+    """``attach_tracer(tracer)`` records the flow's lifecycle;
+    ``attach_tracer(None)`` detaches, and the engine records nothing
+    more."""
+    _, tm, prompts = rig
+    eng = TorchEngine(tm, device="cpu", n_slots=1, **BASE)
+    tr = SpanTracer()
+    eng.attach_tracer(tr)
+    rid = eng.submit(prompts[0], 4)
+    eng.run()
+    n = tr.n_events
+    names = [e[0] for e in tr.spans()]
+    eng.attach_tracer(None)
+    assert eng.tracer is None
+    eng.submit(prompts[1], 4)
+    eng.run()
+    assert tr.n_events == n
+    assert f"req{rid}" in names
 
 
 def test_evacuate_needs_the_chunked_engine(rig):
